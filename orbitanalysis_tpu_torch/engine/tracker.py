@@ -1,0 +1,1056 @@
+"""Offline multi-snapshot orbit tracking, the primary entry point (twin
+of ``orbitanalysis_tpu/engine/tracker.py:707`` ``track_orbits``).
+
+The user-facing contract is the reference's: the same ``regions`` /
+``load_snapshot_data`` callback pair, the same savefile schema, the
+same checkpoint/resume semantics.  Between the callbacks and the file:
+
+- the callbacks run on a prefetch thread, one snapshot ahead;
+- host staging packs each snapshot into a padded ``[n_halos,
+  capacity]`` layout (NumPy, or the native packer);
+- one device step per snapshot advances all halos together, with the
+  per-particle state resident on the device between snapshots;
+- the event lists of snapshot s are fetched and written while the step
+  of snapshot s+1 runs.
+
+Engines: ``'aligned'`` (stable row positions staged on the host, no
+device join; its event compaction is the hand-written CUDA kernel) is
+what ``join_impl='auto'`` picks on a CUDA device; ``'general'`` (the
+sort-merge join step) elsewhere, and after ``auto`` capacity growth.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from orbitanalysis_tpu_torch.engine import io_hdf5
+from orbitanalysis_tpu_torch.engine.packing import (
+    SLOT_MASK,
+    PackedSnapshot,
+    StableLayout,
+    pack_snapshot,
+    pack_snapshot_aligned,
+    required_capacity,
+)
+from orbitanalysis_tpu_torch.ops.apsis import (
+    Carry,
+    SnapshotBatch,
+    carry_from_numpy,
+    init_carry,
+    make_orbit_step,
+    make_static_orbit_step,
+)
+from orbitanalysis_tpu_torch.ops.compact import f16_bits_rne
+from orbitanalysis_tpu_torch.ops.sorted_step import (
+    AUTO_FUSED_CAPACITY,
+    MAX_ALIGNED_CAPACITY,
+    decode_aligned_carry,
+    init_aligned_carry,
+    make_aligned_native_step,
+)
+from orbitanalysis_tpu_torch.utils.metrics import Metrics, phase_timer, trace
+from orbitanalysis_tpu_torch.utils.numerics import hubble_parameter
+from orbitanalysis_tpu_torch.utils.padding import (
+    invalid_id_for,
+    pack_ragged,
+    round_up,
+    round_up_pow2,
+    unpack_mask,
+)
+
+
+def _normalize_inputs(snapshot_numbers, main_branches):
+    main_branches = np.asarray(main_branches)
+    if main_branches.ndim == 1:
+        main_branches = main_branches[:, None]
+    snapshot_numbers = np.asarray(snapshot_numbers)
+    if len(main_branches) != len(snapshot_numbers):
+        raise ValueError(
+            "Number of halo main branch nodes does not equal the number of "
+            "snapshot numbers supplied. Must have len(main_branches) == "
+            "len(snapshot_numbers)."
+        )
+    order = np.argsort(snapshot_numbers)
+    return snapshot_numbers[order], main_branches[order]
+
+
+def _host(x: torch.Tensor) -> np.ndarray:
+    return x.cpu().numpy()
+
+
+def _call_regions(regions, snapshot_number, halo_ids):
+    """Accept both 2- and 3-tuple ``regions`` returns."""
+    out = regions(snapshot_number, halo_ids)
+    if len(out) == 3:
+        positions, radii, bulk_vels = out
+    else:
+        positions, radii = out
+        bulk_vels = None
+    return (
+        np.atleast_2d(np.asarray(positions)),
+        np.atleast_1d(np.asarray(radii)),
+        None if bulk_vels is None else np.atleast_2d(np.asarray(bulk_vels)),
+    )
+
+
+def _load_item(regions, load_snapshot_data, halo_ids, snapshot_number):
+    """Run both user callbacks for one snapshot; a ``None`` payload means
+    nothing to process (no live branches)."""
+    rows = np.argwhere(np.asarray(halo_ids) != -1).flatten()
+    if len(rows) == 0:
+        return rows, None
+    region_positions, region_radii, region_bulk_vels = _call_regions(
+        regions, snapshot_number, halo_ids[rows]
+    )
+    snapshot = load_snapshot_data(
+        snapshot_number, region_positions, region_radii
+    )
+    return rows, (region_positions, region_radii, region_bulk_vels, snapshot)
+
+
+class _SnapshotFeed:
+    """Snapshot ingestion, optionally prefetched on a background thread.
+
+    The callback I/O for snapshot s+1 runs while the host packs and
+    writes snapshot s and the device computes it.  Calls into the user
+    callbacks stay sequential (one at a time, in snapshot order, from one
+    thread).  A loader exception is re-raised at the iteration that
+    requested the snapshot, like the synchronous path, and halts
+    prefetching.
+    """
+
+    def __init__(self, items, regions, load_snapshot_data, depth: int):
+        self._items = items
+        self._regions = regions
+        self._load = load_snapshot_data
+        self._queue = None
+        self._stop = None
+        self._thread = None
+        self._next = 0
+        if depth > 0 and len(items) > 1:
+            import queue
+            import threading
+
+            self._queue = queue.Queue(maxsize=depth)
+            self._stop = threading.Event()
+            self._thread = threading.Thread(
+                target=self._run, name="orbit-snapshot-prefetch", daemon=True
+            )
+            self._thread.start()
+
+    def _run(self):
+        import queue
+
+        for halo_ids, snapshot_number in self._items:
+            if self._stop.is_set():
+                return
+            try:
+                out = (None, _load_item(self._regions, self._load,
+                                        halo_ids, snapshot_number))
+            except BaseException as exc:  # re-raised on the main thread
+                out = (exc, None)
+            while not self._stop.is_set():
+                try:
+                    self._queue.put(out, timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+            if out[0] is not None:
+                return
+
+    def get(self, index: int):
+        """Blocking fetch of item ``index`` (called in order)."""
+        if index != self._next:
+            raise RuntimeError("snapshot feed consumed out of order")
+        self._next += 1
+        if self._thread is None:
+            halo_ids, snapshot_number = self._items[index]
+            return _load_item(self._regions, self._load,
+                              halo_ids, snapshot_number)
+        exc, payload = self._queue.get()
+        if exc is not None:
+            self.close()
+            raise exc
+        return payload
+
+    def close(self):
+        if self._thread is not None:
+            import queue
+
+            self._stop.set()
+            # unblock a put() stuck on a full queue, then reap
+            try:
+                while True:
+                    self._queue.get_nowait()
+            except queue.Empty:
+                pass
+            self._thread.join(timeout=5)
+            self._thread = None
+
+
+class _Fetch:
+    """Device->host copies of a step's small outputs, queued right after
+    the step, so the deferred write of snapshot s waits for step s only
+    and not for step s+1 queued behind it (a plain ``.cpu()`` would
+    wait for the whole stream)."""
+
+    def __init__(self, tensors: dict):
+        self._event = None
+        if any(t.is_cuda for t in tensors.values()):
+            self._host = {
+                k: torch.empty(t.shape, dtype=t.dtype,
+                               pin_memory=True).copy_(t, non_blocking=True)
+                for k, t in tensors.items()
+            }
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = dict(tensors)
+
+    def __getitem__(self, name) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host[name].numpy()
+
+
+def _stage(packed: PackedSnapshot, hubble_drag: float, device):
+    """One packed snapshot as a device :class:`SnapshotBatch`.  On CUDA
+    the host arrays go through pinned buffers with asynchronous copies,
+    so staging does not wait for the step still running."""
+    cuda = torch.device(device).type == "cuda"
+
+    def t(a):
+        if a is None:
+            return None
+        x = torch.from_numpy(np.ascontiguousarray(a))
+        if cuda:
+            return x.pin_memory().to(device, non_blocking=True)
+        return x.to(device)
+
+    return SnapshotBatch(
+        ids=t(packed.ids), pos=t(packed.pos), vel=t(packed.vel),
+        center=t(packed.center), mass=t(packed.mass),
+        bulk_vel=t(packed.bulk_vel), hubble_drag=float(hubble_drag),
+        slot=t(packed.slot),
+    )
+
+
+class _DeviceEngine:
+    """Owns the device carry and the step functions of one detection
+    mode."""
+
+    def __init__(self, n_halos, capacity, mode, box_size, id_dtype,
+                 angle_dtype, device, event_capacity=None, join="general"):
+        self.n_halos = n_halos
+        self.capacity = capacity
+        # hosts fetch [H, K] event lists instead of [H, P] masks; K is
+        # sized for the rare-event regime, overflow is recovered
+        self.event_capacity = min(
+            event_capacity
+            if event_capacity is not None
+            else max(128, round_up(capacity // 16, 128)),
+            capacity,
+        )
+        self.mode = mode
+        self.box_size = box_size
+        self.id_dtype = id_dtype
+        self.angle_dtype = angle_dtype
+        self.device = device
+        self.invalid = invalid_id_for(id_dtype)
+        # Wide (64-bit) IDs on the aligned engine ride a 32-bit position
+        # surrogate on the device: detection is positional in the
+        # stable layout, so the device never needs the real ID; event
+        # positions map back through the staged host ID table.
+        self.surrogate = (
+            join == "aligned" and np.dtype(id_dtype).itemsize == 8
+        )
+        self._dev_id_dtype = np.int32 if self.surrogate else id_dtype
+        self._dev_invalid = invalid_id_for(self._dev_id_dtype)
+        self.join = join
+        self._steps = {}
+        if join == "aligned":
+            self.carry = init_aligned_carry(n_halos, capacity, device=device)
+        else:
+            self.carry = init_carry(n_halos, capacity, id_dtype=id_dtype,
+                                    angle_dtype=angle_dtype, device=device)
+
+    def _step_fn(self, static=False):
+        key = (self.capacity, self.event_capacity, static)
+        if key not in self._steps:
+            if self.join == "aligned":
+                # bounded event buffer; overflow stays lossless because
+                # the step also emits the full pre-compaction payload
+                # plane, from which the writer recovers every event
+                self._steps[key] = make_aligned_native_step(
+                    self.event_capacity, mode=self.mode,
+                    box_size=self.box_size, id_dtype=self._dev_id_dtype,
+                    angle_dtype=self.angle_dtype, emit_payload=True,
+                )
+            else:
+                make = make_static_orbit_step if static else make_orbit_step
+                self._steps[key] = make(
+                    mode=self.mode, box_size=self.box_size,
+                    id_dtype=self.id_dtype, angle_dtype=self.angle_dtype,
+                    event_capacity=self.event_capacity,
+                )
+        return self._steps[key]
+
+    def grow(self, new_capacity):
+        """Re-pad the carry's particle axis on the device."""
+        if self.join == "aligned":
+            new_capacity = max(round_up_pow2(new_capacity), 128)
+            if new_capacity > MAX_ALIGNED_CAPACITY:
+                raise ValueError(
+                    f"region growth needs capacity {new_capacity}, beyond "
+                    "the aligned engine's per-row ceiling "
+                    f"({MAX_ALIGNED_CAPACITY}); re-run with "
+                    "join_impl='general' (resume=True continues from the "
+                    "savefile)"
+                )
+        else:
+            new_capacity = round_up(new_capacity, 128)
+        pad = new_capacity - self.capacity
+        if pad <= 0:
+            return
+        c = self.carry
+
+        def padded(x, value):
+            tail = torch.full(x.shape[:-1] + (pad,), value, dtype=x.dtype,
+                              device=x.device)
+            return torch.cat([x, tail], dim=-1)
+
+        if self.join == "aligned":
+            # sentinel keys, appended slot numbers (keeps each row a
+            # slot permutation), zero rhat/angle planes
+            h = c.key.shape[0]
+            slots = torch.arange(self.capacity, new_capacity,
+                                 dtype=torch.int32, device=c.sv.device)
+            self.carry = type(c)(
+                key=padded(c.key, -1),
+                sv=torch.cat([c.sv, slots.expand(h, pad)], dim=-1),
+                rhat=padded(c.rhat, 0.0),
+                packed=padded(c.packed, 0),
+            )
+        else:
+            self.carry = Carry(
+                ids=padded(c.ids, self.invalid),
+                rhat=padded(c.rhat, 0.0),
+                vrad=padded(c.vrad, 0.0),
+                angles=padded(c.angles, 0.0),
+            )
+        self.capacity = new_capacity
+        self._steps.clear()
+
+    def grow_events(self, needed: int):
+        """Grow the per-halo event-list width to the next power of two
+        covering ``needed`` (clamped to the particle capacity).  The
+        carry is untouched."""
+        new_k = min(max(round_up_pow2(int(needed)), 128), self.capacity)
+        if new_k <= self.event_capacity:
+            return
+        self.event_capacity = new_k
+        self._steps.clear()
+
+    def to_general(self, new_capacity: int, layout_ids):
+        """Convert this aligned engine into a general engine at
+        ``new_capacity``: the carry is scattered back from stable
+        positions to load-slot order through the slot permutation, and
+        the radial-velocity sign bits become +-1.0 placeholders
+        (detection only compares signs).  ``layout_ids``: the ``[H, P]``
+        stable-position table of real IDs — the aligned carry is
+        positional.  Returns ``(general_engine, carry_ids_in_load_order)``.
+        """
+        new_capacity = round_up(new_capacity, 128)
+        c = decode_aligned_carry(self.carry)
+        ids_s = np.asarray(layout_ids)
+        slot = c.slot
+        h, p = ids_s.shape
+        vr_s = (((c.vrb >> 1) & 1).astype(np.float32)
+                - (c.vrb & 1).astype(np.float32))
+        ids_l = np.full((h, new_capacity), self.invalid, dtype=ids_s.dtype)
+        vr_l = np.zeros((h, new_capacity), dtype=np.float32)
+        ang_l = np.zeros((h, new_capacity), dtype=np.float32)
+        rhat_l = np.zeros((3, h, new_capacity), dtype=np.float32)
+        np.put_along_axis(ids_l, slot, ids_s, axis=-1)
+        np.put_along_axis(vr_l, slot, vr_s, axis=-1)
+        np.put_along_axis(ang_l, slot, c.angles, axis=-1)
+        np.put_along_axis(
+            rhat_l, np.broadcast_to(slot[None], c.rhat.shape), c.rhat,
+            axis=-1,
+        )
+        out = _DeviceEngine(
+            self.n_halos, new_capacity, self.mode, self.box_size,
+            self.id_dtype, self.angle_dtype, self.device,
+            event_capacity=self.event_capacity, join="general",
+        )
+        out.carry = carry_from_numpy(ids_l, rhat_l, vr_l, ang_l,
+                                     device=self.device)
+        return out, ids_l
+
+    def step(self, batch: SnapshotBatch, static: bool = False):
+        fn = self._step_fn(static=static and self.join != "aligned")
+        self.carry, events = fn(self.carry, batch)
+        if self.join == "aligned":
+            small = dict(count=events.count, ids=events.ids,
+                         angles=events.angles, bulk_vel=events.bulk_vel)
+        else:
+            small = dict(count=events.ev_count, ids=events.ev_ids,
+                         angles=events.ev_angles, bulk_vel=events.bulk_vel)
+        return events, _Fetch(small)
+
+    def set_angles(self, angles_padded: np.ndarray, order=None):
+        """Replace the carry's angle state (resume).  ``order`` maps the
+        device layout to load slots (the aligned engine's staged slot
+        channel, flag bits masked)."""
+        if order is not None:
+            angles_padded = np.take_along_axis(
+                np.asarray(angles_padded), np.asarray(order), axis=-1)
+        if self.join == "aligned":
+            ang = torch.from_numpy(np.ascontiguousarray(
+                angles_padded, dtype=np.float32).view(np.int32))
+            match = self.carry.packed & -(1 << 31)
+            self.carry = self.carry._replace(
+                packed=ang.to(self.device) | match)
+            return
+        self.carry = self.carry._replace(
+            angles=torch.from_numpy(np.ascontiguousarray(
+                angles_padded, dtype=self.angle_dtype)).to(self.device))
+
+    def angles_host(self) -> np.ndarray:
+        """Per-particle angle accumulators on the host, in the carry's
+        device layout (checkpointing)."""
+        if self.join == "aligned":
+            packed = _host(self.carry.packed & 0x7FFFFFFF)
+            return packed.view(np.float32)
+        return _host(self.carry.angles)
+
+
+def _resolve_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "track_orbits runs on a CUDA device by default, and none is "
+            "available; pass device='cpu' to run on the CPU"
+        )
+    return device
+
+
+def track_orbits(
+    snapshot_numbers,
+    main_branches,
+    regions,
+    load_snapshot_data,
+    savefile,
+    mode: str = "pericentric",
+    checkpoint: bool = False,
+    resume: bool = False,
+    verbose: bool = True,
+    capacity: Optional[int] = None,
+    headroom: float = 1.3,
+    id_dtype=np.int32,
+    angle_dtype=np.float32,
+    mesh=None,
+    event_capacity: Optional[int] = None,
+    metrics: Optional[Metrics] = None,
+    profile_dir: Optional[str] = None,
+    join_impl: str = "auto",
+    prefetch: int = 1,
+    grow_impl: str = "auto",
+    npool=None,  # noqa: ARG001 — accepted for reference API compat, unused
+    device="cuda",
+    writer=None,
+):
+    """Track pericentric/apocentric passages over a snapshot sequence.
+
+    Parameters mirror the JAX package's ``track_orbits`` (and through it
+    the reference driver); see there for the callback contract.
+
+    snapshot_numbers : (S,) int array-like, any order.
+    main_branches : (S, n_halos) int array-like of per-snapshot
+        progenitor halo IDs; ``-1`` = no progenitor at that snapshot.
+    regions : ``regions(snapshot_number, halo_ids) -> (positions,
+        radii[, bulk_velocities])``.
+    load_snapshot_data : ``load_snapshot_data(snapshot_number,
+        region_positions, region_radii) -> dict`` with ``ids``,
+        ``coordinates``, ``velocities``, ``masses``, ``region_offsets``
+        and optionally ``box_size`` and the cosmology keys
+        (``redshift``, ``H0``, ``Omega_m``, ``Omega_L``[, ``Omega_k``]).
+    savefile : str, or a ``(pericentric, apocentric)`` pair for
+        ``mode='both'``.
+    mode : {'pericentric', 'apocentric', 'both'}
+    capacity, headroom, id_dtype, angle_dtype, event_capacity, metrics,
+    prefetch, checkpoint, resume, verbose : as in the JAX package.
+    profile_dir : directory for a ``torch.profiler`` Chrome trace.
+    join_impl : {'auto', 'general', 'aligned'}.  ``'auto'`` picks
+        ``'aligned'`` on a CUDA device when its constraints hold
+        (32- or 64-bit signed IDs, f32 angles, capacity up to
+        ``AUTO_FUSED_CAPACITY``), else ``'general'``.
+    grow_impl : {'auto', 'keep', 'general'}: what capacity growth does
+        to an aligned engine — ``'keep'`` grows it in place,
+        ``'general'`` converts its carry to the general engine,
+        ``'auto'`` converts when ``join_impl`` was auto-selected.
+    device : torch device of the state and the steps (default
+        ``'cuda'``; raises RuntimeError when CUDA is unavailable — pass
+        ``device='cpu'`` to run on the CPU).
+    writer : savefile writer (default :class:`~orbitanalysis_tpu_torch.
+        engine.io_hdf5.H5Writer`); :class:`~orbitanalysis_tpu_torch.
+        engine.io_hdf5.MemoryWriter` keeps the catalogs in memory.
+
+    Not ported yet: ``mesh=`` (the halo- and hash-sharded engines) and
+    ``join_impl='sorted'`` raise NotImplementedError.
+    """
+    device = _resolve_device(device)
+    writer = io_hdf5.H5Writer() if writer is None else writer
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (the halo-sharded and hash-sharded engines) is not "
+            "ported yet; see ROADMAP.md M11"
+        )
+    if join_impl == "sorted":
+        raise NotImplementedError(
+            "join_impl='sorted' (the fused merge-join engine) is not "
+            "ported yet; see ROADMAP.md M10"
+        )
+    if join_impl not in ("auto", "general", "aligned"):
+        raise ValueError(f"unknown join_impl: {join_impl!r}")
+    if grow_impl not in ("auto", "keep", "general"):
+        raise ValueError(f"unknown grow_impl: {grow_impl!r}")
+    modes, savefiles = io_hdf5.normalize_mode_savefiles(mode, savefile)
+    savefile = savefiles[0]  # layout leader (checkpoint layout source)
+    snapshot_numbers, main_branches = _normalize_inputs(
+        snapshot_numbers, main_branches
+    )
+    n_rows = main_branches.shape[1]
+    final_branch = main_branches[-1]
+    final_snapshot = snapshot_numbers[-1]
+
+    if resume:
+        if verbose:
+            print("Resuming from file...\n")
+        resume_snaps = [writer.last_snapshot_number(f) for f in savefiles]
+        resume_snap = resume_snaps[0]
+        if any(s != resume_snap for s in resume_snaps):
+            raise ValueError(
+                "mode='both' resume needs both savefiles at the same "
+                f"snapshot; got {dict(zip(savefiles, resume_snaps))} — "
+                "delete the trailing snapshot group(s) of the file that "
+                "ran ahead and re-run"
+            )
+        sind = int(np.argwhere(snapshot_numbers == resume_snap).flatten()[0])
+        snapshot_numbers = snapshot_numbers[sind:]
+        main_branches = main_branches[sind:]
+
+    join_was_auto = join_impl == "auto"
+    if join_was_auto:
+        idt = np.dtype(id_dtype)
+        join_impl = (
+            "aligned"
+            if (
+                device.type == "cuda"
+                and idt.itemsize in (4, 8)
+                and np.issubdtype(idt, np.signedinteger)
+                and np.dtype(angle_dtype) == np.float32
+            )
+            else "general"
+        )
+
+    tstart = time.time()
+    engines: list = []  # one per detection mode; engines[0] leads
+    engine: Optional[_DeviceEngine] = None
+    box_size = None
+    prev_ids_host = None   # [H, P] packed ids of last processed snapshot
+    prev_slot_host = None  # [H, P] staged load slots of the same
+    prev_rows = None       # active halo rows of last processed snapshot
+    stable_layout: Optional[StableLayout] = None  # aligned engine only
+    resume_layout_flat = None  # checkpointed stable positions (aligned)
+    if resume and join_impl == "aligned":
+        # the aligned layout is history-dependent: restore it from the
+        # sidecar so the resumed run reproduces the crashed run's
+        # positions bit for bit
+        try:
+            _, _, resume_layout_flat = writer.read_checkpoint(
+                savefile, with_layout=True)
+        except OSError:
+            resume_layout_flat = None  # the seed branch raises the error
+    started = False
+
+    # Software pipeline: the step of snapshot s is queued on the device
+    # and its event fetch + savefile write deferred into ``pending``,
+    # flushed while snapshot s+1 loads, packs and computes.
+    pending = None
+
+    def flush_pending():
+        nonlocal pending
+        if pending is None:
+            return
+        p, phases = pending, pending["phases"]
+        pending = None
+        if p["save"]:
+            n_events_by_mode = {}
+            saved_rows = p["saved_rows"]
+            for (events, fetch), ev_engine, mname, fname in zip(
+                    p["events_list"], engines, modes, savefiles):
+                with phase_timer(phases, "fetch"):
+                    ev_count = fetch["count"]
+                    bulk_vel = fetch["bulk_vel"]
+                if verbose:
+                    print(
+                        "Finished {} detection for snapshot {} "
+                        "(dispatch-to-write {} s)\n".format(
+                            io_hdf5.apsis_tag(mname),
+                            "%03d" % p["snapshot_number"],
+                            time.time() - p["t0"],
+                        )
+                    )
+                counts = ev_count[saved_rows]
+                if engine.join == "aligned":
+                    ids_flat, angles_flat = _aligned_events(
+                        p, events, fetch, ev_engine, counts, phases,
+                        verbose)
+                elif int(counts.max(initial=0)) > ev_engine.event_capacity:
+                    # event-capacity overflow: fetch the full masks
+                    with phase_timer(phases, "fetch"):
+                        apsis = _host(events.apsis)
+                        apsis_angle = _host(events.apsis_angle)
+                    _, ids_flat, angles_flat = unpack_mask(
+                        apsis, p["layout_ids"], apsis_angle, rows=saved_rows)
+                else:
+                    with phase_timer(phases, "fetch"):
+                        ev_ids = fetch["ids"][saved_rows]
+                        ev_angles = fetch["angles"][saved_rows]
+                    sel = (np.arange(ev_ids.shape[1])[None, :]
+                           < counts[:, None])
+                    ids_flat, angles_flat = ev_ids[sel], ev_angles[sel]
+                with phase_timer(phases, "save"):
+                    writer.append_snapshot(
+                        fname, p["snapshot_number"],
+                        io_hdf5.snapshot_datasets(
+                            mname,
+                            apsis_ids=ids_flat,
+                            apsis_offsets=np.concatenate(
+                                ([0], np.cumsum(counts))),
+                            apsis_angles=angles_flat,
+                            halo_ids=p["halo_ids_saved"],
+                            final_descendant_ids=p["final_desc"],
+                            region_radii=p["region_radii_saved"],
+                            region_positions=p["region_positions_saved"],
+                            bulk_velocities=bulk_vel[saved_rows],
+                        ),
+                        verbose=verbose,
+                    )
+                n_events_by_mode[mname] = int(len(ids_flat))
+            if metrics is not None:
+                extra = (
+                    {"n_events_" + io_hdf5.apsis_tag(m): n
+                     for m, n in n_events_by_mode.items()}
+                    if len(modes) > 1 else {}
+                )
+                metrics.log(
+                    snapshot=int(p["snapshot_number"]),
+                    n_halos_active=int(len(p["rows"])),
+                    n_particles=int(p["n_particles"]),
+                    n_events=int(sum(n_events_by_mode.values())),
+                    join=engine.join,
+                    capacity=int(engine.capacity),
+                    event_capacity=int(engine.event_capacity),
+                    **extra,
+                    **phases,
+                )
+        if checkpoint:
+            _write_checkpoint(p, engines, engine, savefiles, writer)
+
+    items = list(zip(main_branches, snapshot_numbers))
+    feed = _SnapshotFeed(
+        items, regions, load_snapshot_data, depth=max(int(prefetch), 0)
+    )
+    try:
+        with trace(profile_dir):
+            for i, (halo_ids, snapshot_number) in enumerate(items):
+                if verbose:
+                    print("-" * 30, "\n")
+                    print("Snapshot {}\n".format("%03d" % snapshot_number))
+                phases = {}
+                # the recorded 'load' phase is the residual wait on the
+                # prefetch thread
+                with phase_timer(phases, "load"):
+                    rows, payload = feed.get(i)
+                if payload is None:
+                    continue
+                (region_positions, region_radii, region_bulk_vels,
+                 snapshot) = payload
+                if len(snapshot["coordinates"]) == 0:
+                    continue
+                hubble_drag = _hubble_drag(snapshot)
+                offsets = np.asarray(snapshot["region_offsets"],
+                                     dtype=np.int64)
+                lengths = np.diff(np.concatenate(
+                    (offsets, [len(snapshot["ids"])])))
+
+                if engine is None:
+                    box_size = snapshot.get("box_size")
+                    cap = capacity or required_capacity(lengths, headroom)
+                    if join_impl == "aligned":
+                        cap = max(round_up_pow2(cap), 128)
+                        if (resume_layout_flat is not None
+                                and resume_layout_flat.size):
+                            # the crashed run may have grown past what
+                            # the seed snapshot needs; its checkpointed
+                            # positions must stay addressable
+                            cap = max(cap, round_up_pow2(
+                                int(resume_layout_flat.max()) + 1))
+                        wide = np.dtype(id_dtype).itemsize == 8
+                        limit = (
+                            MAX_ALIGNED_CAPACITY
+                            if (not join_was_auto) or wide
+                            else AUTO_FUSED_CAPACITY
+                        )
+                        if cap > limit:
+                            if join_was_auto and not wide:
+                                join_impl = "general"
+                                cap = capacity or required_capacity(
+                                    lengths, headroom)
+                            else:
+                                raise ValueError(
+                                    f"join_impl={join_impl!r} supports "
+                                    f"per-halo capacities up to {limit} "
+                                    f"(needed {cap}); use "
+                                    "join_impl='general'"
+                                )
+                    engines = [
+                        _DeviceEngine(
+                            n_rows, cap, m, box_size, id_dtype, angle_dtype,
+                            device, event_capacity=event_capacity,
+                            join=join_impl,
+                        )
+                        for m in modes
+                    ]
+                    engine = engines[0]
+                    if join_impl == "aligned":
+                        stable_layout = StableLayout(
+                            n_rows, engine.capacity, id_dtype=id_dtype)
+                    if not resume:
+                        for fname, m in zip(savefiles, modes):
+                            writer.initialize(fname, m, box_size, verbose)
+
+                if lengths.size and int(lengths.max()) > engine.capacity:
+                    # growth re-pads device state: drain the pipeline so
+                    # pending overflow fallbacks keep their shapes
+                    flush_pending()
+                    new_cap = required_capacity(lengths, headroom)
+                    to_general = engine.join == "aligned" and (
+                        grow_impl == "general"
+                        or (grow_impl == "auto" and join_was_auto)
+                    )
+                    if to_general and engine.surrogate:
+                        if grow_impl == "general":
+                            raise ValueError(
+                                "wide (64-bit) particle IDs ride a 32-bit "
+                                "device surrogate on the aligned engine; "
+                                "grow in place instead: grow_impl='keep'"
+                            )
+                        to_general = False
+                    if to_general:
+                        if verbose:
+                            print(
+                                "Growing particle capacity "
+                                f"{engine.capacity} -> {new_cap}; "
+                                "switching to the general join engine\n"
+                            )
+                        converted = [e.to_general(new_cap, prev_ids_host)
+                                     for e in engines]
+                        engines = [e for e, _ in converted]
+                        engine = engines[0]
+                        prev_ids_host = converted[0][1]
+                        join_impl = "general"
+                        stable_layout = None
+                    else:
+                        if verbose:
+                            print(
+                                "Growing particle capacity "
+                                f"{engine.capacity} -> {new_cap}\n"
+                            )
+                        for e in engines:
+                            e.grow(new_cap)
+                        if stable_layout is not None:
+                            stable_layout.grow(engine.capacity)
+                        if prev_ids_host is not None:
+                            grow_by = ((0, 0), (0, engine.capacity
+                                                - prev_ids_host.shape[1]))
+                            prev_ids_host = np.pad(
+                                prev_ids_host, grow_by,
+                                constant_values=engine.invalid)
+                            if prev_slot_host is not None:
+                                # padded positions are all FRESH next
+                                # step, so no event can reference them
+                                prev_slot_host = np.pad(prev_slot_host,
+                                                        grow_by)
+
+                with phase_timer(phases, "pack"):
+                    if join_impl == "aligned":
+                        restore = None
+                        if not started and resume_layout_flat is not None:
+                            restore = pack_ragged(
+                                resume_layout_flat.astype(np.int32),
+                                offsets, n_rows, engine.capacity, rows=rows,
+                                fill=-1,
+                            )
+                        packed = pack_snapshot_aligned(
+                            snapshot, rows, n_rows, stable_layout,
+                            region_positions, region_bulk_vels,
+                            id_dtype=id_dtype, restore_dest=restore,
+                        )
+                    else:
+                        packed = pack_snapshot(
+                            snapshot, rows, n_rows, engine.capacity,
+                            region_positions, region_bulk_vels,
+                            id_dtype=id_dtype,
+                        )
+
+                t0 = time.time()
+                packed_ids_host = packed.ids  # host bookkeeping copies
+                packed_slot_host = packed.slot
+                if join_impl == "aligned":
+                    # strip the FRESH flags: host bookkeeping uses the
+                    # slot channel as scatter/gather indices
+                    packed_slot_host = packed_slot_host & SLOT_MASK
+                if engine.surrogate:
+                    # wide IDs stay on the host; the device ID channel
+                    # is the position surrogate (iota where occupied)
+                    iota = np.broadcast_to(
+                        np.arange(engine.capacity, dtype=np.int32),
+                        packed.ids.shape)
+                    packed = packed._replace(ids=np.where(
+                        packed.ids != engine.invalid, iota,
+                        np.int32(engine._dev_invalid)))
+                # static membership (general engine): an identical ID
+                # layout to the previous snapshot needs no join
+                static = (
+                    join_impl != "aligned"
+                    and prev_ids_host is not None
+                    and bool(np.array_equal(packed_ids_host, prev_ids_host))
+                )
+                if checkpoint and pending is not None:
+                    # the pending snapshot's angles, before the next
+                    # step replaces the carry
+                    pending["angles_host"] = [
+                        e.angles_host() for e in engines]
+                layout_ids = prev_ids_host  # the queued step's prev layout
+                with phase_timer(phases, "step"):
+                    batch = _stage(packed, hubble_drag, device)
+                    events_list = [e.step(batch, static=static)
+                                   for e in engines]
+
+                if not started:
+                    # the first processed snapshot seeds the carry;
+                    # nothing to save
+                    if resume:
+                        _resume_angles(engines, savefiles, writer, offsets,
+                                       n_rows, rows, angle_dtype,
+                                       snapshot_number, packed_slot_host,
+                                       join_impl)
+                    started = True
+                    new_pending = dict(
+                        save=False, phases=phases, rows=rows,
+                        packed_ids=packed_ids_host,
+                        packed_slot=packed_slot_host,
+                        n_particles=len(snapshot["ids"]),
+                        snapshot_number=snapshot_number,
+                    )
+                else:
+                    saved_rows = np.intersect1d(rows, prev_rows)
+                    radii_full = np.zeros(
+                        n_rows, dtype=np.asarray(region_radii).dtype)
+                    radii_full[rows] = region_radii
+                    pos_full = np.zeros((n_rows, 3),
+                                        dtype=region_positions.dtype)
+                    pos_full[rows] = region_positions
+                    new_pending = dict(
+                        save=True,
+                        phases=phases,
+                        events_list=events_list,
+                        t0=t0,
+                        rows=rows,
+                        saved_rows=saved_rows,
+                        layout_ids=layout_ids,
+                        packed_ids=packed_ids_host,
+                        packed_slot=packed_slot_host,
+                        prev_packed_slot=prev_slot_host,
+                        snapshot_number=snapshot_number,
+                        n_particles=len(snapshot["ids"]),
+                        halo_ids_saved=halo_ids[saved_rows],
+                        final_desc=(
+                            final_branch[saved_rows]
+                            if snapshot_number != final_snapshot
+                            else None
+                        ),
+                        region_radii_saved=radii_full[saved_rows],
+                        region_positions_saved=pos_full[saved_rows],
+                    )
+
+                # flush the previous snapshot's I/O while this step runs
+                flush_pending()
+                pending = new_pending
+                prev_ids_host = packed_ids_host
+                prev_slot_host = packed_slot_host
+                prev_rows = rows
+            flush_pending()
+    finally:
+        feed.close()
+
+    if verbose:
+        print(
+            "Finished {} detection for all snapshots in {} s\n".format(
+                " and ".join(io_hdf5.apsis_tag(m) for m in modes),
+                time.time() - tstart,
+            )
+        )
+
+
+def _hubble_drag(snapshot) -> float:
+    """``H(z)/(1+z)`` when the loader supplies a cosmology, else 0."""
+    if "redshift" not in snapshot:
+        return 0.0
+    missing = [k for k in ("H0", "Omega_m", "Omega_L") if k not in snapshot]
+    if missing:
+        raise KeyError(
+            "loader dict has 'redshift' (enables the Hubble-flow term) but "
+            f"lacks {missing}; supply the full cosmology or omit 'redshift'"
+        )
+    Hz = hubble_parameter(
+        snapshot["redshift"], snapshot["H0"], snapshot["Omega_m"],
+        snapshot["Omega_L"], snapshot.get("Omega_k", 0),
+    )
+    return float(Hz / (1.0 + snapshot["redshift"]))
+
+
+def _aligned_events(p, events, fetch, ev_engine, counts, phases, verbose):
+    """Positional aligned-engine events of one snapshot -> ``(ids,
+    angles)`` flat in reference order.
+
+    The device returns stable-layout row positions and f16-exact
+    angles; particle IDs come from the current snapshot's staged ID
+    table (an event position's tenant is unchanged since the previous
+    snapshot) and the order from the PREVIOUS snapshot's load slots (the
+    reference emits apsides in previous-snapshot load order).
+    """
+    saved_rows = p["saved_rows"]
+    width = events.ids.shape[1]
+    if int(counts.max(initial=0)) > width:
+        # The compaction cut events past the buffer width while the
+        # counts kept them.  Nothing is lost: decode every event of
+        # this snapshot from the full pre-compaction payload plane, then
+        # grow the event capacity for the following steps.
+        kf = round_up(int(counts.max()), 256)
+        with phase_timer(phases, "fetch"):
+            pay = events.payload
+            if isinstance(pay, tuple):
+                # wide-row pair format: pos + 1 where an event fired,
+                # f16 bits alongside
+                posw = _host(pay[0])[saved_rows]
+                angw = _host(pay[1])[saved_rows]
+            else:
+                # angle words: apsis flag in bit 31, f32 angle bits below
+                pw = _host(pay)[saved_rows].view(np.uint32)
+                posw = np.where(
+                    pw >> np.uint32(31),
+                    np.arange(pw.shape[1], dtype=np.uint32)[None, :] + 1,
+                    np.uint32(0),
+                )
+                # the kernel's own f16 encode (clamps past 65504)
+                angw = f16_bits_rne(torch.from_numpy(
+                    (pw & np.uint32(0x7FFFFFFF)).view(np.float32))).numpy()
+        nsr = posw.shape[0]
+        ev_pos = np.zeros((nsr, kf), np.int32)
+        ang_bits = np.zeros((nsr, kf), np.uint16)
+        for r in range(nsr):
+            nz = np.flatnonzero(posw[r])
+            ev_pos[r, :len(nz)] = posw[r, nz].astype(np.int64) - 1
+            ang_bits[r, :len(nz)] = angw[r, nz].astype(np.uint16)
+        ev_angles = ang_bits.view(np.float16).astype(np.float32)
+        if verbose:
+            print(
+                "Event buffer overflow on snapshot "
+                f"{'%03d' % p['snapshot_number']} (max "
+                f"{int(counts.max())} apsides/halo > {width}): recovered "
+                "all events from the payload plane; growing event "
+                "capacity\n"
+            )
+        ev_engine.grow_events(int(counts.max()))
+    else:
+        kf = width
+        with phase_timer(phases, "fetch"):
+            ev_pos = fetch["ids"][saved_rows]
+            ev_angles = fetch["angles"][saved_rows]
+    sel = np.arange(kf)[None, :] < counts[:, None]
+    prev_slot = p["prev_packed_slot"][saved_rows]
+    pos_idx = np.clip(ev_pos.astype(np.int64), 0, prev_slot.shape[1] - 1)
+    ev_slots = np.take_along_axis(prev_slot, pos_idx, axis=-1)
+    slot_key = np.where(sel, ev_slots, np.iinfo(np.int32).max)
+    order = np.argsort(slot_key, axis=-1, kind="stable")
+    ev_pos = np.take_along_axis(ev_pos, order, axis=-1)
+    ev_angles = np.take_along_axis(ev_angles, order, axis=-1)
+    id_tab = p["packed_ids"][saved_rows]
+    ev_ids = np.take_along_axis(
+        id_tab, np.clip(ev_pos.astype(np.int64), 0, id_tab.shape[1] - 1),
+        axis=-1,
+    )
+    return ev_ids[sel], ev_angles[sel]
+
+
+def _resume_angles(engines, savefiles, writer, offsets, n_rows, rows,
+                   angle_dtype, snapshot_number, packed_slot_host, join_impl):
+    """Seed each engine's angle state from its checkpoint sidecar."""
+    for e, fname in zip(engines, savefiles):
+        ck_angles, ck_snap = writer.read_checkpoint(fname)
+        if ck_snap >= 0 and ck_snap != snapshot_number:
+            raise ValueError(
+                f"checkpoint sidecar holds angles for snapshot {ck_snap} "
+                f"but the savefile resumes at snapshot {snapshot_number}; "
+                "the run likely crashed between the savefile append and "
+                "the checkpoint write — delete the last savefile group or "
+                "the checkpoint and re-run"
+            )
+        angles_padded = pack_ragged(
+            np.asarray(ck_angles, dtype=angle_dtype), offsets, n_rows,
+            e.capacity, rows=rows, fill=0.0,
+        )
+        e.set_angles(angles_padded,
+                     order=packed_slot_host if join_impl == "aligned"
+                     else None)
+
+
+def _write_checkpoint(p, engines, engine, savefiles, writer):
+    """Angle sidecar of the pending snapshot, per savefile, in reference
+    (load-order) layout; the aligned engine adds each particle's stable
+    position so resume can rebuild its layout exactly."""
+    angles_list = p.get("angles_host")
+    if angles_list is None:
+        angles_list = [e.angles_host() for e in engines]
+    valid = p["packed_ids"] != engine.invalid
+    slot = layout_flat = v_load = None
+    if engine.join == "aligned":
+        # the carry follows stable positions: scatter back to load order
+        slot = np.asarray(p["packed_slot"])
+        v_load = np.zeros(valid.shape, dtype=bool)
+        np.put_along_axis(v_load, slot, valid, axis=-1)
+        pos_of = np.zeros(slot.shape, dtype=np.int32)
+        np.put_along_axis(
+            pos_of, slot,
+            np.broadcast_to(np.arange(slot.shape[-1], dtype=np.int32),
+                            slot.shape),
+            axis=-1,
+        )
+        _, layout_flat = unpack_mask(v_load, pos_of, rows=p["rows"])
+    for fname, angles_dev in zip(savefiles, angles_list):
+        v = valid
+        if slot is not None:
+            a_load = np.zeros_like(angles_dev)
+            np.put_along_axis(a_load, slot, angles_dev, axis=-1)
+            angles_dev, v = a_load, v_load
+        _, angles_flat = unpack_mask(v, angles_dev, rows=p["rows"])
+        writer.write_checkpoint(fname, angles_flat, p["snapshot_number"],
+                                layout_positions=layout_flat)

@@ -1,0 +1,27 @@
+from orbitanalysis_tpu_torch.ops.geometry import RegionFrame, region_frame
+from orbitanalysis_tpu_torch.ops.join import MergeJoin, merge_join
+from orbitanalysis_tpu_torch.ops.apsis import (
+    Carry,
+    SnapshotBatch,
+    StepEvents,
+    carry_from_numpy,
+    carry_to_numpy,
+    init_carry,
+    make_orbit_step,
+    make_static_orbit_step,
+)
+
+__all__ = [
+    "RegionFrame",
+    "region_frame",
+    "MergeJoin",
+    "merge_join",
+    "Carry",
+    "SnapshotBatch",
+    "StepEvents",
+    "carry_from_numpy",
+    "carry_to_numpy",
+    "init_carry",
+    "make_orbit_step",
+    "make_static_orbit_step",
+]

@@ -1,0 +1,123 @@
+"""Sort-merge particle-ID matching between consecutive snapshots (twin of
+``orbitanalysis_tpu/ops/join.py:123`` ``merge_join``).
+
+Concatenate the previous and current ID rows, sort by ``(id, side)``
+with a stable ``torch.sort`` (prev entries come first in the concat, so
+a stable sort by ID alone orders each matched pair prev-then-cur), pair
+neighbours by a shift compare, run the caller's ``compute`` at the
+merged positions, and scatter the results back to slot order through
+the sort permutation.  Departed/entered/matched sets are boolean masks;
+all shapes are static.
+
+Assumption (inherited from the reference): particle IDs are unique
+within one halo region.  The same ID may appear in several regions.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class MergeJoin(NamedTuple):
+    """Outputs of the join.  "prev layout" = slot order of the previous
+    row, "cur layout" = slot order of the current row."""
+
+    matched_prev: torch.Tensor  # [H, P] bool, prev layout
+    matched_cur: torch.Tensor   # [H, P] bool, cur layout
+    to_prev: tuple              # computed channels, prev layout
+    to_cur: tuple               # computed channels, cur layout
+
+
+def _shift_right(x, fill):
+    """Value at the left neighbour (index i-1) along the last axis."""
+    return torch.cat([torch.full_like(x[:, :1], fill), x[:, :-1]], dim=1)
+
+
+def _shift_left(x, fill):
+    """Value at the right neighbour (index i+1) along the last axis."""
+    return torch.cat([x[:, 1:], torch.full_like(x[:, :1], fill)], dim=1)
+
+
+def merge_join(
+    prev_ids: torch.Tensor,   # [H, P]
+    cur_ids: torch.Tensor,    # [H, P]
+    invalid_id,
+    values: tuple = (),       # ((prev_arr|None, cur_arr|None), ...) pairs
+    compute=None,
+) -> MergeJoin:
+    """Match IDs between two rows, exchanging/transforming payloads.
+
+    Each value channel is a pair ``(prev_arr, cur_arr)`` sharing one
+    ``[H, 2P]`` merged channel (``None`` for a missing half).
+    ``compute(left_vals, this_vals, matched) -> outputs`` runs at the
+    merged positions: ``this_vals`` is each channel's value at the
+    position and ``left_vals`` its left neighbour's (for a matched cur
+    entry: its prev partner's; garbage elsewhere, so mask with
+    ``matched``).  ``outputs`` is a tuple of ``(to_prev, to_cur)``
+    pairs (either half may be None, both halves share a dtype):
+    ``to_prev`` lands at the prev partner's slot, ``to_cur`` stays at
+    the current entry's slot, unmatched slots get zeros.  With
+    ``compute=None`` the raw payloads are exchanged.
+    """
+    h, p = prev_ids.shape
+    cat_ids = torch.cat([prev_ids, cur_ids], dim=1)
+    ids_s, sp_s = torch.sort(cat_ids, dim=-1, stable=True)
+
+    def merged(pv, cv):
+        c = torch.cat([
+            pv if pv is not None else torch.zeros_like(cv),
+            cv if cv is not None else torch.zeros_like(pv),
+        ], dim=1)
+        return torch.gather(c, 1, sp_s)
+
+    chan_s = tuple(merged(pv, cv) for pv, cv in values)
+    is_cur = sp_s >= p
+    valid_key = ids_s != invalid_id
+
+    left_is_prev = ~_shift_right(is_cur, True)
+    # a cur entry matches when its left neighbour is the prev entry with
+    # the same (valid) ID; the stable (id, side) order puts prev first
+    match_cur_m = (
+        is_cur & left_is_prev & valid_key
+        & (ids_s == _shift_right(ids_s, invalid_id))
+    )
+    match_prev_m = _shift_left(match_cur_m, False)
+
+    left_vals = tuple(_shift_right(c, 0) for c in chan_s)
+    if compute is None:
+        outputs = tuple((c, l) for l, c in zip(left_vals, chan_s))
+    else:
+        outputs = compute(left_vals, chan_s, match_cur_m)
+
+    # fold each (to_prev, to_cur) pair into one merged channel: to_prev
+    # moves one position left (to the prev partner), to_cur stays; the
+    # two position sets are disjoint, unmatched positions get zeros
+    def fold(tp, tc):
+        if tp is None and tc is None:
+            raise ValueError("output pair with both halves None")
+        if tp is None:
+            return torch.where(match_cur_m, tc, torch.zeros_like(tc))
+        moved = torch.where(match_prev_m, _shift_left(tp, 0),
+                            torch.zeros_like(tp))
+        if tc is None:
+            return moved
+        return torch.where(
+            is_cur, torch.where(match_cur_m, tc, torch.zeros_like(tc)),
+            moved)
+
+    def restore(x):
+        # scatter merged positions back to concat (slot) order
+        return torch.empty_like(x).scatter_(1, sp_s, x)
+
+    out_r = tuple(restore(fold(tp, tc)) for tp, tc in outputs)
+    matched_r = restore(match_cur_m | match_prev_m)
+    return MergeJoin(
+        matched_prev=matched_r[:, :p],
+        matched_cur=matched_r[:, p:],
+        to_prev=tuple(c[:, :p] if tp is not None else None
+                      for c, (tp, _) in zip(out_r, outputs)),
+        to_cur=tuple(c[:, p:] if tc is not None else None
+                     for c, (_, tc) in zip(out_r, outputs)),
+    )
