@@ -7,21 +7,39 @@ Needs one CUDA device, nvcc (CUDA_HOME or /usr/local/cuda) and the
 repository checkout; it imports nothing of JAX.  Phases:
 
 1. environment: versions, and the card's name and power limit;
-2. build: nvcc compiles csrc/compact.cu for sm_90a (and g++ the native
-   host packer);
-3. each CUDA kernel against its plain-torch twin on the card, at the
-   shapes the main path gives it (exact match), with timings;
-4. step parity: 8 churning snapshots at [64, 32768], the aligned step on
-   CUDA against the same step on the CPU;
-5. end to end at config-2 scale (100 halos, ~1e6 tracked particles,
-   periodic box, Hubble term): ``track_orbits(device='cuda')`` under
-   ``join_impl='auto'`` must pick the aligned engine, match the general
-   engine run on the card and the NumPy oracle, and launch the
-   compaction kernel once per aligned step; a wide-row run (one halo
-   past 131071 members) drives the pair kernel the same way.
+2. build: nvcc compiles every csrc/*.cu for sm_90a, one process per
+   source, and links one library (and g++ the native host packer); the
+   label-native workload (the JAX package's benchmark churn sequence,
+   64 halos x 32768 slots x 48 snapshots) is generated on the host;
+3. each CUDA kernel against its plain-torch version on the same CUDA
+   tensors, at the shapes its main path gives it, with timings, the
+   card's bound for the same work and, where one PyTorch call computes
+   the same function, that call's time;
+4. aligned step parity: 8 churning snapshots at [64, 32768], the
+   aligned step on CUDA against the same step on the CPU;
+5. the aligned main path end to end at config-2 scale (100 halos, ~1e6
+   tracked particles, periodic box, Hubble term):
+   ``track_orbits(device='cuda')`` under ``join_impl='auto'`` must pick
+   the aligned engine, match the general engine run on the card and the
+   NumPy oracle, and launch the compaction kernel once per aligned step;
+   a wide-row run (one halo past 131071 members) drives the pair kernel
+   the same way;
+6. label step parity: 8 snapshots of [8, 32768] rows, the label step on
+   CUDA against the CPU, through the detect-and-compact kernel and
+   through the detect kernel plus the payload compaction;
+7. the label-native main path at full width: ``scan_label_events`` over
+   the whole workload (``frames='auto'``, K = 2048, octahedral r-hat,
+   bulk moments on the card) must find the JAX benchmark's 1,741,643
+   events, launching the frame-row, moments and detect-and-compact
+   kernels once per snapshot; with its bulk velocities fed back, the
+   K = 8192 route (detect kernel + payload compaction) and the
+   ``'twolevel'`` route (plain chain + payload compaction) must give the
+   same events; then the step's device time, host queue time and
+   update rate.
 
 Any failed check exits non-zero without printing the result lines.  The
-last two lines are the kernels' JSON record and the device JSON line.
+last three lines are the card's name and power limit, the kernels' JSON
+record and the device JSON line.
 """
 
 from __future__ import annotations
@@ -52,6 +70,22 @@ PARITY = (64, 32768, 40000, 8)
 E2E = (100, 12500, 20, 25.0)
 WIDE_POOL = 175000
 ORACLE_HALOS = 8
+#: phases 6-7: the JAX benchmark's label-native workload (bench.py
+#: device_label_updates_per_s): halos, slots per halo, snapshots; its
+#: row width, event capacity and box; the event total it found; the
+#: rows and snapshots of the CUDA-vs-CPU parity phase
+LABEL = (64, 32768, 48)
+LABEL_ROW, LABEL_K, LABEL_BOX = 32768, 2048, 100.0
+LABEL_EVENTS = 1741643
+LABEL_PARITY = (8, 8)
+#: timed scans of phase 7 (after one warm-up scan)
+LABEL_SCANS = 5
+
+#: The card's published peaks (H100 SXM, NVIDIA's data sheet) that
+#: ``bound_ms`` divides by: HBM bytes per second, and float32 (or
+#: 32-bit integer) operations per second outside the tensor cores.
+PEAK_BYTES = 3.35e12
+PEAK_OPS = 67e12
 
 
 #: Event angles of the CUDA and the CPU step agree to one f16 ulp, or to
@@ -70,6 +104,15 @@ def f16_ulps(a, b):
     return np.abs(ia - ib), np.abs(a.astype(np.float64) - b)
 
 
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by): the least time the card could take for work
+    that moves ``n_bytes`` (each input read once, each output written
+    once) and does ``n_ops`` operations."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / PEAK_OPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 class SmokeFailure(Exception):
     pass
 
@@ -83,23 +126,37 @@ def log(*a):
     print(*a, flush=True)
 
 
-def cuda_ms(fn, runs=25, warmup=3):
-    """Median device milliseconds of ``fn()`` over ``runs`` launches
-    (CUDA events around each call, after ``warmup`` calls)."""
+#: Cycles of the sleep kernel that holds the card busy while the host
+#: queues the work to be timed (~50 ms at the H100's ~1.98 GHz clock).
+SLEEP_CYCLES = 100_000_000
+
+
+def device_ms(fn, reps=1):
+    """Device milliseconds of ``reps`` back-to-back ``fn()`` calls: a
+    sleep kernel first holds the card busy while the host queues them,
+    so the CUDA events bracket the device's own execution, not the
+    host's queuing (a call that synchronizes the host inside, as a
+    boolean-mask index does, still counts its host time)."""
     import torch
 
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def cuda_ms(fn, runs=5, reps=10, warmup=3):
+    """Median device milliseconds of one ``fn()`` over ``runs`` timings
+    of ``reps`` back-to-back calls (:func:`device_ms`), after ``warmup``
+    calls."""
     for _ in range(warmup):
         fn()
-    times = []
-    for _ in range(runs):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    return statistics.median(device_ms(fn, reps) / reps for _ in range(runs))
 
 
 # ---------------------------------------------------------------- phase 3
@@ -136,10 +193,16 @@ def kernel_checks(dev):
         check(torch.equal(got, want),
               f"compact_angle_rows differs from its twin at {density}")
         if density == 0.017:
+            # a few integer operations an entry; bytes bound it
+            b_ms, b_by = bound(x.numel() * 4 + h * compact._k128(k, p) * 4,
+                               4 * x.numel())
             results["compact_angle_rows"] = dict(
                 ms=cuda_ms(lambda: compact.compact_angle_blocked(x, k)),
                 plain_ms=cuda_ms(
                     lambda: compact.compact_angle_blocked_torch(x, k)),
+                bound_ms=b_ms, bound_by=b_by,
+                # no single PyTorch call compacts rows in order
+                library_ms=None,
             )
     results["compact_angle_rows"]["max_abs_err"] = worst
 
@@ -162,16 +225,27 @@ def kernel_checks(dev):
           "compact_pair_rows differs from its twin")
     check(int(got[0][0, int(sel[0].sum()) - 1]) == p,
           f"the event at position {p - 1} was lost")
+    b_ms, b_by = bound(2 * pw.numel() * 4 + 2 * h * compact._k128(k, p) * 4,
+                       4 * pw.numel())
     results["compact_pair_rows"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: compact.compact_payload_pair(pw, aw2, k)),
         plain_ms=cuda_ms(
             lambda: compact.compact_payload_pair_torch(pw, aw2, k)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
     )
-    for name, r in results.items():
-        log(f"  {name}: kernel {r['ms']:.4f} ms, plain torch "
-            f"{r['plain_ms']:.4f} ms (median of 25, CUDA events)")
     return results
+
+
+def log_timings(results):
+    for name, r in results.items():
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
+        log(f"  {name}: kernel {r['ms']:.4f} ms, plain torch "
+            f"{r['plain_ms']:.4f} ms, library {lib}, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) (device time a "
+            "call: medians of 5 timings of 10 back-to-back calls, CUDA "
+            "events, the card held busy while the host queues them)")
 
 
 # ---------------------------------------------------------------- phase 4
@@ -457,6 +531,410 @@ def end_to_end(dev):
     return launches
 
 
+# ---------------------------------------------------- label-native phases
+
+def label_workload(dev):
+    """The JAX benchmark's label-native churn workload, made on the host
+    from its seed and moved to the card once."""
+    import torch
+
+    from orbitanalysis_tpu_torch.models.synthetic import label_churn_workload
+
+    t0 = time.perf_counter()
+    lab, pos, vel, cen, n_valid = label_churn_workload(*LABEL, seed=0,
+                                                       churn=0.07)
+    t_gen = time.perf_counter() - t0
+    work = dict(label=torch.from_numpy(lab).to(dev),
+                pos=torch.from_numpy(pos).to(dev),
+                vel=torch.from_numpy(vel).to(dev),
+                centers=torch.from_numpy(cen).to(dev), n_valid=n_valid)
+    torch.cuda.synchronize()
+    log(f"  label workload {LABEL[0]} halos x {LABEL[1]} slots x {LABEL[2]} "
+        f"snapshots: N = {lab.shape[1]}, {n_valid} tracked at snapshot 0; "
+        f"{t_gen:.1f} s to generate on the host, "
+        f"{time.perf_counter() - t0 - t_gen:.1f} s to the card")
+    return work
+
+
+def _detect_inputs(dev, work, packed):
+    """Inputs of the detect pass of snapshot 3 on the carry the CUDA label
+    step leaves after snapshots 0-2 (so matched lanes exist)."""
+    import torch
+
+    from orbitanalysis_tpu_torch.ops import frames
+    from orbitanalysis_tpu_torch.ops import label_step as ls
+
+    n = work["label"].shape[1]
+    r, w = n // LABEL_ROW, LABEL_ROW
+    step = ls.make_label_orbit_step(LABEL_K, box_size=LABEL_BOX,
+                                    row_width=w, rhat_packed=packed)
+    carry = ls.init_label_carry(n, packed, w, device=dev)
+    for s in range(3):
+        carry, _ = step(carry, (work["pos"][s], work["vel"][s],
+                                work["label"][s], work["centers"][s], None,
+                                None, 0.0))
+    lab = work["label"][3]
+    mom = frames.segment_moments(lab, work["vel"][3], None,
+                                 n_halos=LABEL[0])
+    bulk = mom[:, :3] / torch.clamp(mom[:, 3:4], min=1e-30)
+    table = torch.cat([work["centers"][3], bulk], dim=1)
+    rows = frames.frame_rows(table, lab).reshape(6, r, w)
+    return [rows, lab.reshape(r, w), work["pos"][3].reshape(3, r, w),
+            work["vel"][3].reshape(3, r, w), *carry]
+
+
+def label_kernel_checks(dev, work):
+    """K4/K5, K6, K7, K8 and K9 against their plain versions on the same
+    CUDA tensors, at the label path's full-width shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from orbitanalysis_tpu_torch.ops import compact, frames, label
+
+    results = {}
+    rng = np.random.default_rng(4)
+    n = work["label"].shape[1]
+    r, w, k = n // LABEL_ROW, LABEL_ROW, LABEL_K
+    k128 = compact._k128(k, w)
+
+    # K4/K5: payload words at [64, 32768]
+    worst = 0
+    for density in (0.0, 0.017, 0.07, 0.5, 1.0, "clustered"):
+        if density == "clustered":
+            sel = rng.random((r, w)) < 0.01
+            sel[1, w // 8:w // 8 + 700] = True
+            sel[2, w - 200:] = True
+        else:
+            sel = rng.random((r, w)) < density
+        ang = rng.integers(0, 0x7BFF, (r, w)).astype(np.uint32)
+        pos1 = np.arange(1, w + 1, dtype=np.uint32)
+        pay = np.where(sel, (pos1 << np.uint32(15)) | ang, np.uint32(0))
+        x = torch.from_numpy(pay.view(np.int32)).to(dev)
+        got = compact.compact_payload(x, k)
+        got_b = compact.compact_payload_blocked(x, k)
+        want = compact.compact_payload_torch(x, k)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        worst = max(worst, err)
+        log(f"  compact_payload_rows [{r}, {w}] K={k} density={density}: "
+            f"events {int(sel.sum())}, max |kernel - plain| = {err}")
+        check(torch.equal(got, want) and torch.equal(got_b, want),
+              f"compact_payload_rows differs from its plain version at "
+              f"{density}")
+        if density == 0.017:
+            b_ms, b_by = bound(x.numel() * 4 + r * k128 * 4, 4 * x.numel())
+            results["compact_payload_rows"] = dict(
+                ms=cuda_ms(lambda: compact.compact_payload(x, k)),
+                plain_ms=cuda_ms(lambda: compact.compact_payload_torch(x, k)),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    results["compact_payload_rows"]["max_abs_err"] = worst
+
+    # K6: frame rows of snapshot 0 (10 % of the pool untracked: -1)
+    lab = work["label"][0]
+    table = torch.from_numpy(rng.normal(
+        size=(LABEL[0], 6)).astype(np.float32)).to(dev)
+    got = frames.frame_rows(table, lab)
+    want = frames.frame_rows_torch(table, lab)
+    torch.cuda.synchronize()
+    n_neg = int((lab < 0).sum())
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+          "frame_rows differs from its plain version")
+    log(f"  frame_rows [{LABEL[0]}, 6] x {n} labels ({n_neg} of them -1): "
+        "bit-exact")
+    lab1 = lab + 1
+    padded = torch.cat([torch.zeros_like(table[:1]), table])
+    b_ms, b_by = bound(n * 4 + table.numel() * 4 + 6 * n * 4, 0)
+    results["frame_rows"] = dict(
+        max_abs_err=float((got - want).abs().max()),
+        ms=cuda_ms(lambda: frames.frame_rows(table, lab)),
+        plain_ms=cuda_ms(lambda: frames.frame_rows_torch(table, lab)),
+        library_ms=cuda_ms(lambda: F.embedding(lab1, padded)),
+        bound_ms=b_ms, bound_by=b_by)
+
+    # K7: moments of snapshot 0, without masses (the main path) and with
+    vel = work["vel"][0]
+    mass = torch.from_numpy(rng.uniform(0.5, 2.0, n).astype(np.float32)
+                            ).to(dev)
+    worst = 0.0
+    for m in (None, mass):
+        got = frames.segment_moments(lab, vel, m, n_halos=LABEL[0])
+        again = frames.segment_moments(lab, vel, m, n_halos=LABEL[0])
+        want = frames.segment_moments_torch(lab, vel, m, n_halos=LABEL[0])
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        log(f"  segment_moments {'with' if m is not None else 'without'} "
+            f"masses: max |kernel - plain| = {err:.3g} (|sum| up to "
+            f"{float(want.abs().max()):.6g}); rerun bit-identical: "
+            f"{torch.equal(got, again)}")
+        check(torch.equal(got, again), "segment_moments is not repeatable")
+        check(torch.allclose(got, want, rtol=2e-6, atol=2e-6),
+              "segment_moments differs from its plain version")
+    ok = (lab >= 0).to(torch.float32)
+    idx = torch.clamp(lab, min=0)
+    vals = torch.cat([vel.T * ok[:, None], ok[:, None]], dim=1).contiguous()
+    acc = torch.zeros((LABEL[0], 4), device=dev)
+    b_ms, b_by = bound(n * 16 + LABEL[0] * 16, 7 * n)
+    results["segment_moments"] = dict(
+        max_abs_err=worst,
+        ms=cuda_ms(lambda: frames.segment_moments(lab, vel, None,
+                                                  n_halos=LABEL[0])),
+        plain_ms=cuda_ms(lambda: frames.segment_moments_torch(
+            lab, vel, None, n_halos=LABEL[0])),
+        library_ms=cuda_ms(lambda: acc.index_add_(0, idx, vals)),
+        bound_ms=b_ms, bound_by=b_by)
+
+    # K8 / K9 on snapshot 3 of the carry after three real steps
+    kw = dict(pericentric=True, box_size=LABEL_BOX)
+    worst = {"detect_label_compact_rows": 0.0, "detect_label_rows": 0.0}
+    for packed in (False, True):
+        args = _detect_inputs(dev, work, packed)
+        k9 = label.detect_label(*args, 0.0, rhat_packed=packed, **kw)
+        k8 = label.detect_label_compact(*args, 0.0, event_capacity=k,
+                                        rhat_packed=packed, **kw)
+        plain = label.detect_label_torch(*args, 0.0, rhat_packed=packed,
+                                         **kw)
+        plain_ev = compact.compact_payload_torch(plain[3], k)
+        torch.cuda.synchronize()
+        matched = int((args[6] < 0).sum())
+        for name, got, want in (
+                ("detect_label_rows", k9, plain),
+                ("detect_label_compact_rows", k8,
+                 (*plain[:3], plain_ev, plain[4]))):
+            diff = {f: int((g.view(torch.int32) != v.view(torch.int32)).sum())
+                    for f, g, v in zip(("lab_sv", "rhat", "packed",
+                                        "events", "count"), got, want)}
+            check(torch.equal(got[4], want[4]), f"{name}: counts differ")
+            check(torch.equal(got[0], want[0]), f"{name}: lab_sv differs")
+            check(torch.equal(got[2] < 0, want[2] < 0),
+                  f"{name}: matched bits differ")
+            check(torch.equal((got[3] >> 15) & 0x1FFFF,
+                              (want[3] >> 15) & 0x1FFFF),
+                  f"{name}: event positions differ")
+            d16 = int(((got[3] & 0x7FFF) - (want[3] & 0x7FFF)).abs().max())
+            dang = float(((got[2] & 0x7FFFFFFF).view(torch.float32)
+                          - (want[2] & 0x7FFFFFFF).view(torch.float32)
+                          ).abs().max())
+            check(d16 <= 1 or dang <= ANGLE_ATOL,
+                  f"{name}: angles differ by {d16} f16 ulps, {dang:.3g} rad")
+            worst[name] = max(worst[name], dang)
+            log(f"  {name} [{r}, {w}] rhat {'packed' if packed else 'f32'}: "
+                f"{int(want[4].sum())} events, {matched} matched lanes in; "
+                f"counts, lab_sv, matched bits and positions equal; lanes "
+                f"that differ at all: {diff}; max f16 ulps {d16}, max "
+                f"|angle diff| {dang:.3g} rad")
+        if packed:
+            # bytes a particle: rows 24, label 4, pos 12, vel 12, sv 4,
+            # rhat 4, packed 4 in; sv, rhat, packed out (+ payload 4 for
+            # K9, the [R, k128] events for K8); ~120 float operations
+            b8 = bound(n * 76 + r * k128 * 4 + r * 4, 120 * n)
+            b9 = bound(n * 80 + r * 4, 120 * n)
+            results["detect_label_compact_rows"] = dict(
+                ms=cuda_ms(lambda: label.detect_label_compact(
+                    *args, 0.0, event_capacity=k, rhat_packed=True, **kw)),
+                plain_ms=cuda_ms(lambda: label.detect_label_compact_torch(
+                    *args, 0.0, event_capacity=k, rhat_packed=True, **kw)),
+                library_ms=None, bound_ms=b8[0], bound_by=b8[1])
+            results["detect_label_rows"] = dict(
+                ms=cuda_ms(lambda: label.detect_label(
+                    *args, 0.0, rhat_packed=True, **kw)),
+                plain_ms=cuda_ms(lambda: label.detect_label_torch(
+                    *args, 0.0, rhat_packed=True, **kw)),
+                library_ms=None, bound_ms=b9[0], bound_by=b9[1])
+    for name, err in worst.items():
+        results[name]["max_abs_err"] = err
+    return results
+
+
+def _compare_events(a, b, what):
+    """Counts and positions exact, angles within one f16 ulp or
+    ANGLE_ATOL; returns (events, angles beyond one ulp, max diff)."""
+    ca, cb = a.count.cpu().numpy(), b.count.cpu().numpy()
+    check(np.array_equal(ca, cb), f"{what}: event counts differ")
+    ia, ib = a.index.cpu().numpy(), b.index.cpu().numpy()
+    check(np.array_equal(ia, ib), f"{what}: event positions differ")
+    sel = ia >= 0
+    ulps, diff = f16_ulps(a.angle.cpu().numpy()[sel],
+                          b.angle.cpu().numpy()[sel])
+    check(np.all((ulps <= 1) | (diff <= ANGLE_ATOL)),
+          f"{what}: event angles differ by {diff.max(initial=0):.3g} rad")
+    return int(ca.sum()), int((ulps > 1).sum()), float(diff.max(initial=0))
+
+
+def label_parity(dev, work):
+    """The label step on CUDA against the CPU on the first rows of the
+    pool, with the bulk velocities given (both sides the same frames),
+    through K8 (K = 2048) and through K9 + the payload compaction
+    (K = 8192 exceeds the 256 x 16 block fronts of a 32768 row)."""
+    import torch
+
+    from orbitanalysis_tpu_torch.ops import frames
+    from orbitanalysis_tpu_torch.ops import label_step as ls
+
+    rows, n_snap = LABEL_PARITY
+    n = rows * LABEL_ROW
+    h = rows  # the first rows hold halos 0 .. rows - 1
+    host = {key: work[key][:n_snap].cpu() for key in ("label", "pos", "vel")}
+    host = dict(label=host["label"][:, :n], pos=host["pos"][:, :, :n],
+                vel=host["vel"][:, :, :n],
+                centers=work["centers"][:n_snap, :h].cpu())
+    bulk = torch.stack([
+        (lambda m: m[:, :3] / torch.clamp(m[:, 3:4], min=1e-30))(
+            frames.segment_moments_torch(host["label"][s], host["vel"][s],
+                                         n_halos=h))
+        for s in range(n_snap)])
+    for k in (LABEL_K, 8192):
+        out = []
+        for d in (dev, "cpu"):
+            carry = ls.init_label_carry(n, True, LABEL_ROW, device=d)
+            _, ev = ls.scan_label_events(
+                carry, host["pos"], host["vel"], host["label"],
+                host["centers"], event_capacity=k, box_size=LABEL_BOX,
+                bulk_vel_seq=bulk, row_width=LABEL_ROW, rhat_packed=True)
+            out.append(ev)
+        events, beyond, worst = _compare_events(*out, f"label parity K={k}")
+        check(events > 0, "label parity produced no events")
+        log(f"  K={k}: {events} events over {n_snap} snapshots of "
+            f"[{rows}, {LABEL_ROW}], counts and positions equal CUDA vs "
+            f"CPU; {beyond} angles beyond one f16 ulp (max |diff| "
+            f"{worst:.3g} rad)")
+
+
+def profile_scan(run_scan, s_n, wall_ms):
+    """torch.profiler over one scan: device time by kernel, the launches
+    a step issues, and the device's idle share of the steady-state wall
+    time.  Reports; checks nothing."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_scan()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0))
+        if e.device_type == torch.autograd.DeviceType.CUDA and t > 0:
+            rows.append((t, e.count, e.key))
+    total = sum(t for t, _, _ in rows) / 1e3
+    if not rows:
+        log("  profiler: no device time recorded")
+        return
+    launches = sum(c for _, c, _ in rows)
+    log(f"  profiler, one scan: device busy {total:.3f} ms "
+        f"({total / s_n:.4f} ms/step), {launches / s_n:.1f} device "
+        f"kernels a step; idle share of the steady-state wall "
+        f"{max(0.0, 1 - total / wall_ms):.3f}; by kernel (ms/step, share):")
+    for t, c, key in sorted(rows, reverse=True)[:12]:
+        log(f"    {t / 1e3 / s_n:.4f} ms/step {t / 1e3 / total:6.1%} "
+            f"x{c / s_n:.0f}/step  {key[:90]}")
+
+
+def label_full_width(dev, work):
+    """The label-native main path at full width (counted), then its
+    timing.  Returns the kernel launches of the counted runs."""
+    import torch
+
+    from orbitanalysis_tpu_torch.ops import _cuda
+    from orbitanalysis_tpu_torch.ops import label_step as ls
+
+    n = work["label"].shape[1]
+    s_n = work["label"].shape[0]
+    seq = (work["pos"], work["vel"], work["label"], work["centers"])
+    kw = dict(box_size=LABEL_BOX, row_width=LABEL_ROW, rhat_packed=True)
+
+    def scan(k, frames="auto", bulk=None):
+        carry = ls.init_label_carry(n, True, LABEL_ROW, device=dev)
+        return ls.scan_label_events(carry, *seq, event_capacity=k,
+                                    frames=frames, bulk_vel_seq=bulk, **kw)
+
+    # ---- the main path, counted
+    _cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, ev = scan(LABEL_K)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts_auto = _cuda.launch_counts()
+    _, ev9 = scan(8192, bulk=ev.bulk_vel)
+    _, ev2 = scan(LABEL_K, frames="twolevel", bulk=ev.bulk_vel)
+    torch.cuda.synchronize()
+    launches = _cuda.launch_counts()
+    # ---- end of the counted main path
+
+    total = int(ev.count.sum())
+    per_kernel = {name: counts_auto[name] for name in (
+        "frame_rows", "segment_moments", "detect_label_compact_rows")}
+    log(f"  frames='auto' at [{n // LABEL_ROW}, {LABEL_ROW}] x {s_n} "
+        f"snapshots, K={LABEL_K}: {total} events (the JAX benchmark's "
+        f"total: {LABEL_EVENTS}); launches {per_kernel}; first scan "
+        f"{first_s:.3f} s incl. warm-up")
+    check(total == LABEL_EVENTS,
+          f"label path found {total} events, not {LABEL_EVENTS}")
+    check(all(c == s_n for c in per_kernel.values()),
+          f"frame_rows / segment_moments / detect_label_compact_rows "
+          f"launches {per_kernel}, not {s_n} each")
+    check(int(ev.count.max()) <= LABEL_K, "a row overflowed K = 2048")
+    for other, what in ((ev9, "K=8192 (detect kernel + payload "
+                               "compaction)"),
+                        (ev2, "'twolevel' (plain chain + payload "
+                              "compaction)")):
+        k_other = other.index.shape[-1]
+        check(torch.equal(other.count, ev.count),
+              f"{what}: event counts differ from frames='auto'")
+        check(torch.equal(other.index[..., :LABEL_K] if k_other > LABEL_K
+                          else other.index, ev.index),
+              f"{what}: event positions differ from frames='auto'")
+        log(f"  {what}: the same {int(other.count.sum())} events and "
+            "positions")
+    check(launches["detect_label_rows"] == s_n, "K9 launches != snapshots")
+    check(launches["compact_payload_rows"] == 2 * s_n,
+          "payload compaction launches != 2 x snapshots")
+
+    # ---- timing: wall and device ms per step over whole scans, the
+    # host's time to queue a step, and where the device time goes
+    step = ls.make_label_orbit_step(LABEL_K, **kw)
+
+    def run_scan(queue=None):
+        carry = ls.init_label_carry(n, True, LABEL_ROW, device=dev)
+        for s in range(s_n):
+            t1 = time.perf_counter()
+            carry, _ = step(carry, (work["pos"][s], work["vel"][s],
+                                    work["label"][s], work["centers"][s],
+                                    None, None, 0.0))
+            if queue is not None:
+                queue.append((time.perf_counter() - t1) * 1e3)
+
+    run_scan()  # warm-up
+    walls, busy, queue = [], [], []
+    for _ in range(LABEL_SCANS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        run_scan(queue)
+        b.record()
+        b.synchronize()
+        walls.append(a.elapsed_time(b))
+        busy.append(device_ms(run_scan))
+    wall_ms, dev_ms = statistics.median(walls), statistics.median(busy)
+    host_ms = statistics.median(queue)
+    updates = s_n * work["n_valid"]
+    log(f"  label step, frames='auto' ('split': K7 -> K6 -> K8), medians of "
+        f"{LABEL_SCANS} scans of {s_n} steps (CUDA events): wall "
+        f"{wall_ms / s_n:.4f} ms/step (scans {min(walls):.3f}-"
+        f"{max(walls):.3f} ms), device {dev_ms / s_n:.4f} ms/step (the card "
+        f"held busy while the host queues the scan; scans {min(busy):.3f}-"
+        f"{max(busy):.3f} ms); the host takes {host_ms:.4f} ms to queue a "
+        f"step; {updates / (wall_ms * 1e-3):.4g} particle-snapshot "
+        f"updates/s at the wall, {updates / (dev_ms * 1e-3):.4g} at the "
+        f"device time ({s_n} x {work['n_valid']} updates a scan)")
+    profile_scan(run_scan, s_n, wall_ms)
+    return launches
+
+
 def main():
     import torch
 
@@ -470,34 +948,52 @@ def main():
     dev = torch.device(DEVICE)
     log("== phase 1: environment")
     log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)},"
-        f" count {torch.cuda.device_count()}")
+        f"CUDA {torch.version.cuda}, numpy {np.__version__}, device "
+        f"{torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+    log(f"  {smi}")
     log("== phase 2: build")
     t0 = time.perf_counter()
     nvcc_s = _cuda.build()
-    log(f"  nvcc compact.cu -> {os.path.basename(_cuda.library_path())}: "
-        f"{nvcc_s:.2f} s ({time.perf_counter() - t0:.2f} s with the check)")
+    log(f"  nvcc {', '.join(os.path.basename(f) for f in _cuda.sources())} "
+        f"-> {os.path.basename(_cuda.library_path())}: {nvcc_s:.2f} s "
+        f"({time.perf_counter() - t0:.2f} s with the check)")
+    for src, out in sorted(_cuda.build_log.items()):
+        for line in out.splitlines():
+            if "Function properties" in line or "Used" in line or (
+                    "spill" in line and " 0 bytes spill" not in line):
+                log(f"  ptxas {src}: {line.strip()}")
     t0 = time.perf_counter()
     tier = native.tier()
     log(f"  host packing tier: {tier} ({time.perf_counter() - t0:.2f} s)")
-    log("== phase 3: kernels against their plain-torch twins")
+    work = label_workload(dev)
+    log("== phase 3: kernels against their plain-torch versions")
     timings = kernel_checks(dev)
+    timings.update(label_kernel_checks(dev, work))
+    log_timings(timings)
     log(f"== phase 4: aligned step parity, CUDA vs CPU, {PARITY[:2]}")
     step_parity(dev)
-    log("== phase 5: end to end at config-2 scale")
+    log("== phase 5: the aligned main path end to end at config-2 scale")
     launches = end_to_end(dev)
+    log(f"== phase 6: label step parity, CUDA vs CPU, "
+        f"[{LABEL_PARITY[0]}, {LABEL_ROW}] x {LABEL_PARITY[1]} snapshots")
+    label_parity(dev, work)
+    log("== phase 7: the label-native main path at full width")
+    label_launches = label_full_width(dev, work)
     kernels = []
     for name, k in _cuda.KERNELS.items():
+        n = launches[name] + label_launches[name]
+        r = timings[name]
         kernels.append(dict(
             name=name, route=k.route, source=k.source, replaces=k.replaces,
-            launches=launches[name], max_abs_err=timings[name]["max_abs_err"],
-            ms=timings[name]["ms"], plain_ms=timings[name]["plain_ms"],
+            launches=n, max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
         ))
-        check(launches[name] > 0, f"{name} was not launched by the main path")
+        check(n > 0, f"{name} was not launched by a main path")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

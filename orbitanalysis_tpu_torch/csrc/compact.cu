@@ -1,5 +1,5 @@
-// Ordered event compaction for the aligned engine's step, hand-written
-// for Hopper (sm_90a).
+// Ordered event compaction for the aligned engine's step and the
+// label-native detector's routes, hand-written for Hopper (sm_90a).
 //
 // Replaces the TPU kernels of orbitanalysis_tpu/ops/pallas_compact.py:
 //   K1  _compact_angle_blocked_kernel  (entry compact_angle_blocked)
@@ -7,8 +7,12 @@
 //       -> compact_angle_rows below
 //   K3  _compact_payload_pair_kernel   (entry compact_payload_pair)
 //       -> compact_pair_rows below
+//   K4  _compact_payload_kernel        (entry compact_payload, call :240)
+//   K5  _compact_payload_blocked_kernel (entry compact_payload_blocked,
+//       call :502, K4's blocked form with a lax.cond reroute to K4)
+//       -> compact_payload_rows below
 //
-// Contract (both entry points): each row of an [H, P] uint32 plane is
+// Contract (every entry point): each row of an [H, P] uint32 plane is
 // compacted, in position order, into the front of an [H, k128] row;
 // entries past the row's event count are written as zero.
 //   compact_angle_rows: aw = f32_bits(angle) | apsis << 31.  An entry is
@@ -18,11 +22,14 @@
 //   compact_pair_rows: posw (pos + 1 where an event fired, else 0) and
 //     angw (the f16 angle bits); an entry is an event where posw != 0,
 //     and both words move together.
+//   compact_payload_rows: prebuilt payload words
+//     ((pos + 1) << 15) | f16(angle); an entry is an event where the
+//     word is >= 2^15 (a non-event is 0), and it moves unchanged.
 //
-// The TPU split K1/K2 exists for VMEM and the 16-entry block fronts of
-// the blocked network; here there is one exact ordered stream
-// compaction with no occupancy limit.  Design: one block per row, 1024
-// threads walking the row in tiles of 1024 entries.  In a tile,
+// The TPU splits K1/K2 and K4/K5 exist for VMEM and the 16-entry block
+// fronts of the blocked network; here there is one exact ordered stream
+// compaction with no occupancy limit, so nothing reroutes.  Design: one
+// block per row, 1024 threads walking the row in tiles of 1024 entries.  In a tile,
 // __ballot_sync + __popc give each event its rank inside its warp, warp
 // 0 scans the 32 warp totals in shared memory, and a running base
 // carries the count across tiles.  A row stops reading once its k128
@@ -41,59 +48,12 @@
 // so FMA contraction cannot change a result; the build still passes
 // --fmad=false.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
-
-// IEEE f32 -> f16 bit pattern, round-to-nearest-even, mirroring
-// orbitanalysis_tpu/ops/pallas_label.py f16_bits_rne: values above the
-// f16 range (and inf/NaN) clamp to 0x7BFF instead of 0x7C00, which
-// __float2half_rn would give.
-__device__ __forceinline__ uint32_t f16_bits_rne(float x) {
-  const int32_t u = __float_as_int(x);
-  const int32_t e = u >> 23;  // biased exponent (sign bit is clear here)
-  if (e >= 113) {
-    // normal f16: RNE folded into one add; carries run from the
-    // mantissa into the exponent as IEEE requires
-    const uint32_t rn =
-        static_cast<uint32_t>(u) + 0x0FFFu + ((static_cast<uint32_t>(u) >> 13) & 1u);
-    const int32_t h = static_cast<int32_t>(rn - 0x38000000u) >> 13;
-    return static_cast<uint32_t>(min(h, 0x7BFF));
-  }
-  // subnormal f16: RNE(x * 2^24), an exact scale then round half even
-  return static_cast<uint32_t>(__float2int_rn(fminf(x * 16777216.0f, 2e9f)));
-}
-
-// Exclusive offset of this warp's events within the tile, and the
-// tile's event total, from each warp's event count.  Ends with a
-// barrier, so the caller may read both results; the caller must pass a
-// barrier before the next call rewrites the shared arrays.
-__device__ __forceinline__ void tile_offsets(int warp_count, int* warp_off,
-                                             int* tile_total, int& before,
-                                             int& total) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) warp_off[warp] = warp_count;
-  __syncthreads();
-  if (warp == 0) {
-    const int t = warp_off[lane];
-    int incl = t;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int n = __shfl_up_sync(0xffffffffu, incl, d);
-      if (lane >= d) incl += n;
-    }
-    warp_off[lane] = incl - t;
-    if (lane == kWarps - 1) *tile_total = incl;
-  }
-  __syncthreads();
-  before = warp_off[warp];
-  total = *tile_total;
-}
 
 __global__ void __launch_bounds__(kThreads)
 compact_angle_rows_kernel(const uint32_t* __restrict__ aw,
@@ -111,7 +71,7 @@ compact_angle_rows_kernel(const uint32_t* __restrict__ aw,
     const bool sel = (w >> 31) != 0u;
     const uint32_t ballot = __ballot_sync(0xffffffffu, sel);
     int before, total;
-    tile_offsets(__popc(ballot), warp_off, &tile_total, before, total);
+    tile_offsets<kWarps>(__popc(ballot), warp_off, &tile_total, before, total);
     if (sel) {
       const int off = base + before + __popc(ballot & lanes_below);
       if (off < k128) {
@@ -146,7 +106,7 @@ compact_pair_rows_kernel(const uint32_t* __restrict__ posw,
     const bool sel = w != 0u;
     const uint32_t ballot = __ballot_sync(0xffffffffu, sel);
     int before, total;
-    tile_offsets(__popc(ballot), warp_off, &tile_total, before, total);
+    tile_offsets<kWarps>(__popc(ballot), warp_off, &tile_total, before, total);
     if (sel) {
       const int off = base + before + __popc(ballot & lanes_below);
       if (off < k128) {
@@ -161,6 +121,33 @@ compact_pair_rows_kernel(const uint32_t* __restrict__ posw,
     op[j] = 0u;
     oa[j] = 0u;
   }
+}
+
+__global__ void __launch_bounds__(kThreads)
+compact_payload_rows_kernel(const uint32_t* __restrict__ pay,
+                            uint32_t* __restrict__ out, int P, int k128) {
+  __shared__ int warp_off[kWarps];
+  __shared__ int tile_total;
+  const uint32_t* in = pay + static_cast<size_t>(blockIdx.x) * P;
+  uint32_t* o = out + static_cast<size_t>(blockIdx.x) * k128;
+  const int lane = threadIdx.x & 31;
+  const uint32_t lanes_below = (1u << lane) - 1u;
+  int base = 0;
+  for (int start = 0; start < P && base < k128; start += kThreads) {
+    const int i = start + threadIdx.x;
+    const uint32_t w = i < P ? in[i] : 0u;
+    const bool sel = w >= (1u << 15);
+    const uint32_t ballot = __ballot_sync(0xffffffffu, sel);
+    int before, total;
+    tile_offsets<kWarps>(__popc(ballot), warp_off, &tile_total, before, total);
+    if (sel) {
+      const int off = base + before + __popc(ballot & lanes_below);
+      if (off < k128) o[off] = w;
+    }
+    base += total;
+    __syncthreads();
+  }
+  for (int j = min(base, k128) + threadIdx.x; j < k128; j += kThreads) o[j] = 0u;
 }
 
 }  // namespace
@@ -184,6 +171,15 @@ extern "C" int compact_pair_rows(const void* posw, const void* angw,
     compact_pair_rows_kernel<<<H, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint32_t*>(posw), static_cast<const uint32_t*>(angw),
         static_cast<uint32_t*>(out_pos), static_cast<uint32_t*>(out_ang), P, k128);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int compact_payload_rows(const void* pay, void* out, int H, int P,
+                                    int k128, void* stream) {
+  if (H > 0) {
+    compact_payload_rows_kernel<<<H, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(pay), static_cast<uint32_t*>(out), P, k128);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -52,6 +52,7 @@ from orbitanalysis_tpu_torch.ops.sorted_step import (
     init_aligned_carry,
     make_aligned_native_step,
 )
+from orbitanalysis_tpu_torch.utils.device import resolve_device
 from orbitanalysis_tpu_torch.utils.metrics import Metrics, phase_timer, trace
 from orbitanalysis_tpu_torch.utils.numerics import hubble_parameter
 from orbitanalysis_tpu_torch.utils.padding import (
@@ -429,16 +430,6 @@ class _DeviceEngine:
         return _host(self.carry.angles)
 
 
-def _resolve_device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "track_orbits runs on a CUDA device by default, and none is "
-            "available; pass device='cpu' to run on the CPU"
-        )
-    return device
-
-
 def track_orbits(
     snapshot_numbers,
     main_branches,
@@ -503,7 +494,7 @@ def track_orbits(
     Not ported yet: ``mesh=`` (the halo- and hash-sharded engines) and
     ``join_impl='sorted'`` raise NotImplementedError.
     """
-    device = _resolve_device(device)
+    device = resolve_device(device, "track_orbits")
     writer = io_hdf5.H5Writer() if writer is None else writer
     if mesh is not None:
         raise NotImplementedError(

@@ -153,3 +153,81 @@ def churn_snapshots(
             )
         snaps.append(snap)
     return snaps, centers
+
+
+def label_churn_workload(n_halos: int, capacity: int, n_snaps: int,
+                         seed: int = 0, churn: float = 0.07):
+    """The JAX package's benchmark churn workload (``bench.py``:
+    ``make_orbits``, ``make_churn_sequence``, ``make_label_sequence``) in
+    the label-native representation, with the same NumPy draws in the
+    same order, so one seed gives the same arrays as ``bench.py``.
+
+    ``n_halos`` halos each own a pool of ``capacity`` particles on
+    eccentric orbits (radial breathing on circular motion, random
+    planes and phases); each halo tracks 90 % of its pool, and per
+    snapshot ``churn`` of the tracked count swaps against the reserve.
+    Particle ``h * capacity + c`` is slot ``c`` of halo ``h``'s pool.
+
+    Returns ``(label [S, N] int32 (-1 untracked), pos [S, 3, N] f32,
+    vel [S, 3, N] f32, centers [S, H, 3] f32, n_valid_total)`` with
+    ``N = n_halos * capacity``.  The benchmark's per-row ID shuffle and
+    load-order gathers are skipped; their random draws are still taken.
+    """
+    rng = np.random.default_rng(seed)
+    H, C, S = n_halos, capacity, n_snaps
+    center = rng.uniform(20.0, 80.0, size=(H, 3)).astype(np.float32)
+    r0 = rng.uniform(0.5, 5.0, size=(H, C)).astype(np.float32)
+    omega = (1.0 / r0**1.5).astype(np.float32)
+    phase0 = rng.uniform(0, 2 * np.pi, size=(H, C)).astype(np.float32)
+    axis_x = rng.normal(size=(H, C, 3)).astype(np.float32)
+    axis_x /= np.linalg.norm(axis_x, axis=-1, keepdims=True)
+    tmp = rng.normal(size=(H, C, 3)).astype(np.float32)
+    tmp -= (tmp * axis_x).sum(-1, keepdims=True) * axis_x
+    axis_y = (tmp / np.linalg.norm(tmp, axis=-1, keepdims=True)).astype(
+        np.float32)
+    for _ in range(H):  # the benchmark's per-row ID shuffle
+        rng.random(C)
+    ecc = rng.uniform(0.2, 0.5, size=(H, C)).astype(np.float32)
+    phase_r = rng.uniform(0, 2 * np.pi, size=(H, C)).astype(np.float32)
+    dt = np.float32(0.3)
+    pos = np.empty((S, 3, H * C), dtype=np.float32)
+    vel = np.empty_like(pos)
+    for s in range(S):
+        ph = phase0 + omega * (np.float32(s) * dt)
+        phr = phase_r + omega * (np.float32(s) * dt)
+        r = r0 * (1.0 + ecc * np.sin(phr))
+        rdot = r0 * ecc * omega * np.cos(phr)
+        cph, sph = np.cos(ph), np.sin(ph)
+        p = (center[:, None, :]
+             + r[..., None] * (cph[..., None] * axis_x
+                               + sph[..., None] * axis_y))
+        v = (rdot[..., None] * (cph[..., None] * axis_x
+                                + sph[..., None] * axis_y)
+             + (r * omega)[..., None] * (-sph[..., None] * axis_x
+                                         + cph[..., None] * axis_y))
+        pos[s] = p.reshape(-1, 3).T
+        vel[s] = v.reshape(-1, 3).T
+
+    n_valid = int(C * 0.9)
+    k = min(int(round(churn * n_valid)), C - n_valid)
+    member = np.zeros((H, C), dtype=bool)
+    init = np.argsort(rng.random((H, C)), axis=1)[:, :n_valid]
+    np.put_along_axis(member, init, True, axis=1)
+    rows = np.arange(H)[:, None]
+    home = np.repeat(np.arange(H, dtype=np.int32), C)
+    label = np.empty((S, H * C), dtype=np.int32)
+    n_valid_total = 0
+    for s in range(S):
+        if s > 0 and k > 0:
+            keys = np.where(member, rng.random((H, C)), np.inf)
+            drop = np.argpartition(keys, k - 1, axis=1)[:, :k]
+            member[rows, drop] = False
+            keys = np.where(member, np.inf, rng.random((H, C)))
+            add = np.argpartition(keys, k - 1, axis=1)[:, :k]
+            member[rows, add] = True
+        if s == 0:
+            n_valid_total = int(member.sum())
+        label[s] = np.where(member.reshape(-1), home, -1)
+        rng.random((H, C))  # the benchmark's load-order shuffle
+    centers = np.ascontiguousarray(np.broadcast_to(center, (S, H, 3)))
+    return label, pos, vel, centers, n_valid_total

@@ -1,11 +1,10 @@
 """Native (C++) host tier, loaded through ctypes (twin of
 ``orbitanalysis_tpu/native/__init__.py``).
 
-The port builds the very same source the JAX package ships,
-``orbitanalysis_tpu/native/packing.cpp`` (found by path next to this
-package; importing the JAX package itself would pull in jax), with g++
-into the port's own git-ignored build directory, keyed by a hash of the
-source.  It holds the multithreaded ragged-block packer and the
+The port keeps its own copy of the JAX package's
+``orbitanalysis_tpu/native/packing.cpp`` beside this module and builds
+it with g++ into the port's own git-ignored build directory, keyed by a
+hash of the source.  It holds the multithreaded ragged-block packer and the
 stable-layout aligner that feed the device engine.  Everything here is
 optional: the NumPy fallbacks in :mod:`orbitanalysis_tpu_torch.utils.
 padding` and :mod:`orbitanalysis_tpu_torch.engine.packing` compute the
@@ -23,9 +22,8 @@ import threading
 import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(
-    os.path.dirname(_PKG), "orbitanalysis_tpu", "native", "packing.cpp"
-)
+SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "packing.cpp")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 _lock = threading.Lock()

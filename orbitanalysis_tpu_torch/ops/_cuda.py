@@ -1,12 +1,13 @@
 """Build, load and launch the hand-written CUDA kernels of ``csrc/``.
 
-At first use, ``nvcc`` compiles ``csrc/compact.cu`` for ``sm_90a`` into
-a shared library with a plain C interface under the package's
-git-ignored ``_build/`` directory, named by a hash of the source and
-flags, and ctypes loads it.  Launches take device pointers from
-``Tensor.data_ptr()`` and run on PyTorch's current stream; each C entry
-point returns ``cudaGetLastError()`` and the wrapper raises if it is
-not 0.  Each kernel keeps a plain count of its launches.
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one
+process per source, all started together) and links them into one
+shared library with a plain C interface under the package's git-ignored
+``_build/`` directory, named by a hash of the sources and flags; ctypes
+loads it.  Launches take device pointers from ``Tensor.data_ptr()`` and
+run on PyTorch's current stream; each C entry point returns
+``cudaGetLastError()`` and the wrapper raises if it is not 0.  Each
+kernel keeps a plain count of its launches.
 
 Nothing here runs at import: this module imports on machines without
 CUDA or nvcc, and only a launch needs them.
@@ -15,6 +16,7 @@ CUDA or nvcc, and only a launch needs them.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -25,33 +27,53 @@ import time
 import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "compact.cu")
+CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
+#: --fmad=false: no a*b+c contraction, so the kernels round as the plain
+#: torch versions do; IEEE sqrt and division stated (nvcc's defaults).
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-prec-sqrt=true", "-prec-div=true", "-Xcompiler",
+    "-fPIC",
 ]
+
+#: What ``nvcc -Xptxas -v`` printed for each source at the last build
+#: (registers, shared memory and spills of every kernel), by file name.
+build_log: dict = {}
 
 
 class Kernel:
     """A kernel entry point of the library, with its launch count."""
 
-    def __init__(self, name: str, route: str, source: str, replaces: str):
+    def __init__(self, name: str, source: str, replaces: str):
         self.name = name
-        self.route = route
+        self.route = "cuda"
         self.source = source
         self.replaces = replaces
         self.launches = 0
 
 
+_SRC = "orbitanalysis_tpu_torch/csrc/"
+_JAX = "orbitanalysis_tpu/ops/"
+
 KERNELS = {
     k.name: k for k in (
-        Kernel("compact_angle_rows", "cuda",
-               "orbitanalysis_tpu_torch/csrc/compact.cu",
-               "orbitanalysis_tpu/ops/pallas_compact.py:416"),
-        Kernel("compact_pair_rows", "cuda",
-               "orbitanalysis_tpu_torch/csrc/compact.cu",
-               "orbitanalysis_tpu/ops/pallas_compact.py:627"),
+        Kernel("compact_angle_rows", _SRC + "compact.cu",
+               _JAX + "pallas_compact.py:416"),
+        Kernel("compact_pair_rows", _SRC + "compact.cu",
+               _JAX + "pallas_compact.py:627"),
+        # K4 (_compact_payload_call, :240) and K5
+        # (_compact_payload_blocked_call, :502) are one kernel here
+        Kernel("compact_payload_rows", _SRC + "compact.cu",
+               _JAX + "pallas_compact.py:240"),
+        Kernel("frame_rows", _SRC + "frames.cu",
+               _JAX + "pallas_frames.py:184"),
+        Kernel("segment_moments", _SRC + "frames.cu",
+               _JAX + "pallas_frames.py:259"),
+        Kernel("detect_label_compact_rows", _SRC + "label.cu",
+               _JAX + "pallas_label.py:555"),
+        Kernel("detect_label_rows", _SRC + "label.cu",
+               _JAX + "pallas_label.py:395"),
     )
 }
 
@@ -66,6 +88,11 @@ def reset_launch_counts():
 
 def launch_counts() -> dict:
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+def sources() -> list:
+    """The CUDA sources built into the library (``.cu``), sorted."""
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
 def _nvcc() -> str:
@@ -84,32 +111,58 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        h = hashlib.sha256(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libcompact-{h.hexdigest()[:16]}.so")
+    """The library's path: a hash of every source and header of
+    ``csrc/`` and of the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(glob.glob(os.path.join(CSRC, "*.cu*"))):
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libkernels-{h.hexdigest()[:16]}.so")
 
 
 def build() -> float:
     """Compile the kernel library if it is not built yet; returns the
     seconds nvcc took (0.0 when it was already built).  Raises
-    RuntimeError with nvcc's output when the build fails."""
+    RuntimeError with nvcc's output when a compile or the link fails."""
     so = library_path()
     if os.path.exists(so):
         return 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {SOURCE}:\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, so)
+    objs, procs = [], []
+    for src in sources():
+        obj = os.path.join(
+            BUILD_DIR, os.path.basename(src)[:-3] + f".{tag}.o")
+        objs.append(obj)
+        procs.append((src, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for src, proc in procs:
+        out, _ = proc.communicate()
+        build_log[os.path.basename(src)] = out
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) building "
+                          f"{src}:\n{out}")
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = f"{so}.{tag}"
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+            capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({link.returncode}) linking {so}:\n"
+                f"{link.stdout}{link.stderr}")
+        os.replace(tmp, so)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     return time.perf_counter() - t0
 
 
@@ -120,20 +173,36 @@ def _library():
             if _lib is None:
                 build()
                 lib = ctypes.CDLL(library_path())
-                p, i = ctypes.c_void_p, ctypes.c_int
-                lib.compact_angle_rows.argtypes = [p, p, i, i, i, p]
-                lib.compact_angle_rows.restype = i
-                lib.compact_pair_rows.argtypes = [p, p, p, p, i, i, i, p]
-                lib.compact_pair_rows.restype = i
+                p, i, ll, f = (ctypes.c_void_p, ctypes.c_int,
+                               ctypes.c_longlong, ctypes.c_float)
+                signatures = {
+                    "compact_angle_rows": [p, p, i, i, i, p],
+                    "compact_pair_rows": [p, p, p, p, i, i, i, p],
+                    "compact_payload_rows": [p, p, i, i, i, p],
+                    "frame_rows": [p, p, p, i, i, ll, p],
+                    "segment_moments_geometry": [
+                        i, i, ctypes.POINTER(i), ctypes.POINTER(i)],
+                    "segment_moments": [p, p, p, p, p, i, ll, i, i, i, p],
+                    "detect_label_rows": [
+                        p, p, p, p, p, p, p, p, p, p, p, p, i, i, f, f, i,
+                        i, i, p],
+                    "detect_label_compact_rows": [
+                        p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, f, f,
+                        i, i, i, p],
+                }
+                for name, argtypes in signatures.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = i
                 _lib = lib
     return _lib
 
 
-def _check(name, *tensors):
+def _check(name, *tensors, dtype=torch.int32, dim=2):
     for t in tensors:
-        if not t.is_cuda or t.dtype != torch.int32 or t.dim() != 2:
+        if not t.is_cuda or t.dtype != dtype or t.dim() != dim:
             raise ValueError(
-                f"{name}: want 2-D int32 CUDA tensors, got {t.dtype} "
+                f"{name}: want {dim}-D {dtype} CUDA tensors, got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
@@ -175,3 +244,141 @@ def compact_pair_rows(posw: torch.Tensor, angw: torch.Tensor, k128: int):
             posw.data_ptr(), angw.data_ptr(), out_pos.data_ptr(),
             out_ang.data_ptr(), h, p, k128, device=posw.device)
     return out_pos, out_ang
+
+
+def compact_payload_rows(payload: torch.Tensor, k128: int) -> torch.Tensor:
+    """Launch the payload-word compaction: ``payload [H, P]`` int32
+    (uint32 words, an event where the word is >= 2**15) -> ``[H, k128]``
+    int32, events front-packed in position order, zero past each row's
+    count."""
+    h, p = payload.shape
+    out = torch.empty((h, k128), dtype=torch.int32, device=payload.device)
+    _check("compact_payload_rows", payload, out)
+    _launch("compact_payload_rows", _library().compact_payload_rows,
+            payload.data_ptr(), out.data_ptr(), h, p, k128,
+            device=payload.device)
+    return out
+
+
+def frame_rows(table: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Launch the frame-row gather: ``table [H, C]`` f32, ``labels [N]``
+    int32 -> ``[C, N]`` f32, ``table[label, c]`` and 0 where the label
+    is outside ``[0, H)``."""
+    h, c = table.shape
+    n = labels.shape[0]
+    out = torch.empty((c, n), dtype=torch.float32, device=labels.device)
+    _check("frame_rows", table, out, dtype=torch.float32)
+    _check("frame_rows", labels, dim=1)
+    if table.device != labels.device:
+        raise ValueError("frame_rows: tensors on different devices")
+    _launch("frame_rows", _library().frame_rows, table.data_ptr(),
+            labels.data_ptr(), out.data_ptr(), h, c, n, device=labels.device)
+    return out
+
+
+#: Shared memory the moments kernel may give its per-warp histograms.
+_MOMENTS_SMEM = 200 * 1024
+
+
+def segment_moments(labels: torch.Tensor, vel: torch.Tensor,
+                    mass: torch.Tensor | None, n_halos: int) -> torch.Tensor:
+    """Launch the per-halo moments: ``labels [N]`` int32, ``vel [3, N]``
+    f32, ``mass [N]`` f32 or None -> ``[H, 4]`` f32 ``[sum m v, sum m]``
+    over labels in ``[0, H)``: float32 products summed in float64 in an
+    order fixed by N and H, rounded to float32 once."""
+    n = labels.shape[0]
+    _check("segment_moments", labels, dim=1)
+    _check("segment_moments", vel, dtype=torch.float32)
+    if vel.shape != (3, n):
+        raise ValueError(f"segment_moments: vel must be [3, {n}]")
+    if mass is not None:
+        _check("segment_moments", mass, dtype=torch.float32, dim=1)
+        if mass.shape != (n,):
+            raise ValueError(f"segment_moments: mass must be [{n}]")
+    if len({t.device for t in (labels, vel, mass) if t is not None}) > 1:
+        raise ValueError("segment_moments: tensors on different devices")
+    lib = _library()
+    warps, chunk = ctypes.c_int(), ctypes.c_int()
+    lib.segment_moments_geometry(int(n_halos), _MOMENTS_SMEM,
+                                 ctypes.byref(warps), ctypes.byref(chunk))
+    if warps.value < 1:
+        raise ValueError(
+            f"segment_moments: {n_halos} halos exceed the kernel's "
+            "shared-memory histogram")
+    n_blocks = -(-n // chunk.value)
+    partial = torch.empty((n_blocks, n_halos, 4), dtype=torch.float64,
+                          device=labels.device)
+    out = torch.empty((n_halos, 4), dtype=torch.float32,
+                      device=labels.device)
+    _launch("segment_moments", lib.segment_moments, labels.data_ptr(),
+            vel.data_ptr(), None if mass is None else mass.data_ptr(),
+            partial.data_ptr(), out.data_ptr(), int(n_halos), n,
+            warps.value, chunk.value, n_blocks, device=labels.device)
+    return out
+
+
+def _detect_inputs(name, rows, lab, pos, vel, sv, rhat, packed,
+                   rhat_packed):
+    r, w = lab.shape
+    _check(name, lab, sv, packed)
+    _check(name, rows, pos, vel, dtype=torch.float32, dim=3)
+    if rhat_packed:
+        _check(name, rhat)
+    else:
+        _check(name, rhat, dtype=torch.float32, dim=3)
+    for t, want in ((rows, (6, r, w)), (pos, (3, r, w)), (vel, (3, r, w)),
+                    (sv, (r, w)), (packed, (r, w)),
+                    (rhat, (r, w) if rhat_packed else (3, r, w))):
+        if t.shape != want:
+            raise ValueError(f"{name}: want shape {want}, got "
+                             f"{tuple(t.shape)}")
+    if len({t.device for t in (rows, lab, pos, vel, sv, rhat,
+                               packed)}) > 1:
+        raise ValueError(f"{name}: tensors on different devices")
+    return r, w
+
+
+def _scalars(hub, box, pericentric, rhat_packed):
+    return (ctypes.c_float(hub), ctypes.c_float(0.0 if box is None else box),
+            int(box is not None), int(pericentric), int(rhat_packed))
+
+
+def detect_label_rows(rows, lab, pos, vel, sv, rhat, packed, hub: float,
+                      box, pericentric: bool, rhat_packed: bool):
+    """Launch the detect pass without compaction (K9): returns
+    ``(sv', rhat', packed', payload [R, W], count [R])``."""
+    name = "detect_label_rows"
+    r, w = _detect_inputs(name, rows, lab, pos, vel, sv, rhat, packed,
+                          rhat_packed)
+    osv, orh, opk = (torch.empty_like(sv), torch.empty_like(rhat),
+                     torch.empty_like(packed))
+    pay = torch.empty_like(packed)
+    count = torch.zeros(r, dtype=torch.int32, device=lab.device)
+    _launch(name, _library().detect_label_rows, rows.data_ptr(),
+            lab.data_ptr(), pos.data_ptr(), vel.data_ptr(), sv.data_ptr(),
+            rhat.data_ptr(), packed.data_ptr(), osv.data_ptr(),
+            orh.data_ptr(), opk.data_ptr(), pay.data_ptr(),
+            count.data_ptr(), r, w,
+            *_scalars(hub, box, pericentric, rhat_packed), device=lab.device)
+    return osv, orh, opk, pay, count
+
+
+def detect_label_compact_rows(rows, lab, pos, vel, sv, rhat, packed,
+                              hub: float, box, pericentric: bool,
+                              rhat_packed: bool, k128: int):
+    """Launch the detect pass with its exact event compaction (K8):
+    returns ``(sv', rhat', packed', events [R, k128], count [R])``."""
+    name = "detect_label_compact_rows"
+    r, w = _detect_inputs(name, rows, lab, pos, vel, sv, rhat, packed,
+                          rhat_packed)
+    osv, orh, opk = (torch.empty_like(sv), torch.empty_like(rhat),
+                     torch.empty_like(packed))
+    ev = torch.empty((r, k128), dtype=torch.int32, device=lab.device)
+    count = torch.empty(r, dtype=torch.int32, device=lab.device)
+    _launch(name, _library().detect_label_compact_rows, rows.data_ptr(),
+            lab.data_ptr(), pos.data_ptr(), vel.data_ptr(), sv.data_ptr(),
+            rhat.data_ptr(), packed.data_ptr(), osv.data_ptr(),
+            orh.data_ptr(), opk.data_ptr(), ev.data_ptr(),
+            count.data_ptr(), r, w, k128,
+            *_scalars(hub, box, pericentric, rhat_packed), device=lab.device)
+    return osv, orh, opk, ev, count

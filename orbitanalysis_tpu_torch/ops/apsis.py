@@ -31,6 +31,7 @@ import torch
 
 from orbitanalysis_tpu_torch.ops.geometry import region_frame
 from orbitanalysis_tpu_torch.ops.join import merge_join
+from orbitanalysis_tpu_torch.utils.device import resolve_device
 from orbitanalysis_tpu_torch.utils.numerics import torch_dtype
 from orbitanalysis_tpu_torch.utils.padding import invalid_id_for
 
@@ -80,8 +81,10 @@ class StepEvents(NamedTuple):
 
 def init_carry(n_halos: int, capacity: int, id_dtype=np.int32,
                angle_dtype=np.float32, pos_dtype=np.float32,
-               device="cpu") -> Carry:
-    """All-invalid carry: every halo behaves as 'no progenitor yet'."""
+               device="cuda") -> Carry:
+    """All-invalid carry: every halo behaves as 'no progenitor yet'.
+    ``device`` defaults to CUDA (RuntimeError without it)."""
+    device = resolve_device(device, "init_carry")
     shape = (n_halos, capacity)
     pdt = torch_dtype(pos_dtype)
     return Carry(
@@ -94,9 +97,10 @@ def init_carry(n_halos: int, capacity: int, id_dtype=np.int32,
     )
 
 
-def carry_from_numpy(ids, rhat, vrad, angles, device="cpu") -> Carry:
-    """A :class:`Carry` on ``device`` from host arrays holding the JAX
-    carry's fields (bit-preserving copies)."""
+def carry_from_numpy(ids, rhat, vrad, angles, device="cuda") -> Carry:
+    """A :class:`Carry` on ``device`` (CUDA by default) from host arrays
+    holding the JAX carry's fields (bit-preserving copies)."""
+    device = resolve_device(device, "carry_from_numpy")
     return Carry(*(torch.from_numpy(np.array(a)).to(device)
                    for a in (ids, rhat, vrad, angles)))
 

@@ -1,6 +1,7 @@
-"""Ordered event compaction of the aligned step (twin of
-``orbitanalysis_tpu/ops/pallas_compact.py``: ``compact_angle_blocked``
-and ``compact_payload_pair``).
+"""Ordered event compaction (twin of
+``orbitanalysis_tpu/ops/pallas_compact.py``): ``compact_angle_blocked``
+and ``compact_payload_pair`` for the aligned step, ``compact_payload``
+and ``compact_payload_blocked`` for the label-native detector.
 
 Each entry point launches the hand-written CUDA kernel
 (``csrc/compact.cu``, through :mod:`orbitanalysis_tpu_torch.ops._cuda`)
@@ -105,6 +106,18 @@ def compact_payload_pair_torch(posw: torch.Tensor, angw: torch.Tensor,
     return out_pos, out_ang
 
 
+def compact_payload_torch(payload: torch.Tensor, event_capacity: int):
+    """Plain-torch twin of the payload compaction kernel: prebuilt
+    payload words ``((pos + 1) << 15) | f16(angle)`` ``[H, P]`` -> the
+    events (any word >= 2**15 as uint32) front-packed in position order
+    into ``[H, k128]``, zeros past each row's count."""
+    h, p = payload.shape
+    _check_rows(p, single_word=True)
+    (out,) = _front_pack((payload >> 15) != 0, [payload],
+                         _k128(event_capacity, p))
+    return out
+
+
 def _route(x: torch.Tensor) -> str:
     if x.is_cuda:
         return "cuda"
@@ -134,3 +147,21 @@ def compact_payload_pair(posw: torch.Tensor, angw: torch.Tensor,
     h, p = posw.shape
     _check_rows(p, single_word=False)
     return _cuda.compact_pair_rows(posw, angw, _k128(event_capacity, p))
+
+
+def compact_payload(payload: torch.Tensor, event_capacity: int):
+    """The label-native detector's single-stream payload compaction
+    (K4): the CUDA kernel ``compact_payload_rows`` on a CUDA tensor,
+    :func:`compact_payload_torch` on a CPU tensor."""
+    if _route(payload) == "cpu":
+        return compact_payload_torch(payload, event_capacity)
+    h, p = payload.shape
+    _check_rows(p, single_word=True)
+    return _cuda.compact_payload_rows(payload, _k128(event_capacity, p))
+
+
+def compact_payload_blocked(payload: torch.Tensor, event_capacity: int):
+    """The JAX package's blocked form of :func:`compact_payload` (K5),
+    same contract.  Its per-block cap and overflow reroute were a
+    TPU workaround; here it launches the same exact kernel."""
+    return compact_payload(payload, event_capacity)

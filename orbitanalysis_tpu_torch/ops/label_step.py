@@ -1,0 +1,360 @@
+"""Label-native orbit detection over a position-stable particle pool
+(twin of ``orbitanalysis_tpu/ops/label_step.py``).
+
+Device-resident pipelines hold their particles in one global array
+whose positions never change: position i is particle i for the whole
+run.  That array is a stable layout by construction, so membership churn
+against halo regions is a per-particle halo *label* change and the
+reference's detection (``track_orbits.py:293-351``: entered/departed
+handling, radial-velocity sign flips, angle accumulate/reset) is
+elementwise over the pool, with no join and no host staging.  The only
+passes that are not elementwise are the per-halo bulk-velocity moments
+and the per-particle halo frame rows (``table[label]``).
+
+State is held as ``[R, row_width]`` row planes (particle ``i`` at row
+``i // row_width``, lane ``i % row_width``), which are also the rows of
+the positional event compaction: events come back as global pool
+indices ``row * row_width + position``.
+
+Routes (``frames``), as the JAX package picks them; each launches a
+hand-written CUDA kernel wherever the JAX package reaches a Pallas
+kernel, and runs plain torch wherever it ran XLA:
+
+- ``'split'`` (what ``'auto'`` picks below 256 halos): moments
+  :func:`~orbitanalysis_tpu_torch.ops.frames.segment_moments` (K7), frame
+  rows :func:`~orbitanalysis_tpu_torch.ops.frames.frame_rows` (K6), then
+  the detect-and-compact pass
+  :func:`~orbitanalysis_tpu_torch.ops.label.detect_label_compact` (K8)
+  when the JAX package's ``blocked_ok`` holds, otherwise
+  :func:`~orbitanalysis_tpu_torch.ops.label.detect_label` (K9) and
+  :func:`~orbitanalysis_tpu_torch.ops.compact.compact_payload` (K4);
+- ``'pallas2'``: K7, K6, the plain detect chain, then the payload
+  compaction (K5, the same kernel as K4);
+- ``'matmul'``, ``'soa'``, ``'twolevel'`` (what ``'auto'`` picks at 256
+  halos or more), ``'select'`` and the ``*_bf16x3`` forms: plain moments,
+  plain gather and the plain detect chain, then the payload compaction
+  (K5).  These forms compute the same gather and the same sums: their
+  one-hot and two-level matmuls were the TPU's way to gather.
+- ``'fused'`` (K10) and ``'pallas'`` (K11/K12) are not ported yet.
+
+On CPU tensors every kernel's plain version runs instead.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from orbitanalysis_tpu_torch.ops.compact import (
+    compact_payload,
+    compact_payload_blocked,
+)
+from orbitanalysis_tpu_torch.ops.frames import (
+    frame_rows,
+    frame_rows_torch,
+    segment_moments,
+    segment_moments_torch,
+)
+from orbitanalysis_tpu_torch.ops.label import (
+    detect_label,
+    detect_label_compact,
+    detect_label_torch,
+)
+from orbitanalysis_tpu_torch.utils.device import resolve_device
+from orbitanalysis_tpu_torch.utils.numerics import div_rn
+
+__all__ = [
+    "LabelCarry",
+    "LabelEvents",
+    "assign_regions",
+    "init_label_carry",
+    "label_carry_from_numpy",
+    "label_carry_to_numpy",
+    "make_label_orbit_step",
+    "scan_label_events",
+]
+
+#: Per-128-lane-block event capacity of the JAX package's blocked
+#: compaction (``pallas_compact.BLOCK_CAP``): it decides, as there,
+#: whether ``'split'`` takes the detect-and-compact pass.
+BLOCK_CAP = 16
+#: Halo count from which ``frames='auto'`` takes the two-level form.
+TWOLEVEL_MIN_H = 256
+
+_FRAMES = ("auto", "matmul", "matmul_bf16x3", "soa", "soa_bf16x3",
+           "twolevel", "select", "pallas", "pallas2", "fused", "split")
+
+
+class LabelCarry(NamedTuple):
+    """Per-particle detector state as ``[R, W]`` row planes.
+
+    ``lab_sv``: previous halo label + 1 in bits 0-27 (0 = untracked)
+    with the radial-velocity sign bits in bits 28-29 (bit 28 inward,
+    bit 29 outward); ``rhat``: ``[3, R, W]`` f32 radial unit vectors, or
+    ``[R, W]`` int32 octahedral words (uint32 bits) when packed;
+    ``packed``: f32 angle accumulator in bits 0-30, matched flag in
+    bit 31 (int32 holding the uint32 bits).
+    """
+
+    lab_sv: torch.Tensor  # [R, W] int32
+    rhat: torch.Tensor    # [3, R, W] f32, or [R, W] int32 oct-packed
+    packed: torch.Tensor  # [R, W] int32 (uint32 bits)
+
+
+class LabelEvents(NamedTuple):
+    """Positional events per compaction row: ``count[r]`` events in row
+    ``r`` (exact, may exceed K), front-packed global pool indices and
+    f16-exact angles; entries past the count are -1 / 0."""
+
+    count: torch.Tensor     # [R] int32
+    index: torch.Tensor     # [R, K] int32 global pool index (-1 invalid)
+    angle: torch.Tensor     # [R, K] float32 (f16-exact)
+    bulk_vel: torch.Tensor  # [H, 3] the frame bulk velocities used
+
+
+def _rows_of(n: int, row_width: int):
+    w = min(int(row_width), n)
+    if w <= 0 or n % w:
+        raise ValueError(
+            f"pool size {n} must be a multiple of row_width {w}")
+    return n // w, w
+
+
+def init_label_carry(n: int, rhat_packed: bool = False,
+                     row_width: int = 1 << 15,
+                     device="cuda") -> LabelCarry:
+    """All-untracked carry over ``R = n // row_width`` row planes on
+    ``device`` (CUDA by default; RuntimeError without it).
+    ``rhat_packed=True`` stores the radial unit vectors octahedral-packed
+    (4 instead of 12 bytes a particle); counts are unaffected, angles
+    move by the ~1e-4 rad quantization per step."""
+    device = resolve_device(device, "init_label_carry")
+    r, w = _rows_of(n, row_width)
+    i32 = dict(dtype=torch.int32, device=device)
+    return LabelCarry(
+        lab_sv=torch.zeros((r, w), **i32),
+        rhat=(torch.zeros((r, w), **i32) if rhat_packed
+              else torch.zeros((3, r, w), dtype=torch.float32,
+                               device=device)),
+        packed=torch.zeros((r, w), **i32),
+    )
+
+
+def label_carry_from_numpy(lab_sv, rhat, packed,
+                           device="cuda") -> LabelCarry:
+    """A :class:`LabelCarry` on ``device`` (CUDA by default) from the JAX
+    carry's fields as host arrays (``lab_sv`` int32, ``rhat`` f32
+    ``[3, R, W]`` or uint32 ``[R, W]``, ``packed`` uint32);
+    bit-preserving."""
+    device = resolve_device(device, "label_carry_from_numpy")
+
+    def t(a, dt):
+        return torch.from_numpy(np.array(a).view(dt)).to(device)
+
+    rhat = np.asarray(rhat)
+    return LabelCarry(
+        lab_sv=t(lab_sv, np.int32),
+        rhat=t(rhat, np.float32 if rhat.dtype == np.float32 else np.int32),
+        packed=t(packed, np.int32),
+    )
+
+
+def label_carry_to_numpy(carry: LabelCarry) -> LabelCarry:
+    """The carry's fields as host arrays in the JAX carry's dtypes
+    (``packed`` and a packed ``rhat`` uint32); bit-preserving."""
+    rhat = carry.rhat.cpu().numpy()
+    return LabelCarry(
+        lab_sv=carry.lab_sv.cpu().numpy(),
+        rhat=rhat.view(np.uint32) if rhat.dtype == np.int32 else rhat,
+        packed=carry.packed.cpu().numpy().view(np.uint32),
+    )
+
+
+def assign_regions(pos, centers, radii, box_size=None,
+                   soa: bool = False) -> torch.Tensor:
+    """Halo label per particle: index of the nearest centre whose region
+    (periodic-wrapped distance < radius) holds it, else -1 — the
+    reference's brute-force radius test per halo resolved to one owner,
+    streamed over the halo axis.  ``pos`` ``[N, 3]`` (``[3, N]`` with
+    ``soa``) tensor; ``centers`` ``[H, 3]`` and ``radii`` ``[H]``."""
+    pos = torch.as_tensor(pos)
+    x = pos if soa else torch.movedim(pos, -1, 0)          # [3, N]
+    dev = x.device
+    n = x.shape[1]
+    centers = torch.as_tensor(centers, dtype=torch.float32, device=dev)
+    radii = torch.as_tensor(radii, dtype=torch.float32, device=dev)
+    best_d2 = torch.full((n,), float("inf"), device=dev)
+    label = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    box = (None if box_size is None
+           else torch.full((), float(np.float32(box_size)), device=dev))
+    for h in range(centers.shape[0]):
+        d = x - centers[h][:, None]
+        if box is not None:
+            d = d - box * torch.round(div_rn(d, box.expand_as(d)))
+        d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        hit = (d2 < radii[h] * radii[h]) & (d2 < best_d2)
+        best_d2 = torch.where(hit, d2, best_d2)
+        label = torch.where(hit, torch.full_like(label, h), label)
+    return label
+
+
+def _resolve_frames(frames: str, n_halos: int) -> str:
+    if frames != "auto":
+        return frames
+    return "twolevel" if n_halos >= TWOLEVEL_MIN_H else "split"
+
+
+def make_label_orbit_step(
+    event_capacity: int,
+    mode: str = "pericentric",
+    box_size=None,
+    n_halos: Optional[int] = None,
+    row_width: int = 1 << 15,
+    frames: str = "auto",
+    rhat_packed: bool = False,
+):
+    """The churn-proof detector over a position-stable pool:
+    ``step(carry, inputs) -> (carry, LabelEvents)`` with ``inputs =
+    (pos [3, N] or [3, R, W], vel likewise, label [N] or [R, W],
+    centers [H, 3], bulk_vel [H, 3] or None, mass [N] / [R, W] or None,
+    hubble_drag scalar)``.  Apsides are the reference's (a sign flip
+    between consecutive steps while the particle stays in the same
+    halo's region; a label change restarts its state).
+
+    ``event_capacity`` is per compaction row of ``row_width`` entries;
+    ``frames`` picks the route (module docstring).  The JAX signature's
+    ``chunk`` (the one-hot chunking of its matmul forms) has no
+    counterpart here.
+    """
+    if frames not in _FRAMES:
+        raise ValueError(f"unknown frames impl {frames!r}")
+    if frames in ("fused", "pallas"):
+        raise NotImplementedError(
+            f"frames={frames!r} runs the TPU kernels "
+            + ("K10 (pallas_label.fused_label_detect)" if frames == "fused"
+               else "K11/K12 (pallas_frames.frame_rows/segment_moments)")
+            + ", not yet ported; see ROADMAP.md M8")
+    if mode not in ("pericentric", "apocentric"):
+        raise ValueError(
+            "Orbit detection mode not recognized. Please specify either "
+            "'pericentric' or 'apocentric'."
+        )
+    pericentric = mode == "pericentric"
+    K = int(event_capacity)
+    if row_width > (1 << 17) - 128:
+        raise ValueError("row_width exceeds the positional payload budget")
+
+    def step(carry: LabelCarry, inputs):
+        pos, vel, label, centers, bulk_vel, mass, hubble_drag = inputs
+        if label.dim() == 1:
+            r_, w_ = _rows_of(label.shape[0], row_width)
+            label = label.reshape(r_, w_)
+            pos = pos.reshape(3, r_, w_)
+            vel = vel.reshape(3, r_, w_)
+            if mass is not None:
+                mass = mass.reshape(r_, w_)
+        R, W = label.shape
+        dev = label.device
+        h = centers.shape[0] if n_halos is None else int(n_halos)
+        lab_m = torch.where(label >= 0, label,
+                            torch.full((), -1, dtype=label.dtype,
+                                       device=dev)).to(torch.int32)
+        impl = _resolve_frames(frames, h)
+        kernels = impl in ("split", "pallas2")
+
+        if bulk_vel is None:
+            moments = segment_moments if kernels else segment_moments_torch
+            mom = moments(lab_m, vel, mass, n_halos=h)
+            bulk = div_rn(mom[:, :3], torch.clamp(mom[:, 3:4], min=1e-30))
+        else:
+            bulk = torch.as_tensor(bulk_vel, dtype=torch.float32, device=dev)
+        table = torch.cat([torch.as_tensor(centers, dtype=torch.float32,
+                                           device=dev), bulk], dim=-1)
+        rows = (frame_rows if kernels else frame_rows_torch)(
+            table, lab_m).reshape(6, R, W)
+        k_eff = min(K, W)
+        detect_kw = dict(pericentric=pericentric, box_size=box_size,
+                         rhat_packed=rhat_packed)
+        planes = (rows, lab_m, pos, vel, carry.lab_sv, carry.rhat,
+                  carry.packed, hubble_drag)
+        if impl == "split":
+            rpb = W // 128
+            k128 = min(((k_eff + 127) // 128) * 128, W)
+            blocked_ok = (W > 128 and (rpb * BLOCK_CAP) % 128 == 0
+                          and k128 <= rpb * BLOCK_CAP)
+            if blocked_ok:
+                sv_n, rh_n, pk_n, evpay, count = detect_label_compact(
+                    *planes, event_capacity=k_eff, **detect_kw)
+            else:
+                sv_n, rh_n, pk_n, payload, count = detect_label(
+                    *planes, **detect_kw)
+                evpay = compact_payload(payload, k_eff)
+        else:
+            sv_n, rh_n, pk_n, payload, count = detect_label_torch(
+                *planes, **detect_kw)
+            evpay = compact_payload_blocked(payload, k_eff)
+        ev_pos = ((evpay >> 15) & 0x1FFFF) - 1
+        ev_ang = (evpay & 0x7FFF).to(torch.int16).view(torch.float16).to(
+            torch.float32)
+        kiota = torch.arange(ev_pos.shape[1], device=dev)
+        ev_ok = kiota[None, :] < count[:, None]
+        row0 = torch.arange(R, dtype=torch.int32, device=dev)[:, None] * W
+        return LabelCarry(lab_sv=sv_n, rhat=rh_n, packed=pk_n), LabelEvents(
+            count=count,
+            index=torch.where(ev_ok, ev_pos + row0,
+                              torch.full((), -1, dtype=torch.int32,
+                                         device=dev))[:, :K],
+            angle=torch.where(ev_ok, ev_ang,
+                              torch.zeros((), device=dev))[:, :K],
+            bulk_vel=bulk,
+        )
+
+    return step
+
+
+def scan_label_events(carry, pos_seq, vel_seq, label_seq, centers_seq,
+                      event_capacity: int, mode: str = "pericentric",
+                      box_size=None, mass=None, bulk_vel_seq=None,
+                      hubble_drag=0.0, row_width: int = 1 << 15,
+                      frames: str = "auto", rhat_packed: bool = False):
+    """:func:`make_label_orbit_step` over an ``[S]``-stacked sequence
+    (``pos_seq``/``vel_seq`` ``[S, 3, N]``, ``label_seq`` ``[S, N]``,
+    ``centers_seq`` ``[S, H, 3]``; tensors or arrays, moved to the
+    carry's device), as a Python loop.  Returns ``(carry, LabelEvents
+    stacked [S, ...])``.  ``hubble_drag`` is a scalar or one value per
+    step."""
+    step = make_label_orbit_step(
+        event_capacity, mode=mode, box_size=box_size, row_width=row_width,
+        frames=frames, rhat_packed=rhat_packed,
+    )
+    dev = carry.lab_sv.device
+
+    def dev_t(x, dtype):
+        return None if x is None else torch.as_tensor(x, dtype=dtype,
+                                                      device=dev)
+
+    label_seq = dev_t(label_seq, torch.int32)
+    pos_seq = dev_t(pos_seq, torch.float32)
+    vel_seq = dev_t(vel_seq, torch.float32)
+    centers_seq = dev_t(centers_seq, torch.float32)
+    mass = dev_t(mass, torch.float32)
+    bulk_vel_seq = dev_t(bulk_vel_seq, torch.float32)
+    S = label_seq.shape[0]
+    if label_seq.dim() == 2:
+        r_, w_ = _rows_of(label_seq.shape[1], row_width)
+        label_seq = label_seq.reshape(S, r_, w_)
+        pos_seq = pos_seq.reshape(S, 3, r_, w_)
+        vel_seq = vel_seq.reshape(S, 3, r_, w_)
+        if mass is not None:
+            mass = mass.reshape(r_, w_)
+    drag = np.broadcast_to(np.asarray(hubble_drag, np.float32), (S,))
+    events = []
+    for s in range(S):
+        carry, ev = step(carry, (
+            pos_seq[s], vel_seq[s], label_seq[s], centers_seq[s],
+            None if bulk_vel_seq is None else bulk_vel_seq[s], mass,
+            float(drag[s])))
+        events.append(ev)
+    return carry, LabelEvents(*(torch.stack(f) for f in zip(*events)))

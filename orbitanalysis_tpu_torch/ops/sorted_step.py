@@ -30,6 +30,8 @@ from orbitanalysis_tpu_torch.ops.compact import (
     f16_bits_rne,
 )
 from orbitanalysis_tpu_torch.ops.geometry import region_frame
+from orbitanalysis_tpu_torch.utils.device import resolve_device
+from orbitanalysis_tpu_torch.utils.numerics import sqrt_rn
 from orbitanalysis_tpu_torch.utils.padding import invalid_id_for
 
 #: Capacity ceiling ``join_impl='auto'`` keeps the aligned engine under;
@@ -86,9 +88,11 @@ class AlignedCarry(NamedTuple):
 
 
 def init_aligned_carry(n_halos: int, capacity: int,
-                       device="cpu") -> AlignedCarry:
+                       device="cuda") -> AlignedCarry:
     """All-invalid carry (32-bit signed IDs: the int32-max sentinel's key
-    is ``0xFFFFFFFF``, i.e. -1 as int32)."""
+    is ``0xFFFFFFFF``, i.e. -1 as int32) on ``device``, CUDA by default
+    (RuntimeError without it)."""
+    device = resolve_device(device, "init_aligned_carry")
     shape = (n_halos, capacity)
     return AlignedCarry(
         key=torch.full(shape, -1, dtype=torch.int32, device=device),
@@ -100,10 +104,12 @@ def init_aligned_carry(n_halos: int, capacity: int,
 
 
 def aligned_carry_from_numpy(key, sv, rhat, packed,
-                             device="cpu") -> AlignedCarry:
-    """An :class:`AlignedCarry` on ``device`` from the JAX carry's fields
-    as host arrays (``key``/``packed`` uint32, ``sv`` int32, ``rhat``
-    f32); bit-preserving."""
+                             device="cuda") -> AlignedCarry:
+    """An :class:`AlignedCarry` on ``device`` (CUDA by default) from the
+    JAX carry's fields as host arrays (``key``/``packed`` uint32, ``sv``
+    int32, ``rhat`` f32); bit-preserving."""
+    device = resolve_device(device, "aligned_carry_from_numpy")
+
     def t(a, dt):
         return torch.from_numpy(np.array(a).view(dt)).to(device)
 
@@ -168,7 +174,9 @@ def _acos_f32(x: torch.Tensor) -> torch.Tensor:
     """float32 arccos to ~2 ulp: the Cephes ``asinf`` polynomial the JAX
     package uses in its kernels (``pallas_step._acos_f32``), operation
     for operation.  ``|x| <= 0.5`` via ``pi/2 - asin(x)``, else
-    ``2*asin(sqrt((1-|x|)/2))`` reflected for negative ``x``."""
+    ``2*asin(sqrt((1-|x|)/2))`` reflected for negative ``x``; the root
+    is the IEEE one (:func:`~orbitanalysis_tpu_torch.utils.numerics.
+    sqrt_rn`), as in the CUDA kernels."""
     def asin_poly(v, w):
         p = 4.2163199048e-2 * torch.ones_like(w)
         p = p * w + 2.4181311049e-2
@@ -180,7 +188,7 @@ def _acos_f32(x: torch.Tensor) -> torch.Tensor:
     pi = float(np.float32(np.pi))
     ax = x.abs()
     t = 0.5 * (1.0 - ax)
-    sq = torch.sqrt(t)
+    sq = sqrt_rn(t)
     big_pos = 2.0 * asin_poly(sq, t)
     acos_big = torch.where(x < 0, pi - big_pos, big_pos)
     acos_small = float(np.float32(np.pi / 2)) - asin_poly(x, x * x)

@@ -27,6 +27,25 @@ def to_i32_bits(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root on every backend: the
+    float64 root rounded once more to float32 is the IEEE float32 root
+    (double rounding is innocuous at 53 >= 2 * 24 + 2 bits).  torch's
+    own float32 ``sqrt`` on CUDA differs from it in the last bit for
+    some inputs; the hand-written kernels use the IEEE one."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
+def div_rn(a, b: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 quotient ``a / b`` on every backend
+    (float64 quotient, rounded once more: innocuous as in
+    :func:`sqrt_rn`), whatever torch does for a float32 division by a
+    scalar or a reciprocal.  ``a`` may be a Python float."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.full_like(b, a)
+    return (a.to(torch.float64) / b.to(torch.float64)).to(torch.float32)
+
+
 def periodic_displacement(dx: torch.Tensor, box_size) -> torch.Tensor:
     """Minimum-image displacement: each component of ``dx`` mapped into
     ``[-L/2, L/2]``.  ``box_size`` is a scalar or a length-3 vector
@@ -75,7 +94,7 @@ def oct_encode(rhat: torch.Tensor) -> torch.Tensor:
     octahedral coordinate).  Zero vectors encode to the +z pole."""
     x, y, z = rhat[0], rhat[1], rhat[2]
     s = torch.clamp(x.abs() + y.abs() + z.abs(), min=1e-30)
-    px, py = x / s, y / s
+    px, py = div_rn(x, s), div_rn(y, s)
     one = torch.ones_like(px)
     fx = (1.0 - py.abs()) * torch.where(px >= 0, one, -one)
     fy = (1.0 - px.abs()) * torch.where(py >= 0, one, -one)
@@ -97,5 +116,6 @@ def oct_decode(packed: torch.Tensor) -> torch.Tensor:
     t = torch.clamp(-z, min=0.0)
     x = px - torch.where(px >= 0, t, -t)
     y = py - torch.where(py >= 0, t, -t)
-    inv = 1.0 / torch.clamp(torch.sqrt(x * x + y * y + z * z), min=1e-30)
+    inv = div_rn(1.0, torch.clamp(sqrt_rn(x * x + y * y + z * z),
+                                  min=1e-30))
     return torch.stack([x * inv, y * inv, z * inv])

@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels on the card, against their
-plain-torch twins, and the port's main path on CUDA against the same
-path on the CPU.
+plain-torch twins, and the port's main paths (the tracker, the
+label-native detector) on CUDA against the same paths on the CPU.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports nothing of JAX (the machine with the card has none), so run it
@@ -18,6 +18,9 @@ from orbitanalysis_tpu_torch.engine.io_hdf5 import MemoryWriter
 from orbitanalysis_tpu_torch.models.synthetic import churn_snapshots
 from orbitanalysis_tpu_torch.ops import _cuda
 from orbitanalysis_tpu_torch.ops import compact as tc
+from orbitanalysis_tpu_torch.ops import frames as tf
+from orbitanalysis_tpu_torch.ops import label as tl
+from orbitanalysis_tpu_torch.ops import label_step as tls
 from orbitanalysis_tpu_torch.utils.metrics import Metrics
 
 pytestmark = pytest.mark.cuda
@@ -75,8 +78,10 @@ def test_launch_counts_and_input_checks(dev):
     tc.compact_angle_blocked(x, 128)
     tc.compact_payload_pair(x, x, 128)
     tc.compact_angle_blocked_torch(x, 128)  # the twin is not counted
-    assert _cuda.launch_counts() == {"compact_angle_rows": 1,
-                                     "compact_pair_rows": 1}
+    counts = _cuda.launch_counts()
+    assert counts.pop("compact_angle_rows") == 1
+    assert counts.pop("compact_pair_rows") == 1
+    assert set(counts.values()) == {0}
     with pytest.raises(ValueError, match="int32"):
         tc.compact_angle_blocked(x.long(), 128)
     with pytest.raises(ValueError, match="contiguous"):
@@ -138,3 +143,162 @@ def test_main_path_on_cuda_matches_cpu(dev):
                 np.testing.assert_array_equal(a[g][ds], b[g][ds])
         n_events += len(a[g]["pericenter_IDs"])
     assert n_events > 0
+
+
+# ----------------------------------------------------------------------
+# the label-native detector's kernels (K4-K9) and its step
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("h,p,k", [(64, 32768, 2048), (3, 1024, 128),
+                                   (4, 32768, 8192)])
+@pytest.mark.parametrize("density", [0.0, 0.017, 0.07, 0.5, 1.0])
+def test_payload_kernel_matches_twin(dev, h, p, k, density):
+    rng = np.random.default_rng(int(density * 100) + p + 3)
+    sel = rng.random((h, p)) < density
+    sel[0, 100:400] = True                      # a clustered burst
+    ang = rng.integers(0, 0x7BFF, (h, p)).astype(np.uint32)
+    pos1 = np.arange(1, p + 1, dtype=np.uint32)
+    pay = _i32(np.where(sel, (pos1 << np.uint32(15)) | ang, np.uint32(0)))
+    for entry in (tc.compact_payload, tc.compact_payload_blocked):
+        got = entry(pay.to(dev), k)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), tc.compact_payload_torch(pay, k))
+
+
+@pytest.mark.parametrize("n,h", [(1 << 21, 64), (5000, 7), (4096, 300)])
+def test_frame_rows_kernel_exact(dev, n, h):
+    rng = np.random.default_rng(n + h)
+    table = (rng.normal(size=(h, 6))
+             * np.exp2(rng.integers(-40, 40, size=(h, 6)))).astype(np.float32)
+    lab = rng.integers(-1, h + 2, size=n).astype(np.int32)
+    got = tf.frame_rows(torch.from_numpy(table).to(dev),
+                        torch.from_numpy(lab).to(dev))
+    torch.cuda.synchronize()
+    want = tf.frame_rows_torch(torch.from_numpy(table), torch.from_numpy(lab))
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("n,h", [(1 << 21, 64), (5000, 7), (40000, 300),
+                                 (3000, 4000)])
+@pytest.mark.parametrize("mass", [False, True])
+def test_moments_kernel_matches_twin(dev, n, h, mass):
+    """rtol = atol = 2e-6 against the plain one-hot sums (another order
+    of summation); the kernel's own bits repeat from run to run."""
+    rng = np.random.default_rng(n + h + mass)
+    lab = np.repeat(rng.integers(-1, h + 1, size=n // 50 + 1), 50)[:n]
+    lab = np.where(rng.random(n) < 0.1, rng.integers(-1, h, size=n), lab)
+    args = (torch.from_numpy(lab.astype(np.int32)).to(dev),
+            torch.from_numpy(rng.normal(size=(3, n)).astype(np.float32)
+                             ).to(dev),
+            torch.from_numpy(rng.uniform(0.5, 2, n).astype(np.float32)
+                             ).to(dev) if mass else None)
+    got = tf.segment_moments(*args, n_halos=h)
+    again = tf.segment_moments(*args, n_halos=h)
+    want = tf.segment_moments_torch(*args, n_halos=h)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-6, atol=2e-6)
+
+
+def _label_planes(dev, r, w, h, seed, packed, steps=3):
+    """Inputs of one detect pass on a carry after ``steps`` steps of the
+    CPU label step (so matched lanes exist), on ``dev``."""
+    rng = np.random.default_rng(seed)
+    n = r * w
+    step = tls.make_label_orbit_step(128, box_size=100.0, row_width=w,
+                                     frames="matmul", rhat_packed=packed)
+    c = tls.init_label_carry(n, row_width=w, rhat_packed=packed,
+                             device="cpu")
+    lab = rng.integers(-1, h, n).astype(np.int32)
+    cen = rng.uniform(20, 80, (h, 3)).astype(np.float32)
+    bulk = rng.normal(size=(h, 3)).astype(np.float32)
+    pos = vel = None
+    for s in range(steps + 1):
+        pos = rng.uniform(0, 100, (3, r, w)).astype(np.float32)
+        vel = rng.normal(size=(3, r, w)).astype(np.float32)
+        lab = np.where(rng.random(n) < 0.9, lab,
+                       rng.integers(-1, h, n)).astype(np.int32)
+        if s < steps:
+            c, _ = step(c, tuple(map(torch.from_numpy, (
+                pos, vel, lab.reshape(r, w), cen, bulk))) + (None, 0.01))
+    table = torch.from_numpy(np.concatenate([cen, bulk], axis=1))
+    rows = tf.frame_rows_torch(table, torch.from_numpy(lab)).reshape(6, r, w)
+    cpu = [rows, torch.from_numpy(lab.reshape(r, w)),
+           torch.from_numpy(pos), torch.from_numpy(vel), *c]
+    return cpu, [t.to(dev) for t in cpu]
+
+
+def _assert_detect_equal(got, want, packed):
+    """Counts, lab_sv, the matched bit and the payload positions exact;
+    angles within one f16 ulp or 2e-3 rad."""
+    got = [t.cpu() for t in got]
+    want = [t.cpu() for t in want]
+    assert torch.equal(got[4], want[4])                 # count
+    assert torch.equal(got[0], want[0])                 # lab_sv
+    assert torch.equal(got[2] < 0, want[2] < 0)         # matched bit
+    gp, wp = got[3], want[3]
+    assert torch.equal((gp >> 15) & 0x1FFFF, (wp >> 15) & 0x1FFFF)
+    assert int(((gp & 0x7FFF) - (wp & 0x7FFF)).abs().max()) <= 1
+    ga = (got[2] & 0x7FFFFFFF).view(torch.float32)
+    wa = (want[2] & 0x7FFFFFFF).view(torch.float32)
+    assert float((ga - wa).abs().max()) <= 2e-3
+    if not packed:
+        assert float((got[1] - want[1]).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("r,w", [(64, 32768), (4, 1024)])
+def test_detect_kernels_match_twin(dev, r, w, packed):
+    cpu, cuda = _label_planes(dev, r, w, 64, r + w, packed)
+    kw = dict(pericentric=True, box_size=100.0, rhat_packed=packed)
+    k9 = tl.detect_label(*cuda, 0.01, **kw)
+    k8 = tl.detect_label_compact(*cuda, 0.01, event_capacity=2048, **kw)
+    plain_cuda = tl.detect_label_torch(*cuda, 0.01, **kw)
+    plain_cpu = tl.detect_label_torch(*cpu, 0.01, **kw)
+    torch.cuda.synchronize()
+    assert int(plain_cpu[4].sum()) > 0
+    for want in (plain_cuda, plain_cpu):
+        _assert_detect_equal(k9, want, packed)
+        ev = tc.compact_payload_torch(want[3].cpu(), 2048)
+        _assert_detect_equal(
+            (k8[0], k8[1], k8[2], k8[3], k8[4]),
+            (want[0], want[1], want[2], ev.to(k8[3].device), want[4]),
+            packed)
+
+
+@pytest.mark.parametrize("frames,k", [("split", 128), ("split", 2048),
+                                      ("pallas2", 128), ("twolevel", 128)])
+def test_label_step_on_cuda_matches_cpu(dev, frames, k):
+    """The label scan on the card (through K6-K9 and K4/K5) against the
+    CPU scan, with the bulk velocities given: counts and positions
+    exact, angles within one f16 ulp or 2e-3 rad."""
+    from orbitanalysis_tpu_torch.models.synthetic import label_churn_workload
+
+    lab, pos, vel, cen, _ = label_churn_workload(4, 4096, 6, seed=1)
+    bulk = np.random.default_rng(0).normal(scale=0.01, size=(6, 4, 3))
+    kw = dict(event_capacity=k, box_size=100.0, row_width=4096,
+              frames=frames, rhat_packed=True, bulk_vel_seq=bulk)
+    _cuda.reset_launch_counts()
+    _, e_gpu = tls.scan_label_events(
+        tls.init_label_carry(lab.shape[1], True, 4096), pos, vel, lab, cen,
+        **kw)
+    torch.cuda.synchronize()
+    counts = _cuda.launch_counts()
+    _, e_cpu = tls.scan_label_events(
+        tls.init_label_carry(lab.shape[1], True, 4096, device="cpu"), pos,
+        vel, lab, cen, **kw)
+    assert torch.equal(e_gpu.count.cpu(), e_cpu.count)
+    assert torch.equal(e_gpu.index.cpu(), e_cpu.index)
+    diff = (e_gpu.angle.cpu() - e_cpu.angle).abs()
+    assert float(diff.max()) <= 2e-3
+    assert int(e_cpu.count.sum()) > 0
+    # 'split' compacts inside the detect pass when K fits the block
+    # fronts of a 4096-wide row (32 blocks x 16), as the JAX step does
+    blocked = min(-(-k // 128) * 128, 4096) <= (4096 // 128) * 16
+    want = {"split": ({"frame_rows", "detect_label_compact_rows"} if blocked
+                      else {"frame_rows", "detect_label_rows",
+                            "compact_payload_rows"}),
+            "pallas2": {"frame_rows", "compact_payload_rows"},
+            "twolevel": {"compact_payload_rows"}}[frames]
+    assert {n for n, c in counts.items() if c} == want

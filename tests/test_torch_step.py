@@ -200,7 +200,7 @@ def test_general_step_matches_jax(churn, mode):
                                            event_capacity=P))
     tstep = tapsis.make_orbit_step(mode=mode, box_size=box,
                                    event_capacity=P)
-    jc, tc = japsis.init_carry(3, P), tapsis.init_carry(3, P)
+    jc, tc = japsis.init_carry(3, P), tapsis.init_carry(3, P, device="cpu")
     total = 0
     for rp, snap in loaded:
         pk = tpk.pack_snapshot(snap, rows, 3, P, rp)
@@ -233,7 +233,7 @@ def test_static_step_matches_jax(churn):
     jstep = jax.jit(japsis.make_static_orbit_step(box_size=box,
                                                   event_capacity=128))
     tstep = tapsis.make_static_orbit_step(box_size=box, event_capacity=128)
-    jc, tc = japsis.init_carry(3, P), tapsis.init_carry(3, P)
+    jc, tc = japsis.init_carry(3, P), tapsis.init_carry(3, P, device="cpu")
     rng = np.random.default_rng(4)
     for s in range(4):
         pk = pk._replace(vel=pk.vel * np.float32(-1) + rng.normal(
@@ -300,7 +300,8 @@ def test_aligned_step_matches_jax(churn, mode, hubble):
     lay_t, lay_j = tpk.StableLayout(3, P), jpk.StableLayout(3, P)
     jstep = jax.jit(jss.make_aligned_native_step(K, mode=mode, box_size=box))
     tstep = tss.make_aligned_native_step(K, mode=mode, box_size=box)
-    jc, tc = jss.init_aligned_carry(3, P), tss.init_aligned_carry(3, P)
+    jc, tc = jss.init_aligned_carry(3, P), tss.init_aligned_carry(
+        3, P, device="cpu")
     total = 0
     for s, (rp, snap) in enumerate(loaded):
         pk = tpk.pack_snapshot_aligned(snap, rows, 3, lay_t, rp)
@@ -363,7 +364,8 @@ def test_general_carry_crosses_from_jax(churn):
         pk = tpk.pack_snapshot(snap, rows, 3, P, rp)
         jb, tb = _batches(pk)
         if s == 3:
-            tc = tapsis.carry_from_numpy(*jax.tree.map(np.asarray, jc))
+            tc = tapsis.carry_from_numpy(*jax.tree.map(np.asarray, jc),
+                                         device="cpu")
             for a, b in zip(tapsis.carry_to_numpy(tc),
                             jax.tree.map(np.asarray, jc)):
                 np.testing.assert_array_equal(a, b)
@@ -405,7 +407,8 @@ def test_aligned_step_last_position_event(p):
     vx1[fire] = 1.0
     jstep = jss.make_aligned_native_step(256)
     tstep = tss.make_aligned_native_step(256, emit_payload=True)
-    jc, tc = jss.init_aligned_carry(1, p), tss.init_aligned_carry(1, p)
+    jc, tc = jss.init_aligned_carry(1, p), tss.init_aligned_carry(
+        1, p, device="cpu")
     for vx, fresh in ((vx0, True), (vx1, False)):
         jb, tb = _batches(_ceiling_batch(slot, vx, fresh))
         jc, je = jstep(jc, jb)
@@ -427,7 +430,8 @@ def test_aligned_step_rejects_what_it_cannot_run():
 
 def test_port_runs_without_jax(tmp_path):
     """With jax, the JAX package and h5py blocked, the port imports and
-    runs its public surface (both engines, in-memory savefiles)."""
+    runs its public surface (both engines, in-memory savefiles, and a
+    small label-native scan)."""
     script = textwrap.dedent(f"""
         import sys
         for name in ("jax", "jaxlib", "orbitanalysis_tpu", "h5py"):
@@ -460,6 +464,21 @@ def test_port_runs_without_jax(tmp_path):
             if g != "attrs":
                 assert np.array_equal(a[g]["pericenter_IDs"],
                                       b[g]["pericenter_IDs"])
+        # the label-native detector, through every route it ports
+        from orbitanalysis_tpu_torch.models.synthetic import (
+            label_churn_workload)
+        from orbitanalysis_tpu_torch.ops import label_step as ls
+        lab, pos, vel, cen, _ = label_churn_workload(2, 512, 4)
+        counts = []
+        for frames in ("auto", "split", "pallas2", "twolevel", "matmul"):
+            c = ls.init_label_carry(lab.shape[1], row_width=512,
+                                    rhat_packed=True, device="cpu")
+            c, ev = ls.scan_label_events(
+                c, pos, vel, lab, cen, event_capacity=64, box_size=100.0,
+                row_width=512, frames=frames, rhat_packed=True)
+            counts.append(ev.count.numpy())
+        assert counts[0].sum() > 0
+        assert all(np.array_equal(c, counts[0]) for c in counts)
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "orbitanalysis_tpu", "h5py")
                and sys.modules[m] is not None]
