@@ -9,14 +9,19 @@ repository checkout; it imports nothing of JAX.  Phases:
 1. environment: versions, and the card's name and power limit;
 2. build: nvcc compiles every csrc/*.cu for sm_90a, one process per
    source, and links one library (and g++ the native host packer); the
-   label-native workload (the JAX package's benchmark churn sequence,
-   64 halos x 32768 slots x 48 snapshots) is generated on the host;
+   JAX package's benchmark workloads (64 halos x 32768 slots x 48
+   snapshots from one orbit pool: the label-native churn sequence, the
+   same churn in the ID form, and the fixed-membership sequence) are
+   generated on the host, the ID forms staged ID-sorted;
 3. each CUDA kernel against its plain-torch version on the same CUDA
-   tensors, at the shapes its main path gives it, with timings, the
-   card's bound for the same work and, where one PyTorch call computes
-   the same function, that call's time;
+   tensors, at the shapes its main path gives it (the sorted engine's
+   kernels on the inputs of real steps), with timings, the card's bound
+   for the same work and, where one PyTorch call computes the same
+   function, that call's time;
 4. aligned step parity: 8 churning snapshots at [64, 32768], the
-   aligned step on CUDA against the same step on the CPU;
+   aligned step on CUDA against the same step on the CPU: counts,
+   positions, carry keys and r-hat planes equal, and no event angle
+   more than one f16 ulp apart;
 5. the aligned main path end to end at config-2 scale (100 halos, ~1e6
    tracked particles, periodic box, Hubble term):
    ``track_orbits(device='cuda')`` under ``join_impl='auto'`` must pick
@@ -35,7 +40,19 @@ repository checkout; it imports nothing of JAX.  Phases:
    K = 8192 route (detect kernel + payload compaction) and the
    ``'twolevel'`` route (plain chain + payload compaction) must give the
    same events; then the step's device time, host queue time and
-   update rate.
+   update rate;
+8. the sorted engine at full width, the JAX benchmark's merge-join and
+   static cells: ``scan_events_sorted(fused=True, cur_presorted=True,
+   soa_batch=True)`` over the 48-snapshot churn sequence must find
+   exactly the 1,741,643 events, launching the join-and-detect kernel
+   once a step; on its first 12 snapshots the events equal the general
+   engine's on the card (given the sorted run's bulk velocities) and the
+   unfused route's (merge kernel + two-group compaction); the static
+   sequence launches the join-and-detect kernel on its first step and
+   the event compaction on every later one; then step timings;
+9. ``track_orbits(join_impl='sorted')`` at config-2 scale: catalogs
+   equal the general engine's run on the card and the oracle, and every
+   step launches the join-and-detect kernel or the event compaction.
 
 Any failed check exits non-zero without printing the result lines.  The
 last three lines are the card's name and power limit, the kernels' JSON
@@ -80,6 +97,9 @@ LABEL_EVENTS = 1741643
 LABEL_PARITY = (8, 8)
 #: timed scans of phase 7 (after one warm-up scan)
 LABEL_SCANS = 5
+#: phase 8: snapshots of the sorted engine's cross-checks and of the
+#: static cell (the JAX benchmark's secondary slice, bench.py:1103)
+SORTED_CHECK = 12
 
 #: The card's published peaks (H100 SXM, NVIDIA's data sheet) that
 #: ``bound_ms`` divides by: HBM bytes per second, and float32 (or
@@ -88,12 +108,15 @@ PEAK_BYTES = 3.35e12
 PEAK_OPS = 67e12
 
 
-#: Event angles of the CUDA and the CPU step agree to one f16 ulp, or to
-#: ANGLE_ATOL rad where one f16 ulp is finer than f32 arccos resolves:
-#: torch's CUDA sqrt differs from the CPU's in the last bit now and then,
-#: so cos(dtheta) can differ by a few f32 ulps, and near cos = 1 the
-#: arccos of cosines d apart differs by up to sqrt(2 d) (1e-3 rad for
-#: 8 ulps of 2**-24).
+#: Event angles from two arccos routines (torch's ``acos`` in the general
+#: engine and the unfused sorted route, the Cephes polynomial in the
+#: kernels and the aligned and fused sorted steps) agree to one f16 ulp,
+#: or to ANGLE_ATOL rad where one f16 ulp is finer than f32 arccos
+#: resolves: the two differ by about 2 f32 ulps, and near cos = 1 the
+#: arccos of cosines d apart differs by up to sqrt(2 d) (1e-3 rad for 8
+#: ulps of 2**-24).  The same step on CUDA and on the CPU computes every
+#: division and root as the IEEE float32 one, so phase 4 asks for one
+#: f16 ulp on every event.
 ANGLE_ATOL = 2e-3
 
 
@@ -111,6 +134,20 @@ def bound(n_bytes, n_ops):
     t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / PEAK_OPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def gathered_bytes(sel, length, n_chan):
+    """Bytes that ``n_chan`` planes of 32-bit words, read by an ordered
+    compaction only at the selected lanes, must move: ``sel`` is the
+    ``[H, N]`` bool selection, a lane past a row's first ``length``
+    selected ones need not be read, and each 32-byte sector (8 lanes)
+    that holds a lane to read counts once."""
+    import torch
+
+    take = sel & (sel.to(torch.int32).cumsum(dim=1) <= length)
+    flat = take.reshape(-1)
+    flat = torch.cat([flat, flat.new_zeros(-flat.numel() % 8)])
+    return n_chan * 32 * int(flat.view(-1, 8).any(dim=1).sum())
 
 
 class SmokeFailure(Exception):
@@ -225,8 +262,10 @@ def kernel_checks(dev):
           "compact_pair_rows differs from its twin")
     check(int(got[0][0, int(sel[0].sum()) - 1]) == p,
           f"the event at position {p - 1} was lost")
-    b_ms, b_by = bound(2 * pw.numel() * 4 + 2 * h * compact._k128(k, p) * 4,
-                       4 * pw.numel())
+    # posw read whole, angw only at the events
+    k128 = compact._k128(k, p)
+    b_ms, b_by = bound(pw.numel() * 4 + gathered_bytes(pw != 0, k128, 1)
+                       + 2 * h * k128 * 4, 4 * pw.numel())
     results["compact_pair_rows"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: compact.compact_payload_pair(pw, aw2, k)),
@@ -312,6 +351,7 @@ def step_parity(dev):
     c_cpu = init_aligned_carry(h, p, device="cpu")
     total = beyond = 0
     worst = 0.0
+    rhat_equal = True
     for s in range(n_snap):
         rp, rr = regions(s, rows)
         pk = pack_snapshot_aligned(load(s, rp, rr), rows, h, lay, rp)
@@ -330,15 +370,21 @@ def step_parity(dev):
         ulps, diff = f16_ulps(ang_g[sel], ang_c[sel])
         worst = max(worst, float(diff.max(initial=0)))
         beyond += int((ulps > 1).sum())
-        check(np.all((ulps <= 1) | (diff <= ANGLE_ATOL)),
-              f"step {s}: event angles differ by {diff.max(initial=0):.3g} rad")
+        same = torch.equal(c_gpu.rhat.cpu().view(torch.int32),
+                           c_cpu.rhat.view(torch.int32))
+        rhat_equal &= same
         total += int(count.sum())
         log(f"  snapshot {s}: {int(count.sum())} events, counts/positions "
             f"equal, {int((ulps > 1).sum())} angles beyond one f16 ulp "
-            f"(max |diff| {diff.max(initial=0):.3g} rad)")
+            f"(max |diff| {diff.max(initial=0):.3g} rad), carry r-hat "
+            f"{'bit-equal' if same else 'DIFFERS'}")
     check(total > 0, "step parity produced no events")
-    log(f"  {total} events: {beyond} angles beyond one f16 ulp, all within "
-        f"{ANGLE_ATOL} rad (max {worst:.3g})")
+    log(f"  {total} events: {beyond} angles beyond one f16 ulp (max |diff| "
+        f"{worst:.3g} rad); carry r-hat planes bit-equal at every step: "
+        f"{rhat_equal}")
+    check(beyond == 0, f"{beyond} event angles differ by more than one f16 "
+          "ulp between CUDA and CPU")
+    check(rhat_equal, "carry r-hat planes differ between CUDA and CPU")
     check(torch.equal(c_gpu.key.cpu(), c_cpu.key),
           "carry keys differ between CUDA and CPU")
 
@@ -528,32 +574,65 @@ def end_to_end(dev):
     log(f"  aligned step on device: {step_ms:.4f} ms/step (median of "
         f"{len(times)}, CUDA events, [{n_halos}, {cap}]); the host takes "
         f"{statistics.median(queue):.4f} ms to queue one step")
-    return launches
+    return launches, dict(
+        snaps=snaps, regions=regions, load=load, snap_nums=snap_nums,
+        branches=branches, general=w_gen.files["general.h5"],
+        members=members, hubble_drag=hubble_drag, box=box,
+        wall_aligned=wall, wall_general=wall_gen)
 
 
 # ---------------------------------------------------- label-native phases
 
-def label_workload(dev):
-    """The JAX benchmark's label-native churn workload, made on the host
-    from its seed and moved to the card once."""
+def bench_workloads(dev):
+    """The JAX benchmark's workloads from one orbit pool, made on the host
+    from its seed: the label-native churn sequence (moved to the card),
+    the same churn in the ID form (load order on the host for the
+    general engine's check, and staged ID-sorted with SoA planes on the
+    card) and the first SORTED_CHECK snapshots of the fixed-membership
+    sequence (staged the same way)."""
     import torch
 
-    from orbitanalysis_tpu_torch.models.synthetic import label_churn_workload
+    from orbitanalysis_tpu_torch.models.synthetic import bench_workloads
+    from orbitanalysis_tpu_torch.ops.apsis import SnapshotBatch
+    from orbitanalysis_tpu_torch.ops.sorted_step import presort_snapshot
 
     t0 = time.perf_counter()
-    lab, pos, vel, cen, n_valid = label_churn_workload(*LABEL, seed=0,
-                                                       churn=0.07)
+    w = bench_workloads(*LABEL, seed=0, churn=0.07)
     t_gen = time.perf_counter() - t0
+    lab, pos, vel, cen, n_valid = w["label"]
     work = dict(label=torch.from_numpy(lab).to(dev),
                 pos=torch.from_numpy(pos).to(dev),
                 vel=torch.from_numpy(vel).to(dev),
                 centers=torch.from_numpy(cen).to(dev), n_valid=n_valid)
+    del lab, pos, vel
+    t1 = time.perf_counter()
+    staged = {}
+    for form, n_snap in (("churn", LABEL[2]), ("static", SORTED_CHECK)):
+        ids, pos, vel, cen, nv = w[form]
+        b = presort_snapshot(SnapshotBatch(
+            ids=ids[:n_snap], pos=pos[:n_snap], vel=vel[:n_snap],
+            center=cen[:n_snap]), soa=True)
+        staged[form] = (SnapshotBatch(
+            ids=torch.from_numpy(b.ids).to(dev),
+            pos=torch.from_numpy(b.pos).to(dev),
+            vel=torch.from_numpy(b.vel).to(dev),
+            center=torch.from_numpy(b.center).to(dev),
+            slot=torch.from_numpy(b.slot).to(dev)), nv)
+    ids, pos, vel, cen, _ = w["churn"]
+    load_order = tuple(
+        torch.from_numpy(np.ascontiguousarray(x[:SORTED_CHECK])).to(dev)
+        for x in (ids, pos, vel, cen))
+    del w, ids, pos, vel
     torch.cuda.synchronize()
-    log(f"  label workload {LABEL[0]} halos x {LABEL[1]} slots x {LABEL[2]} "
-        f"snapshots: N = {lab.shape[1]}, {n_valid} tracked at snapshot 0; "
-        f"{t_gen:.1f} s to generate on the host, "
-        f"{time.perf_counter() - t0 - t_gen:.1f} s to the card")
-    return work
+    log(f"  bench workloads {LABEL[0]} halos x {LABEL[1]} slots x "
+        f"{LABEL[2]} snapshots: label N = {work['label'].shape[1]}, "
+        f"{n_valid} tracked at snapshot 0; churn ID form "
+        f"{staged['churn'][1]} members a row; {t_gen:.1f} s to generate "
+        f"on the host, {time.perf_counter() - t1:.1f} s to stage ID-sorted "
+        "and move to the card")
+    return work, dict(churn=staged["churn"][0], n_valid=staged["churn"][1],
+                      static=staged["static"][0],
+                      n_static=staged["static"][1], load_order=load_order)
 
 
 def _detect_inputs(dev, work, packed):
@@ -803,7 +882,8 @@ def label_parity(dev, work):
 def profile_scan(run_scan, s_n, wall_ms):
     """torch.profiler over one scan: device time by kernel, the launches
     a step issues, and the device's idle share of the steady-state wall
-    time.  Reports; checks nothing."""
+    time.  Reports and returns the device busy ms a step (None when the
+    profiler saw no device time); checks nothing."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -821,7 +901,7 @@ def profile_scan(run_scan, s_n, wall_ms):
     total = sum(t for t, _, _ in rows) / 1e3
     if not rows:
         log("  profiler: no device time recorded")
-        return
+        return None
     launches = sum(c for _, c, _ in rows)
     log(f"  profiler, one scan: device busy {total:.3f} ms "
         f"({total / s_n:.4f} ms/step), {launches / s_n:.1f} device "
@@ -830,6 +910,7 @@ def profile_scan(run_scan, s_n, wall_ms):
     for t, c, key in sorted(rows, reverse=True)[:12]:
         log(f"    {t / 1e3 / s_n:.4f} ms/step {t / 1e3 / total:6.1%} "
             f"x{c / s_n:.0f}/step  {key[:90]}")
+    return total / s_n
 
 
 def label_full_width(dev, work):
@@ -935,6 +1016,377 @@ def label_full_width(dev, work):
     return launches
 
 
+# ---------------------------------------------------- sorted-engine phases
+
+def _batch(stack, s):
+    """Snapshot ``s`` of a staged stack as one step's batch."""
+    return stack._replace(**{
+        k: getattr(stack, k)[s]
+        for k in ("ids", "pos", "vel", "center", "slot")})
+
+
+def staged_call(dev, stack, module, entry, at=2, **kw):
+    """The arguments the sorted step (``kw`` its options) passes to
+    ``module.entry`` at step ``at`` of ``stack``, where ``module`` is the
+    module the step looks the entry point up in: the entry point is
+    wrapped by a recorder for the run (every call goes through), so a
+    kernel is checked on the inputs of a real step."""
+    from orbitanalysis_tpu_torch.ops import sorted_step as tss
+
+    real = getattr(module, entry)
+    calls = []
+
+    def record(*args):
+        calls.append(args)
+        return real(*args)
+
+    setattr(module, entry, record)
+    try:
+        step = tss.make_sorted_orbit_step(
+            LABEL_K, box_size=LABEL_BOX, cur_presorted=True, soa_batch=True,
+            **kw)
+        carry = tss.init_sorted_carry(LABEL[0], LABEL[1], device=dev)
+        for s in range(at + 1):
+            carry, _ = step(carry, _batch(stack, s))
+    finally:
+        setattr(module, entry, real)
+    return calls[-1]
+
+
+def _bitwise(got, want):
+    """(lanes that differ, max |difference| of the int32 bits) over
+    tensors of 32-bit words."""
+    import torch
+
+    diff = ne = 0
+    for g, w in zip(got, want):
+        g, w = g.view(torch.int32), w.view(torch.int32)
+        ne += int((g != w).sum())
+        diff = max(diff, int((g.long() - w.long()).abs().max()))
+    return ne, diff
+
+
+def sorted_kernel_checks(dev, seq):
+    """K15, K16, K18 and K19 against their plain versions on the inputs of
+    real sorted steps at the bench shape [64, 32768], K = 2048: K16 on
+    churn step 2, K18 on static step 2, K15 and K19 on churn step 2 of
+    the unfused routes (K19 with a 6-channel group a, merge by sort,
+    and a 1-channel one, merge by K15)."""
+    import torch
+
+    from orbitanalysis_tpu_torch.ops import compact, merge
+    from orbitanalysis_tpu_torch.ops import sorted_step as tss
+    from orbitanalysis_tpu_torch.ops import step as tstep
+
+    h, p, k = LABEL[0], LABEL[1], LABEL_K
+    k128 = compact._k128(k, p)
+    hp = h * p
+    results = {}
+
+    def record(name, got, want, fn, plain, n_bytes, n_ops, lib=None,
+               what=""):
+        torch.cuda.synchronize()
+        ne, diff = _bitwise(got, want)
+        log(f"  {name} [{h}, {p}] {what}: lanes that differ {ne}, max "
+            f"|kernel - plain| {diff} (int32 bits)")
+        check(ne == 0, f"{name} differs from its plain version {what}")
+        b_ms, b_by = bound(n_bytes, n_ops)
+        r = results.setdefault(name, dict(max_abs_err=0))
+        r["max_abs_err"] = max(r["max_abs_err"], diff)
+        if fn is not None:
+            r.update(ms=cuda_ms(fn), plain_ms=cuda_ms(plain), bound_ms=b_ms,
+                     bound_by=b_by,
+                     library_ms=None if lib is None else cuda_ms(lib))
+
+    # K16 on a churn step
+    a = staged_call(dev, seq["churn"], tstep, "fused_join_detect",
+                    fused=True)
+    got = tstep.fused_join_detect(*a)
+    want = tstep.fused_join_detect_torch(*a)
+    log(f"  fused_join_detect: {int(want[4].sum())} events, max "
+        f"{int(want[4].max())} a row, "
+        f"{int((want[0] < 0).sum())} matched cur lanes")
+    # 11 planes in; packed, three event planes and the counts out; ~80
+    # operations a lane (two 15-step searches, the detect chain)
+    record("fused_join_detect", got, want, lambda: tstep.fused_join_detect(*a),
+           lambda: tstep.fused_join_detect_torch(*a),
+           12 * hp * 4 + 3 * h * k128 * 4 + h * 4, 80 * 2 * hp,
+           what="(churn step 2)")
+
+    # K18 on a static step
+    a = staged_call(dev, seq["static"], tss, "compact_events", fused=True)
+    got = compact.compact_events(*a)
+    want = compact.compact_events_torch(*a)
+    log(f"  compact_events_rows: {int((a[0] < 0).sum())} events in")
+    # packed read whole, key and sv only at the events
+    record("compact_events_rows", got, want,
+           lambda: compact.compact_events(*a),
+           lambda: compact.compact_events_torch(*a),
+           hp * 4 + gathered_bytes(a[0] < 0, k128, 2) + 3 * h * k128 * 4,
+           4 * hp, what="(static step 2)")
+
+    # K15 on the unfused route
+    a = staged_call(dev, seq["churn"], tss, "merge_rows",
+                    merge_impl="pallas", compact_impl="pallas")
+    got = merge.merge_rows(*a)
+    want = merge.merge_rows_torch(*a)
+    keys = merge.u32_order(torch.cat([a[0][0], a[1][0]], dim=1))
+    # six channels a side in, six [H, 2P] channels out; two or three
+    # 15-step searches a lane
+    record("merge_rows", got, want, lambda: merge.merge_rows(*a),
+           lambda: merge.merge_rows_torch(*a), 24 * hp * 4, 3 * 15 * 2 * hp,
+           lib=lambda: torch.sort(keys, dim=1), what="(churn step 2)")
+
+    # K19 with the unfused routes' channel counts
+    for merge_impl, n_a in (("lax_sort", 6), ("pallas", 1)):
+        a = staged_call(dev, seq["churn"], tss, "compact_rows",
+                        merge_impl=merge_impl, compact_impl="pallas")
+        check(len(a[1]) == n_a, f"compact_rows got {len(a[1])} channels")
+        got = compact.compact_rows(*a)
+        want = compact.compact_rows_torch(*a)
+        n = a[0].shape[1]
+        timed = n_a == 6
+        # both masks read whole, each group's channels only at its
+        # selected lanes; every output lane written
+        record("compact_rows_groups", [*got[0], *got[1]],
+               [*want[0], *want[1]],
+               (lambda: compact.compact_rows(*a)) if timed else None,
+               (lambda: compact.compact_rows_torch(*a)) if timed else None,
+               2 * h * n * 4 + gathered_bytes(a[0] != 0, a[2], n_a)
+               + gathered_bytes(a[3] != 0, a[5], len(a[4]))
+               + (n_a * a[2] + len(a[4]) * a[5]) * h * 4, 4 * 2 * h * n,
+               what=f"(group a {n_a} channels over 2P = {n}, merge by "
+               f"{merge_impl}; {int(a[3].sum())} events)")
+    log("  merge_rows library yardstick: torch.sort of the concatenated "
+        f"[{h}, {2 * p}] uint32 keys as int64, which moves no payload")
+    return results
+
+
+def time_sorted_scan(dev, stack, s_n, n_valid, what):
+    """Wall ms a step (CUDA events over whole scans), the device span a
+    step with the card held busy while the host queues (the step reads
+    its static-membership flag on the host, so this span includes the
+    host's time after each read), device busy ms a step (the profiler's
+    sum of kernel times), the host's ms to issue a step, and updates/s;
+    medians of LABEL_SCANS scans after one warm-up."""
+    import torch
+
+    from orbitanalysis_tpu_torch.ops import sorted_step as tss
+
+    h, p = LABEL[0], LABEL[1]
+    step = tss.make_sorted_orbit_step(
+        LABEL_K, box_size=LABEL_BOX, fused=True, cur_presorted=True,
+        soa_batch=True)
+
+    def run_scan(queue=None):
+        carry = tss.init_sorted_carry(h, p, device=dev)
+        for s in range(s_n):
+            t1 = time.perf_counter()
+            carry, _ = step(carry, _batch(stack, s))
+            if queue is not None:
+                queue.append((time.perf_counter() - t1) * 1e3)
+
+    run_scan()
+    walls, spans, queue = [], [], []
+    for _ in range(LABEL_SCANS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        run_scan(queue)
+        b.record()
+        b.synchronize()
+        walls.append(a.elapsed_time(b))
+        spans.append(device_ms(run_scan))
+    wall_ms, span_ms = statistics.median(walls), statistics.median(spans)
+    host_ms = statistics.median(queue)
+    updates = s_n * h * n_valid
+    log(f"  sorted step, {what}, medians of {LABEL_SCANS} scans of {s_n} "
+        f"steps: wall {wall_ms / s_n:.4f} ms/step (scans "
+        f"{min(walls):.3f}-{max(walls):.3f} ms), device span "
+        f"{span_ms / s_n:.4f} ms/step (card held busy at the start), the "
+        f"host takes {host_ms:.4f} ms to issue a step; "
+        f"{updates / (wall_ms * 1e-3):.4g} particle-snapshot updates/s at "
+        f"the wall ({s_n} x {h} x {n_valid} updates a scan)")
+    busy = profile_scan(run_scan, s_n, wall_ms)
+    if busy is not None:
+        log(f"  {what}: {updates / (busy * s_n * 1e-3):.4g} updates/s at "
+            "the device busy time")
+
+
+def sorted_full_width(dev, seq):
+    """Phase 8: the sorted engine on the JAX benchmark's cells (counted),
+    its cross-checks, then its timings.  Returns the kernel launches of
+    the counted runs."""
+    import torch
+
+    from orbitanalysis_tpu_torch.engine.scan import scan_events_sorted
+    from orbitanalysis_tpu_torch.ops import _cuda
+    from orbitanalysis_tpu_torch.ops import apsis as tapsis
+    from orbitanalysis_tpu_torch.ops import sorted_step as tss
+
+    h, p = LABEL[0], LABEL[1]
+    churn, static = seq["churn"], seq["static"]
+    s_n, n_chk = churn.ids.shape[0], SORTED_CHECK
+    kw = dict(box_size=LABEL_BOX, cur_presorted=True, soa_batch=True)
+
+    def scan(stack, **opts):
+        return scan_events_sorted(
+            tss.init_sorted_carry(h, p, device=dev), stack, LABEL_K,
+            **kw, **opts)
+
+    def head(stack):
+        return stack._replace(**{k: getattr(stack, k)[:n_chk] for k in (
+            "ids", "pos", "vel", "center", "slot")})
+
+    # ---- the main path, counted
+    _cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, (cnt, ids, ang) = scan(churn, fused=True)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    c_churn = _cuda.launch_counts()
+    _, (cnt_u, ids_u, ang_u) = scan(head(churn), merge_impl="pallas",
+                                    compact_impl="pallas")
+    torch.cuda.synchronize()
+    c_unf = _cuda.launch_counts()
+    _, (cnt_s, _, _) = scan(static, fused=True)
+    torch.cuda.synchronize()
+    launches = _cuda.launch_counts()
+    # ---- end of the counted main path
+
+    def diff(after, before=None):
+        """Launches between two readings of the counts (since the reset
+        when ``before`` is None)."""
+        before = before or {}
+        return {n: c - before.get(n, 0) for n, c in after.items()
+                if c != before.get(n, 0)}
+
+    total = int(cnt.sum())
+    log(f"  churn, fused, [{h}, {p}] x {s_n} snapshots, K={LABEL_K}: "
+        f"{total} events (the JAX benchmark's total: {LABEL_EVENTS}), max "
+        f"{int(cnt.max())} a row; launches {diff(c_churn)}; first scan "
+        f"{first_s:.3f} s incl. warm-up")
+    check(total == LABEL_EVENTS,
+          f"sorted engine found {total} events, not {LABEL_EVENTS}")
+    check(int(cnt.max()) <= LABEL_K, "a row overflowed K = 2048")
+    check(diff(c_churn) == {"fused_join_detect": s_n},
+        "the churn scan did not launch K16 once a step (and nothing else)")
+    check(diff(c_unf, c_churn) == {"merge_rows": n_chk,
+                                   "compact_rows_groups": n_chk},
+          "the unfused route did not launch K15 and K19 once a step")
+    check(diff(launches, c_unf) == {"fused_join_detect": 1,
+                                    "compact_events_rows": n_chk - 1},
+          f"the static scan launched {diff(launches, c_unf)}, not K16 once "
+          f"and K18 {n_chk - 1} times")
+    log(f"  static, fused, {n_chk} snapshots: {int(cnt_s.sum())} events; "
+        f"launches {diff(launches, c_unf)}")
+    check(int(cnt_s.sum()) > 0, "the static scan found no events")
+
+    # the unfused route: the same events on the first snapshots
+    check(torch.equal(cnt_u, cnt[:n_chk]), "unfused route: counts differ")
+    sel = (torch.arange(LABEL_K, device=dev)[None, None, :]
+           < cnt_u[..., None])
+    check(torch.equal(ids_u[sel], ids[:n_chk][sel]),
+          "unfused route: event IDs differ")
+    ulps, dif = f16_ulps(ang_u[sel].cpu().numpy(),
+                         ang[:n_chk][sel].cpu().numpy())
+    check(np.all((ulps <= 1) | (dif <= ANGLE_ATOL)),
+          f"unfused route: angles differ by {dif.max(initial=0):.3g} rad")
+    log(f"  unfused route (K15 + K19), {n_chk} snapshots: the same "
+        f"{int(cnt_u.sum())} events; {int((ulps > 1).sum())} angles beyond "
+        f"one f16 ulp (torch acos vs Cephes; max |diff| "
+        f"{dif.max(initial=0):.3g} rad)")
+
+    # the general engine on the card, given the sorted run's bulk
+    # velocities, on the load-order snapshots
+    step = tss.make_sorted_orbit_step(LABEL_K, fused=True, **kw)
+    gstep = tapsis.make_orbit_step(box_size=LABEL_BOX, event_capacity=LABEL_K)
+    carry = tss.init_sorted_carry(h, p, device=dev)
+    gcarry = tapsis.init_carry(h, p, device=dev)
+    l_ids, l_pos, l_vel, l_cen = seq["load_order"]
+    beyond = compared = 0
+    worst = 0.0
+    for s in range(n_chk):
+        carry, ev = step(carry, _batch(churn, s))
+        check(torch.equal(ev.count, cnt[s]) and torch.equal(ev.ids, ids[s]),
+              f"snapshot {s}: the sorted step differs from the scan")
+        gcarry, gev = gstep(gcarry, tapsis.SnapshotBatch(
+            ids=l_ids[s], pos=l_pos[s], vel=l_vel[s], center=l_cen[s],
+            bulk_vel=ev.bulk_vel))
+        check(torch.equal(gev.ev_count, ev.count),
+              f"snapshot {s}: counts differ from the general engine")
+        ok = (torch.arange(LABEL_K, device=dev)[None, :]
+              < ev.count[:, None])
+        check(torch.equal(gev.ev_ids[ok], ev.ids[ok]),
+              f"snapshot {s}: event IDs differ from the general engine")
+        ulps, dif = f16_ulps(gev.ev_angles[ok].cpu().numpy(),
+                             ev.angles[ok].cpu().numpy())
+        check(np.all((ulps <= 1) | (dif <= ANGLE_ATOL)),
+              f"snapshot {s}: angles differ from the general engine by "
+              f"{dif.max(initial=0):.3g} rad")
+        beyond += int((ulps > 1).sum())
+        compared += int(ok.sum())
+        worst = max(worst, float(dif.max(initial=0)))
+    log(f"  general engine on the card, {n_chk} snapshots with the sorted "
+        f"run's bulk velocities: counts and event IDs (in reference order) "
+        f"equal, {compared} events; {beyond} angles beyond one f16 ulp "
+        f"(max |diff| {worst:.3g} rad)")
+
+    time_sorted_scan(dev, churn, s_n, seq["n_valid"], "churn (K16)")
+    time_sorted_scan(dev, static, n_chk, seq["n_static"],
+                     "static (K18 after the first step)")
+    return launches
+
+
+def sorted_end_to_end(dev, ctx):
+    """Phase 9: track_orbits(join_impl='sorted') on config 2 (counted)
+    against phase 5's general-engine catalogs and the oracle.  Returns
+    the kernel launches."""
+    import torch
+
+    from orbitanalysis_tpu_torch import track_orbits
+    from orbitanalysis_tpu_torch.engine.io_hdf5 import MemoryWriter
+    from orbitanalysis_tpu_torch.ops import _cuda
+    from orbitanalysis_tpu_torch.utils.metrics import Metrics
+
+    m, w = Metrics(), MemoryWriter()
+    # ---- the main path, counted
+    _cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    track_orbits(ctx["snap_nums"], ctx["branches"], ctx["regions"],
+                 ctx["load"], "sorted.h5", verbose=False, join_impl="sorted",
+                 metrics=m, writer=w, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _cuda.launch_counts()
+    # ---- end of the counted main path
+    joins = {r["join"] for r in m.records}
+    steps = len(m.records) + 1
+    k16, k18 = launches["fused_join_detect"], launches["compact_events_rows"]
+    log(f"  engine {sorted(joins)}, capacity {m.records[0]['capacity']}, "
+        f"{steps} steps: fused_join_detect {k16}, compact_events_rows {k18}")
+    check(joins == {"sorted"}, f"join_impl='sorted' ran {joins}")
+    check(k16 + k18 == steps and k16 >= 1,
+          "K16 + K18 launches != sorted steps")
+    catalogs_equal(w.files["sorted.h5"], ctx["general"])
+    log("  sorted and general catalogs equal (angles within 4e-3, bulk "
+        "velocities rtol 2e-6)")
+    compared, ambiguous = oracle_check(ctx["snaps"], w.files["sorted.h5"],
+                                       ctx["hubble_drag"], ctx["box"],
+                                       ORACLE_HALOS)
+    log(f"  oracle: first {ORACLE_HALOS} halos, {compared} events compared, "
+        f"{ambiguous} sign-ambiguous particles left out")
+    n_events = sum(r["n_events"] for r in m.records)
+    log(f"  end to end (sorted, incl. host pipeline): wall {wall:.3f} s, "
+        f"{ctx['members'] / wall:.4g} particle-snapshot updates/s, "
+        f"{n_events} events (phase 5 in this call: aligned "
+        f"{ctx['wall_aligned']:.3f} s, general {ctx['wall_general']:.3f} s)")
+    return launches
+
+
 def main():
     import torch
 
@@ -969,23 +1421,31 @@ def main():
     t0 = time.perf_counter()
     tier = native.tier()
     log(f"  host packing tier: {tier} ({time.perf_counter() - t0:.2f} s)")
-    work = label_workload(dev)
+    work, seq = bench_workloads(dev)
     log("== phase 3: kernels against their plain-torch versions")
     timings = kernel_checks(dev)
     timings.update(label_kernel_checks(dev, work))
+    timings.update(sorted_kernel_checks(dev, seq))
     log_timings(timings)
     log(f"== phase 4: aligned step parity, CUDA vs CPU, {PARITY[:2]}")
     step_parity(dev)
     log("== phase 5: the aligned main path end to end at config-2 scale")
-    launches = end_to_end(dev)
+    launches, ctx = end_to_end(dev)
     log(f"== phase 6: label step parity, CUDA vs CPU, "
         f"[{LABEL_PARITY[0]}, {LABEL_ROW}] x {LABEL_PARITY[1]} snapshots")
     label_parity(dev, work)
     log("== phase 7: the label-native main path at full width")
     label_launches = label_full_width(dev, work)
+    del work
+    log("== phase 8: the sorted engine at full width (the benchmark's "
+        "merge-join and static cells)")
+    sorted_launches = sorted_full_width(dev, seq)
+    log("== phase 9: track_orbits(join_impl='sorted') at config-2 scale")
+    e2e_sorted = sorted_end_to_end(dev, ctx)
     kernels = []
     for name, k in _cuda.KERNELS.items():
-        n = launches[name] + label_launches[name]
+        n = (launches[name] + label_launches[name] + sorted_launches[name]
+             + e2e_sorted[name])
         r = timings[name]
         kernels.append(dict(
             name=name, route=k.route, source=k.source, replaces=k.replaces,

@@ -30,6 +30,29 @@ __device__ __forceinline__ uint32_t f16_bits_rne(float x) {
   return static_cast<uint32_t>(__float2int_rn(fminf(x * 16777216.0f, 2e9f)));
 }
 
+// Cephes asinf polynomial, operation for operation as
+// orbitanalysis_tpu/ops/pallas_step.py _acos_f32 (and the plain torch
+// sorted_step._acos_f32): with --fmad=false every product and sum rounds
+// on its own, and sqrtf is the IEEE root.
+__device__ __forceinline__ float asin_poly(float v, float w) {
+  float p = static_cast<float>(4.2163199048e-2);
+  p = p * w + static_cast<float>(2.4181311049e-2);
+  p = p * w + static_cast<float>(4.5470025998e-2);
+  p = p * w + static_cast<float>(7.4953002686e-2);
+  p = p * w + static_cast<float>(1.6666752422e-1);
+  return p * w * v + v;
+}
+
+__device__ __forceinline__ float acos_f32(float x) {
+  const float pi = static_cast<float>(3.141592653589793);
+  const float ax = fabsf(x);
+  const float t = 0.5f * (1.0f - ax);
+  const float big = 2.0f * asin_poly(sqrtf(t), t);
+  const float acos_big = x < 0.0f ? pi - big : big;
+  const float acos_small = static_cast<float>(1.5707963267948966) - asin_poly(x, x * x);
+  return ax > 0.5f ? acos_big : acos_small;
+}
+
 // Exclusive offset of this warp's selected entries within a tile of
 // kWarps * 32 entries, and the tile's total, from each warp's count.
 // Ends with a barrier, so the caller may read both results; the caller
@@ -57,6 +80,111 @@ __device__ __forceinline__ void tile_offsets(int warp_count, int* warp_off,
   __syncthreads();
   before = warp_off[warp];
   total = *tile_total;
+}
+
+// Ordered multi-stream compaction: up to kMaxStreams uint32 streams of
+// an [H, N] row move together, in position order, to the front of an
+// [H, len] row wherever the selection word has a bit of sel_mask set;
+// each output word is ANDed with its stream's mask, and the outputs past
+// the row's count are written as zero.  With count set, the scan reads
+// the whole row and count[row] is the exact number selected (it may
+// exceed len); without it, the scan stops once the len outputs are full.
+constexpr int kMaxStreams = 6;
+constexpr int kStreamThreads = 1024;
+constexpr int kStreamWarps = kStreamThreads / 32;
+
+struct StreamGroup {
+  const uint32_t* sel;
+  uint32_t sel_mask;
+  const uint32_t* in[kMaxStreams];
+  uint32_t* out[kMaxStreams];
+  uint32_t out_mask[kMaxStreams];
+  int n_streams;
+  int len;
+  int32_t* count;  // [H] or nullptr
+};
+
+// One block per row (blockIdx.x) and group (blockIdx.y: a, else b), the
+// compact.cu tile scan: ballot + popc ranks inside a warp, one warp scans
+// the warp totals, a running base carries the count across tiles.  The
+// block's group is picked field by field into registers (the stream loops
+// unrolled to fixed indices): binding a reference to one group would make
+// every field read an indirect load on each tile's critical path.  kN
+// (>= either group's n_streams) bounds the unrolled stream loops.
+template <int kN>
+__global__ void __launch_bounds__(kStreamThreads)
+compact_streams_kernel(StreamGroup a, StreamGroup b, int N) {
+  __shared__ int warp_off[kStreamWarps];
+  __shared__ int tile_total;
+  const bool gb = blockIdx.y != 0;
+  const size_t row = blockIdx.x;
+  const uint32_t* sel = (gb ? b.sel : a.sel) + row * N;
+  const uint32_t sel_mask = gb ? b.sel_mask : a.sel_mask;
+  const int n_streams = gb ? b.n_streams : a.n_streams;
+  const int len = gb ? b.len : a.len;
+  int32_t* const count = gb ? b.count : a.count;
+  const int lane = threadIdx.x & 31;
+  const uint32_t lanes_below = (1u << lane) - 1u;
+  int base = 0;  // selected entries in earlier tiles: uniform in the block
+  for (int start = 0; start < N && (count != nullptr || base < len);
+       start += kStreamThreads) {
+    const int i = start + threadIdx.x;
+    const bool take = i < N && (__ldg(sel + i) & sel_mask) != 0u;
+    // the payload loads are issued before the scan's barriers, so their
+    // latency overlaps the scan instead of following it
+    uint32_t v[kN];
+    if (take) {
+#pragma unroll
+      for (int c = 0; c < kN; ++c) {
+        if (c < n_streams) v[c] = __ldg((gb ? b.in[c] : a.in[c]) + row * N + i);
+      }
+    }
+    const uint32_t ballot = __ballot_sync(0xffffffffu, take);
+    int before, total;
+    tile_offsets<kStreamWarps>(__popc(ballot), warp_off, &tile_total, before, total);
+    if (take) {
+      const int off = base + before + __popc(ballot & lanes_below);
+      if (off < len) {
+#pragma unroll
+        for (int c = 0; c < kN; ++c) {
+          if (c < n_streams) {
+            (gb ? b.out[c] : a.out[c])[row * len + off] =
+                v[c] & (gb ? b.out_mask[c] : a.out_mask[c]);
+          }
+        }
+      }
+    }
+    base += total;
+    __syncthreads();  // warp_off / tile_total are rewritten next tile
+  }
+  for (int j = min(base, len) + threadIdx.x; j < len; j += kStreamThreads) {
+#pragma unroll
+    for (int c = 0; c < kN; ++c) {
+      if (c < n_streams) (gb ? b.out[c] : a.out[c])[row * len + j] = 0u;
+    }
+  }
+  if (count != nullptr && threadIdx.x == 0) count[row] = base;
+}
+
+// Launch compact_streams_kernel over H rows of length N for one group
+// (b == nullptr) or two; returns cudaGetLastError().
+inline int launch_compact_streams(const StreamGroup& a, const StreamGroup* b, int H,
+                                  int N, cudaStream_t stream) {
+  if (H > 0) {
+    const dim3 grid(H, b == nullptr ? 1 : 2);
+    const StreamGroup& g = b == nullptr ? a : *b;
+    const int n = a.n_streams > g.n_streams ? a.n_streams : g.n_streams;
+    if (n <= 1) {
+      compact_streams_kernel<1><<<grid, kStreamThreads, 0, stream>>>(a, g, N);
+    } else if (n <= 2) {
+      compact_streams_kernel<2><<<grid, kStreamThreads, 0, stream>>>(a, g, N);
+    } else if (n <= 3) {
+      compact_streams_kernel<3><<<grid, kStreamThreads, 0, stream>>>(a, g, N);
+    } else {
+      compact_streams_kernel<kMaxStreams><<<grid, kStreamThreads, 0, stream>>>(a, g, N);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

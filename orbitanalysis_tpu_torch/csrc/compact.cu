@@ -1,5 +1,6 @@
-// Ordered event compaction for the aligned engine's step and the
-// label-native detector's routes, hand-written for Hopper (sm_90a).
+// Ordered event compaction for the aligned engine's step, the
+// label-native detector's routes and the sorted engine's step,
+// hand-written for Hopper (sm_90a).
 //
 // Replaces the TPU kernels of orbitanalysis_tpu/ops/pallas_compact.py:
 //   K1  _compact_angle_blocked_kernel  (entry compact_angle_blocked)
@@ -11,6 +12,13 @@
 //   K5  _compact_payload_blocked_kernel (entry compact_payload_blocked,
 //       call :502, K4's blocked form with a lax.cond reroute to K4)
 //       -> compact_payload_rows below
+//   K18 _compact_events_kernel         (entry compact_events, call :173)
+//       -> compact_events_rows below
+//   K19 _compact_kernel                (entry compact_rows, call :137)
+//       -> compact_rows_groups below
+// All but compact_angle_rows (which builds its output word from the
+// input) run common.cuh's compact_streams_kernel, the same tile scan
+// with up to six streams moving together unchanged.
 //
 // Contract (every entry point): each row of an [H, P] uint32 plane is
 // compacted, in position order, into the front of an [H, k128] row;
@@ -25,6 +33,13 @@
 //   compact_payload_rows: prebuilt payload words
 //     ((pos + 1) << 15) | f16(angle); an entry is an event where the
 //     word is >= 2^15 (a non-event is 0), and it moves unchanged.
+//   compact_events_rows (K18, the sorted engine's static-membership
+//     branch): packed = f32_bits(angle) | apsis << 31 selects, and the
+//     three streams (key, sv, packed) move together.
+//   compact_rows_groups (K19, the sorted engine's compact_impl='pallas'):
+//     two independent groups over [H, N] rows, each with its own int32
+//     0/1 mask, its channel count (1 to 6) and its output length; the
+//     entries of both past their counts are zero.
 //
 // The TPU splits K1/K2 and K4/K5 exist for VMEM and the 16-entry block
 // fronts of the blocked network; here there is one exact ordered stream
@@ -35,7 +50,20 @@
 // carries the count across tiles.  A row stops reading once its k128
 // outputs are full.
 //
-// What bounds it on the H100: bytes.  Each entry is one coalesced u32
+// What bounds K18 and K19 on the H100: bytes.  The selection plane is
+// read whole; a payload stream is read only at the selected lanes, so it
+// costs the 32-byte sectors that hold one.  K18 at the sorted engine's
+// bench shape [64, 32768], K = 2048, on a static step (about 2 % of lanes
+// events) reads the 8.4 MB packed plane and a fraction of the key and sv
+// sectors, and writes three [64, 2048] planes.  K19 on the unfused route
+// (N = 2P = 65536; group a with six channels, len P and about half its
+// lanes selected; group b with three, len 2048, about 1 %) reads its two
+// masks whole and writes six [64, 32768] and three [64, 2048] planes.
+// chip_smoke.py reckons each bound from its run's selection.  Both keep
+// the one-block-a-row design below, so K19's six-channel group moves its
+// payload with sparse, half-coalesced reads and writes.
+//
+// What bounds K1-K5 on the H100: bytes.  Each entry is one coalesced u32
 // read; the writes are sparse (events are a few percent of entries) and
 // the zero fill is k128 words per row.  At the aligned step's shape of
 // [64, 32768] the plane is 8 MB, 2.5 us at 3.35 TB/s, but one block per
@@ -85,69 +113,24 @@ compact_angle_rows_kernel(const uint32_t* __restrict__ aw,
   for (int j = min(base, k128) + threadIdx.x; j < k128; j += kThreads) o[j] = 0u;
 }
 
-__global__ void __launch_bounds__(kThreads)
-compact_pair_rows_kernel(const uint32_t* __restrict__ posw,
-                         const uint32_t* __restrict__ angw,
-                         uint32_t* __restrict__ out_pos,
-                         uint32_t* __restrict__ out_ang, int P, int k128) {
-  __shared__ int warp_off[kWarps];
-  __shared__ int tile_total;
-  const size_t row = blockIdx.x;
-  const uint32_t* pin = posw + row * P;
-  const uint32_t* ain = angw + row * P;
-  uint32_t* op = out_pos + row * k128;
-  uint32_t* oa = out_ang + row * k128;
-  const int lane = threadIdx.x & 31;
-  const uint32_t lanes_below = (1u << lane) - 1u;
-  int base = 0;
-  for (int start = 0; start < P && base < k128; start += kThreads) {
-    const int i = start + threadIdx.x;
-    const uint32_t w = i < P ? pin[i] : 0u;
-    const bool sel = w != 0u;
-    const uint32_t ballot = __ballot_sync(0xffffffffu, sel);
-    int before, total;
-    tile_offsets<kWarps>(__popc(ballot), warp_off, &tile_total, before, total);
-    if (sel) {
-      const int off = base + before + __popc(ballot & lanes_below);
-      if (off < k128) {
-        op[off] = w;
-        oa[off] = ain[i];  // sparse read: only where an event fired
-      }
-    }
-    base += total;
-    __syncthreads();
+// One group of common.cuh's multi-stream scan: n uint32 streams of [H, P]
+// rows selected where sel & sel_mask != 0, each moved unchanged into the
+// front of [H, k128] rows.
+int launch_one_group(const void* sel, uint32_t sel_mask, const void* const* in,
+                     void* const* out, int n, int H, int P, int k128,
+                     void* stream) {
+  StreamGroup g{};
+  g.sel = static_cast<const uint32_t*>(sel);
+  g.sel_mask = sel_mask;
+  for (int c = 0; c < n; ++c) {
+    g.in[c] = static_cast<const uint32_t*>(in[c]);
+    g.out[c] = static_cast<uint32_t*>(out[c]);
+    g.out_mask[c] = 0xFFFFFFFFu;
   }
-  for (int j = min(base, k128) + threadIdx.x; j < k128; j += kThreads) {
-    op[j] = 0u;
-    oa[j] = 0u;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-compact_payload_rows_kernel(const uint32_t* __restrict__ pay,
-                            uint32_t* __restrict__ out, int P, int k128) {
-  __shared__ int warp_off[kWarps];
-  __shared__ int tile_total;
-  const uint32_t* in = pay + static_cast<size_t>(blockIdx.x) * P;
-  uint32_t* o = out + static_cast<size_t>(blockIdx.x) * k128;
-  const int lane = threadIdx.x & 31;
-  const uint32_t lanes_below = (1u << lane) - 1u;
-  int base = 0;
-  for (int start = 0; start < P && base < k128; start += kThreads) {
-    const int i = start + threadIdx.x;
-    const uint32_t w = i < P ? in[i] : 0u;
-    const bool sel = w >= (1u << 15);
-    const uint32_t ballot = __ballot_sync(0xffffffffu, sel);
-    int before, total;
-    tile_offsets<kWarps>(__popc(ballot), warp_off, &tile_total, before, total);
-    if (sel) {
-      const int off = base + before + __popc(ballot & lanes_below);
-      if (off < k128) o[off] = w;
-    }
-    base += total;
-    __syncthreads();
-  }
-  for (int j = min(base, k128) + threadIdx.x; j < k128; j += kThreads) o[j] = 0u;
+  g.n_streams = n;
+  g.len = k128;
+  g.count = nullptr;
+  return launch_compact_streams(g, nullptr, H, P, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -167,19 +150,54 @@ extern "C" int compact_angle_rows(const void* aw, void* out, int H, int P,
 extern "C" int compact_pair_rows(const void* posw, const void* angw,
                                  void* out_pos, void* out_ang, int H, int P,
                                  int k128, void* stream) {
-  if (H > 0) {
-    compact_pair_rows_kernel<<<H, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(posw), static_cast<const uint32_t*>(angw),
-        static_cast<uint32_t*>(out_pos), static_cast<uint32_t*>(out_ang), P, k128);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const void* in[2] = {posw, angw};
+  void* out[2] = {out_pos, out_ang};
+  return launch_one_group(posw, 0xFFFFFFFFu, in, out, 2, H, P, k128, stream);
 }
 
+extern "C" int compact_events_rows(const void* packed, const void* key,
+                                   const void* sv, void* out_key, void* out_sv,
+                                   void* out_packed, int H, int P, int k128,
+                                   void* stream) {
+  const void* in[3] = {key, sv, packed};
+  void* out[3] = {out_key, out_sv, out_packed};
+  return launch_one_group(packed, 0x80000000u, in, out, 3, H, P, k128, stream);
+}
+
+// in_a / out_a / in_b / out_b: host arrays of n_a / n_b device pointers.
+extern "C" int compact_rows_groups(const void* sel_a, const void* const* in_a,
+                                   void* const* out_a, int n_a, int len_a,
+                                   const void* sel_b, const void* const* in_b,
+                                   void* const* out_b, int n_b, int len_b, int H,
+                                   int N, void* stream) {
+  if (n_a < 1 || n_a > kMaxStreams || n_b < 1 || n_b > kMaxStreams) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  StreamGroup g[2] = {};
+  const void* sel[2] = {sel_a, sel_b};
+  const void* const* in[2] = {in_a, in_b};
+  void* const* out[2] = {out_a, out_b};
+  const int n[2] = {n_a, n_b};
+  const int len[2] = {len_a, len_b};
+  for (int k = 0; k < 2; ++k) {
+    g[k].sel = static_cast<const uint32_t*>(sel[k]);
+    g[k].sel_mask = 0xFFFFFFFFu;
+    for (int c = 0; c < n[k]; ++c) {
+      g[k].in[c] = static_cast<const uint32_t*>(in[k][c]);
+      g[k].out[c] = static_cast<uint32_t*>(out[k][c]);
+      g[k].out_mask[c] = 0xFFFFFFFFu;
+    }
+    g[k].n_streams = n[k];
+    g[k].len = len[k];
+    g[k].count = nullptr;
+  }
+  return launch_compact_streams(g[0], &g[1], H, N, static_cast<cudaStream_t>(stream));
+}
+
+// w >= 2^15 is the test (w & 0xFFFF8000) != 0.
 extern "C" int compact_payload_rows(const void* pay, void* out, int H, int P,
                                     int k128, void* stream) {
-  if (H > 0) {
-    compact_payload_rows_kernel<<<H, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(pay), static_cast<uint32_t*>(out), P, k128);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const void* in[1] = {pay};
+  void* outs[1] = {out};
+  return launch_one_group(pay, 0xFFFF8000u, in, outs, 1, H, P, k128, stream);
 }

@@ -77,27 +77,6 @@ struct DetectArgs {
   int pericentric;
 };
 
-// Cephes asinf polynomial, operation for operation as
-// orbitanalysis_tpu/ops/pallas_step.py _acos_f32.
-__device__ __forceinline__ float asin_poly(float v, float w) {
-  float p = static_cast<float>(4.2163199048e-2);
-  p = p * w + static_cast<float>(2.4181311049e-2);
-  p = p * w + static_cast<float>(4.5470025998e-2);
-  p = p * w + static_cast<float>(7.4953002686e-2);
-  p = p * w + static_cast<float>(1.6666752422e-1);
-  return p * w * v + v;
-}
-
-__device__ __forceinline__ float acos_f32(float x) {
-  const float pi = static_cast<float>(3.141592653589793);
-  const float ax = fabsf(x);
-  const float t = 0.5f * (1.0f - ax);
-  const float big = 2.0f * asin_poly(sqrtf(t), t);
-  const float acos_big = x < 0.0f ? pi - big : big;
-  const float acos_small = static_cast<float>(1.5707963267948966) - asin_poly(x, x * x);
-  return ax > 0.5f ? acos_big : acos_small;
-}
-
 // utils/numerics.oct_encode (pallas_label._oct_encode_kernel).
 __device__ __forceinline__ uint32_t oct_encode(float x, float y, float z) {
   const float s = fmaxf(fabsf(x) + fabsf(y) + fabsf(z), 1e-30f);

@@ -247,12 +247,15 @@ def pack_snapshot(
     region_bulk_vels: Optional[np.ndarray] = None,
     id_dtype=np.int32,
     pos_dtype=np.float32,
+    sort_ids: bool = False,
 ) -> PackedSnapshot:
     """Pack one loader snapshot dict into padded load-order arrays.
 
     ``rows`` maps each region block to its global halo row (one row per
     main-branch halo for the whole run, so carried state stays aligned
-    as halos are born).
+    as halos are born).  ``sort_ids=True`` stages each row ID-sorted for
+    the sorted engine (the padding sentinel, the dtype max, stays at the
+    tail), with each entry's load-order slot in ``slot``.
     """
     ids = np.asarray(snapshot["ids"])
     offsets = np.asarray(snapshot["region_offsets"], dtype=np.int64)
@@ -303,6 +306,18 @@ def pack_snapshot(
     lengths = np.zeros(n_halos, dtype=np.int64)
     lengths[rows] = lengths_blocks
 
+    slot = None
+    if sort_ids:
+        order = np.argsort(packed_ids, axis=-1, kind="stable")
+        packed_ids = np.take_along_axis(packed_ids, order, axis=-1)
+        packed_pos = np.take_along_axis(packed_pos, order[..., None],
+                                        axis=-2)
+        packed_vel = np.take_along_axis(packed_vel, order[..., None],
+                                        axis=-2)
+        if packed_mass is not None:
+            packed_mass = np.take_along_axis(packed_mass, order, axis=-1)
+        slot = order.astype(np.int32)
+
     return PackedSnapshot(
         ids=packed_ids,
         pos=packed_pos,
@@ -312,4 +327,5 @@ def pack_snapshot(
         bulk_vel=bulk,
         lengths=lengths,
         rows=np.asarray(rows),
+        slot=slot,
     )

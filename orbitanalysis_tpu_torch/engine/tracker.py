@@ -16,7 +16,9 @@ same checkpoint/resume semantics.  Between the callbacks and the file:
 Engines: ``'aligned'`` (stable row positions staged on the host, no
 device join; its event compaction is the hand-written CUDA kernel) is
 what ``join_impl='auto'`` picks on a CUDA device; ``'general'`` (the
-sort-merge join step) elsewhere, and after ``auto`` capacity growth.
+sort-merge join step) elsewhere, and after ``auto`` capacity growth;
+``'sorted'`` (rows staged ID-sorted on the host, an ID-sorted carry, the
+join-and-detect kernel on the card) when asked for.
 """
 
 from __future__ import annotations
@@ -48,9 +50,14 @@ from orbitanalysis_tpu_torch.ops.compact import f16_bits_rne
 from orbitanalysis_tpu_torch.ops.sorted_step import (
     AUTO_FUSED_CAPACITY,
     MAX_ALIGNED_CAPACITY,
+    MAX_FUSED_CAPACITY,
+    SortedCarry,
     decode_aligned_carry,
     init_aligned_carry,
+    init_sorted_carry,
     make_aligned_native_step,
+    make_sorted_orbit_step,
+    sorted_carry_to_numpy,
 )
 from orbitanalysis_tpu_torch.utils.device import resolve_device
 from orbitanalysis_tpu_torch.utils.metrics import Metrics, phase_timer, trace
@@ -275,6 +282,10 @@ class _DeviceEngine:
         self._steps = {}
         if join == "aligned":
             self.carry = init_aligned_carry(n_halos, capacity, device=device)
+        elif join == "sorted":
+            self.carry = init_sorted_carry(
+                n_halos, capacity, id_dtype=id_dtype,
+                angle_dtype=angle_dtype, device=device)
         else:
             self.carry = init_carry(n_halos, capacity, id_dtype=id_dtype,
                                     angle_dtype=angle_dtype, device=device)
@@ -282,7 +293,15 @@ class _DeviceEngine:
     def _step_fn(self, static=False):
         key = (self.capacity, self.event_capacity, static)
         if key not in self._steps:
-            if self.join == "aligned":
+            if self.join == "sorted":
+                # the event buffer spans the whole capacity (overflow
+                # free); events in ID order with their load slots
+                self._steps[key] = make_sorted_orbit_step(
+                    self.capacity, mode=self.mode, box_size=self.box_size,
+                    id_dtype=self.id_dtype, angle_dtype=self.angle_dtype,
+                    fused=True, cur_presorted=True, events_id_order=True,
+                )
+            elif self.join == "aligned":
                 # bounded event buffer; overflow stays lossless because
                 # the step also emits the full pre-compaction payload
                 # plane, from which the writer recovers every event
@@ -302,13 +321,16 @@ class _DeviceEngine:
 
     def grow(self, new_capacity):
         """Re-pad the carry's particle axis on the device."""
-        if self.join == "aligned":
+        if self.join in ("sorted", "aligned"):
+            # powers of two, as the JAX package's merge network needs
             new_capacity = max(round_up_pow2(new_capacity), 128)
-            if new_capacity > MAX_ALIGNED_CAPACITY:
+            limit = (MAX_ALIGNED_CAPACITY if self.join == "aligned"
+                     else MAX_FUSED_CAPACITY)
+            if new_capacity > limit:
                 raise ValueError(
                     f"region growth needs capacity {new_capacity}, beyond "
-                    "the aligned engine's per-row ceiling "
-                    f"({MAX_ALIGNED_CAPACITY}); re-run with "
+                    f"the {self.join} engine's per-row ceiling "
+                    f"({limit}); re-run with "
                     "join_impl='general' (resume=True continues from the "
                     "savefile)"
                 )
@@ -324,17 +346,26 @@ class _DeviceEngine:
                               device=x.device)
             return torch.cat([x, tail], dim=-1)
 
+        slots = torch.arange(self.capacity, new_capacity, dtype=torch.int32,
+                             device=self.device).expand(self.n_halos, pad)
         if self.join == "aligned":
             # sentinel keys, appended slot numbers (keeps each row a
             # slot permutation), zero rhat/angle planes
-            h = c.key.shape[0]
-            slots = torch.arange(self.capacity, new_capacity,
-                                 dtype=torch.int32, device=c.sv.device)
             self.carry = type(c)(
                 key=padded(c.key, -1),
-                sv=torch.cat([c.sv, slots.expand(h, pad)], dim=-1),
+                sv=torch.cat([c.sv, slots], dim=-1),
                 rhat=padded(c.rhat, 0.0),
                 packed=padded(c.packed, 0),
+            )
+        elif self.join == "sorted":
+            # sentinel IDs sort last, so each row stays ID-sorted and a
+            # slot permutation
+            self.carry = SortedCarry(
+                ids=padded(c.ids, self.invalid),
+                slot=torch.cat([c.slot, slots], dim=-1),
+                vrb=padded(c.vrb, 0),
+                rhat=padded(c.rhat, 0.0),
+                angles=padded(c.angles, 0.0),
             )
         else:
             self.carry = Carry(
@@ -357,24 +388,30 @@ class _DeviceEngine:
         self._steps.clear()
 
     def to_general(self, new_capacity: int, layout_ids):
-        """Convert this aligned engine into a general engine at
-        ``new_capacity``: the carry is scattered back from stable
-        positions to load-slot order through the slot permutation, and
-        the radial-velocity sign bits become +-1.0 placeholders
-        (detection only compares signs).  ``layout_ids``: the ``[H, P]``
-        stable-position table of real IDs — the aligned carry is
-        positional.  Returns ``(general_engine, carry_ids_in_load_order)``.
+        """Convert this sorted or aligned engine into a general engine at
+        ``new_capacity``: the carry is scattered back from its device
+        layout (ID-sorted, or stable positions) to load-slot order
+        through the slot permutation, and the radial-velocity sign bits
+        become +-1.0 placeholders (detection only compares signs).
+        ``layout_ids``: the ``[H, P]`` stable-position table of real IDs,
+        for the aligned carry, which is positional (the sorted carry
+        holds its IDs).  Returns ``(general_engine,
+        carry_ids_in_load_order)``.
         """
         new_capacity = round_up(new_capacity, 128)
-        c = decode_aligned_carry(self.carry)
-        ids_s = np.asarray(layout_ids)
+        if self.join == "sorted":
+            c = sorted_carry_to_numpy(self.carry)
+            ids_s = c.ids
+        else:
+            c = decode_aligned_carry(self.carry)
+            ids_s = np.asarray(layout_ids)
         slot = c.slot
         h, p = ids_s.shape
         vr_s = (((c.vrb >> 1) & 1).astype(np.float32)
                 - (c.vrb & 1).astype(np.float32))
         ids_l = np.full((h, new_capacity), self.invalid, dtype=ids_s.dtype)
         vr_l = np.zeros((h, new_capacity), dtype=np.float32)
-        ang_l = np.zeros((h, new_capacity), dtype=np.float32)
+        ang_l = np.zeros((h, new_capacity), dtype=c.angles.dtype)
         rhat_l = np.zeros((3, h, new_capacity), dtype=np.float32)
         np.put_along_axis(ids_l, slot, ids_s, axis=-1)
         np.put_along_axis(vr_l, slot, vr_s, axis=-1)
@@ -393,11 +430,16 @@ class _DeviceEngine:
         return out, ids_l
 
     def step(self, batch: SnapshotBatch, static: bool = False):
-        fn = self._step_fn(static=static and self.join != "aligned")
+        fn = self._step_fn(
+            static=static and self.join not in ("sorted", "aligned"))
         self.carry, events = fn(self.carry, batch)
         if self.join == "aligned":
             small = dict(count=events.count, ids=events.ids,
                          angles=events.angles, bulk_vel=events.bulk_vel)
+        elif self.join == "sorted":
+            small = dict(count=events.count, ids=events.ids,
+                         angles=events.angles, slots=events.slots,
+                         bulk_vel=events.bulk_vel)
         else:
             small = dict(count=events.ev_count, ids=events.ev_ids,
                          angles=events.ev_angles, bulk_vel=events.bulk_vel)
@@ -476,12 +518,16 @@ def track_orbits(
     capacity, headroom, id_dtype, angle_dtype, event_capacity, metrics,
     prefetch, checkpoint, resume, verbose : as in the JAX package.
     profile_dir : directory for a ``torch.profiler`` Chrome trace.
-    join_impl : {'auto', 'general', 'aligned'}.  ``'auto'`` picks
-        ``'aligned'`` on a CUDA device when its constraints hold
+    join_impl : {'auto', 'general', 'sorted', 'aligned'}.  ``'auto'``
+        picks ``'aligned'`` on a CUDA device when its constraints hold
         (32- or 64-bit signed IDs, f32 angles, capacity up to
-        ``AUTO_FUSED_CAPACITY``), else ``'general'``.
+        ``AUTO_FUSED_CAPACITY``), else ``'general'``.  ``'sorted'``
+        stages rows ID-sorted on the host and runs the join-and-detect
+        kernel (32-bit signed IDs, f32 angles, power-of-two capacities up
+        to ``MAX_FUSED_CAPACITY``); each of its steps reads one flag on
+        the host (static membership or not).
     grow_impl : {'auto', 'keep', 'general'}: what capacity growth does
-        to an aligned engine — ``'keep'`` grows it in place,
+        to a sorted or aligned engine — ``'keep'`` grows it in place,
         ``'general'`` converts its carry to the general engine,
         ``'auto'`` converts when ``join_impl`` was auto-selected.
     device : torch device of the state and the steps (default
@@ -491,8 +537,8 @@ def track_orbits(
         engine.io_hdf5.H5Writer`); :class:`~orbitanalysis_tpu_torch.
         engine.io_hdf5.MemoryWriter` keeps the catalogs in memory.
 
-    Not ported yet: ``mesh=`` (the halo- and hash-sharded engines) and
-    ``join_impl='sorted'`` raise NotImplementedError.
+    Not ported yet: ``mesh=`` (the halo- and hash-sharded engines)
+    raises NotImplementedError.
     """
     device = resolve_device(device, "track_orbits")
     writer = io_hdf5.H5Writer() if writer is None else writer
@@ -501,12 +547,7 @@ def track_orbits(
             "mesh= (the halo-sharded and hash-sharded engines) is not "
             "ported yet; see ROADMAP.md M11"
         )
-    if join_impl == "sorted":
-        raise NotImplementedError(
-            "join_impl='sorted' (the fused merge-join engine) is not "
-            "ported yet; see ROADMAP.md M10"
-        )
-    if join_impl not in ("auto", "general", "aligned"):
+    if join_impl not in ("auto", "general", "sorted", "aligned"):
         raise ValueError(f"unknown join_impl: {join_impl!r}")
     if grow_impl not in ("auto", "keep", "general"):
         raise ValueError(f"unknown grow_impl: {grow_impl!r}")
@@ -602,6 +643,24 @@ def track_orbits(
                     ids_flat, angles_flat = _aligned_events(
                         p, events, fetch, ev_engine, counts, phases,
                         verbose)
+                elif engine.join == "sorted":
+                    # overflow free (the event buffer spans the
+                    # capacity); events come in ID order with their load
+                    # slots, and the host restores reference order on a
+                    # count-bounded slice
+                    kf = min(round_up(max(int(counts.max(initial=0)), 1),
+                                      256), ev_engine.capacity)
+                    with phase_timer(phases, "fetch"):
+                        ev_ids = fetch["ids"][saved_rows, :kf]
+                        ev_angles = fetch["angles"][saved_rows, :kf]
+                        ev_slots = fetch["slots"][saved_rows, :kf]
+                    sel = np.arange(kf)[None, :] < counts[:, None]
+                    order = np.argsort(
+                        np.where(sel, ev_slots, np.iinfo(np.int32).max),
+                        axis=-1, kind="stable")
+                    ids_flat = np.take_along_axis(ev_ids, order, -1)[sel]
+                    angles_flat = np.take_along_axis(ev_angles, order,
+                                                     -1)[sel]
                 elif int(counts.max(initial=0)) > ev_engine.event_capacity:
                     # event-capacity overflow: fetch the full masks
                     with phase_timer(phases, "fetch"):
@@ -684,6 +743,14 @@ def track_orbits(
                 if engine is None:
                     box_size = snapshot.get("box_size")
                     cap = capacity or required_capacity(lengths, headroom)
+                    if join_impl == "sorted":
+                        cap = max(round_up_pow2(cap), 128)
+                        if cap > MAX_FUSED_CAPACITY:
+                            raise ValueError(
+                                f"join_impl='sorted' supports per-halo "
+                                f"capacities up to {MAX_FUSED_CAPACITY} "
+                                f"(needed {cap}); use join_impl='general'"
+                            )
                     if join_impl == "aligned":
                         cap = max(round_up_pow2(cap), 128)
                         if (resume_layout_flat is not None
@@ -732,7 +799,7 @@ def track_orbits(
                     # pending overflow fallbacks keep their shapes
                     flush_pending()
                     new_cap = required_capacity(lengths, headroom)
-                    to_general = engine.join == "aligned" and (
+                    to_general = engine.join in ("sorted", "aligned") and (
                         grow_impl == "general"
                         or (grow_impl == "auto" and join_was_auto)
                     )
@@ -799,6 +866,7 @@ def track_orbits(
                             snapshot, rows, n_rows, engine.capacity,
                             region_positions, region_bulk_vels,
                             id_dtype=id_dtype,
+                            sort_ids=join_impl == "sorted",
                         )
 
                 t0 = time.time()
@@ -818,9 +886,10 @@ def track_orbits(
                         packed.ids != engine.invalid, iota,
                         np.int32(engine._dev_invalid)))
                 # static membership (general engine): an identical ID
-                # layout to the previous snapshot needs no join
+                # layout to the previous snapshot needs no join (the
+                # sorted engine tests it on the device)
                 static = (
-                    join_impl != "aligned"
+                    join_impl not in ("sorted", "aligned")
                     and prev_ids_host is not None
                     and bool(np.array_equal(packed_ids_host, prev_ids_host))
                 )
@@ -1010,8 +1079,8 @@ def _resume_angles(engines, savefiles, writer, offsets, n_rows, rows,
             e.capacity, rows=rows, fill=0.0,
         )
         e.set_angles(angles_padded,
-                     order=packed_slot_host if join_impl == "aligned"
-                     else None)
+                     order=packed_slot_host
+                     if join_impl in ("sorted", "aligned") else None)
 
 
 def _write_checkpoint(p, engines, engine, savefiles, writer):
@@ -1023,11 +1092,13 @@ def _write_checkpoint(p, engines, engine, savefiles, writer):
         angles_list = [e.angles_host() for e in engines]
     valid = p["packed_ids"] != engine.invalid
     slot = layout_flat = v_load = None
-    if engine.join == "aligned":
-        # the carry follows stable positions: scatter back to load order
+    if engine.join in ("sorted", "aligned"):
+        # the carry follows the staged layout (ID-sorted or stable
+        # positions): scatter back to load order
         slot = np.asarray(p["packed_slot"])
         v_load = np.zeros(valid.shape, dtype=bool)
         np.put_along_axis(v_load, slot, valid, axis=-1)
+    if engine.join == "aligned":
         pos_of = np.zeros(slot.shape, dtype=np.int32)
         np.put_along_axis(
             pos_of, slot,

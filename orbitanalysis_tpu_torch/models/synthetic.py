@@ -155,24 +155,17 @@ def churn_snapshots(
     return snaps, centers
 
 
-def label_churn_workload(n_halos: int, capacity: int, n_snaps: int,
-                         seed: int = 0, churn: float = 0.07):
-    """The JAX package's benchmark churn workload (``bench.py``:
-    ``make_orbits``, ``make_churn_sequence``, ``make_label_sequence``) in
-    the label-native representation, with the same NumPy draws in the
-    same order, so one seed gives the same arrays as ``bench.py``.
+#: The padding ID of the bench's int32 ID form (the int32 maximum).
+_INVALID_I32 = np.iinfo(np.int32).max
 
-    ``n_halos`` halos each own a pool of ``capacity`` particles on
-    eccentric orbits (radial breathing on circular motion, random
-    planes and phases); each halo tracks 90 % of its pool, and per
-    snapshot ``churn`` of the tracked count swaps against the reserve.
-    Particle ``h * capacity + c`` is slot ``c`` of halo ``h``'s pool.
 
-    Returns ``(label [S, N] int32 (-1 untracked), pos [S, 3, N] f32,
-    vel [S, 3, N] f32, centers [S, H, 3] f32, n_valid_total)`` with
-    ``N = n_halos * capacity``.  The benchmark's per-row ID shuffle and
-    load-order gathers are skipped; their random draws are still taken.
-    """
+def _orbit_pool(n_halos: int, capacity: int, n_snaps: int, seed: int):
+    """The JAX package benchmark's orbit pool (``bench.py`` ``make_orbits``,
+    its draws in its order): each halo owns ``capacity`` particles on
+    eccentric orbits (radial breathing on circular motion, random planes
+    and phases), with its pool IDs shuffled in the row.  Returns ``(rng,
+    ids [H, C] int32, pos [S, H, C, 3] f32, vel [S, H, C, 3] f32,
+    center [H, 3] f32)``; ``rng`` goes on to the membership draws."""
     rng = np.random.default_rng(seed)
     H, C, S = n_halos, capacity, n_snaps
     center = rng.uniform(20.0, 80.0, size=(H, 3)).astype(np.float32)
@@ -185,12 +178,13 @@ def label_churn_workload(n_halos: int, capacity: int, n_snaps: int,
     tmp -= (tmp * axis_x).sum(-1, keepdims=True) * axis_x
     axis_y = (tmp / np.linalg.norm(tmp, axis=-1, keepdims=True)).astype(
         np.float32)
-    for _ in range(H):  # the benchmark's per-row ID shuffle
-        rng.random(C)
+    ids = np.arange(H * C, dtype=np.int32).reshape(H, C)
+    for h in range(H):  # shuffled within rows, so a join does real work
+        ids[h] = ids[h][np.argsort(rng.random(C), kind="stable")]
     ecc = rng.uniform(0.2, 0.5, size=(H, C)).astype(np.float32)
     phase_r = rng.uniform(0, 2 * np.pi, size=(H, C)).astype(np.float32)
     dt = np.float32(0.3)
-    pos = np.empty((S, 3, H * C), dtype=np.float32)
+    pos = np.empty((S, H, C, 3), dtype=np.float32)
     vel = np.empty_like(pos)
     for s in range(S):
         ph = phase0 + omega * (np.float32(s) * dt)
@@ -198,26 +192,31 @@ def label_churn_workload(n_halos: int, capacity: int, n_snaps: int,
         r = r0 * (1.0 + ecc * np.sin(phr))
         rdot = r0 * ecc * omega * np.cos(phr)
         cph, sph = np.cos(ph), np.sin(ph)
-        p = (center[:, None, :]
-             + r[..., None] * (cph[..., None] * axis_x
-                               + sph[..., None] * axis_y))
-        v = (rdot[..., None] * (cph[..., None] * axis_x
-                                + sph[..., None] * axis_y)
-             + (r * omega)[..., None] * (-sph[..., None] * axis_x
-                                         + cph[..., None] * axis_y))
-        pos[s] = p.reshape(-1, 3).T
-        vel[s] = v.reshape(-1, 3).T
+        pos[s] = (center[:, None, :]
+                  + r[..., None] * (cph[..., None] * axis_x
+                                    + sph[..., None] * axis_y))
+        vel[s] = (rdot[..., None] * (cph[..., None] * axis_x
+                                     + sph[..., None] * axis_y)
+                  + (r * omega)[..., None] * (-sph[..., None] * axis_x
+                                              + cph[..., None] * axis_y))
+    return rng, ids, pos, vel, center
 
+
+def _memberships(rng, n_halos: int, capacity: int, n_snaps: int,
+                 churn: float):
+    """The benchmark's membership history (``bench.py``
+    ``make_churn_sequence``): each halo tracks 90 % of its pool, and each
+    snapshot ``churn`` of that count swaps against the reserve.  Yields
+    ``(member [H, C] bool, load_keys [H, C])`` a snapshot; the members
+    in ascending ``load_keys`` order are the snapshot's load order."""
+    H, C = n_halos, capacity
     n_valid = int(C * 0.9)
     k = min(int(round(churn * n_valid)), C - n_valid)
     member = np.zeros((H, C), dtype=bool)
     init = np.argsort(rng.random((H, C)), axis=1)[:, :n_valid]
     np.put_along_axis(member, init, True, axis=1)
     rows = np.arange(H)[:, None]
-    home = np.repeat(np.arange(H, dtype=np.int32), C)
-    label = np.empty((S, H * C), dtype=np.int32)
-    n_valid_total = 0
-    for s in range(S):
+    for s in range(n_snaps):
         if s > 0 and k > 0:
             keys = np.where(member, rng.random((H, C)), np.inf)
             drop = np.argpartition(keys, k - 1, axis=1)[:, :k]
@@ -225,9 +224,107 @@ def label_churn_workload(n_halos: int, capacity: int, n_snaps: int,
             keys = np.where(member, np.inf, rng.random((H, C)))
             add = np.argpartition(keys, k - 1, axis=1)[:, :k]
             member[rows, add] = True
+        yield member, np.where(member, rng.random((H, C)), np.inf)
+
+
+def bench_workloads(n_halos: int, capacity: int, n_snaps: int,
+                    seed: int = 0, churn: float = 0.07) -> dict:
+    """The JAX package's benchmark workloads (``bench.py``:
+    ``make_orbits``, ``make_churn_sequence``, ``make_static_sequence``,
+    ``make_label_sequence``) from one orbit pool, with the same NumPy
+    draws in the same order, so one seed gives ``bench.py``'s arrays.
+
+    Returns a dict of three forms (the pool is made once for all):
+
+    - ``'churn'``: ``(ids_seq [S, H, C] int32, pos [S, H, C, 3], vel,
+      centers [S, H, 3], n_valid)``, each row's ``n_valid`` members in
+      load order, then int32-max padding (zero positions);
+    - ``'static'``: the same tuple with the whole pool tracked at every
+      snapshot (``n_valid = C``; ``ids_seq`` a read-only broadcast);
+    - ``'label'``: ``(label [S, N] int32 (-1 untracked), pos [S, 3, N],
+      vel [S, 3, N], centers, n_valid_total)`` with ``N = H * C``:
+      particle ``h * C + c`` is pool slot ``c`` of halo ``h``, labelled
+      ``h`` while tracked, and ``n_valid_total`` counts snapshot 0.
+
+    The churn and label forms run the same membership history, so their
+    event totals are comparable.
+    """
+    return _bench_workloads(n_halos, capacity, n_snaps, seed, churn,
+                            ("churn", "static", "label"))
+
+
+def _bench_workloads(n_halos, capacity, n_snaps, seed, churn, forms):
+    """:func:`bench_workloads` building only ``forms``: the one-form
+    wrappers below skip the host work of the others."""
+    H, C, S = n_halos, capacity, n_snaps
+    rng, ids, pos, vel, center = _orbit_pool(H, C, S, seed)
+    centers = np.ascontiguousarray(np.broadcast_to(center, (S, H, 3)))
+    out = {}
+    if "static" in forms:
+        out["static"] = (np.broadcast_to(ids, (S, H, C)), pos, vel, centers,
+                         C)
+    if "churn" not in forms and "label" not in forms:
+        return out
+    n_valid = int(C * 0.9)
+    make_churn, make_label = "churn" in forms, "label" in forms
+    if make_churn:
+        ids_seq = np.full((S, H, C), _INVALID_I32, np.int32)
+        pos_c = np.zeros_like(pos)
+        vel_c = np.zeros_like(vel)
+    if make_label:
+        home = np.repeat(np.arange(H, dtype=np.int32), C)
+        label = np.empty((S, H * C), dtype=np.int32)
+    n_valid_total = 0
+    for s, (member, keys) in enumerate(_memberships(rng, H, C, S, churn)):
         if s == 0:
             n_valid_total = int(member.sum())
-        label[s] = np.where(member.reshape(-1), home, -1)
-        rng.random((H, C))  # the benchmark's load-order shuffle
-    centers = np.ascontiguousarray(np.broadcast_to(center, (S, H, 3)))
-    return label, pos, vel, centers, n_valid_total
+        if make_churn:
+            sel = np.argsort(keys, axis=1)[:, :n_valid]
+            ids_seq[s, :, :n_valid] = np.take_along_axis(ids, sel, axis=1)
+            pos_c[s, :, :n_valid] = np.take_along_axis(pos[s], sel[..., None],
+                                                       axis=1)
+            vel_c[s, :, :n_valid] = np.take_along_axis(vel[s], sel[..., None],
+                                                       axis=1)
+        if make_label:
+            label[s] = np.where(member.reshape(-1), home, -1)
+    if make_churn:
+        out["churn"] = (ids_seq, pos_c, vel_c, centers, n_valid)
+    if make_label:
+        def planes(x):
+            return np.ascontiguousarray(
+                np.moveaxis(x.reshape(S, -1, 3), -1, 1))
+
+        out["label"] = (label, planes(pos), planes(vel), centers,
+                        n_valid_total)
+    return out
+
+
+def churn_workload(n_halos: int, capacity: int, n_snaps: int, seed: int = 0,
+                   churn: float = 0.07):
+    """The JAX benchmark's churn sequence in the ID form (``bench.py``
+    ``make_orbits`` + ``make_churn_sequence``): ``(ids_seq [S, H, C],
+    pos [S, H, C, 3], vel, centers [S, H, 3], n_valid)``; see
+    :func:`bench_workloads`."""
+    return _bench_workloads(n_halos, capacity, n_snaps, seed, churn,
+                            ("churn",))["churn"]
+
+
+def static_workload(n_halos: int, capacity: int, n_snaps: int,
+                    seed: int = 0):
+    """The JAX benchmark's fixed-membership sequence (``bench.py``
+    ``make_static_sequence``): every pool particle tracked at every
+    snapshot; see :func:`bench_workloads`."""
+    return _bench_workloads(n_halos, capacity, n_snaps, seed, 0.07,
+                            ("static",))["static"]
+
+
+def label_churn_workload(n_halos: int, capacity: int, n_snaps: int,
+                         seed: int = 0, churn: float = 0.07):
+    """The JAX benchmark's churn workload in the label-native
+    representation (``bench.py``: ``make_orbits``, ``make_churn_sequence``,
+    ``make_label_sequence``): ``(label [S, N] int32 (-1 untracked),
+    pos [S, 3, N] f32, vel [S, 3, N] f32, centers [S, H, 3] f32,
+    n_valid_total)`` with ``N = n_halos * capacity``; see
+    :func:`bench_workloads`."""
+    return _bench_workloads(n_halos, capacity, n_snaps, seed, churn,
+                            ("label",))["label"]

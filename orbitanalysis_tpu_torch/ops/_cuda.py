@@ -74,6 +74,14 @@ KERNELS = {
                _JAX + "pallas_label.py:555"),
         Kernel("detect_label_rows", _SRC + "label.cu",
                _JAX + "pallas_label.py:395"),
+        Kernel("merge_rows", _SRC + "merge.cu",
+               _JAX + "pallas_merge.py:176"),
+        Kernel("fused_join_detect", _SRC + "merge.cu",
+               _JAX + "pallas_step.py:457"),
+        Kernel("compact_events_rows", _SRC + "compact.cu",
+               _JAX + "pallas_compact.py:173"),
+        Kernel("compact_rows_groups", _SRC + "compact.cu",
+               _JAX + "pallas_compact.py:137"),
     )
 }
 
@@ -175,6 +183,7 @@ def _library():
                 lib = ctypes.CDLL(library_path())
                 p, i, ll, f = (ctypes.c_void_p, ctypes.c_int,
                                ctypes.c_longlong, ctypes.c_float)
+                pp = ctypes.POINTER(ctypes.c_void_p)
                 signatures = {
                     "compact_angle_rows": [p, p, i, i, i, p],
                     "compact_pair_rows": [p, p, p, p, i, i, i, p],
@@ -189,6 +198,11 @@ def _library():
                     "detect_label_compact_rows": [
                         p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, f, f,
                         i, i, i, p],
+                    "merge_rows": [pp, pp, pp, i, i, i, p],
+                    "fused_join_detect": [p] * 17 + [i] * 5 + [p],
+                    "compact_events_rows": [p] * 6 + [i] * 3 + [p],
+                    "compact_rows_groups": [
+                        p, pp, pp, i, i, p, pp, pp, i, i, i, i, p],
                 }
                 for name, argtypes in signatures.items():
                     fn = getattr(lib, name)
@@ -382,3 +396,120 @@ def detect_label_compact_rows(rows, lab, pos, vel, sv, rhat, packed,
             count.data_ptr(), r, w, k128,
             *_scalars(hub, box, pericentric, rhat_packed), device=lab.device)
     return osv, orh, opk, ev, count
+
+
+def _pointers(tensors):
+    """A ctypes array of the tensors' device pointers (the C entry points
+    copy it into their kernel arguments before they return)."""
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+#: Channels a merge or a compaction group moves together (the C side's
+#: kMaxStreams).
+MAX_STREAMS = 6
+
+
+def merge_rows(prev, cur):
+    """Launch the merge of presorted rows (K15): ``prev``/``cur`` tuples
+    ``(key, *payloads)`` of ``[H, P]`` 32-bit planes (keys as int32 bit
+    patterns of uint32, ``prev`` ascending and ``cur`` descending) ->
+    the ``[H, 2P]`` planes of a stable sort of the concatenation."""
+    name = "merge_rows"
+    if not 1 <= len(prev) == len(cur) <= MAX_STREAMS:
+        raise ValueError(f"{name}: 1 to {MAX_STREAMS} channels a side, "
+                         "the same number on both")
+    h, p = prev[0].shape
+    for a, b in zip(prev, cur):
+        _check(name, a, b, dtype=a.dtype)
+        if a.element_size() != 4 or a.dtype != b.dtype:
+            raise ValueError(f"{name}: channels must be matching 32-bit "
+                             "dtypes")
+        if a.shape != (h, p) or b.shape != (h, p):
+            raise ValueError(f"{name}: every channel must be [{h}, {p}]")
+    _check(name, prev[0], cur[0])
+    out = [torch.empty((h, 2 * p), dtype=a.dtype, device=a.device)
+           for a in prev]
+    if len({t.device for t in (*prev, *cur)}) > 1:
+        raise ValueError(f"{name}: tensors on different devices")
+    _launch(name, _library().merge_rows, _pointers(prev), _pointers(cur),
+            _pointers(out), len(prev), h, p, device=prev[0].device)
+    return tuple(out)
+
+
+def fused_join_detect(prev, cur, pericentric: bool, invalid: int,
+                      k128: int):
+    """Launch the join-and-detect kernel (K16): ``prev = (key asc, sv,
+    rx, ry, rz, angles)`` and ``cur = (key DESC, sv, rx, ry, rz)``,
+    ``[H, P]`` planes (keys and sv int32, the rest float32).  Returns
+    ``(packed [H, P], ev_key, ev_sv, ev_angle [H, k128], count [H])``."""
+    name = "fused_join_detect"
+    if len(prev) != 6 or len(cur) != 5:
+        raise ValueError(f"{name}: want 6 prev and 5 cur planes")
+    h, p = prev[0].shape
+    _check(name, prev[0], prev[1], cur[0], cur[1])
+    _check(name, *prev[2:], *cur[2:], dtype=torch.float32)
+    for t in (*prev, *cur):
+        if t.shape != (h, p):
+            raise ValueError(f"{name}: every plane must be [{h}, {p}]")
+    if len({t.device for t in (*prev, *cur)}) > 1:
+        raise ValueError(f"{name}: tensors on different devices")
+    dev = prev[0].device
+    packed = torch.empty((h, p), dtype=torch.int32, device=dev)
+    evp = torch.empty((h, p), dtype=torch.int32, device=dev)
+    ev_key = torch.empty((h, k128), dtype=torch.int32, device=dev)
+    ev_sv = torch.empty_like(ev_key)
+    ev_ang = torch.empty((h, k128), dtype=torch.float32, device=dev)
+    count = torch.empty(h, dtype=torch.int32, device=dev)
+    _launch(name, _library().fused_join_detect,
+            *(t.data_ptr() for t in (*prev, *cur)), packed.data_ptr(),
+            evp.data_ptr(), ev_key.data_ptr(), ev_sv.data_ptr(),
+            ev_ang.data_ptr(), count.data_ptr(), h, p, k128, int(invalid),
+            int(pericentric), device=dev)
+    return packed, ev_key, ev_sv, ev_ang, count
+
+
+def compact_events_rows(packed, key, sv, k128: int):
+    """Launch the three-stream event compaction (K18): where bit 31 of
+    ``packed [H, P]`` is set, ``(key, sv, packed)`` move together to the
+    front of ``[H, k128]`` rows, zero past each row's count."""
+    name = "compact_events_rows"
+    h, p = packed.shape
+    _check(name, packed, key, sv)
+    if key.shape != (h, p) or sv.shape != (h, p):
+        raise ValueError(f"{name}: packed, key and sv shapes differ")
+    out = [torch.empty((h, k128), dtype=torch.int32, device=packed.device)
+           for _ in range(3)]
+    _launch(name, _library().compact_events_rows, packed.data_ptr(),
+            key.data_ptr(), sv.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), out[2].data_ptr(), h, p, k128,
+            device=packed.device)
+    return tuple(out)
+
+
+def compact_rows_groups(sel_a, ops_a, len_a: int, sel_b, ops_b,
+                        len_b: int):
+    """Launch the stable two-group compaction (K19): ``sel_*`` ``[H, N]``
+    int32 0/1 masks, ``ops_*`` tuples of 1 to 6 ``[H, N]`` 32-bit planes
+    -> ``(tuple_a [H, len_a], tuple_b [H, len_b])``, the selected
+    entries front-packed in order, zero past each row's count."""
+    name = "compact_rows_groups"
+    h, n = sel_a.shape
+    _check(name, sel_a, sel_b)
+    outs = []
+    for ops, ln in ((ops_a, len_a), (ops_b, len_b)):
+        if not 1 <= len(ops) <= MAX_STREAMS:
+            raise ValueError(f"{name}: 1 to {MAX_STREAMS} channels a group")
+        for t in ops:
+            _check(name, t, dtype=t.dtype)
+            if t.element_size() != 4 or t.shape != (h, n):
+                raise ValueError(f"{name}: channels must be 32-bit "
+                                 f"[{h}, {n}] planes")
+        outs.append(tuple(torch.empty((h, ln), dtype=t.dtype,
+                                      device=t.device) for t in ops))
+    if len({t.device for t in (sel_a, sel_b, *ops_a, *ops_b)}) > 1:
+        raise ValueError(f"{name}: tensors on different devices")
+    _launch(name, _library().compact_rows_groups, sel_a.data_ptr(),
+            _pointers(ops_a), _pointers(outs[0]), len(ops_a), len_a,
+            sel_b.data_ptr(), _pointers(ops_b), _pointers(outs[1]),
+            len(ops_b), len_b, h, n, device=sel_a.device)
+    return outs[0], outs[1]

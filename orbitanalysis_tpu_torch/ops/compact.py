@@ -1,7 +1,9 @@
 """Ordered event compaction (twin of
 ``orbitanalysis_tpu/ops/pallas_compact.py``): ``compact_angle_blocked``
 and ``compact_payload_pair`` for the aligned step, ``compact_payload``
-and ``compact_payload_blocked`` for the label-native detector.
+and ``compact_payload_blocked`` for the label-native detector,
+``compact_events`` (K18) and ``compact_rows`` (K19) for the sorted
+engine's step.
 
 Each entry point launches the hand-written CUDA kernel
 (``csrc/compact.cu``, through :mod:`orbitanalysis_tpu_torch.ops._cuda`)
@@ -13,7 +15,8 @@ the on-card comparison.
 Outputs are ``[H, k128]`` int32 planes holding uint32 words, with
 ``k128 = min(round_up(event_capacity, 128), P)``: the selected entries
 front-packed in position order, and zeros past each row's count (the
-JAX kernels leave those entries unspecified).
+JAX kernels leave those entries unspecified).  ``compact_rows`` keeps
+each channel's dtype and writes rows of the lengths it is given.
 """
 
 from __future__ import annotations
@@ -118,6 +121,53 @@ def compact_payload_torch(payload: torch.Tensor, event_capacity: int):
     return out
 
 
+def compact_events_torch(packed: torch.Tensor, key: torch.Tensor,
+                         sv: torch.Tensor, event_capacity: int):
+    """Plain-torch twin of the three-stream event compaction: where bit
+    31 of ``packed [H, P]`` is set, ``(key, sv, packed)`` front-packed in
+    position order into ``[H, k128]`` rows; returns ``(evk, evsv,
+    evpacked)``."""
+    h, p = packed.shape
+    _check_rows(p, single_word=False)
+    return tuple(_front_pack(packed < 0, [key, sv, packed],
+                             _k128(event_capacity, p)))
+
+
+def _check_groups(sel_a, ops_a, len_a, ops_b, len_b):
+    h, p = sel_a.shape
+    if p % _LANES or len_a % _LANES or len_b % _LANES:
+        raise ValueError(
+            f"row/output lengths must be multiples of {_LANES}")
+    for x in (*ops_a, *ops_b):
+        if x.element_size() != 4:
+            raise TypeError("compaction channels must be 32-bit dtypes")
+
+
+def _pack_group(sel, ops, length):
+    """One group of :func:`compact_rows_torch`: each channel viewed as
+    int32 bits, front-packed, and viewed back."""
+    h, n = sel.shape
+    width = min(length, n)
+    bits = [x.view(torch.int32) for x in ops]
+    packed = _front_pack(sel != 0, bits, width)
+    out = []
+    for x, o in zip(ops, packed):
+        if width < length:
+            o = torch.cat([o, o.new_zeros((h, length - width))], dim=1)
+        out.append(o.view(x.dtype))
+    return tuple(out)
+
+
+def compact_rows_torch(sel_a, ops_a, len_a: int, sel_b, ops_b, len_b: int):
+    """Plain-torch twin of the stable two-group compaction: ``sel_*``
+    ``[H, N]`` 0/1 masks, ``ops_*`` tuples of ``[H, N]`` 32-bit planes;
+    returns ``(tuple_a [H, len_a], tuple_b [H, len_b])``, the selected
+    entries front-packed in order and zeros past each row's count."""
+    _check_groups(sel_a, ops_a, len_a, ops_b, len_b)
+    return (_pack_group(sel_a, ops_a, len_a),
+            _pack_group(sel_b, ops_b, len_b))
+
+
 def _route(x: torch.Tensor) -> str:
     if x.is_cuda:
         return "cuda"
@@ -165,3 +215,32 @@ def compact_payload_blocked(payload: torch.Tensor, event_capacity: int):
     same contract.  Its per-block cap and overflow reroute were a
     TPU workaround; here it launches the same exact kernel."""
     return compact_payload(payload, event_capacity)
+
+
+def compact_events(packed: torch.Tensor, key: torch.Tensor,
+                   sv: torch.Tensor, event_capacity: int):
+    """The sorted step's static-branch event compaction (K18): the CUDA
+    kernel ``compact_events_rows`` on CUDA tensors,
+    :func:`compact_events_torch` on CPU tensors.  ``packed``: ``[H, P]``
+    words ``f32_bits(angle) | apsis << 31``; ``key``/``sv``: the event
+    payloads.  Returns ``(evk, evsv, evpacked)``, each ``[H, k128]``."""
+    if _route(packed) == "cpu":
+        return compact_events_torch(packed, key, sv, event_capacity)
+    h, p = packed.shape
+    _check_rows(p, single_word=False)
+    return _cuda.compact_events_rows(packed, key, sv,
+                                     _k128(event_capacity, p))
+
+
+def compact_rows(sel_a, ops_a, len_a: int, sel_b, ops_b, len_b: int):
+    """Stable two-group compaction of ``[H, N]`` rows (K19), the sorted
+    step's ``compact_impl='pallas'``: the CUDA kernel
+    ``compact_rows_groups`` on CUDA tensors, :func:`compact_rows_torch`
+    on CPU tensors.  ``sel_*`` are int32 0/1 masks, ``ops_*`` tuples of
+    ``[H, N]`` 32-bit planes; returns ``(tuple_a [H, len_a], tuple_b
+    [H, len_b])``."""
+    if _route(sel_a) == "cpu":
+        return compact_rows_torch(sel_a, ops_a, len_a, sel_b, ops_b, len_b)
+    _check_groups(sel_a, ops_a, len_a, ops_b, len_b)
+    return _cuda.compact_rows_groups(sel_a, tuple(ops_a), len_a, sel_b,
+                                     tuple(ops_b), len_b)

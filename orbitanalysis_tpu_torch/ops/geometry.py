@@ -6,8 +6,13 @@ periodic wrap, masked bulk-velocity reduction, Hubble term, radii, unit
 vectors and radial velocities.  Coordinates arrive as ``[H, P, 3]`` and
 are viewed as structure-of-arrays ``[3, H, P]`` planes, the layout the
 carried unit vectors keep.  The arithmetic follows the JAX twin
-operation for operation; only the bulk-velocity sum may reduce in
-another order (about one f32 ulp).
+operation for operation.  Every division and square root goes through
+:func:`~orbitanalysis_tpu_torch.utils.numerics.div_rn` /
+:func:`~orbitanalysis_tpu_torch.utils.numerics.sqrt_rn`, the IEEE float32
+results on every backend (torch's own float32 ``sqrt`` on CUDA is not),
+so radii and unit vectors are the same bits on the card and on the CPU.
+Only the bulk-velocity sum may reduce in another order (about one f32
+ulp); it feeds ``vrad`` and ``bulk_vel``, never ``rhat``.
 """
 
 from __future__ import annotations
@@ -16,6 +21,8 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from orbitanalysis_tpu_torch.utils.numerics import div_rn, sqrt_rn
 
 _EPS = 1e-30
 
@@ -61,8 +68,7 @@ def region_frame(
     rel = pos3 - center.T[:, :, None]
     if box_size is not None:
         # the box as a tensor on the data's device, filled there (no
-        # host->device copy): CUDA turns division by a CPU scalar into
-        # a multiply by its reciprocal, which is not IEEE division
+        # host->device copy)
         box = np.asarray(box_size, dtype=np.float32)
         if box.ndim == 1:
             # per-dimension box against the leading component axis
@@ -70,7 +76,7 @@ def region_frame(
             box = box[:, None, None]
         else:
             box = rel.new_full((), float(box))
-        rel = rel - box * torch.round(rel / box)
+        rel = rel - box * torch.round(div_rn(rel, box))
     # zero out padding so garbage slots cannot feed inf/nan into sums
     rel = rel * w[None]
 
@@ -86,8 +92,9 @@ def region_frame(
     vrel = vel3 - bulk3[:, :, None] + hd * rel
 
     r2 = rel[0] * rel[0] + rel[1] * rel[1] + rel[2] * rel[2]
-    radius = torch.sqrt(r2)
-    inv_r = torch.where(radius > 0, 1.0 / torch.clamp(radius, min=_EPS),
+    radius = sqrt_rn(r2)
+    inv_r = torch.where(radius > 0,
+                        div_rn(1.0, torch.clamp(radius, min=_EPS)),
                         torch.zeros_like(radius))
     rhat = rel * inv_r[None]
     vrad = (vrel[0] * rhat[0] + vrel[1] * rhat[1] + vrel[2] * rhat[2]) * w

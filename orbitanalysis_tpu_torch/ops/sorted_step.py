@@ -1,19 +1,34 @@
-"""The aligned engine's per-snapshot step (twin of the aligned subset of
+"""The sorted and the aligned engines' per-snapshot steps (twin of
 ``orbitanalysis_tpu/ops/sorted_step.py``: carries, codecs,
-``aligned_detect_math`` and ``make_aligned_native_step``).
+``make_sorted_orbit_step``, ``aligned_detect_math`` and
+``make_aligned_native_step``).
 
-The host staging (:class:`orbitanalysis_tpu_torch.engine.packing.
-StableLayout`) gives every particle a persistent row position, so
-consecutive staged snapshots are aligned element-wise and the step
-needs no join: ``region_frame``, an elementwise detect chain, and one
-ordered event compaction — the hand-written CUDA kernel of
+The sorted engine keeps the carry sorted by particle ID between steps.
+Each step joins it with the snapshot staged ID-sorted on the host
+(:func:`presort_snapshot`, ``pack_snapshot(..., sort_ids=True)``): on
+its fused path (the tracker's) one join-and-detect kernel
+(:mod:`orbitanalysis_tpu_torch.ops.step`, K16), or, when the membership
+did not change, an elementwise detect chain and the three-stream event
+compaction (K18); its unfused paths merge (K15, or a sort) and compact
+(K19, or a sort) around a detect chain in the merged domain.  A CUDA
+tensor launches the hand-written kernels wherever the JAX package
+reaches a Pallas kernel; where it runs ``lax.sort`` or XLA, the port
+runs plain torch.
+
+The aligned engine's host staging (:class:`orbitanalysis_tpu_torch.
+engine.packing.StableLayout`) gives every particle a persistent row
+position, so consecutive staged snapshots are aligned element-wise and
+the step needs no join: ``region_frame``, an elementwise detect chain,
+and one ordered event compaction — the hand-written CUDA kernel of
 :mod:`orbitanalysis_tpu_torch.ops.compact` on the GPU.
 
 uint32 planes (carry keys, packed angles, payload words) are ``int32``
 tensors holding the bit pattern: torch has no ``uint32`` arithmetic.
 Every right shift of such a plane is masked, since an int32 shift is
-arithmetic.  The JAX package's uint32 arrays cross over bit for bit
-through :func:`aligned_carry_from_numpy` / :func:`aligned_carry_to_numpy`.
+arithmetic, and every sort of such a plane orders ``key & 0xFFFFFFFF``
+as int64.  The JAX package's carries cross over bit for bit through
+:func:`sorted_carry_from_numpy` / :func:`sorted_carry_to_numpy` and
+:func:`aligned_carry_from_numpy` / :func:`aligned_carry_to_numpy`.
 """
 
 from __future__ import annotations
@@ -26,13 +41,28 @@ import torch
 from orbitanalysis_tpu_torch.ops.compact import (
     PAYLOAD_MAX_ROW,
     compact_angle_blocked,
+    compact_events,
     compact_payload_pair,
+    compact_rows,
     f16_bits_rne,
 )
 from orbitanalysis_tpu_torch.ops.geometry import region_frame
+from orbitanalysis_tpu_torch.ops.merge import (
+    merge_rows,
+    sort_descending_u32,
+    u32_order,
+)
 from orbitanalysis_tpu_torch.utils.device import resolve_device
-from orbitanalysis_tpu_torch.utils.numerics import sqrt_rn
+from orbitanalysis_tpu_torch.utils.numerics import (
+    sqrt_rn,
+    to_i32_bits,
+    torch_dtype,
+)
 from orbitanalysis_tpu_torch.utils.padding import invalid_id_for
+
+#: Largest per-row capacity the sorted engine accepts (the JAX package's
+#: fused-kernel ceiling, kept so both packages take the same runs).
+MAX_FUSED_CAPACITY = 131072
 
 #: Capacity ceiling ``join_impl='auto'`` keeps the aligned engine under;
 #: a larger first snapshot, or growth past it, runs the general engine.
@@ -45,26 +75,40 @@ MAX_ALIGNED_CAPACITY = 1 << 19
 #: int32 holding the uint32 bit 31 (apsis / match flag).
 _BIT31 = -(1 << 31)
 
+#: Sort key of merged entries that are neither part of the next carry
+#: nor an apsis event (departed, padding, matched-away prev).
+_DEAD_KEY = 1 << 30
+
 
 class SortedCarry(NamedTuple):
-    """Host-side unpacked view of an :class:`AlignedCarry` (NumPy):
-    ``vrb`` bits 0-1 hold the radial-velocity sign (bit0 ``v_r < 0``,
-    bit1 ``v_r > 0``), bit 2 the match flag."""
+    """Per-particle state of the sorted engine, sorted by ID (torch
+    tensors on the device), and the host-side unpacked view of an
+    :class:`AlignedCarry` (NumPy, from :func:`decode_aligned_carry`).
 
-    ids: np.ndarray     # [H, P] int32 (positions for the aligned carry)
-    slot: np.ndarray    # [H, P] int32 load-order slot
-    vrb: np.ndarray     # [H, P] uint8
-    rhat: np.ndarray    # [3, H, P] radial unit vectors
-    angles: np.ndarray  # [H, P] f32 cumulative angle
+    ``ids`` ascend within each row, the dtype-max padding sentinel last
+    (positions for the aligned view); ``slot`` is each particle's
+    load-order slot in the snapshot it came with; ``vrb`` bits 0-1 hold
+    the radial-velocity sign (bit0 ``v_r < 0``, bit1 ``v_r > 0``), bit 2
+    the match flag."""
+
+    ids: torch.Tensor     # [H, P] id dtype, ascending, sentinel-padded
+    slot: torch.Tensor    # [H, P] int32 load-order slot
+    vrb: torch.Tensor     # [H, P] uint8
+    rhat: torch.Tensor    # [3, H, P] radial unit vectors
+    angles: torch.Tensor  # [H, P] cumulative angle
 
 
 class CompactEvents(NamedTuple):
-    """Per-step compact apsis events of the aligned step."""
+    """Per-step compact apsis events: of the sorted step (particle IDs
+    in previous-snapshot load order, or in ID order with the load slots
+    alongside: ``events_id_order``) and of the aligned step (row
+    positions, f16-exact angles)."""
 
     count: torch.Tensor     # [H] int32 apsides per halo (exact, may be > K)
-    ids: torch.Tensor       # [H, K] event row positions (invalid past count)
-    angles: torch.Tensor    # [H, K] f16-exact angle at each apsis (f32)
+    ids: torch.Tensor       # [H, K] event IDs / positions (invalid past count)
+    angles: torch.Tensor    # [H, K] angle at each apsis
     bulk_vel: torch.Tensor  # [H, 3] region bulk velocity of this snapshot
+    slots: torch.Tensor | None = None  # [H, K] prev load slots (ID order)
     #: full pre-compaction event plane (``emit_payload=True``): the
     #: ``[H, P]`` angle words ``f32_bits(angle) | apsis << 31`` — or the
     #: ``(posw, ang16)`` pair past PAYLOAD_MAX_ROW — so the host can
@@ -336,5 +380,430 @@ def make_aligned_native_step(
             bulk_vel=frame.bulk_vel,
             payload=full_payload,
         )
+
+    return step
+
+
+# ----------------------------------------------------------------------
+# the sorted engine
+# ----------------------------------------------------------------------
+
+def init_sorted_carry(n_halos: int, capacity: int, id_dtype=np.int32,
+                      angle_dtype=np.float32, pos_dtype=np.float32,
+                      device="cuda") -> SortedCarry:
+    """All-invalid carry (every halo behaves as 'no progenitor yet') on
+    ``device``, CUDA by default (RuntimeError without it)."""
+    device = resolve_device(device, "init_sorted_carry")
+    shape = (n_halos, capacity)
+    return SortedCarry(
+        ids=torch.full(shape, invalid_id_for(id_dtype),
+                       dtype=torch_dtype(id_dtype), device=device),
+        slot=torch.arange(capacity, dtype=torch.int32,
+                          device=device).expand(shape).contiguous(),
+        vrb=torch.zeros(shape, dtype=torch.uint8, device=device),
+        rhat=torch.zeros((3,) + shape, dtype=torch_dtype(pos_dtype),
+                         device=device),
+        angles=torch.zeros(shape, dtype=torch_dtype(angle_dtype),
+                           device=device),
+    )
+
+
+def sorted_carry_from_numpy(ids, slot, vrb, rhat, angles,
+                            device="cuda") -> SortedCarry:
+    """A :class:`SortedCarry` on ``device`` (CUDA by default) from the
+    JAX carry's fields as host arrays; bit-preserving."""
+    device = resolve_device(device, "sorted_carry_from_numpy")
+
+    def t(a):
+        return torch.from_numpy(np.array(a)).to(device)
+
+    return SortedCarry(ids=t(ids), slot=t(np.asarray(slot, np.int32)),
+                       vrb=t(np.asarray(vrb, np.uint8)), rhat=t(rhat),
+                       angles=t(angles))
+
+
+def sorted_carry_to_numpy(carry: SortedCarry) -> SortedCarry:
+    """The carry's fields as host arrays in the JAX carry's dtypes;
+    bit-preserving."""
+    return SortedCarry(*(x.cpu().numpy() for x in carry))
+
+
+def presort_snapshot(batch, soa: bool = False):
+    """Stage a snapshot batch in ID-sorted row layout on the host.
+
+    Sorts each halo row ascending by particle ID (the padding sentinel,
+    the dtype max, last) and records the load-order slots in
+    ``batch.slot``, for ``make_sorted_orbit_step(..., cur_presorted=
+    True)``.  ``batch`` is a :class:`~orbitanalysis_tpu_torch.ops.apsis.
+    SnapshotBatch` of NumPy arrays, ``[H, P]`` or stacked ``[S, H, P]``;
+    the result holds NumPy arrays too.  ``soa=True`` also stages
+    ``pos``/``vel`` as ``[3, H, P]`` (stacked: ``[S, 3, H, P]``) for
+    ``soa_batch=True``.
+    """
+    ids = np.asarray(batch.ids)
+    order = np.argsort(ids, axis=-1, kind="stable").astype(np.int32)
+
+    def take(x):
+        return np.take_along_axis(np.asarray(x), order, axis=-1)
+
+    def take3(x):
+        out = np.take_along_axis(np.asarray(x), order[..., None], axis=-2)
+        if soa:
+            out = np.ascontiguousarray(np.moveaxis(out, -1, out.ndim - 3))
+        return out
+
+    slot = order if batch.slot is None else take(batch.slot)
+    return batch._replace(
+        ids=take(ids),
+        pos=take3(batch.pos),
+        vel=take3(batch.vel),
+        mass=None if batch.mass is None else take(batch.mass),
+        slot=slot,
+    )
+
+
+def _shift_right(x: torch.Tensor, fill) -> torch.Tensor:
+    """Value at the left neighbour (index i-1) along the last axis."""
+    return torch.cat([torch.full_like(x[:, :1], fill), x[:, :-1]], dim=1)
+
+
+def _shift_left(x: torch.Tensor, fill) -> torch.Tensor:
+    """Value at the right neighbour (index i+1) along the last axis."""
+    return torch.cat([x[:, 1:], torch.full_like(x[:, :1], fill)], dim=1)
+
+
+def _decode_packed_angles(packed: torch.Tensor):
+    """Split the packed carry channel, the bit layout shared by the
+    kernels and the compaction path: f32 angle in bits 0-30 (angles are
+    non-negative), match flag in bit 31.  Returns ``(match uint8,
+    angle f32)``."""
+    match = ((packed >> 31) & 1).to(torch.uint8)
+    return match, (packed & 0x7FFFFFFF).view(torch.float32)
+
+
+def _carry_from_channels(key_asc, sv_asc, rx, ry, rz, angles, match,
+                         id_dt) -> SortedCarry:
+    """The next carry from ID-ascending channels (packed key ``id << 1 |
+    side``; sv = ``slot | vrb << 24``)."""
+    return SortedCarry(
+        ids=((key_asc >> 1) & 0x7FFFFFFF).to(id_dt),
+        slot=sv_asc & 0x00FFFFFF,
+        vrb=((sv_asc >> 24) & 0xFF).to(torch.uint8) | (match << 2),
+        rhat=torch.stack([rx, ry, rz]),
+        angles=angles,
+    )
+
+
+def _finish_events(count, ev_ids, ev_slot, ev_ang, K, invalid, id_dt,
+                   id_order):
+    """Mask compacted event channels past each row's count, then keep ID
+    order (slots alongside; the host restores reference order) or sort
+    by slot on the device.  Returns ``(ids, angles, slots_or_None)``."""
+    h, k128 = ev_ids.shape
+    kiota = torch.arange(k128, device=ev_ids.device)
+    ev_ok = kiota[None, :] < count[:, None]
+    ids_raw = torch.where(ev_ok, ev_ids.to(id_dt),
+                          torch.full_like(ev_ids, invalid, dtype=id_dt))
+    ang_raw = torch.where(ev_ok, ev_ang, torch.zeros_like(ev_ang))
+    if id_order:
+        return (ids_raw[:, :K], ang_raw[:, :K],
+                torch.where(ev_ok, ev_slot, -1)[:, :K])
+    key = torch.where(ev_ok, ev_slot, _DEAD_KEY)
+    order = torch.sort(key, dim=-1, stable=True).indices
+    return (torch.gather(ids_raw, 1, order)[:, :K],
+            torch.gather(ang_raw, 1, order)[:, :K], None)
+
+
+def _sort_rows(keys, *chans):
+    """Stable row sort of ``chans`` by ``keys`` (one int64 key or a
+    tuple of keys, primary first)."""
+    if not isinstance(keys, tuple):
+        keys = (keys,)
+    order = None
+    for k in reversed(keys):  # least significant key first
+        kk = k if order is None else torch.gather(k, 1, order)
+        o = torch.sort(kk, dim=1, stable=True).indices
+        order = o if order is None else torch.gather(order, 1, o)
+    return tuple(torch.gather(c, 1, order) for c in chans)
+
+
+def _static_detect(prev_ops, cur_asc, pericentric, invalid, k_eff):
+    """The fused path's static-membership branch: the carry's ID layout
+    equals the staged snapshot's, so matched pairs share a position and
+    detection is elementwise (plain torch, as the JAX package runs it in
+    XLA); the events go through the three-stream compaction (K18)."""
+    _, psv, prx, pry, prz, pang = prev_ops
+    ck, csv, crx, cry, crz = cur_asc
+    valid = ((ck >> 1) & 0x7FFFFFFF) != invalid
+    vrb_p = (psv >> 24) & 0xFF
+    vrb_c = (csv >> 24) & 0xFF
+    cosang = torch.clamp(prx * crx + pry * cry + prz * crz, -1.0, 1.0)
+    zero = torch.zeros_like(cosang)
+    dth = torch.where(valid, _acos_f32(cosang), zero)
+    if pericentric:
+        flp = ((vrb_p & 1) > 0) & ((vrb_c & 2) > 0)
+    else:
+        flp = ((vrb_p & 2) > 0) & ((vrb_c & 1) > 0)
+    aps = valid & flp
+    acc = pang + dth
+    bit31 = torch.tensor(_BIT31, dtype=torch.int32, device=ck.device)
+    nil = torch.zeros((), dtype=torch.int32, device=ck.device)
+    pck = torch.where(aps | ~valid, zero, acc).view(torch.int32) | \
+        torch.where(valid, bit31, nil)
+    evp_in = torch.where(aps, acc, zero).view(torch.int32) | \
+        torch.where(aps, bit31, nil)
+    cnt = aps.sum(dim=-1, dtype=torch.int32)
+    ek, es, ep = compact_events(evp_in, ck, psv, k_eff)
+    return pck, ek, es, (ep & 0x7FFFFFFF).view(torch.float32), cnt
+
+
+def make_sorted_orbit_step(
+    event_capacity: int,
+    mode: str = "pericentric",
+    box_size=None,
+    id_dtype=np.int32,
+    angle_dtype=np.float32,
+    merge_impl: str = "lax_sort",
+    compact_impl: str = "lax_sort",
+    cur_presorted: bool = False,
+    fused: bool = False,
+    events_id_order: bool = False,
+    soa_batch: bool = False,
+):
+    """The sorted-carry step: ``step(carry, snap) -> (SortedCarry,
+    CompactEvents)``, the JAX package's options and errors.
+
+    ``snap`` is a :class:`~orbitanalysis_tpu_torch.ops.apsis.
+    SnapshotBatch` of tensors on the carry's device.  ``merge_impl``:
+    ``'lax_sort'`` merges prev and cur with one stable sort of the
+    concatenation (plain torch); ``'pallas'`` sorts the cur side alone
+    and merges with the merge kernel (K15).  ``compact_impl``:
+    ``'lax_sort'`` extracts the next carry and the events with one sort
+    (plain torch); ``'pallas'`` with the two-group compaction (K19) and a
+    small ``[H, K]`` sort.  ``cur_presorted=True`` declares rows staged
+    ID-sorted with their load slots in ``snap.slot``
+    (:func:`presort_snapshot`).  ``fused=True`` runs the join-and-detect
+    kernel (K16) and implies both ``'pallas'`` impls; with
+    ``cur_presorted`` each step first tests on the device whether the
+    staged IDs equal the carry's and then runs the static branch (plain
+    detect chain and K18) instead.  The port reads that one flag on the
+    host, where the JAX package branches with ``lax.cond`` on the
+    device: a synchronisation each step.  ``events_id_order=True``
+    (fused only) returns the events in ID order with their previous load
+    slots in ``CompactEvents.slots``.  On the fused path the event
+    tensors are ``min(K, P)`` wide.  ``soa_batch=True``: ``pos``/``vel``
+    arrive as ``[3, H, P]``.  The unfused paths detect with torch's
+    ``acos`` (the JAX package's XLA ``arccos``), the fused ones with the
+    kernels' Cephes arccos.
+    """
+    if mode not in ("pericentric", "apocentric"):
+        raise ValueError(
+            "Orbit detection mode not recognized. Please specify either "
+            "'pericentric' or 'apocentric'."
+        )
+    if merge_impl not in ("lax_sort", "pallas"):
+        raise ValueError(f"unknown merge_impl: {merge_impl!r}")
+    if compact_impl not in ("lax_sort", "pallas"):
+        raise ValueError(f"unknown compact_impl: {compact_impl!r}")
+    if fused:
+        merge_impl = compact_impl = "pallas"
+    if events_id_order and not fused:
+        raise ValueError("events_id_order requires fused=True")
+    if compact_impl == "pallas" and np.dtype(angle_dtype) != np.float32:
+        raise ValueError(
+            "compact_impl='pallas' packs the match bit into the f32 "
+            "angle sign bit; use angle_dtype=float32"
+        )
+    id_np = np.dtype(id_dtype)
+    if compact_impl == "pallas" and id_np.itemsize != 4:
+        raise ValueError("compact_impl='pallas' requires 32-bit particle IDs")
+    # single-key packing (id << 1 | side) needs ids < 2**31: signed ids
+    # of at most 32 bits (the sentinel is the dtype max)
+    pack_key = id_np.itemsize <= 4 and np.issubdtype(id_np,
+                                                     np.signedinteger)
+    if merge_impl == "pallas" and not pack_key:
+        raise ValueError(
+            "merge_impl='pallas' requires <=32-bit signed particle IDs "
+            "(single packed uint32 sort key); use merge_impl='lax_sort'"
+        )
+    # step.py imports this module
+    from orbitanalysis_tpu_torch.ops.step import fused_join_detect
+
+    pericentric = mode == "pericentric"
+    invalid = invalid_id_for(id_dtype)
+    id_dt = torch_dtype(id_dtype)
+    ang_dt = torch_dtype(angle_dtype)
+    K = int(event_capacity)
+
+    def flip(chans):
+        return tuple(torch.flip(x, dims=(1,)) for x in chans)
+
+    def step(carry: SortedCarry, snap):
+        h, p = snap.ids.shape
+        dev = snap.ids.device
+        valid_cur = snap.ids != invalid
+        frame = region_frame(
+            snap.pos, snap.vel, valid_cur, snap.center, mass=snap.mass,
+            bulk_vel=snap.bulk_vel, box_size=box_size,
+            hubble_drag=snap.hubble_drag, soa=soa_batch,
+        )
+        iota = torch.arange(p, dtype=torch.int32, device=dev).expand(h, p)
+        cur_vrb = _vr_bits(frame.vrad)
+        cur_slot = iota if snap.slot is None else snap.slot
+        # slot and the 3 v_r sign/match bits share one int32 channel
+        prev_sv = carry.slot | (carry.vrb.to(torch.int32) << 24)
+        cur_sv = cur_slot | (cur_vrb << 24)
+        rh = frame.rhat
+
+        if merge_impl == "pallas":
+            cur_key = to_i32_bits((snap.ids.to(torch.int64) << 1) | 1)
+            prev_key = to_i32_bits(carry.ids.to(torch.int64) << 1)
+            cur_asc = (cur_key, cur_sv, rh[0], rh[1], rh[2])
+            if cur_presorted:
+                cur_ops = None if fused else flip(cur_asc)
+            else:
+                cur_ops = sort_descending_u32(*cur_asc)
+            if fused:
+                prev_ops6 = (prev_key, prev_sv, carry.rhat[0],
+                             carry.rhat[1], carry.rhat[2], carry.angles)
+                k_eff = min(K, p)  # events <= P
+                if cur_presorted and bool(
+                        torch.all((prev_key | 1) == cur_key)):
+                    # static membership: the host reads the flag the
+                    # JAX package's lax.cond branches on
+                    packed, evk, evsv, evang, count = _static_detect(
+                        prev_ops6, cur_asc, pericentric, invalid, k_eff)
+                    asc = cur_asc
+                else:
+                    if cur_presorted:
+                        cur_ops = flip(cur_asc)
+                    packed, evk, evsv, evang, count = fused_join_detect(
+                        prev_ops6, cur_ops, pericentric, invalid, k_eff)
+                    # the packed plane follows the staged (descending)
+                    # cur order
+                    packed = torch.flip(packed, dims=(1,))
+                    asc = cur_asc if cur_presorted else flip(cur_ops)
+                match_o, ang_o = _decode_packed_angles(packed)
+                new_carry = _carry_from_channels(*asc, ang_o, match_o,
+                                                 id_dt)
+                ev_ids, ev_angles, ev_slots = _finish_events(
+                    count, (evk >> 1) & 0x7FFFFFFF, evsv & 0x00FFFFFF,
+                    evang, K, invalid, id_dt, id_order=events_id_order)
+                return new_carry, CompactEvents(
+                    count=count, ids=ev_ids, angles=ev_angles,
+                    bulk_vel=frame.bulk_vel, slots=ev_slots)
+            zeros_ang = torch.zeros((h, p), dtype=ang_dt, device=dev)
+            k_s, sv_s, rx_s, ry_s, rz_s, ang_s = merge_rows(
+                (prev_key, prev_sv, carry.rhat[0], carry.rhat[1],
+                 carry.rhat[2], carry.angles),
+                cur_ops + (zeros_ang,))
+            is_cur = (k_s & 1) == 1
+            ids_s = ((k_s >> 1) & 0x7FFFFFFF).to(id_dt)
+        else:
+            def cat(a, b):
+                return torch.cat([a, b], dim=1)
+
+            payload = (cat(prev_sv, cur_sv), cat(carry.rhat[0], rh[0]),
+                       cat(carry.rhat[1], rh[1]), cat(carry.rhat[2], rh[2]),
+                       cat(carry.angles,
+                           torch.zeros((h, p), dtype=ang_dt, device=dev)))
+            if pack_key:
+                keys = cat(
+                    to_i32_bits(carry.ids.to(torch.int64) << 1),
+                    to_i32_bits((snap.ids.to(torch.int64) << 1) | 1))
+                k_s, sv_s, rx_s, ry_s, rz_s, ang_s = _sort_rows(
+                    u32_order(keys), keys, *payload)
+                is_cur = (k_s & 1) == 1
+                ids_s = ((k_s >> 1) & 0x7FFFFFFF).to(id_dt)
+            else:
+                ids_cat = cat(carry.ids, snap.ids)
+                side = cat(torch.zeros((h, p), dtype=torch.int64,
+                                       device=dev),
+                           torch.ones((h, p), dtype=torch.int64,
+                                      device=dev))
+                ids_s, side_s, sv_s, rx_s, ry_s, rz_s, ang_s = _sort_rows(
+                    (ids_cat.to(torch.int64), side), ids_cat, side,
+                    *payload)
+                is_cur = side_s == 1
+        slot_s = sv_s & 0x00FFFFFF
+        vrb_s = (sv_s >> 24) & 0xFF
+
+        # ---- detection in the merged domain (matched pairs adjacent,
+        # prev first)
+        valid_key = ids_s != invalid
+        left_is_prev = ~_shift_right(is_cur, True)
+        match_cur = (is_cur & left_is_prev & valid_key
+                     & (ids_s == _shift_right(ids_s, invalid)))
+        vrb_l = _shift_right(vrb_s, 0)
+        rx_l, ry_l, rz_l = (_shift_right(x, 0.0) for x in (rx_s, ry_s, rz_s))
+        ang_l = _shift_right(ang_s, 0.0)
+        cosang = torch.clamp(rx_l * rx_s + ry_l * ry_s + rz_l * rz_s,
+                             -1.0, 1.0)
+        dtheta = torch.where(match_cur, torch.acos(cosang),
+                             torch.zeros_like(cosang))
+        if pericentric:
+            flip_ = ((vrb_l & 1) > 0) & ((vrb_s & 2) > 0)
+        else:
+            flip_ = ((vrb_l & 2) > 0) & ((vrb_s & 1) > 0)
+        apsis = match_cur & flip_
+        angle_acc = ang_l + dtheta.to(ang_dt)
+        zero = torch.zeros_like(angle_acc)
+        apsis_angle = torch.where(apsis, angle_acc, zero)
+        angle_new = torch.where(apsis | ~match_cur, zero, angle_acc)
+        # the event rides to its prev partner (one position left), which
+        # holds the load slot that orders the events
+        apsis_prev = _shift_left(apsis, False)
+        ev_angle_prev = _shift_left(apsis_angle, 0.0)
+        count = apsis.sum(dim=-1, dtype=torch.int32)
+
+        if compact_impl == "pallas":
+            # the match flag rides the angle's sign bit, so the carry
+            # extraction is a single-channel compaction
+            packed = angle_new.view(torch.int32) | torch.where(
+                match_cur, _BIT31, 0).to(torch.int32)
+            k128 = ((K + 127) // 128) * 128
+            if merge_impl == "pallas":
+                ops_a = (packed,)
+            else:
+                ops_a = (k_s, sv_s, rx_s, ry_s, rz_s, packed)
+            a_out, (ev_id, ev_slot, ev_ang) = compact_rows(
+                is_cur.to(torch.int32), ops_a, p,
+                apsis_prev.to(torch.int32),
+                (ids_s, slot_s, ev_angle_prev), k128)
+            match_o, ang_o = _decode_packed_angles(a_out[-1])
+            if merge_impl == "pallas":
+                asc = cur_asc if cur_presorted else flip(cur_ops)
+                carry_chans = asc
+            else:
+                carry_chans = a_out[:5]
+            new_carry = _carry_from_channels(*carry_chans, ang_o, match_o,
+                                             id_dt)
+            ev_ids, ev_angles, _ = _finish_events(
+                count, ev_id, ev_slot, ev_ang, K, invalid, id_dt,
+                id_order=False)
+        else:
+            # one stable sort: the next carry to the front (in ID
+            # order), the events next (in prev load-slot order), dead
+            # entries last
+            key_b = torch.where(
+                is_cur, 0, torch.where(apsis_prev, 1 + slot_s, _DEAD_KEY))
+            angle_b = torch.where(is_cur, angle_new, ev_angle_prev)
+            sv_b = slot_s | ((vrb_s | (match_cur.to(torch.int32) << 2))
+                             << 24)
+            ids_o, sv_o, rx_o, ry_o, rz_o, ang_o = _sort_rows(
+                key_b.to(torch.int64), ids_s, sv_b, rx_s, ry_s, rz_s,
+                angle_b)
+            new_carry = SortedCarry(
+                ids=ids_o[:, :p].contiguous(),
+                slot=sv_o[:, :p] & 0x00FFFFFF,
+                vrb=((sv_o[:, :p] >> 24) & 0xFF).to(torch.uint8),
+                rhat=torch.stack([rx_o[:, :p], ry_o[:, :p], rz_o[:, :p]]),
+                angles=ang_o[:, :p].contiguous(),
+            )
+            ev_ids = ids_o[:, p:p + K]
+            ev_angles = ang_o[:, p:p + K]
+        return new_carry, CompactEvents(count=count, ids=ev_ids,
+                                        angles=ev_angles,
+                                        bulk_vel=frame.bulk_vel)
 
     return step

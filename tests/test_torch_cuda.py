@@ -1,6 +1,7 @@
 """The port's hand-written CUDA kernels on the card, against their
-plain-torch twins, and the port's main paths (the tracker, the
-label-native detector) on CUDA against the same paths on the CPU.
+plain-torch twins, and the port's main paths (the tracker's aligned and
+sorted engines, the label-native detector, the sorted scan) on CUDA
+against the same paths on the CPU.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports nothing of JAX (the machine with the card has none), so run it
@@ -21,6 +22,9 @@ from orbitanalysis_tpu_torch.ops import compact as tc
 from orbitanalysis_tpu_torch.ops import frames as tf
 from orbitanalysis_tpu_torch.ops import label as tl
 from orbitanalysis_tpu_torch.ops import label_step as tls
+from orbitanalysis_tpu_torch.ops import merge as tm
+from orbitanalysis_tpu_torch.ops import sorted_step as tss
+from orbitanalysis_tpu_torch.ops import step as ts
 from orbitanalysis_tpu_torch.utils.metrics import Metrics
 
 pytestmark = pytest.mark.cuda
@@ -302,3 +306,225 @@ def test_label_step_on_cuda_matches_cpu(dev, frames, k):
             "pallas2": {"frame_rows", "compact_payload_rows"},
             "twolevel": {"compact_payload_rows"}}[frames]
     assert {n for n, c in counts.items() if c} == want
+
+
+# ----------------------------------------------------------------------
+# the sorted engine's kernels (K15, K16, K18, K19) and its step
+# ----------------------------------------------------------------------
+
+def _keys(rng, h, p, n_valid, side, pool):
+    """``[h, p]`` int32 bit patterns of uint32 keys ``(id << 1) | side``
+    of ``n_valid[r]`` unique IDs from ``pool[r]``, ascending, then the
+    padding sentinel ``0xFFFFFFFE | side``."""
+    keys = np.full((h, p), np.uint32(0xFFFFFFFE) | np.uint32(side),
+                   np.uint32)
+    for r in range(h):
+        ids = np.sort(rng.choice(pool[r], n_valid[r], replace=False))
+        keys[r, :n_valid[r]] = (ids.astype(np.uint32) << np.uint32(1)) \
+            | np.uint32(side)
+    return keys
+
+
+def _join_planes(rng, h, p, kind):
+    """Prev (ascending) and cur (descending) planes of one join.
+    ``kind``: 'churn' (half the cur IDs shared, padding on both sides),
+    'static' (the same IDs, no padding), 'disjoint' (no ID shared),
+    'big' (IDs near 2**31, so the keys' top bit is set)."""
+    n_prev = rng.integers(p // 2, p + 1, h)
+    n_cur = rng.integers(p // 2, p + 1, h)
+    if kind == "static":
+        n_prev = n_cur = np.full(h, p)
+    base = (1 << 31) - 4 * p if kind == "big" else 0
+    pools = [base + rng.permutation(3 * p) for _ in range(h)]
+    pk = _keys(rng, h, p, n_prev, 0, [q[:p] for q in pools])
+    if kind == "static":
+        ck = pk | np.uint32(1)
+    elif kind == "disjoint":
+        ck = _keys(rng, h, p, n_cur, 1, [q[p:] for q in pools])
+    else:
+        shared = [np.concatenate([(pk[r, :n_prev[r]] >> np.uint32(1))[
+            : n_cur[r] // 2], q[p:2 * p]]) for r, q in enumerate(pools)]
+        ck = _keys(rng, h, p, np.minimum(n_cur, p), 1, shared)
+    ck = np.ascontiguousarray(ck[:, ::-1])
+
+    def unit():
+        v = rng.normal(size=(3, h, p)).astype(np.float32)
+        return (v / np.linalg.norm(v, axis=0)).astype(np.float32)
+
+    def sv():
+        return (np.argsort(rng.random((h, p)), axis=1).astype(np.int32)
+                | (rng.integers(0, 8, (h, p)).astype(np.int32) << 24))
+
+    pr, cr = unit(), unit()
+    prev = [_i32(pk), torch.from_numpy(sv()), *map(torch.from_numpy, pr),
+            torch.from_numpy(rng.uniform(0, 9, (h, p)).astype(np.float32))]
+    cur = [_i32(ck), torch.from_numpy(sv()), *map(torch.from_numpy, cr)]
+    return prev, cur
+
+
+@pytest.mark.parametrize("h,p", [(64, 32768), (3, 128), (5, 4096)])
+@pytest.mark.parametrize("kind", ["churn", "static", "disjoint", "big"])
+def test_merge_kernel_matches_plain(dev, h, p, kind):
+    """K15 equals the stable sort of the concatenation on every channel,
+    the ties among padding sentinels included."""
+    rng = np.random.default_rng(p + h)
+    prev, cur = _join_planes(rng, h, p, kind)
+    prev[5] = prev[5].view(torch.int32)
+    cur.append(torch.zeros_like(prev[5]))
+    got = tm.merge_rows(tuple(t.to(dev) for t in prev),
+                        tuple(t.to(dev) for t in cur))
+    want = tm.merge_rows_torch(tuple(prev), tuple(cur))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu().view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.parametrize("h,p,k", [(64, 32768, 2048), (3, 128, 128),
+                                   (5, 4096, 4096)])
+@pytest.mark.parametrize("kind", ["churn", "static", "disjoint", "big"])
+@pytest.mark.parametrize("pericentric", [True, False])
+def test_join_detect_kernel_matches_plain(dev, h, p, k, kind, pericentric):
+    """K16 against its merged-domain plain version, on the CPU and on the
+    card: every output bit for bit (both zero-fill past the counts)."""
+    rng = np.random.default_rng(p + h + k)
+    prev, cur = _join_planes(rng, h, p, kind)
+    args = (pericentric, np.iinfo(np.int32).max, k)
+    got = ts.fused_join_detect(tuple(t.to(dev) for t in prev),
+                               tuple(t.to(dev) for t in cur), *args)
+    plain_cuda = ts.fused_join_detect_torch(
+        tuple(t.to(dev) for t in prev), tuple(t.to(dev) for t in cur), *args)
+    plain_cpu = ts.fused_join_detect_torch(tuple(prev), tuple(cur), *args)
+    torch.cuda.synchronize()
+    if kind != "disjoint":
+        assert int(plain_cpu[4].sum()) > 0
+    for want in (plain_cuda, plain_cpu):
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu().view(torch.int32),
+                               w.cpu().view(torch.int32))
+
+
+@pytest.mark.parametrize("h,p,k", [(64, 32768, 2048), (3, 256, 256)])
+@pytest.mark.parametrize("density", [0.0, 0.017, 0.07, 0.5, 1.0])
+def test_compact_events_kernel_matches_plain(dev, h, p, k, density):
+    rng = np.random.default_rng(int(density * 100) + p)
+    sel = rng.random((h, p)) < density
+    sel[0, 10:200] = True
+    ang = rng.uniform(0, 7, (h, p)).astype(np.float32)
+    packed = _i32(np.where(sel, ang.view(np.uint32) | np.uint32(1 << 31),
+                           np.uint32(0)))
+    key = _i32(rng.integers(0, 2**32, (h, p), dtype=np.uint64).astype(
+        np.uint32))
+    sv = torch.from_numpy(rng.integers(0, 2**31, (h, p)).astype(np.int32))
+    got = tc.compact_events(packed.to(dev), key.to(dev), sv.to(dev), k)
+    want = tc.compact_events_torch(packed, key, sv, k)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("h,n,len_b", [(64, 65536, 2048), (3, 256, 128)])
+@pytest.mark.parametrize("n_a", [1, 6])
+@pytest.mark.parametrize("density", [0.0, 0.03, 0.5, 1.0])
+def test_compact_rows_kernel_matches_plain(dev, h, n, len_b, n_a, density):
+    rng = np.random.default_rng(n + n_a + int(density * 100))
+    sel_a = torch.from_numpy((rng.random((h, n)) < 0.5).astype(np.int32))
+    sel_b = torch.from_numpy((rng.random((h, n)) < density).astype(np.int32))
+    ops_a = tuple(torch.from_numpy(rng.normal(size=(h, n)).astype(np.float32))
+                  if c % 2 else torch.from_numpy(
+                      rng.integers(0, 2**31, (h, n)).astype(np.int32))
+                  for c in range(n_a))
+    ops_b = (torch.from_numpy(rng.integers(0, 2**31, (h, n)).astype(np.int32)),
+             torch.from_numpy(rng.integers(0, 2**24, (h, n)).astype(np.int32)),
+             torch.from_numpy(rng.uniform(0, 7, (h, n)).astype(np.float32)))
+    got = tc.compact_rows(sel_a.to(dev), tuple(t.to(dev) for t in ops_a),
+                          n // 2, sel_b.to(dev),
+                          tuple(t.to(dev) for t in ops_b), len_b)
+    want = tc.compact_rows_torch(sel_a, ops_a, n // 2, sel_b, ops_b, len_b)
+    torch.cuda.synchronize()
+    for gs, ws in zip(got, want):
+        for g, w in zip(gs, ws):
+            assert g.dtype == w.dtype
+            assert torch.equal(g.cpu().view(torch.int32), w.view(torch.int32))
+
+
+def _bench_batches(h, c, s, static=False):
+    from orbitanalysis_tpu_torch.models.synthetic import (
+        churn_workload,
+        static_workload,
+    )
+    from orbitanalysis_tpu_torch.ops.apsis import SnapshotBatch
+
+    make = static_workload if static else churn_workload
+    ids, pos, vel, cen, _ = make(h, c, s, seed=2)
+    return tss.presort_snapshot(
+        SnapshotBatch(ids=ids, pos=pos, vel=vel, center=cen), soa=True)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(fused=True), dict(merge_impl="pallas", compact_impl="pallas"),
+    dict(merge_impl="pallas", compact_impl="lax_sort"),
+    dict(merge_impl="lax_sort", compact_impl="pallas")])
+@pytest.mark.parametrize("static", [False, True])
+def test_sorted_scan_on_cuda_matches_cpu(dev, kw, static):
+    """The sorted scan on the card (through K15/K16/K18/K19) against the
+    CPU scan: counts and event IDs exact, angles within one f16 ulp or
+    2e-3 rad; the kernels on the path each launched."""
+    from orbitanalysis_tpu_torch.engine.scan import scan_events_sorted
+
+    staged = _bench_batches(4, 4096, 5, static)
+    args = dict(box_size=100.0, cur_presorted=True, soa_batch=True, **kw)
+    _cuda.reset_launch_counts()
+    c_gpu, ev_gpu = scan_events_sorted(
+        tss.init_sorted_carry(4, 4096, device=dev), staged, 512, **args)
+    torch.cuda.synchronize()
+    counts = _cuda.launch_counts()
+    c_cpu, ev_cpu = scan_events_sorted(
+        tss.init_sorted_carry(4, 4096, device="cpu"), staged, 512, **args)
+    cnt = ev_cpu[0]
+    assert torch.equal(ev_gpu[0].cpu(), cnt) and int(cnt.sum()) > 0
+    sel = torch.arange(ev_cpu[1].shape[-1])[None, None, :] < cnt[..., None]
+    assert torch.equal(ev_gpu[1].cpu()[sel], ev_cpu[1][sel])
+    assert float((ev_gpu[2].cpu() - ev_cpu[2]).abs().max()) <= 2e-3
+    assert torch.equal(c_gpu.ids.cpu(), c_cpu.ids)
+    if kw.get("fused"):
+        want = ({"fused_join_detect": 1, "compact_events_rows": 4} if static
+                else {"fused_join_detect": 5})
+    else:
+        want = {}
+        if kw["merge_impl"] == "pallas":
+            want["merge_rows"] = 5
+        if kw["compact_impl"] == "pallas":
+            want["compact_rows_groups"] = 5
+    assert {n: c for n, c in counts.items() if c} == want
+
+
+def test_sorted_tracker_on_cuda_matches_cpu(dev):
+    """track_orbits(join_impl='sorted') on the card launches K16 or K18
+    every step and writes the catalog the CPU run writes."""
+    args = _setup()
+    _cuda.reset_launch_counts()
+    m = Metrics()
+    w_gpu, w_cpu = MemoryWriter(), MemoryWriter()
+    track_orbits(*args, "run.h5", verbose=False, metrics=m, writer=w_gpu,
+                 join_impl="sorted")
+    counts = _cuda.launch_counts()
+    assert {r["join"] for r in m.records} == {"sorted"}
+    assert (counts["fused_join_detect"] + counts["compact_events_rows"]
+            == len(m.records) + 1)
+    track_orbits(*args, "run.h5", verbose=False, device="cpu",
+                 join_impl="sorted", writer=w_cpu)
+    a, b = w_gpu.files["run.h5"], w_cpu.files["run.h5"]
+    assert sorted(a) == sorted(b)
+    for g in a:
+        if g == "attrs":
+            continue
+        for ds in a[g]:
+            if ds == "angles":
+                np.testing.assert_allclose(a[g][ds].astype(np.float32),
+                                           b[g][ds].astype(np.float32),
+                                           atol=4e-3)
+            elif ds == "bulk_velocities":
+                np.testing.assert_allclose(a[g][ds], b[g][ds], rtol=2e-6,
+                                           atol=1e-6)
+            else:
+                np.testing.assert_array_equal(a[g][ds], b[g][ds])

@@ -430,8 +430,8 @@ def test_aligned_step_rejects_what_it_cannot_run():
 
 def test_port_runs_without_jax(tmp_path):
     """With jax, the JAX package and h5py blocked, the port imports and
-    runs its public surface (both engines, in-memory savefiles, and a
-    small label-native scan)."""
+    runs its public surface (the three engines, in-memory savefiles, a
+    small label-native scan and a small sorted scan)."""
     script = textwrap.dedent(f"""
         import sys
         for name in ("jax", "jaxlib", "orbitanalysis_tpu", "h5py"):
@@ -452,18 +452,35 @@ def test_port_runs_without_jax(tmp_path):
         snaps, centers = churn_snapshots(2, 60, 4, box_size=30.0, seed=1)
         regions, loader = make_callbacks(snaps, centers, box_size=30.0)
         files = []
-        for join in ("aligned", "general"):
+        for join in ("aligned", "general", "sorted"):
             w = MemoryWriter()
             ot.track_orbits(np.arange(4), np.tile(np.arange(2), (4, 1)),
                             regions, loader, "mem.h5", verbose=False,
                             join_impl=join, device="cpu", writer=w)
             files.append(w.files["mem.h5"])
-        a, b = files
-        assert sorted(a) == sorted(b)
-        for g in a:
-            if g != "attrs":
-                assert np.array_equal(a[g]["pericenter_IDs"],
-                                      b[g]["pericenter_IDs"])
+        a = files[0]
+        for b in files[1:]:
+            assert sorted(a) == sorted(b)
+            for g in a:
+                if g != "attrs":
+                    assert np.array_equal(a[g]["pericenter_IDs"],
+                                          b[g]["pericenter_IDs"])
+        # the sorted engine's scan on the bench's ID-form sequence
+        from orbitanalysis_tpu_torch.engine.scan import scan_events_sorted
+        from orbitanalysis_tpu_torch.models.synthetic import churn_workload
+        from orbitanalysis_tpu_torch.ops.apsis import SnapshotBatch
+        from orbitanalysis_tpu_torch.ops import sorted_step as ss
+        ids, pos, vel, cen, _ = churn_workload(2, 256, 4)
+        staged = ss.presort_snapshot(
+            SnapshotBatch(ids=ids, pos=pos, vel=vel, center=cen), soa=True)
+        sc = []
+        for kw in (dict(fused=True), dict(merge_impl="pallas",
+                                          compact_impl="pallas")):
+            _, (cnt, _, _) = scan_events_sorted(
+                ss.init_sorted_carry(2, 256, device="cpu"), staged, 128,
+                box_size=100.0, cur_presorted=True, soa_batch=True, **kw)
+            sc.append(cnt.numpy())
+        assert sc[0].sum() > 0 and np.array_equal(sc[0], sc[1])
         # the label-native detector, through every route it ports
         from orbitanalysis_tpu_torch.models.synthetic import (
             label_churn_workload)

@@ -273,10 +273,16 @@ def test_auto_picks_general_off_cuda(tmp_path, churn_setup):
 
 
 def test_unported_paths_raise(tmp_path, churn_setup):
+    """mesh= is not ported and raises; join_impl='sorted' is ported and
+    runs (tests/test_torch_sorted.py holds it against the JAX package)."""
     with pytest.raises(NotImplementedError, match="M11"):
         _run(churn_setup, str(tmp_path / "a.h5"), mesh=object())
-    with pytest.raises(NotImplementedError, match="M10"):
-        _run(churn_setup, str(tmp_path / "b.h5"), join_impl="sorted")
+    m = Metrics()
+    sorted_run = _run(churn_setup, str(tmp_path / "b.h5"),
+                      join_impl="sorted", metrics=m)
+    assert {r["join"] for r in m.records} == {"sorted"}
+    _assert_files_equal(_run(churn_setup, str(tmp_path / "g.h5"),
+                             join_impl="general"), sorted_run)
     with pytest.raises(ValueError, match="join_impl"):
         _run(churn_setup, str(tmp_path / "c.h5"), join_impl="hash")
 
