@@ -12,12 +12,14 @@ repository checkout; it imports nothing of JAX.  Phases:
    JAX package's benchmark workloads (64 halos x 32768 slots x 48
    snapshots from one orbit pool: the label-native churn sequence, the
    same churn in the ID form, and the fixed-membership sequence) are
-   generated on the host, the ID forms staged ID-sorted;
+   generated on the host, the ID forms staged ID-sorted and, one
+   ``pack_snapshot_aligned`` a snapshot, in the stable layout;
 3. each CUDA kernel against its plain-torch version on the same CUDA
    tensors, at the shapes its main path gives it (the sorted engine's
-   kernels on the inputs of real steps), with timings, the card's bound
-   for the same work and, where one PyTorch call computes the same
-   function, that call's time;
+   kernels and the aligned detect kernel on the inputs of real steps,
+   the fused label detect kernel on the label path's), with timings,
+   the card's bound for the same work and, where one PyTorch call
+   computes the same function, that call's time;
 4. aligned step parity: 8 churning snapshots at [64, 32768], the
    aligned step on CUDA against the same step on the CPU: counts,
    positions, carry keys and r-hat planes equal, and no event angle
@@ -39,8 +41,11 @@ repository checkout; it imports nothing of JAX.  Phases:
    kernels once per snapshot; with its bulk velocities fed back, the
    K = 8192 route (detect kernel + payload compaction) and the
    ``'twolevel'`` route (plain chain + payload compaction) must give the
-   same events; then the step's device time, host queue time and
-   update rate;
+   same events, and so must the ``'fused'`` route (moments, fused detect
+   kernel, payload compaction) and the ``'pallas'`` route (moments, frame
+   rows, plain chain, payload compaction) estimating the bulk velocities
+   themselves, each kernel once a snapshot; then the step's device time,
+   host queue time and update rate for ``'auto'`` and ``'fused'``;
 8. the sorted engine at full width, the JAX benchmark's merge-join and
    static cells: ``scan_events_sorted(fused=True, cur_presorted=True,
    soa_batch=True)`` over the 48-snapshot churn sequence must find
@@ -49,10 +54,19 @@ repository checkout; it imports nothing of JAX.  Phases:
    engine's on the card (given the sorted run's bulk velocities) and the
    unfused route's (merge kernel + two-group compaction); the static
    sequence launches the join-and-detect kernel on its first step and
-   the event compaction on every later one; then step timings;
+   the event compaction on every later one, and the legacy aligned step
+   (the aligned detect kernel once a step) finds the same events; then
+   step timings;
 9. ``track_orbits(join_impl='sorted')`` at config-2 scale: catalogs
    equal the general engine's run on the card and the oracle, and every
-   step launches the join-and-detect kernel or the event compaction.
+   step launches the join-and-detect kernel or the event compaction;
+10. the aligned engine on the benchmark's churn sequence in the stable
+   layout (SoA planes): ``make_aligned_native_step`` with
+   ``detect_impl='xla'`` (the compaction kernel once a step) and
+   ``'pallas'`` (the aligned detect kernel once a step) and the legacy
+   ``make_aligned_orbit_step`` (the same kernel) must give the same
+   events, exactly the 1,741,643, and the two native steps the same
+   carry bits; then step timings.
 
 Any failed check exits non-zero without printing the result lines.  The
 last three lines are the card's name and power limit, the kernels' JSON
@@ -98,8 +112,10 @@ LABEL_PARITY = (8, 8)
 #: timed scans of phase 7 (after one warm-up scan)
 LABEL_SCANS = 5
 #: phase 8: snapshots of the sorted engine's cross-checks and of the
-#: static cell (the JAX benchmark's secondary slice, bench.py:1103)
+#: static cell (the JAX benchmark's secondary slice, bench.py:1103), and
+#: the events the static cell holds
 SORTED_CHECK = 12
+STATIC_EVENTS = 473138
 
 #: The card's published peaks (H100 SXM, NVIDIA's data sheet) that
 #: ``bound_ms`` divides by: HBM bytes per second, and float32 (or
@@ -148,6 +164,14 @@ def gathered_bytes(sel, length, n_chan):
     flat = take.reshape(-1)
     flat = torch.cat([flat, flat.new_zeros(-flat.numel() % 8)])
     return n_chan * 32 * int(flat.view(-1, 8).any(dim=1).sum())
+
+
+def launch_diff(after, before=None):
+    """Kernel launches between two readings of the counts (since the
+    reset when ``before`` is None), the kernels that launched."""
+    before = before or {}
+    return {n: c - before.get(n, 0) for n, c in after.items()
+            if c != before.get(n, 0)}
 
 
 class SmokeFailure(Exception):
@@ -583,13 +607,56 @@ def end_to_end(dev):
 
 # ---------------------------------------------------- label-native phases
 
+def stage_aligned(dev, form, n_snap):
+    """The first ``n_snap`` snapshots of an ID-form sequence ``(ids, pos,
+    vel, centers, _)`` staged in the stable layout, one
+    ``pack_snapshot_aligned`` a snapshot (each row's members in load
+    order are the loader's region blocks), with SoA position and
+    velocity planes: a SnapshotBatch of ``[S, ...]`` tensors on the
+    card."""
+    import torch
+
+    from orbitanalysis_tpu_torch.engine.packing import (
+        StableLayout,
+        pack_snapshot_aligned,
+    )
+    from orbitanalysis_tpu_torch.ops.apsis import SnapshotBatch
+
+    ids, pos, vel, cen, _ = form
+    h, c = ids.shape[1:]
+    rows = np.arange(h)
+    lay = StableLayout(h, c)
+
+    def plane(*shape, dtype=torch.float32):
+        return torch.empty((n_snap, *shape), dtype=dtype, device=dev)
+
+    out = SnapshotBatch(
+        ids=plane(h, c, dtype=torch.int32), pos=plane(3, h, c),
+        vel=plane(3, h, c),
+        center=torch.from_numpy(np.ascontiguousarray(cen[:n_snap])).to(dev),
+        slot=plane(h, c, dtype=torch.int32))
+    for s in range(n_snap):
+        valid = ids[s] != np.iinfo(np.int32).max
+        n_valid = valid.sum(axis=1)
+        pk = pack_snapshot_aligned(dict(
+            ids=ids[s][valid], coordinates=pos[s][valid],
+            velocities=vel[s][valid],
+            region_offsets=np.concatenate(([0], np.cumsum(n_valid)[:-1]))),
+            rows, h, lay, cen[s])
+        out.ids[s].copy_(torch.from_numpy(pk.ids))
+        out.pos[s].copy_(torch.from_numpy(pk.pos).permute(2, 0, 1))
+        out.vel[s].copy_(torch.from_numpy(pk.vel).permute(2, 0, 1))
+        out.slot[s].copy_(torch.from_numpy(pk.slot))
+    return out
+
+
 def bench_workloads(dev):
     """The JAX benchmark's workloads from one orbit pool, made on the host
     from its seed: the label-native churn sequence (moved to the card),
     the same churn in the ID form (load order on the host for the
-    general engine's check, and staged ID-sorted with SoA planes on the
-    card) and the first SORTED_CHECK snapshots of the fixed-membership
-    sequence (staged the same way)."""
+    general engine's check, staged ID-sorted with SoA planes on the card,
+    and staged in the stable layout) and the first SORTED_CHECK snapshots
+    of the fixed-membership sequence (staged both ways)."""
     import torch
 
     from orbitanalysis_tpu_torch.models.synthetic import bench_workloads
@@ -622,22 +689,33 @@ def bench_workloads(dev):
     load_order = tuple(
         torch.from_numpy(np.ascontiguousarray(x[:SORTED_CHECK])).to(dev)
         for x in (ids, pos, vel, cen))
-    del w, ids, pos, vel
+    del ids, pos, vel
+    t_sorted = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    aligned = stage_aligned(dev, w["churn"], LABEL[2])
+    aligned_static = stage_aligned(dev, w["static"], SORTED_CHECK)
+    del w
     torch.cuda.synchronize()
+    t_aligned = time.perf_counter() - t1
     log(f"  bench workloads {LABEL[0]} halos x {LABEL[1]} slots x "
         f"{LABEL[2]} snapshots: label N = {work['label'].shape[1]}, "
         f"{n_valid} tracked at snapshot 0; churn ID form "
         f"{staged['churn'][1]} members a row; {t_gen:.1f} s to generate "
-        f"on the host, {time.perf_counter() - t1:.1f} s to stage ID-sorted "
-        "and move to the card")
+        f"on the host, {t_sorted:.1f} s to stage ID-sorted and move to the "
+        f"card, {t_aligned:.1f} s to stage {LABEL[2]} + {SORTED_CHECK} "
+        "snapshots in the stable layout (pack_snapshot_aligned) and move "
+        "them to the card")
     return work, dict(churn=staged["churn"][0], n_valid=staged["churn"][1],
                       static=staged["static"][0],
-                      n_static=staged["static"][1], load_order=load_order)
+                      n_static=staged["static"][1], load_order=load_order,
+                      aligned=aligned, aligned_static=aligned_static)
 
 
 def _detect_inputs(dev, work, packed):
     """Inputs of the detect pass of snapshot 3 on the carry the CUDA label
-    step leaves after snapshots 0-2 (so matched lanes exist)."""
+    step leaves after snapshots 0-2 (so matched lanes exist): the frame
+    rows, labels, positions, velocities and carry planes, and the frame
+    table the rows were gathered from."""
     import torch
 
     from orbitanalysis_tpu_torch.ops import frames
@@ -659,12 +737,12 @@ def _detect_inputs(dev, work, packed):
     table = torch.cat([work["centers"][3], bulk], dim=1)
     rows = frames.frame_rows(table, lab).reshape(6, r, w)
     return [rows, lab.reshape(r, w), work["pos"][3].reshape(3, r, w),
-            work["vel"][3].reshape(3, r, w), *carry]
+            work["vel"][3].reshape(3, r, w), *carry], table
 
 
 def label_kernel_checks(dev, work):
-    """K4/K5, K6, K7, K8 and K9 against their plain versions on the same
-    CUDA tensors, at the label path's full-width shapes."""
+    """K4/K5, K6, K7, K8, K9 and K10 against their plain versions on the
+    same CUDA tensors, at the label path's full-width shapes."""
     import torch
     import torch.nn.functional as F
 
@@ -765,9 +843,10 @@ def label_kernel_checks(dev, work):
 
     # K8 / K9 on snapshot 3 of the carry after three real steps
     kw = dict(pericentric=True, box_size=LABEL_BOX)
-    worst = {"detect_label_compact_rows": 0.0, "detect_label_rows": 0.0}
+    worst = {"detect_label_compact_rows": 0.0, "detect_label_rows": 0.0,
+             "fused_label_rows": 0}
     for packed in (False, True):
-        args = _detect_inputs(dev, work, packed)
+        args, table = _detect_inputs(dev, work, packed)
         k9 = label.detect_label(*args, 0.0, rhat_packed=packed, **kw)
         k8 = label.detect_label_compact(*args, 0.0, event_capacity=k,
                                         rhat_packed=packed, **kw)
@@ -820,6 +899,31 @@ def label_kernel_checks(dev, work):
                 plain_ms=cuda_ms(lambda: label.detect_label_torch(
                     *args, 0.0, rhat_packed=True, **kw)),
                 library_ms=None, bound_ms=b9[0], bound_by=b9[1])
+
+        # K10 on the same inputs, the rows plane replaced by the table it
+        # was gathered from: every output bit for bit
+        got = label.fused_label_detect(table, *args[1:], 0.0,
+                                       rhat_packed=packed, **kw)
+        want = label.fused_label_detect_torch(table, *args[1:], 0.0,
+                                              rhat_packed=packed, **kw)
+        ne, diff = _bitwise(got, want)
+        worst["fused_label_rows"] = max(worst["fused_label_rows"], diff)
+        log(f"  fused_label_rows [{r}, {w}] rhat "
+            f"{'packed' if packed else 'f32'}: {int(want[4].sum())} events; "
+            f"lanes that differ from the plain version (carry planes, "
+            f"payload, counts) {ne}")
+        check(ne == 0, "fused_label_rows differs from its plain version")
+        if packed:
+            # bytes a particle: label 4, pos 12, vel 12, sv 4, rhat 4,
+            # packed 4 in; sv, rhat, packed, payload 4 each out; the
+            # table once
+            b10 = bound(n * 56 + r * 4 + table.numel() * 4, 120 * n)
+            results["fused_label_rows"] = dict(
+                ms=cuda_ms(lambda: label.fused_label_detect(
+                    table, *args[1:], 0.0, rhat_packed=True, **kw)),
+                plain_ms=cuda_ms(lambda: label.fused_label_detect_torch(
+                    table, *args[1:], 0.0, rhat_packed=True, **kw)),
+                library_ms=None, bound_ms=b10[0], bound_by=b10[1])
     for name, err in worst.items():
         results[name]["max_abs_err"] = err
     return results
@@ -942,6 +1046,12 @@ def label_full_width(dev, work):
     _, ev9 = scan(8192, bulk=ev.bulk_vel)
     _, ev2 = scan(LABEL_K, frames="twolevel", bulk=ev.bulk_vel)
     torch.cuda.synchronize()
+    c_fed = _cuda.launch_counts()
+    _, evf = scan(LABEL_K, frames="fused")
+    torch.cuda.synchronize()
+    c_fused = _cuda.launch_counts()
+    _, evp = scan(LABEL_K, frames="pallas")
+    torch.cuda.synchronize()
     launches = _cuda.launch_counts()
     # ---- end of the counted main path
 
@@ -970,49 +1080,72 @@ def label_full_width(dev, work):
               f"{what}: event positions differ from frames='auto'")
         log(f"  {what}: the same {int(other.count.sum())} events and "
             "positions")
-    check(launches["detect_label_rows"] == s_n, "K9 launches != snapshots")
-    check(launches["compact_payload_rows"] == 2 * s_n,
-          "payload compaction launches != 2 x snapshots")
+    check(launch_diff(c_fed, counts_auto) == {
+        "frame_rows": s_n, "detect_label_rows": s_n,
+        "compact_payload_rows": 2 * s_n},
+          f"the runs with the bulk velocities fed back launched "
+          f"{launch_diff(c_fed, counts_auto)}, not K6 and K9 once and the "
+          "payload compaction twice a snapshot")
+    for other, before, after, kernels, what in (
+            (evf, c_fed, c_fused, ("segment_moments", "fused_label_rows",
+                                   "compact_payload_rows"), "'fused'"),
+            (evp, c_fused, launches, ("segment_moments", "frame_rows",
+                                      "compact_payload_rows"), "'pallas'")):
+        got = launch_diff(after, before)
+        n_ev = int(other.count.sum())
+        log(f"  frames={what}, K={LABEL_K}, bulk velocities estimated on "
+            f"the card: {n_ev} events; launches {got}")
+        check(n_ev == LABEL_EVENTS,
+              f"frames={what} found {n_ev} events, not {LABEL_EVENTS}")
+        check(got == {k: s_n for k in kernels},
+              f"frames={what} launched {got}, not {kernels} once a snapshot")
+        check(torch.equal(other.count, ev.count)
+              and torch.equal(other.index, ev.index),
+              f"frames={what}: events differ from frames='auto'")
 
     # ---- timing: wall and device ms per step over whole scans, the
     # host's time to queue a step, and where the device time goes
-    step = ls.make_label_orbit_step(LABEL_K, **kw)
+    for frames, what in (("auto", "'split': K7 -> K6 -> K8"),
+                         ("fused", "K7 -> K10 -> K5")):
+        step = ls.make_label_orbit_step(LABEL_K, frames=frames, **kw)
 
-    def run_scan(queue=None):
-        carry = ls.init_label_carry(n, True, LABEL_ROW, device=dev)
-        for s in range(s_n):
-            t1 = time.perf_counter()
-            carry, _ = step(carry, (work["pos"][s], work["vel"][s],
-                                    work["label"][s], work["centers"][s],
-                                    None, None, 0.0))
-            if queue is not None:
-                queue.append((time.perf_counter() - t1) * 1e3)
+        def run_scan(queue=None):
+            carry = ls.init_label_carry(n, True, LABEL_ROW, device=dev)
+            for s in range(s_n):
+                t1 = time.perf_counter()
+                carry, _ = step(carry, (work["pos"][s], work["vel"][s],
+                                        work["label"][s],
+                                        work["centers"][s], None, None,
+                                        0.0))
+                if queue is not None:
+                    queue.append((time.perf_counter() - t1) * 1e3)
 
-    run_scan()  # warm-up
-    walls, busy, queue = [], [], []
-    for _ in range(LABEL_SCANS):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        a.record()
-        run_scan(queue)
-        b.record()
-        b.synchronize()
-        walls.append(a.elapsed_time(b))
-        busy.append(device_ms(run_scan))
-    wall_ms, dev_ms = statistics.median(walls), statistics.median(busy)
-    host_ms = statistics.median(queue)
-    updates = s_n * work["n_valid"]
-    log(f"  label step, frames='auto' ('split': K7 -> K6 -> K8), medians of "
-        f"{LABEL_SCANS} scans of {s_n} steps (CUDA events): wall "
-        f"{wall_ms / s_n:.4f} ms/step (scans {min(walls):.3f}-"
-        f"{max(walls):.3f} ms), device {dev_ms / s_n:.4f} ms/step (the card "
-        f"held busy while the host queues the scan; scans {min(busy):.3f}-"
-        f"{max(busy):.3f} ms); the host takes {host_ms:.4f} ms to queue a "
-        f"step; {updates / (wall_ms * 1e-3):.4g} particle-snapshot "
-        f"updates/s at the wall, {updates / (dev_ms * 1e-3):.4g} at the "
-        f"device time ({s_n} x {work['n_valid']} updates a scan)")
-    profile_scan(run_scan, s_n, wall_ms)
+        run_scan()  # warm-up
+        walls, busy, queue = [], [], []
+        for _ in range(LABEL_SCANS):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            a.record()
+            run_scan(queue)
+            b.record()
+            b.synchronize()
+            walls.append(a.elapsed_time(b))
+            busy.append(device_ms(run_scan))
+        wall_ms, dev_ms = statistics.median(walls), statistics.median(busy)
+        host_ms = statistics.median(queue)
+        updates = s_n * work["n_valid"]
+        log(f"  label step, frames='{frames}' ({what}), medians of "
+            f"{LABEL_SCANS} scans of {s_n} steps (CUDA events): wall "
+            f"{wall_ms / s_n:.4f} ms/step (scans {min(walls):.3f}-"
+            f"{max(walls):.3f} ms), device {dev_ms / s_n:.4f} ms/step (the "
+            f"card held busy while the host queues the scan; scans "
+            f"{min(busy):.3f}-{max(busy):.3f} ms); the host takes "
+            f"{host_ms:.4f} ms to queue a step; "
+            f"{updates / (wall_ms * 1e-3):.4g} particle-snapshot updates/s "
+            f"at the wall, {updates / (dev_ms * 1e-3):.4g} at the device "
+            f"time ({s_n} x {work['n_valid']} updates a scan)")
+        profile_scan(run_scan, s_n, wall_ms)
     return launches
 
 
@@ -1025,32 +1158,47 @@ def _batch(stack, s):
         for k in ("ids", "pos", "vel", "center", "slot")})
 
 
-def staged_call(dev, stack, module, entry, at=2, **kw):
-    """The arguments the sorted step (``kw`` its options) passes to
-    ``module.entry`` at step ``at`` of ``stack``, where ``module`` is the
-    module the step looks the entry point up in: the entry point is
-    wrapped by a recorder for the run (every call goes through), so a
-    kernel is checked on the inputs of a real step."""
-    from orbitanalysis_tpu_torch.ops import sorted_step as tss
-
+def recorded_call(module, entry, run):
+    """The last call's arguments to ``module.entry`` while ``run()``
+    runs, where ``module`` is the module a step looks the entry point up
+    in when it is made: the entry point is wrapped by a recorder for the
+    run (every call goes through), so a kernel is checked on the inputs
+    of a real step.  Returns ``(args, kwargs)``."""
     real = getattr(module, entry)
     calls = []
 
-    def record(*args):
-        calls.append(args)
-        return real(*args)
+    def record(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
 
     setattr(module, entry, record)
     try:
-        step = tss.make_sorted_orbit_step(
-            LABEL_K, box_size=LABEL_BOX, cur_presorted=True, soa_batch=True,
-            **kw)
-        carry = tss.init_sorted_carry(LABEL[0], LABEL[1], device=dev)
-        for s in range(at + 1):
-            carry, _ = step(carry, _batch(stack, s))
+        run()
     finally:
         setattr(module, entry, real)
     return calls[-1]
+
+
+def run_steps(dev, stack, make_step, init_carry, n):
+    """The first ``n`` steps of ``make_step()`` over ``stack``."""
+    step = make_step()
+    carry = init_carry(dev)
+    for s in range(n):
+        carry, _ = step(carry, _batch(stack, s))
+
+
+def staged_call(dev, stack, module, entry, at=2, **kw):
+    """The arguments the sorted step (``kw`` its options) passes to
+    ``module.entry`` at step ``at`` of ``stack`` (:func:`recorded_call`)."""
+    from orbitanalysis_tpu_torch.ops import sorted_step as tss
+
+    args, _ = recorded_call(module, entry, lambda: run_steps(
+        dev, stack, lambda: tss.make_sorted_orbit_step(
+            LABEL_K, box_size=LABEL_BOX, cur_presorted=True, soa_batch=True,
+            **kw),
+        lambda d: tss.init_sorted_carry(LABEL[0], LABEL[1], device=d),
+        at + 1))
+    return args
 
 
 def _bitwise(got, want):
@@ -1067,11 +1215,12 @@ def _bitwise(got, want):
 
 
 def sorted_kernel_checks(dev, seq):
-    """K15, K16, K18 and K19 against their plain versions on the inputs of
-    real sorted steps at the bench shape [64, 32768], K = 2048: K16 on
-    churn step 2, K18 on static step 2, K15 and K19 on churn step 2 of
-    the unfused routes (K19 with a 6-channel group a, merge by sort,
-    and a 1-channel one, merge by K15)."""
+    """K15, K16, K18, K19 and K17 against their plain versions on the
+    inputs of real steps at the bench shape [64, 32768], K = 2048: K16 on
+    sorted churn step 2, K18 on static step 2, K15 and K19 on churn step 2
+    of the unfused routes (K19 with a 6-channel group a, merge by sort,
+    and a 1-channel one, merge by K15), K17 on aligned churn step 2
+    (native) and aligned static step 2 (legacy)."""
     import torch
 
     from orbitanalysis_tpu_torch.ops import compact, merge
@@ -1159,27 +1308,53 @@ def sorted_kernel_checks(dev, seq):
                f"{merge_impl}; {int(a[3].sum())} events)")
     log("  merge_rows library yardstick: torch.sort of the concatenated "
         f"[{h}, {2 * p}] uint32 keys as int64, which moves no payload")
+
+    # K17 on step 2 of the aligned churn sequence (native, detect_impl=
+    # 'pallas') and of the aligned static sequence (the legacy step)
+    for what, stack, make, init in (
+            ("native, aligned churn step 2", seq["aligned"],
+             lambda: tss.make_aligned_native_step(
+                 LABEL_K, box_size=LABEL_BOX, soa_batch=True,
+                 detect_impl="pallas"),
+             lambda d: tss.init_aligned_carry(h, p, device=d)),
+            ("legacy, aligned static step 2", seq["aligned_static"],
+             lambda: tss.make_aligned_orbit_step(
+                 LABEL_K, box_size=LABEL_BOX, soa_batch=True),
+             lambda d: tss.init_sorted_carry(h, p, device=d))):
+        a, kw = recorded_call(tstep, "fused_static_detect", lambda: run_steps(
+            dev, stack, make, init, 3))
+        got = tstep.fused_static_detect(*a, **kw)
+        want = tstep.fused_static_detect_torch(*a, **kw)
+        log(f"  static_detect_rows ({what}): {int(want[4].sum())} events, "
+            f"max {int(want[4].max())} a row, "
+            f"{int((want[0] < 0).sum())} matched lanes")
+        native = kw.get("native", False)
+        # 10 planes in; packed, three event planes and the counts out;
+        # ~40 operations a lane (the Cephes arccos, the flip, the words)
+        record("static_detect_rows", got, want,
+               (lambda: tstep.fused_static_detect(*a, **kw)) if native
+               else None,
+               (lambda: tstep.fused_static_detect_torch(*a, **kw)) if native
+               else None,
+               11 * hp * 4 + 3 * h * k128 * 4 + h * 4, 40 * hp,
+               what=f"({what})")
     return results
 
 
-def time_sorted_scan(dev, stack, s_n, n_valid, what):
-    """Wall ms a step (CUDA events over whole scans), the device span a
-    step with the card held busy while the host queues (the step reads
-    its static-membership flag on the host, so this span includes the
-    host's time after each read), device busy ms a step (the profiler's
-    sum of kernel times), the host's ms to issue a step, and updates/s;
-    medians of LABEL_SCANS scans after one warm-up."""
+def time_scan(dev, stack, s_n, n_valid, what, step, init_carry):
+    """Wall ms a step (CUDA events over whole scans of ``step`` from
+    ``init_carry(dev)``), the device span a step with the card held busy
+    while the host queues (a step that reads a flag on the host, as the
+    sorted step does, syncs, so its span includes the host's time after
+    each read), device busy ms a step (the profiler's sum of kernel
+    times), the host's ms to issue a step, and updates/s; medians of
+    LABEL_SCANS scans after one warm-up."""
     import torch
 
-    from orbitanalysis_tpu_torch.ops import sorted_step as tss
-
-    h, p = LABEL[0], LABEL[1]
-    step = tss.make_sorted_orbit_step(
-        LABEL_K, box_size=LABEL_BOX, fused=True, cur_presorted=True,
-        soa_batch=True)
+    h = LABEL[0]
 
     def run_scan(queue=None):
-        carry = tss.init_sorted_carry(h, p, device=dev)
+        carry = init_carry(dev)
         for s in range(s_n):
             t1 = time.perf_counter()
             carry, _ = step(carry, _batch(stack, s))
@@ -1201,7 +1376,7 @@ def time_sorted_scan(dev, stack, s_n, n_valid, what):
     wall_ms, span_ms = statistics.median(walls), statistics.median(spans)
     host_ms = statistics.median(queue)
     updates = s_n * h * n_valid
-    log(f"  sorted step, {what}, medians of {LABEL_SCANS} scans of {s_n} "
+    log(f"  {what}, medians of {LABEL_SCANS} scans of {s_n} "
         f"steps: wall {wall_ms / s_n:.4f} ms/step (scans "
         f"{min(walls):.3f}-{max(walls):.3f} ms), device span "
         f"{span_ms / s_n:.4f} ms/step (card held busy at the start), the "
@@ -1251,18 +1426,21 @@ def sorted_full_width(dev, seq):
                                     compact_impl="pallas")
     torch.cuda.synchronize()
     c_unf = _cuda.launch_counts()
-    _, (cnt_s, _, _) = scan(static, fused=True)
+    _, (cnt_s, ids_s, _) = scan(static, fused=True)
+    torch.cuda.synchronize()
+    c_static = _cuda.launch_counts()
+    legacy = tss.make_aligned_orbit_step(LABEL_K, box_size=LABEL_BOX,
+                                         soa_batch=True)
+    carry = tss.init_sorted_carry(h, p, device=dev)
+    leg = []
+    for s in range(n_chk):
+        carry, ev = legacy(carry, _batch(seq["aligned_static"], s))
+        leg.append(ev)
     torch.cuda.synchronize()
     launches = _cuda.launch_counts()
     # ---- end of the counted main path
 
-    def diff(after, before=None):
-        """Launches between two readings of the counts (since the reset
-        when ``before`` is None)."""
-        before = before or {}
-        return {n: c - before.get(n, 0) for n, c in after.items()
-                if c != before.get(n, 0)}
-
+    diff = launch_diff
     total = int(cnt.sum())
     log(f"  churn, fused, [{h}, {p}] x {s_n} snapshots, K={LABEL_K}: "
         f"{total} events (the JAX benchmark's total: {LABEL_EVENTS}), max "
@@ -1276,13 +1454,32 @@ def sorted_full_width(dev, seq):
     check(diff(c_unf, c_churn) == {"merge_rows": n_chk,
                                    "compact_rows_groups": n_chk},
           "the unfused route did not launch K15 and K19 once a step")
-    check(diff(launches, c_unf) == {"fused_join_detect": 1,
+    check(diff(c_static, c_unf) == {"fused_join_detect": 1,
                                     "compact_events_rows": n_chk - 1},
-          f"the static scan launched {diff(launches, c_unf)}, not K16 once "
+          f"the static scan launched {diff(c_static, c_unf)}, not K16 once "
           f"and K18 {n_chk - 1} times")
     log(f"  static, fused, {n_chk} snapshots: {int(cnt_s.sum())} events; "
-        f"launches {diff(launches, c_unf)}")
-    check(int(cnt_s.sum()) > 0, "the static scan found no events")
+        f"launches {diff(c_static, c_unf)}")
+    check(int(cnt_s.sum()) == STATIC_EVENTS,
+          f"the static scan found {int(cnt_s.sum())} events, not "
+          f"{STATIC_EVENTS}")
+    # the legacy aligned step: the same event ID sets a row
+    cnt_l = torch.stack([e.count for e in leg])
+    check(diff(launches, c_static) == {"static_detect_rows": n_chk},
+          f"the legacy aligned step launched {diff(launches, c_static)}, "
+          f"not K17 {n_chk} times")
+    check(torch.equal(cnt_l, cnt_s), "legacy aligned step: counts differ "
+          "from the sorted engine's")
+    big = torch.iinfo(torch.int32).max
+    for s, e in enumerate(leg):
+        ok = torch.arange(LABEL_K, device=dev)[None, :] < e.count[:, None]
+        a = torch.sort(torch.where(ok, e.ids, big), dim=1).values
+        b = torch.sort(torch.where(ok, ids_s[s], big), dim=1).values
+        check(torch.equal(a, b), f"legacy aligned step, static snapshot "
+              f"{s}: event IDs differ from the sorted engine's")
+    log(f"  static, legacy aligned step (K17, native=False), {n_chk} "
+        f"snapshots: the same {int(cnt_l.sum())} events and ID sets a row; "
+        f"launches {diff(launches, c_static)}")
 
     # the unfused route: the same events on the first snapshots
     check(torch.equal(cnt_u, cnt[:n_chk]), "unfused route: counts differ")
@@ -1334,9 +1531,17 @@ def sorted_full_width(dev, seq):
         f"equal, {compared} events; {beyond} angles beyond one f16 ulp "
         f"(max |diff| {worst:.3g} rad)")
 
-    time_sorted_scan(dev, churn, s_n, seq["n_valid"], "churn (K16)")
-    time_sorted_scan(dev, static, n_chk, seq["n_static"],
-                     "static (K18 after the first step)")
+    step = tss.make_sorted_orbit_step(
+        LABEL_K, box_size=LABEL_BOX, fused=True, cur_presorted=True,
+        soa_batch=True)
+
+    def init(d):
+        return tss.init_sorted_carry(h, p, device=d)
+
+    time_scan(dev, churn, s_n, seq["n_valid"], "sorted step, churn (K16)",
+              step, init)
+    time_scan(dev, static, n_chk, seq["n_static"],
+              "sorted step, static (K18 after the first step)", step, init)
     return launches
 
 
@@ -1384,6 +1589,99 @@ def sorted_end_to_end(dev, ctx):
         f"{ctx['members'] / wall:.4g} particle-snapshot updates/s, "
         f"{n_events} events (phase 5 in this call: aligned "
         f"{ctx['wall_aligned']:.3f} s, general {ctx['wall_general']:.3f} s)")
+    return launches
+
+
+def aligned_full_width(dev, seq):
+    """Phase 10: the aligned engine over the benchmark's churn sequence in
+    the stable layout (counted): the default step, detect_impl='pallas'
+    and the legacy step must give the same events, the JAX benchmark's
+    total, and the two native steps the same carries; then timings.
+    Returns the kernel launches of the counted runs."""
+    import torch
+
+    from orbitanalysis_tpu_torch.ops import _cuda
+    from orbitanalysis_tpu_torch.ops import sorted_step as tss
+
+    h, p = LABEL[0], LABEL[1]
+    stack = seq["aligned"]
+    s_n = stack.ids.shape[0]
+    kw = dict(box_size=LABEL_BOX, soa_batch=True)
+    steps = dict(
+        xla=(tss.make_aligned_native_step(LABEL_K, **kw),
+             lambda d: tss.init_aligned_carry(h, p, device=d)),
+        pallas=(tss.make_aligned_native_step(LABEL_K, detect_impl="pallas",
+                                             **kw),
+                lambda d: tss.init_aligned_carry(h, p, device=d)),
+        legacy=(tss.make_aligned_orbit_step(LABEL_K, **kw),
+                lambda d: tss.init_sorted_carry(h, p, device=d)))
+
+    # ---- the main path, counted
+    _cuda.reset_launch_counts()
+    events, carries, counts = {}, {}, {}
+    for name, (step, init) in steps.items():
+        before = _cuda.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, evs = init(dev), []
+        for s in range(s_n):
+            carry, ev = step(carry, _batch(stack, s))
+            evs.append(ev)
+        torch.cuda.synchronize()
+        events[name], carries[name] = evs, carry
+        counts[name] = launch_diff(_cuda.launch_counts(), before)
+        log(f"  {name}: {sum(int(e.count.sum()) for e in evs)} events over "
+            f"{s_n} snapshots of [{h}, {p}]; launches {counts[name]}; scan "
+            f"{time.perf_counter() - t0:.3f} s incl. warm-up")
+    launches = _cuda.launch_counts()
+    # ---- end of the counted main path
+
+    check(counts["xla"] == {"compact_angle_rows": s_n},
+          "the default step did not launch the compaction once a step")
+    for name in ("pallas", "legacy"):
+        check(counts[name] == {"static_detect_rows": s_n},
+              f"{name}: K17 did not launch once a step (and nothing else)")
+    total = sum(int(e.count.sum()) for e in events["xla"])
+    check(total == LABEL_EVENTS,
+          f"the aligned engine found {total} events, not {LABEL_EVENTS}")
+    beyond, worst, exact = 0, 0.0, True
+    kio = torch.arange(LABEL_K, device=dev)[None, :]
+    for s in range(s_n):
+        x = events["xla"][s]
+        ok = kio < x.count[:, None]
+        pos_ids = torch.gather(stack.ids[s], 1,
+                               torch.where(ok, x.ids, 0).long())
+        for name in ("pallas", "legacy"):
+            e = events[name][s]
+            check(torch.equal(e.count, x.count),
+                  f"{name}, snapshot {s}: counts differ from 'xla'")
+            want = pos_ids if name == "legacy" else x.ids
+            check(torch.equal(e.ids[ok], want[ok]),
+                  f"{name}, snapshot {s}: event "
+                  f"{'IDs' if name == 'legacy' else 'positions'} differ")
+            ulps, dif = f16_ulps(e.angles[ok].cpu().numpy(),
+                                 x.angles[ok].cpu().numpy())
+            check(np.all(ulps <= 1), f"{name}, snapshot {s}: angles differ "
+                  f"by {int(ulps.max(initial=0))} f16 ulps")
+            beyond += int((ulps > 0).sum())
+            worst = max(worst, float(dif.max(initial=0)))
+        p_ev, l_ev = events["pallas"][s], events["legacy"][s]
+        exact &= bool(torch.equal(p_ev.angles[ok], l_ev.angles[ok])
+                      and torch.equal(p_ev.slots[ok], l_ev.slots[ok]))
+    check(exact, "'pallas' and legacy events differ in f32 angles or slots")
+    for a, b in zip(carries["xla"], carries["pallas"]):
+        check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+              "the 'xla' and 'pallas' carries differ")
+    log(f"  the three steps give the same {total} events (the JAX "
+        f"benchmark's total: {LABEL_EVENTS}); 'pallas' and legacy f32 "
+        f"angles and prev slots bit-equal; {beyond} f32 angles not on the "
+        f"'xla' step's f16 value (max |diff| {worst:.3g} rad, within one "
+        "f16 ulp); final 'xla' and 'pallas' carries bit-equal")
+
+    for name, what in (("xla", "aligned step, 'xla' (torch chain + K1)"),
+                       ("pallas", "aligned step, 'pallas' (K17)"),
+                       ("legacy", "legacy aligned step (K17)")):
+        time_scan(dev, stack, s_n, seq["n_valid"], what, *steps[name])
     return launches
 
 
@@ -1442,10 +1740,13 @@ def main():
     sorted_launches = sorted_full_width(dev, seq)
     log("== phase 9: track_orbits(join_impl='sorted') at config-2 scale")
     e2e_sorted = sorted_end_to_end(dev, ctx)
+    log("== phase 10: the aligned engine on the benchmark's churn sequence "
+        "(default step, detect_impl='pallas', legacy step)")
+    aligned_launches = aligned_full_width(dev, seq)
     kernels = []
     for name, k in _cuda.KERNELS.items():
         n = (launches[name] + label_launches[name] + sorted_launches[name]
-             + e2e_sorted[name])
+             + e2e_sorted[name] + aligned_launches[name])
         r = timings[name]
         kernels.append(dict(
             name=name, route=k.route, source=k.source, replaces=k.replaces,

@@ -6,8 +6,15 @@
 //       detect_label_pallas) -> detect_label_rows below
 //   K8  _detect_label_compact_kernel  (call :555, entry
 //       detect_label_compact_pallas) -> detect_label_compact_rows below
-// One source serves both: detect_label_kernel<kCompact, kPacked> with
-// the event compaction compiled in (K8) or out (K9).
+//   K10 _fused_label_kernel           (call :273, entry
+//       fused_label_detect) -> fused_label_rows below
+// One chain, detect_one<kPacked, kTable>, serves all three: K9 and K10
+// are detect_label_kernel<kPacked, kTable>, K8 detect_label_compact_kernel.
+// K8 and K9 read each particle's frame row (halo centre, bulk velocity)
+// from a [6, R, W] rows plane, the output of K6; K10 (kTable) reads it
+// from the [H, 6] frame table staged in shared memory, table[label] and 0
+// where the label is outside [0, H) (the TPU's exact one-hot MXU gather;
+// here a copy, so it is the same bits as K6 followed by K9).
 //
 // Per particle i of the [R, W] row planes (row r = i / W, position
 // p = i % W), the elementwise chain of pallas_label._detect_core:
@@ -38,9 +45,12 @@
 //
 // What bounds it on the H100: bytes.  K8 at the bench shape (R = 64,
 // W = 32768, packed r-hat) reads 64 B and writes 12 B per particle:
-// 159 MB, 47.7 us at 3.35 TB/s.  Design, simple first: K9 runs one
-// 256-thread block per 256 particles (grid W / 256 x R), so it fills the
-// card; K8 runs one 1024-thread block per row walking 1024-entry tiles
+// 159 MB, 47.7 us at 3.35 TB/s; K10 reads 40 B and writes 16 B, the
+// frame rows never leaving the chip: 117 MB, 35 us.  Design, simple
+// first: K9 and K10 run one 256-thread block per 256 particles (grid
+// W / 256 x R), so they fill the card (each K10 block stages the whole
+// table, H * 24 bytes, before it starts); K8 runs one 1024-thread block
+// per row walking 1024-entry tiles
 // with a running event base (the compact.cu scan), so at R = 64 it
 // fills 64 of 132 SMs and each tile waits on its loads and two
 // barriers.  Splitting K8's rows over several blocks (a decoupled
@@ -55,7 +65,9 @@ constexpr int kCompactThreads = 1024;  // K8: one block per row
 constexpr int kCompactWarps = kCompactThreads / 32;
 
 struct DetectArgs {
-  const float* rows;     // [6, R, W] centre xyz, bulk velocity xyz
+  const float* rows;     // [6, R, W] centre xyz, bulk velocity xyz (K8, K9)
+  const float* table;    // [H, 6] centre xyz, bulk velocity xyz (K10)
+  int n_halos;           // H (K10)
   const int32_t* lab;    // [R, W]
   const float* pos;      // [3, R, W]
   const float* vel;      // [3, R, W]
@@ -110,15 +122,28 @@ __device__ __forceinline__ void oct_decode(uint32_t p, float& x, float& y, float
 
 // The chain for particle i at row position p; writes the carry planes
 // (and the payload plane when opay is set) and returns the payload word
-// (0 where no apsis fired).
-template <bool kPacked>
-__device__ __forceinline__ uint32_t detect_one(const DetectArgs& a, long long i, int p) {
+// (0 where no apsis fired).  The frame row comes from the rows plane, or
+// with kTable from tab, the table in shared memory.
+template <bool kPacked, bool kTable>
+__device__ __forceinline__ uint32_t detect_one(const DetectArgs& a, long long i, int p,
+                                               const float* tab) {
   const long long n = a.n;
+  const int32_t lab = a.lab[i];
+  float frame[6];
+  if (kTable) {
+    const bool in_table = lab >= 0 && lab < a.n_halos;
+    const float* row = tab + (in_table ? lab : 0) * 6;
+#pragma unroll
+    for (int c = 0; c < 6; ++c) frame[c] = in_table ? row[c] : 0.0f;
+  } else {
+#pragma unroll
+    for (int c = 0; c < 6; ++c) frame[c] = a.rows[c * n + i];
+  }
   float rel[3];
   float r2 = 0.0f;
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
-    float rd = a.pos[d * n + i] - a.rows[d * n + i];
+    float rd = a.pos[d * n + i] - frame[d];
     if (a.has_box) rd = rd - a.box * rintf(rd / a.box);
     rel[d] = rd;
     r2 = r2 + rd * rd;
@@ -130,11 +155,10 @@ __device__ __forceinline__ uint32_t detect_one(const DetectArgs& a, long long i,
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
     rh[d] = rel[d] * inv_r;
-    vr = vr + rh[d] * ((a.vel[d * n + i] - a.rows[(3 + d) * n + i]) + a.hub * rel[d]);
+    vr = vr + rh[d] * ((a.vel[d * n + i] - frame[3 + d]) + a.hub * rel[d]);
   }
   const int32_t vrb = (vr < 0.0f ? 1 : 0) | (vr > 0.0f ? 2 : 0);
 
-  const int32_t lab = a.lab[i];
   const bool valid = lab >= 0;
   const int32_t sv = a.sv[i];
   const int32_t prev_label = (sv & 0x0FFFFFFF) - 1;
@@ -180,17 +204,24 @@ __device__ __forceinline__ uint32_t detect_one(const DetectArgs& a, long long i,
   return payload;
 }
 
-// K9: grid (W / 256, R), one particle per thread.
-template <bool kPacked>
+// K9 and K10: grid (W / 256, R), one particle per thread; K10 (kTable)
+// first stages the [H, 6] table in dynamic shared memory.
+template <bool kPacked, bool kTable>
 __global__ void __launch_bounds__(kDetectThreads)
 detect_label_kernel(DetectArgs a) {
+  extern __shared__ float tab[];
   __shared__ int block_count;
   const int row = blockIdx.y;
   const int p = blockIdx.x * kDetectThreads + threadIdx.x;
+  if (kTable) {
+    for (int j = threadIdx.x; j < a.n_halos * 6; j += kDetectThreads) tab[j] = a.table[j];
+  }
   if (threadIdx.x == 0) block_count = 0;
   __syncthreads();
   bool apsis = false;
-  if (p < a.w) apsis = detect_one<kPacked>(a, static_cast<long long>(row) * a.w + p, p) != 0u;
+  if (p < a.w) {
+    apsis = detect_one<kPacked, kTable>(a, static_cast<long long>(row) * a.w + p, p, tab) != 0u;
+  }
   const unsigned ballot = __ballot_sync(0xffffffffu, apsis);
   if ((threadIdx.x & 31) == 0 && ballot) atomicAdd(&block_count, __popc(ballot));
   __syncthreads();
@@ -211,7 +242,8 @@ detect_label_compact_kernel(DetectArgs a) {
   for (int start = 0; start < a.w; start += kCompactThreads) {
     const int p = start + threadIdx.x;
     const uint32_t w =
-        p < a.w ? detect_one<kPacked>(a, static_cast<long long>(row) * a.w + p, p) : 0u;
+        p < a.w ? detect_one<kPacked, false>(a, static_cast<long long>(row) * a.w + p, p, nullptr)
+                : 0u;
     const bool sel = w != 0u;
     const uint32_t ballot = __ballot_sync(0xffffffffu, sel);
     int before, total;
@@ -227,7 +259,8 @@ detect_label_compact_kernel(DetectArgs a) {
   if (threadIdx.x == 0) a.count[row] = base;
 }
 
-DetectArgs make_args(const void* rows, const void* lab, const void* pos,
+DetectArgs make_args(const void* rows, const void* table, int n_halos,
+                     const void* lab, const void* pos,
                      const void* vel, const void* sv, const void* rh,
                      const void* pk, void* osv, void* orh, void* opk,
                      void* opay, void* oev, void* count, int R, int W,
@@ -235,6 +268,8 @@ DetectArgs make_args(const void* rows, const void* lab, const void* pos,
                      int pericentric) {
   DetectArgs a;
   a.rows = static_cast<const float*>(rows);
+  a.table = static_cast<const float*>(table);
+  a.n_halos = n_halos;
   a.lab = static_cast<const int32_t*>(lab);
   a.pos = static_cast<const float*>(pos);
   a.vel = static_cast<const float*>(vel);
@@ -271,15 +306,15 @@ extern "C" int detect_label_rows(const void* rows, const void* lab,
                                  int W, float hub, float box, int has_box,
                                  int pericentric, int packed, void* stream) {
   if (R > 0 && W > 0) {
-    const DetectArgs a = make_args(rows, lab, pos, vel, sv, rh, pk, osv, orh,
-                                   opk, opay, nullptr, count, R, W, 0, hub,
-                                   box, has_box, pericentric);
+    const DetectArgs a = make_args(rows, nullptr, 0, lab, pos, vel, sv, rh,
+                                   pk, osv, orh, opk, opay, nullptr, count, R,
+                                   W, 0, hub, box, has_box, pericentric);
     const dim3 grid((W + kDetectThreads - 1) / kDetectThreads, R);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (packed) {
-      detect_label_kernel<true><<<grid, kDetectThreads, 0, s>>>(a);
+      detect_label_kernel<true, false><<<grid, kDetectThreads, 0, s>>>(a);
     } else {
-      detect_label_kernel<false><<<grid, kDetectThreads, 0, s>>>(a);
+      detect_label_kernel<false, false><<<grid, kDetectThreads, 0, s>>>(a);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -291,15 +326,45 @@ extern "C" int detect_label_compact_rows(
     void* opk, void* oev, void* count, int R, int W, int k128, float hub,
     float box, int has_box, int pericentric, int packed, void* stream) {
   if (R > 0 && W > 0) {
-    const DetectArgs a = make_args(rows, lab, pos, vel, sv, rh, pk, osv, orh,
-                                   opk, nullptr, oev, count, R, W, k128, hub,
-                                   box, has_box, pericentric);
+    const DetectArgs a = make_args(rows, nullptr, 0, lab, pos, vel, sv, rh,
+                                   pk, osv, orh, opk, nullptr, oev, count, R,
+                                   W, k128, hub, box, has_box, pericentric);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (packed) {
       detect_label_compact_kernel<true><<<R, kCompactThreads, 0, s>>>(a);
     } else {
       detect_label_compact_kernel<false><<<R, kCompactThreads, 0, s>>>(a);
     }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K10: table [H, 6] f32 (H * 24 bytes of dynamic shared memory; the
+// wrapper bounds H); the outputs of detect_label_rows, count arriving
+// zeroed.
+extern "C" int fused_label_rows(const void* table, const void* lab,
+                                const void* pos, const void* vel,
+                                const void* sv, const void* rh,
+                                const void* pk, void* osv, void* orh,
+                                void* opk, void* opay, void* count, int H,
+                                int R, int W, float hub, float box,
+                                int has_box, int pericentric, int packed,
+                                void* stream) {
+  if (R > 0 && W > 0) {
+    const DetectArgs a = make_args(nullptr, table, H, lab, pos, vel, sv, rh,
+                                   pk, osv, orh, opk, opay, nullptr, count, R,
+                                   W, 0, hub, box, has_box, pericentric);
+    const dim3 grid((W + kDetectThreads - 1) / kDetectThreads, R);
+    const int smem = H * 6 * static_cast<int>(sizeof(float));
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    // the kernel's static shared memory comes on top of the table: opt in
+    // past the 48 KB a block gets by default
+    const auto kernel = packed ? detect_label_kernel<true, true>
+                               : detect_label_kernel<false, true>;
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    kernel<<<grid, kDetectThreads, smem, s>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

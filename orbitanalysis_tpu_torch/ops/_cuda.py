@@ -56,32 +56,41 @@ class Kernel:
 _SRC = "orbitanalysis_tpu_torch/csrc/"
 _JAX = "orbitanalysis_tpu/ops/"
 
+
+def _sites(*lines):
+    """The ``pl.pallas_call`` sites a kernel replaces, comma-separated
+    (one CUDA kernel serves K1/K2, K4/K5, K6/K11 and K7/K12)."""
+    return ", ".join(_JAX + x for x in lines)
+
+
 KERNELS = {
     k.name: k for k in (
         Kernel("compact_angle_rows", _SRC + "compact.cu",
-               _JAX + "pallas_compact.py:416"),
+               _sites("pallas_compact.py:426", "pallas_compact.py:305")),
         Kernel("compact_pair_rows", _SRC + "compact.cu",
-               _JAX + "pallas_compact.py:627"),
-        # K4 (_compact_payload_call, :240) and K5
-        # (_compact_payload_blocked_call, :502) are one kernel here
+               _sites("pallas_compact.py:649")),
         Kernel("compact_payload_rows", _SRC + "compact.cu",
-               _JAX + "pallas_compact.py:240"),
+               _sites("pallas_compact.py:240", "pallas_compact.py:502")),
         Kernel("frame_rows", _SRC + "frames.cu",
-               _JAX + "pallas_frames.py:184"),
+               _sites("pallas_frames.py:184", "pallas_frames.py:94")),
         Kernel("segment_moments", _SRC + "frames.cu",
-               _JAX + "pallas_frames.py:259"),
+               _sites("pallas_frames.py:259", "pallas_frames.py:339")),
         Kernel("detect_label_compact_rows", _SRC + "label.cu",
-               _JAX + "pallas_label.py:555"),
+               _sites("pallas_label.py:555")),
         Kernel("detect_label_rows", _SRC + "label.cu",
-               _JAX + "pallas_label.py:395"),
+               _sites("pallas_label.py:395")),
+        Kernel("fused_label_rows", _SRC + "label.cu",
+               _sites("pallas_label.py:273")),
         Kernel("merge_rows", _SRC + "merge.cu",
-               _JAX + "pallas_merge.py:176"),
+               _sites("pallas_merge.py:176")),
         Kernel("fused_join_detect", _SRC + "merge.cu",
-               _JAX + "pallas_step.py:457"),
+               _sites("pallas_step.py:457")),
+        Kernel("static_detect_rows", _SRC + "static.cu",
+               _sites("pallas_step.py:360")),
         Kernel("compact_events_rows", _SRC + "compact.cu",
-               _JAX + "pallas_compact.py:173"),
+               _sites("pallas_compact.py:173")),
         Kernel("compact_rows_groups", _SRC + "compact.cu",
-               _JAX + "pallas_compact.py:137"),
+               _sites("pallas_compact.py:137")),
     )
 }
 
@@ -198,8 +207,12 @@ def _library():
                     "detect_label_compact_rows": [
                         p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, f, f,
                         i, i, i, p],
+                    "fused_label_rows": [
+                        p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, f, f,
+                        i, i, i, p],
                     "merge_rows": [pp, pp, pp, i, i, i, p],
                     "fused_join_detect": [p] * 17 + [i] * 5 + [p],
+                    "static_detect_rows": [p] * 16 + [i] * 6 + [p],
                     "compact_events_rows": [p] * 6 + [i] * 3 + [p],
                     "compact_rows_groups": [
                         p, pp, pp, i, i, p, pp, pp, i, i, i, i, p],
@@ -333,14 +346,18 @@ def segment_moments(labels: torch.Tensor, vel: torch.Tensor,
 
 def _detect_inputs(name, rows, lab, pos, vel, sv, rhat, packed,
                    rhat_packed):
+    """Checks the detect passes' planes; ``rows`` is the ``[6, R, W]``
+    rows plane (K8, K9) or the ``[H, 6]`` frame table (K10)."""
     r, w = lab.shape
     _check(name, lab, sv, packed)
-    _check(name, rows, pos, vel, dtype=torch.float32, dim=3)
+    _check(name, pos, vel, dtype=torch.float32, dim=3)
+    _check(name, rows, dtype=torch.float32, dim=rows.dim())
     if rhat_packed:
         _check(name, rhat)
     else:
         _check(name, rhat, dtype=torch.float32, dim=3)
-    for t, want in ((rows, (6, r, w)), (pos, (3, r, w)), (vel, (3, r, w)),
+    rows_want = (rows.shape[0], 6) if rows.dim() == 2 else (6, r, w)
+    for t, want in ((rows, rows_want), (pos, (3, r, w)), (vel, (3, r, w)),
                     (sv, (r, w)), (packed, (r, w)),
                     (rhat, (r, w) if rhat_packed else (3, r, w))):
         if t.shape != want:
@@ -357,24 +374,58 @@ def _scalars(hub, box, pericentric, rhat_packed):
             int(box is not None), int(pericentric), int(rhat_packed))
 
 
-def detect_label_rows(rows, lab, pos, vel, sv, rhat, packed, hub: float,
-                      box, pericentric: bool, rhat_packed: bool):
-    """Launch the detect pass without compaction (K9): returns
-    ``(sv', rhat', packed', payload [R, W], count [R])``."""
-    name = "detect_label_rows"
+def _detect_payload(name, rows, lab, pos, vel, sv, rhat, packed, hub,
+                    box, pericentric, rhat_packed, *lead):
+    """Launch K9 or K10 (``lead``: K10's halo count before R and W):
+    returns ``(sv', rhat', packed', payload [R, W], count [R])``."""
     r, w = _detect_inputs(name, rows, lab, pos, vel, sv, rhat, packed,
                           rhat_packed)
     osv, orh, opk = (torch.empty_like(sv), torch.empty_like(rhat),
                      torch.empty_like(packed))
     pay = torch.empty_like(packed)
     count = torch.zeros(r, dtype=torch.int32, device=lab.device)
-    _launch(name, _library().detect_label_rows, rows.data_ptr(),
+    _launch(name, getattr(_library(), name), rows.data_ptr(),
             lab.data_ptr(), pos.data_ptr(), vel.data_ptr(), sv.data_ptr(),
             rhat.data_ptr(), packed.data_ptr(), osv.data_ptr(),
             orh.data_ptr(), opk.data_ptr(), pay.data_ptr(),
-            count.data_ptr(), r, w,
+            count.data_ptr(), *lead, r, w,
             *_scalars(hub, box, pericentric, rhat_packed), device=lab.device)
     return osv, orh, opk, pay, count
+
+
+def detect_label_rows(rows, lab, pos, vel, sv, rhat, packed, hub: float,
+                      box, pericentric: bool, rhat_packed: bool):
+    """Launch the detect pass without compaction (K9): returns
+    ``(sv', rhat', packed', payload [R, W], count [R])``."""
+    return _detect_payload("detect_label_rows", rows, lab, pos, vel, sv,
+                           rhat, packed, hub, box, pericentric, rhat_packed)
+
+
+#: Shared memory the fused detect pass may give its frame table: the
+#: 48 KB a block gets without opting in to more (H <= 2048 halos).
+FUSED_TABLE_BYTES = 48 * 1024
+
+
+def check_fused_table(n_halos: int):
+    """ValueError where the ``[n_halos, 6]`` frame table of the fused
+    detect pass does not fit :data:`FUSED_TABLE_BYTES`."""
+    if n_halos * 24 > FUSED_TABLE_BYTES:
+        raise ValueError(
+            f"the [{n_halos}, 6] frame table exceeds the fused detect "
+            f"pass's shared memory ({FUSED_TABLE_BYTES} bytes, "
+            f"{FUSED_TABLE_BYTES // 24} halos); use frames='split'")
+
+
+def fused_label_rows(table, lab, pos, vel, sv, rhat, packed, hub: float,
+                     box, pericentric: bool, rhat_packed: bool):
+    """Launch the fused detect pass (K10): ``table [H, 6]`` f32 (halo
+    centre ++ bulk velocity) in place of K9's rows plane, the same
+    outputs ``(sv', rhat', packed', payload [R, W], count [R])``."""
+    h = table.shape[0]
+    check_fused_table(h)
+    return _detect_payload("fused_label_rows", table, lab, pos, vel, sv,
+                           rhat, packed, hub, box, pericentric, rhat_packed,
+                           h)
 
 
 def detect_label_compact_rows(rows, lab, pos, vel, sv, rhat, packed,
@@ -436,6 +487,44 @@ def merge_rows(prev, cur):
     return tuple(out)
 
 
+def _check_pairs(name, prev, cur, pang_dtype):
+    """Checks K16's and K17's ``prev = (key, sv, rx, ry, rz, angles)``
+    and ``cur = (key, sv, rx, ry, rz)`` ``[H, P]`` planes: keys and sv
+    int32, r-hat float32, the prev angles ``pang_dtype``.  Returns
+    ``(H, P)``."""
+    if len(prev) != 6 or len(cur) != 5:
+        raise ValueError(f"{name}: want 6 prev and 5 cur planes")
+    h, p = prev[0].shape
+    _check(name, prev[0], prev[1], cur[0], cur[1])
+    _check(name, *prev[2:5], *cur[2:], dtype=torch.float32)
+    _check(name, prev[5], dtype=pang_dtype)
+    for t in (*prev, *cur):
+        if t.shape != (h, p):
+            raise ValueError(f"{name}: every plane must be [{h}, {p}]")
+    if len({t.device for t in (*prev, *cur)}) > 1:
+        raise ValueError(f"{name}: tensors on different devices")
+    return h, p
+
+
+def _detect_events(name, planes, h, p, k128, *flags):
+    """Launch K16 or K17 on the checked input ``planes`` (``flags``: the
+    ints after k128).  Returns ``(packed [H, P], ev_key, ev_sv, ev_angle
+    [H, k128], count [H])``."""
+    dev = planes[0].device
+    packed = torch.empty((h, p), dtype=torch.int32, device=dev)
+    evp = torch.empty((h, p), dtype=torch.int32, device=dev)
+    ev_key = torch.empty((h, k128), dtype=torch.int32, device=dev)
+    ev_sv = torch.empty_like(ev_key)
+    ev_ang = torch.empty((h, k128), dtype=torch.float32, device=dev)
+    count = torch.empty(h, dtype=torch.int32, device=dev)
+    _launch(name, getattr(_library(), name),
+            *(t.data_ptr() for t in planes), packed.data_ptr(),
+            evp.data_ptr(), ev_key.data_ptr(), ev_sv.data_ptr(),
+            ev_ang.data_ptr(), count.data_ptr(), h, p, k128, *flags,
+            device=dev)
+    return packed, ev_key, ev_sv, ev_ang, count
+
+
 def fused_join_detect(prev, cur, pericentric: bool, invalid: int,
                       k128: int):
     """Launch the join-and-detect kernel (K16): ``prev = (key asc, sv,
@@ -443,29 +532,24 @@ def fused_join_detect(prev, cur, pericentric: bool, invalid: int,
     ``[H, P]`` planes (keys and sv int32, the rest float32).  Returns
     ``(packed [H, P], ev_key, ev_sv, ev_angle [H, k128], count [H])``."""
     name = "fused_join_detect"
-    if len(prev) != 6 or len(cur) != 5:
-        raise ValueError(f"{name}: want 6 prev and 5 cur planes")
-    h, p = prev[0].shape
-    _check(name, prev[0], prev[1], cur[0], cur[1])
-    _check(name, *prev[2:], *cur[2:], dtype=torch.float32)
-    for t in (*prev, *cur):
-        if t.shape != (h, p):
-            raise ValueError(f"{name}: every plane must be [{h}, {p}]")
-    if len({t.device for t in (*prev, *cur)}) > 1:
-        raise ValueError(f"{name}: tensors on different devices")
-    dev = prev[0].device
-    packed = torch.empty((h, p), dtype=torch.int32, device=dev)
-    evp = torch.empty((h, p), dtype=torch.int32, device=dev)
-    ev_key = torch.empty((h, k128), dtype=torch.int32, device=dev)
-    ev_sv = torch.empty_like(ev_key)
-    ev_ang = torch.empty((h, k128), dtype=torch.float32, device=dev)
-    count = torch.empty(h, dtype=torch.int32, device=dev)
-    _launch(name, _library().fused_join_detect,
-            *(t.data_ptr() for t in (*prev, *cur)), packed.data_ptr(),
-            evp.data_ptr(), ev_key.data_ptr(), ev_sv.data_ptr(),
-            ev_ang.data_ptr(), count.data_ptr(), h, p, k128, int(invalid),
-            int(pericentric), device=dev)
-    return packed, ev_key, ev_sv, ev_ang, count
+    h, p = _check_pairs(name, prev, cur, torch.float32)
+    return _detect_events(name, (*prev, *cur), h, p, k128, int(invalid),
+                          int(pericentric))
+
+
+def static_detect_rows(prev, cur, pericentric: bool, invalid: int,
+                       k128: int, native: bool):
+    """Launch the aligned detect kernel (K17): ``prev = (key, sv, rx, ry,
+    rz, angles)`` and ``cur = (key, sv, rx, ry, rz)``, aligned ``[H, P]``
+    planes; the prev angles are float32, or with ``native`` the packed
+    int32 carry words.  The prev key is never read, so it is not passed.
+    Returns ``(packed [H, P], ev_key, ev_sv, ev_angle [H, k128], count
+    [H])``, the events in position order."""
+    name = "static_detect_rows"
+    h, p = _check_pairs(name, prev, cur,
+                        torch.int32 if native else torch.float32)
+    return _detect_events(name, (*prev[1:], *cur), h, p, k128, int(invalid),
+                          int(pericentric), int(native))
 
 
 def compact_events_rows(packed, key, sv, k128: int):

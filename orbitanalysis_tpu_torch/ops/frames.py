@@ -1,14 +1,21 @@
 """Halo frame passes of the label-native detector (twin of
-``orbitanalysis_tpu/ops/pallas_frames.py``: ``frame_rows_bf16x3`` and
-``segment_moments_bf16x3``).
+``orbitanalysis_tpu/ops/pallas_frames.py``: ``frame_rows_bf16x3`` (K6)
+and ``frame_rows`` (K11), ``segment_moments_bf16x3`` (K7) and
+``segment_moments`` (K12)).
+
+The JAX package has two kernels for each pass: the bf16x3 forms of the
+``'split'``, ``'pallas2'`` and ``'fused'`` routes and the f32 forms of
+the ``'pallas'`` route, which differ only in how the TPU's matrix unit
+reaches exactness (a bf16x3 split against f32 HIGHEST) and in the order
+of the moment sums.  Here one CUDA kernel serves each pair, on labels of
+any shape and length (the JAX f32 forms pad to their block size):
 
 - :func:`frame_rows`: per-particle ``table[label]`` rows in SoA
   ``[C, N]`` layout (the halo centre and bulk velocity each particle's
   geometry is taken against), zeros where the label is outside
-  ``[0, H)``.  On the TPU an exact bf16x3 one-hot MXU pass; on the card
-  the CUDA kernel ``frame_rows`` (``csrc/frames.cu``) is a direct
-  gather, exact by construction, so it equals its plain version bit for
-  bit.
+  ``[0, H)``.  On the TPU an exact one-hot MXU pass; on the card the
+  CUDA kernel ``frame_rows`` (``csrc/frames.cu``) is a direct gather,
+  exact by construction, so it equals its plain version bit for bit.
 - :func:`segment_moments`: per-halo ``[sum m vx, sum m vy, sum m vz,
   sum m]`` over labels in ``[0, H)`` (``m = 1`` without masses), the
   mass-weighted bulk-velocity frame of the reference
@@ -18,7 +25,8 @@
   so a bulk velocity is the same bits on every run, and both the kernel
   and its plain version give the float32 rounding of nearly the exact
   sum.  (A float32 sum of ~3e4 random-sign terms drifts by tens of ulps
-  of its result, differently in every order; the TPU summed in float32.)
+  of its result, differently in every order; the TPU summed in float32,
+  so the two agree to the tolerance of ``tests/test_label.py``.)
 
 Each entry point launches its CUDA kernel when its inputs lie on a CUDA
 device and its plain-torch version only when they lie on the CPU;
@@ -57,7 +65,7 @@ def frame_rows_torch(table: torch.Tensor, labels: torch.Tensor):
 
 
 def frame_rows(table: torch.Tensor, labels: torch.Tensor):
-    """``table[labels].T`` as SoA ``[C, N]`` f32 (K6): the CUDA kernel
+    """``table[labels].T`` as SoA ``[C, N]`` f32 (K6, K11): the CUDA kernel
     on CUDA tensors, :func:`frame_rows_torch` on CPU tensors.
     ``labels`` may be any shape; it is flattened."""
     if _route(labels) == "cpu":
@@ -107,7 +115,7 @@ def segment_moments_torch(labels: torch.Tensor, vel: torch.Tensor,
 def segment_moments(labels: torch.Tensor, vel: torch.Tensor, mass=None, *,
                     n_halos: int) -> torch.Tensor:
     """Per-halo moments ``[H, 4]`` = ``[sum m v, sum m]`` over labels in
-    ``[0, H)`` (K7): the CUDA kernel on CUDA tensors,
+    ``[0, H)`` (K7, K12): the CUDA kernel on CUDA tensors,
     :func:`segment_moments_torch` on CPU tensors.  ``labels``/``mass``
     any shape, ``vel`` ``[3, ...]``, flattened."""
     if _route(labels) == "cpu":

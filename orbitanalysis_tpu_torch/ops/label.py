@@ -1,6 +1,7 @@
 """The label-native detector's detect pass (twin of
 ``orbitanalysis_tpu/ops/pallas_label.py``: ``_detect_core``,
-``detect_label_pallas`` and ``detect_label_compact_pallas``).
+``detect_label_pallas``, ``detect_label_compact_pallas`` and
+``fused_label_detect``).
 
 Per particle of the ``[R, W]`` row planes: geometry against its halo's
 frame rows (periodic wrap, radial unit vector, radial velocity with the
@@ -15,8 +16,10 @@ label change as region entry.
   routes of :mod:`orbitanalysis_tpu_torch.ops.label_step` run it too.
 - :func:`detect_label` (K9) returns the payload plane and the counts;
   :func:`detect_label_compact` (K8) compacts the events in the same
-  pass.  Both launch the CUDA source ``csrc/label.cu`` on CUDA tensors
-  and the plain chain only on CPU tensors.
+  pass; :func:`fused_label_detect` (K10) is K9 with each particle's frame
+  row taken from the ``[H, 6]`` frame table in the same pass.  All three
+  launch the CUDA source ``csrc/label.cu`` on CUDA tensors and the plain
+  chain only on CPU tensors.
 
 Every float operation of the plain chain is the IEEE operation the
 kernel runs, in the same order: divisions and square roots go through
@@ -38,6 +41,7 @@ from orbitanalysis_tpu_torch.ops.compact import (
     compact_payload_torch,
     f16_bits_rne,
 )
+from orbitanalysis_tpu_torch.ops.frames import frame_rows_torch
 from orbitanalysis_tpu_torch.ops.sorted_step import _BIT31, _acos_f32
 from orbitanalysis_tpu_torch.utils.numerics import (
     div_rn,
@@ -175,3 +179,44 @@ def detect_label_compact(rows, lab, pos, vel, sv, rhat, packed,
         *_contig(rows, lab, pos, vel, sv, rhat, packed), _f32(hubble_drag),
         None if box_size is None else _f32(box_size), pericentric,
         rhat_packed, _k128(event_capacity, w))
+
+
+def fused_label_detect_torch(table, lab, pos, vel, sv, rhat, packed,
+                             hubble_drag, *, pericentric: bool, box_size,
+                             rhat_packed: bool = False):
+    """Plain twin of the fused detect pass: the frame rows gathered from
+    ``table [H, 6]`` (:func:`~orbitanalysis_tpu_torch.ops.frames.
+    frame_rows_torch`), then :func:`detect_label_torch`.  Returns
+    ``(sv', rhat', packed', payload [R, W], count [R])``."""
+    r, w = lab.shape
+    rows = frame_rows_torch(table, lab).reshape(6, r, w)
+    return detect_label_torch(rows, lab, pos, vel, sv, rhat, packed,
+                              hubble_drag, pericentric=pericentric,
+                              box_size=box_size, rhat_packed=rhat_packed)
+
+
+def fused_label_detect(table, lab, pos, vel, sv, rhat, packed, hubble_drag,
+                       *, pericentric: bool, box_size,
+                       rhat_packed: bool = False):
+    """The fused label-native detect pass (K10): frame rows, geometry,
+    detection, carry update and payload words in one pass, each plane
+    read or written once.  ``table``: ``[H, 6]`` f32 (centres ++ bulk
+    velocities); ``lab``: ``[R, W]`` int32 in ``[-1, H)``; the rest as
+    :func:`detect_label`.  The CUDA kernel ``fused_label_rows`` stages the
+    table in shared memory (ValueError past its size) on CUDA tensors;
+    :func:`fused_label_detect_torch` runs on CPU tensors.  Returns
+    ``(sv', rhat', packed', payload [R, W], count [R])``; feed the
+    payload to :func:`~orbitanalysis_tpu_torch.ops.compact.
+    compact_payload_blocked`."""
+    # the kernel's bound holds on every device, so a route that runs on
+    # the CPU runs on the card
+    _cuda.check_fused_table(table.shape[0])
+    if _route(lab) == "cpu":
+        return fused_label_detect_torch(
+            table, lab, pos, vel, sv, rhat, packed, hubble_drag,
+            pericentric=pericentric, box_size=box_size,
+            rhat_packed=rhat_packed)
+    return _cuda.fused_label_rows(
+        *_contig(table.to(torch.float32), lab, pos, vel, sv, rhat, packed),
+        _f32(hubble_drag), None if box_size is None else _f32(box_size),
+        pericentric, rhat_packed)

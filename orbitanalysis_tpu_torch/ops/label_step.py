@@ -30,12 +30,18 @@ kernel, and runs plain torch wherever it ran XLA:
   :func:`~orbitanalysis_tpu_torch.ops.compact.compact_payload` (K4);
 - ``'pallas2'``: K7, K6, the plain detect chain, then the payload
   compaction (K5, the same kernel as K4);
+- ``'fused'``: K7, then the fused detect pass
+  :func:`~orbitanalysis_tpu_torch.ops.label.fused_label_detect` (K10:
+  the frame rows, K6's gather, taken from the table inside K9's pass),
+  then the payload compaction (K5);
+- ``'pallas'``: moments (K12) and frame rows (K11) over the flat ``[N]``
+  labels, the plain detect chain, then the payload compaction (K5); on
+  the card K11 and K12 are the kernels of K6 and K7;
 - ``'matmul'``, ``'soa'``, ``'twolevel'`` (what ``'auto'`` picks at 256
   halos or more), ``'select'`` and the ``*_bf16x3`` forms: plain moments,
   plain gather and the plain detect chain, then the payload compaction
   (K5).  These forms compute the same gather and the same sums: their
   one-hot and two-level matmuls were the TPU's way to gather.
-- ``'fused'`` (K10) and ``'pallas'`` (K11/K12) are not ported yet.
 
 On CPU tensors every kernel's plain version runs instead.
 """
@@ -61,6 +67,7 @@ from orbitanalysis_tpu_torch.ops.label import (
     detect_label,
     detect_label_compact,
     detect_label_torch,
+    fused_label_detect,
 )
 from orbitanalysis_tpu_torch.utils.device import resolve_device
 from orbitanalysis_tpu_torch.utils.numerics import div_rn
@@ -230,12 +237,6 @@ def make_label_orbit_step(
     """
     if frames not in _FRAMES:
         raise ValueError(f"unknown frames impl {frames!r}")
-    if frames in ("fused", "pallas"):
-        raise NotImplementedError(
-            f"frames={frames!r} runs the TPU kernels "
-            + ("K10 (pallas_label.fused_label_detect)" if frames == "fused"
-               else "K11/K12 (pallas_frames.frame_rows/segment_moments)")
-            + ", not yet ported; see ROADMAP.md M8")
     if mode not in ("pericentric", "apocentric"):
         raise ValueError(
             "Orbit detection mode not recognized. Please specify either "
@@ -262,7 +263,7 @@ def make_label_orbit_step(
                             torch.full((), -1, dtype=label.dtype,
                                        device=dev)).to(torch.int32)
         impl = _resolve_frames(frames, h)
-        kernels = impl in ("split", "pallas2")
+        kernels = impl in ("split", "pallas2", "fused", "pallas")
 
         if bulk_vel is None:
             moments = segment_moments if kernels else segment_moments_torch
@@ -272,13 +273,19 @@ def make_label_orbit_step(
             bulk = torch.as_tensor(bulk_vel, dtype=torch.float32, device=dev)
         table = torch.cat([torch.as_tensor(centers, dtype=torch.float32,
                                            device=dev), bulk], dim=-1)
-        rows = (frame_rows if kernels else frame_rows_torch)(
-            table, lab_m).reshape(6, R, W)
         k_eff = min(K, W)
         detect_kw = dict(pericentric=pericentric, box_size=box_size,
                          rhat_packed=rhat_packed)
-        planes = (rows, lab_m, pos, vel, carry.lab_sv, carry.rhat,
-                  carry.packed, hubble_drag)
+        carry_in = (carry.lab_sv, carry.rhat, carry.packed, hubble_drag)
+        if impl == "fused":
+            sv_n, rh_n, pk_n, payload, count = fused_label_detect(
+                table, lab_m, pos, vel, *carry_in, **detect_kw)
+            return _finish(sv_n, rh_n, pk_n,
+                           compact_payload_blocked(payload, k_eff), count,
+                           bulk, K)
+        rows = (frame_rows if kernels else frame_rows_torch)(
+            table, lab_m).reshape(6, R, W)
+        planes = (rows, lab_m, pos, vel, *carry_in)
         if impl == "split":
             rpb = W // 128
             k128 = min(((k_eff + 127) // 128) * 128, W)
@@ -295,23 +302,32 @@ def make_label_orbit_step(
             sv_n, rh_n, pk_n, payload, count = detect_label_torch(
                 *planes, **detect_kw)
             evpay = compact_payload_blocked(payload, k_eff)
-        ev_pos = ((evpay >> 15) & 0x1FFFF) - 1
-        ev_ang = (evpay & 0x7FFF).to(torch.int16).view(torch.float16).to(
-            torch.float32)
-        kiota = torch.arange(ev_pos.shape[1], device=dev)
-        ev_ok = kiota[None, :] < count[:, None]
-        row0 = torch.arange(R, dtype=torch.int32, device=dev)[:, None] * W
-        return LabelCarry(lab_sv=sv_n, rhat=rh_n, packed=pk_n), LabelEvents(
-            count=count,
-            index=torch.where(ev_ok, ev_pos + row0,
-                              torch.full((), -1, dtype=torch.int32,
-                                         device=dev))[:, :K],
-            angle=torch.where(ev_ok, ev_ang,
-                              torch.zeros((), device=dev))[:, :K],
-            bulk_vel=bulk,
-        )
+        return _finish(sv_n, rh_n, pk_n, evpay, count, bulk, K)
 
     return step
+
+
+def _finish(sv_n, rh_n, pk_n, evpay, count, bulk, K):
+    """The step's outputs from the new carry planes and the compacted
+    ``[R, k128]`` payload words: global pool indices and f16 angles,
+    ``-1`` / 0 past each row's count."""
+    R, W = sv_n.shape
+    dev = sv_n.device
+    ev_pos = ((evpay >> 15) & 0x1FFFF) - 1
+    ev_ang = (evpay & 0x7FFF).to(torch.int16).view(torch.float16).to(
+        torch.float32)
+    kiota = torch.arange(ev_pos.shape[1], device=dev)
+    ev_ok = kiota[None, :] < count[:, None]
+    row0 = torch.arange(R, dtype=torch.int32, device=dev)[:, None] * W
+    return LabelCarry(lab_sv=sv_n, rhat=rh_n, packed=pk_n), LabelEvents(
+        count=count,
+        index=torch.where(ev_ok, ev_pos + row0,
+                          torch.full((), -1, dtype=torch.int32,
+                                     device=dev))[:, :K],
+        angle=torch.where(ev_ok, ev_ang,
+                          torch.zeros((), device=dev))[:, :K],
+        bulk_vel=bulk,
+    )
 
 
 def scan_label_events(carry, pos_seq, vel_seq, label_seq, centers_seq,

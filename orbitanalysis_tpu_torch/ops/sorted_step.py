@@ -1,7 +1,7 @@
 """The sorted and the aligned engines' per-snapshot steps (twin of
 ``orbitanalysis_tpu/ops/sorted_step.py``: carries, codecs,
-``make_sorted_orbit_step``, ``aligned_detect_math`` and
-``make_aligned_native_step``).
+``make_sorted_orbit_step``, ``aligned_detect_math``,
+``make_aligned_native_step`` and the legacy ``make_aligned_orbit_step``).
 
 The sorted engine keeps the carry sorted by particle ID between steps.
 Each step joins it with the snapshot staged ID-sorted on the host
@@ -20,7 +20,10 @@ engine.packing.StableLayout`) gives every particle a persistent row
 position, so consecutive staged snapshots are aligned element-wise and
 the step needs no join: ``region_frame``, an elementwise detect chain,
 and one ordered event compaction — the hand-written CUDA kernel of
-:mod:`orbitanalysis_tpu_torch.ops.compact` on the GPU.
+:mod:`orbitanalysis_tpu_torch.ops.compact` on the GPU — or, with
+``detect_impl='pallas'`` and in the legacy step, the aligned detect
+kernel of :mod:`orbitanalysis_tpu_torch.ops.step` (K17), which detects
+and compacts in one call.
 
 uint32 planes (carry keys, packed angles, payload words) are ``int32``
 tensors holding the bit pattern: torch has no ``uint32`` arithmetic.
@@ -54,6 +57,8 @@ from orbitanalysis_tpu_torch.ops.merge import (
 )
 from orbitanalysis_tpu_torch.utils.device import resolve_device
 from orbitanalysis_tpu_torch.utils.numerics import (
+    oct_decode,
+    oct_encode,
     sqrt_rn,
     to_i32_bits,
     torch_dtype,
@@ -121,28 +126,35 @@ class AlignedCarry(NamedTuple):
 
     ``key``: ``(position << 1) | 1`` at valid entries, ``-1`` (uint32
     ``0xFFFFFFFF``) elsewhere; ``sv``: ``load_slot | FRESH << 27 |
-    vrb << 24``; ``rhat``: last snapshot's radial unit vectors;
-    ``packed``: f32 angle accumulator in bits 0-30, match flag bit 31.
+    vrb << 24``; ``rhat``: last snapshot's radial unit vectors, or their
+    octahedral words (``rhat_packed``); ``packed``: f32 angle accumulator
+    in bits 0-30, match flag bit 31.
     """
 
     key: torch.Tensor     # [H, P] int32 (uint32 bits)
     sv: torch.Tensor      # [H, P] int32
-    rhat: torch.Tensor    # [3, H, P] float32
+    rhat: torch.Tensor    # [3, H, P] float32, or [H, P] int32 oct-packed
     packed: torch.Tensor  # [H, P] int32 (uint32 bits)
 
 
 def init_aligned_carry(n_halos: int, capacity: int,
+                       rhat_packed: bool = False,
                        device="cuda") -> AlignedCarry:
     """All-invalid carry (32-bit signed IDs: the int32-max sentinel's key
     is ``0xFFFFFFFF``, i.e. -1 as int32) on ``device``, CUDA by default
-    (RuntimeError without it)."""
+    (RuntimeError without it).  ``rhat_packed=True`` keeps the radial
+    unit vectors as one plane of octahedral words (pair it with
+    ``make_aligned_native_step(..., rhat_packed=True)``): counts are
+    unaffected, angles move by the ~1e-4 rad quantization a step."""
     device = resolve_device(device, "init_aligned_carry")
     shape = (n_halos, capacity)
     return AlignedCarry(
         key=torch.full(shape, -1, dtype=torch.int32, device=device),
         sv=torch.arange(capacity, dtype=torch.int32,
                         device=device).expand(shape).contiguous(),
-        rhat=torch.zeros((3,) + shape, dtype=torch.float32, device=device),
+        rhat=(torch.zeros(shape, dtype=torch.int32, device=device)
+              if rhat_packed else
+              torch.zeros((3,) + shape, dtype=torch.float32, device=device)),
         packed=torch.zeros(shape, dtype=torch.int32, device=device),
     )
 
@@ -151,24 +163,27 @@ def aligned_carry_from_numpy(key, sv, rhat, packed,
                              device="cuda") -> AlignedCarry:
     """An :class:`AlignedCarry` on ``device`` (CUDA by default) from the
     JAX carry's fields as host arrays (``key``/``packed`` uint32, ``sv``
-    int32, ``rhat`` f32); bit-preserving."""
+    int32, ``rhat`` f32 or uint32 octahedral words); bit-preserving."""
     device = resolve_device(device, "aligned_carry_from_numpy")
 
     def t(a, dt):
         return torch.from_numpy(np.array(a).view(dt)).to(device)
 
-    return AlignedCarry(key=t(key, np.int32), sv=t(sv, np.int32),
-                        rhat=t(rhat, np.float32),
-                        packed=t(packed, np.int32))
+    rhat = np.asarray(rhat)
+    return AlignedCarry(
+        key=t(key, np.int32), sv=t(sv, np.int32),
+        rhat=t(rhat, np.float32 if rhat.dtype == np.float32 else np.int32),
+        packed=t(packed, np.int32))
 
 
 def aligned_carry_to_numpy(carry: AlignedCarry) -> AlignedCarry:
     """The carry's fields as host arrays in the JAX carry's dtypes
-    (``key``/``packed`` uint32); bit-preserving."""
+    (``key``/``packed`` and a packed ``rhat`` uint32); bit-preserving."""
+    rhat = carry.rhat.cpu().numpy()
     return AlignedCarry(
         key=carry.key.cpu().numpy().view(np.uint32),
         sv=carry.sv.cpu().numpy(),
-        rhat=carry.rhat.cpu().numpy(),
+        rhat=rhat.view(np.uint32) if rhat.dtype == np.int32 else rhat,
         packed=carry.packed.cpu().numpy().view(np.uint32),
     )
 
@@ -239,26 +254,35 @@ def _acos_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(ax > 0.5, acos_big, acos_small)
 
 
-def aligned_detect_math(carry: AlignedCarry, valid_cur, slot, frame,
-                        pericentric: bool):
-    """The aligned engine's elementwise detect chain: positional keys,
-    FRESH gating, sign-flip detection, angle accumulation, packed-carry
-    encode and the f16 angle bits.
-
-    Returns ``(cur_key, cur_sv, apsis, angle_acc, packed, ang16, count,
-    pos_iota)``; ``ang16`` holds :func:`f16_bits_rne` of the angles.
-    """
+def _aligned_keys(valid_cur, slot, frame):
+    """The aligned step's staged key and sv planes: ``(position << 1) |
+    1`` at valid entries (-1, the padding key, elsewhere) and ``slot |
+    vrb << 24``.  Returns ``(cur_key, cur_sv, cur_vrb, pos_iota)``."""
     h, p = valid_cur.shape
     cur_vrb = _vr_bits(frame.vrad)
     pos_iota = torch.arange(p, dtype=torch.int32,
                             device=valid_cur.device).expand(h, p)
     cur_key = torch.where(valid_cur, (pos_iota << 1) | 1,
                           torch.full_like(pos_iota, -1))
-    cur_sv = slot | (cur_vrb << 24)
+    return cur_key, slot | (cur_vrb << 24), cur_vrb, pos_iota
+
+
+def aligned_detect_math(carry: AlignedCarry, valid_cur, slot, frame,
+                        pericentric: bool, rhat_packed: bool = False):
+    """The aligned engine's elementwise detect chain: positional keys,
+    FRESH gating, sign-flip detection, angle accumulation, packed-carry
+    encode and the f16 angle bits.  ``rhat_packed``: the carry holds
+    octahedral r-hat words.
+
+    Returns ``(cur_key, cur_sv, apsis, angle_acc, packed, ang16, count,
+    pos_iota)``; ``ang16`` holds :func:`f16_bits_rne` of the angles.
+    """
+    cur_key, cur_sv, cur_vrb, pos_iota = _aligned_keys(valid_cur, slot,
+                                                       frame)
     fresh = (slot & (1 << 27)) != 0
     vrb_p = (carry.sv >> 24) & 0xF  # sign bits 0-1 (bit 3: stale FRESH)
     pang = (carry.packed & 0x7FFFFFFF).view(torch.float32)
-    prev = carry.rhat
+    prev = oct_decode(carry.rhat) if rhat_packed else carry.rhat
     cosang = torch.clamp(
         prev[0] * frame.rhat[0] + prev[1] * frame.rhat[1]
         + prev[2] * frame.rhat[2], -1.0, 1.0)
@@ -280,32 +304,7 @@ def aligned_detect_math(carry: AlignedCarry, valid_cur, slot, frame,
             pos_iota)
 
 
-def make_aligned_native_step(
-    event_capacity: int,
-    mode: str = "pericentric",
-    box_size=None,
-    id_dtype=np.int32,
-    angle_dtype=np.float32,
-    detect_impl: str = "xla",
-    emit_payload: bool = False,
-):
-    """The aligned step: ``step(carry, snap) -> (AlignedCarry,
-    CompactEvents)``.
-
-    ``snap`` is a :class:`~orbitanalysis_tpu_torch.ops.apsis.
-    SnapshotBatch` staged by :func:`~orbitanalysis_tpu_torch.engine.
-    packing.pack_snapshot_aligned`; its ``slot`` channel (FRESH flags in
-    bit 27) is mandatory.  Events are positional: ``events.ids`` holds
-    stable-layout row positions and ``events.angles`` f16-exact angles;
-    the host maps positions to IDs and previous load slots through its
-    staged tables.  Rows up to :data:`PAYLOAD_MAX_ROW` compact one
-    payload word per event, wider rows a position/angle pair.
-
-    ``detect_impl='xla'`` (the JAX package's name for its default) runs
-    the detect chain as plain torch; ``'pallas'``, the JAX package's
-    fused detect kernel, is not ported.  ``emit_payload=True`` also
-    returns the full pre-compaction plane in ``CompactEvents.payload``.
-    """
+def _check_aligned(mode, angle_dtype, id_dtype):
     if mode not in ("pericentric", "apocentric"):
         raise ValueError(
             "Orbit detection mode not recognized. Please specify either "
@@ -322,16 +321,68 @@ def make_aligned_native_step(
             "the aligned engine requires 32-bit signed particle IDs "
             "(packed uint32 keys)"
         )
-    if detect_impl == "pallas":
-        raise NotImplementedError(
-            "detect_impl='pallas' is the fused static-detect kernel K17 "
-            "(pallas_step.fused_static_detect), not yet ported; see "
-            "ROADMAP.md Queue 2"
-        )
-    if detect_impl != "xla":
+
+
+def make_aligned_native_step(
+    event_capacity: int,
+    mode: str = "pericentric",
+    box_size=None,
+    id_dtype=np.int32,
+    angle_dtype=np.float32,
+    events_id_order: bool = True,
+    soa_batch: bool = False,
+    detect_impl: str = "xla",
+    rhat_packed: bool = False,
+    emit_payload: bool = False,
+):
+    """The aligned step: ``step(carry, snap) -> (AlignedCarry,
+    CompactEvents)``, the JAX package's options and errors.
+
+    ``snap`` is a :class:`~orbitanalysis_tpu_torch.ops.apsis.
+    SnapshotBatch` staged by :func:`~orbitanalysis_tpu_torch.engine.
+    packing.pack_snapshot_aligned`; its ``slot`` channel (FRESH flags in
+    bit 27) is mandatory.  Events are positional: ``events.ids`` holds
+    stable-layout row positions; the host maps positions to IDs and
+    previous load slots through its staged tables.
+
+    ``detect_impl``:
+
+    - ``'xla'`` (the JAX package's name for its default): the detect
+      chain as plain torch and one ordered compaction of f16-exact
+      angles — one payload word an event for rows up to
+      :data:`PAYLOAD_MAX_ROW`, a position/angle pair for wider rows.
+      ``emit_payload=True`` also returns the full pre-compaction plane in
+      ``CompactEvents.payload``; ``rhat_packed=True`` carries octahedral
+      r-hat words (:func:`init_aligned_carry` with ``rhat_packed``).
+    - ``'pallas'``: detection and compaction in one call, the aligned
+      detect kernel (K17, :func:`~orbitanalysis_tpu_torch.ops.step.
+      fused_static_detect` with ``native=True``): float32 angles, and
+      each event's previous load slot in ``CompactEvents.slots``
+      (``events_id_order=True``, events in position order) or the events
+      sorted by that slot (``events_id_order=False``).  Rows must be a
+      power of two >= 128 long.
+
+    ``soa_batch=True``: ``pos``/``vel`` arrive as ``[3, H, P]``.
+    """
+    _check_aligned(mode, angle_dtype, id_dtype)
+    if detect_impl not in ("xla", "pallas"):
         raise ValueError(f"unknown detect_impl: {detect_impl!r}")
+    if rhat_packed and detect_impl != "xla":
+        raise ValueError(
+            "rhat_packed requires detect_impl='xla' (the fused pallas "
+            "detect kernel streams f32 rhat planes)"
+        )
+    if emit_payload and detect_impl != "xla":
+        raise ValueError(
+            "emit_payload requires detect_impl='xla' (the pallas path "
+            "has no pre-compaction payload plane to expose)"
+        )
+    # step.py imports this module
+    from orbitanalysis_tpu_torch.ops.step import fused_static_detect
+
     pericentric = mode == "pericentric"
     invalid = invalid_id_for(id_dtype)
+    id_dt = torch_dtype(id_dtype)
     K = int(event_capacity)
 
     def step(carry: AlignedCarry, snap):
@@ -346,12 +397,28 @@ def make_aligned_native_step(
         frame = region_frame(
             snap.pos, snap.vel, valid_cur, snap.center, mass=snap.mass,
             bulk_vel=snap.bulk_vel, box_size=box_size,
-            hubble_drag=snap.hubble_drag,
+            hubble_drag=snap.hubble_drag, soa=soa_batch,
         )
+        k_eff = min(K, p)
+        if detect_impl == "pallas":
+            cur_key, cur_sv, _, _ = _aligned_keys(valid_cur, snap.slot, frame)
+            rh = frame.rhat
+            packed, evk, evsv, evang, count = fused_static_detect(
+                (carry.key, carry.sv, carry.rhat[0], carry.rhat[1],
+                 carry.rhat[2], carry.packed),
+                (cur_key, cur_sv, rh[0], rh[1], rh[2]),
+                pericentric, invalid, k_eff, native=True)
+            ev_ids, ev_angles, ev_slots = _finish_events(
+                count, (evk >> 1) & 0x7FFFFFFF, evsv & 0x00FFFFFF, evang, K,
+                invalid, id_dt, id_order=events_id_order)
+            return AlignedCarry(key=cur_key, sv=cur_sv, rhat=rh,
+                                packed=packed), CompactEvents(
+                count=count, ids=ev_ids, angles=ev_angles,
+                bulk_vel=frame.bulk_vel, slots=ev_slots)
         (cur_key, cur_sv, apsis, angle_acc, packed, ang16, count,
          pos_iota) = aligned_detect_math(
-            carry, valid_cur, snap.slot, frame, pericentric)
-        k_eff = min(K, p)
+            carry, valid_cur, snap.slot, frame, pericentric,
+            rhat_packed=rhat_packed)
         if p <= PAYLOAD_MAX_ROW:
             aw = angle_acc.view(torch.int32) | torch.where(
                 apsis, _BIT31, 0).to(torch.int32)
@@ -371,8 +438,10 @@ def make_aligned_native_step(
             torch.float16).to(torch.float32)
         kiota = torch.arange(ev_pos.shape[1], device=ev_pos.device)
         ev_ok = kiota[None, :] < count[:, None]
-        return AlignedCarry(key=cur_key, sv=cur_sv, rhat=frame.rhat,
-                            packed=packed), CompactEvents(
+        return AlignedCarry(
+            key=cur_key, sv=cur_sv,
+            rhat=oct_encode(frame.rhat) if rhat_packed else frame.rhat,
+            packed=packed), CompactEvents(
             count=count,
             ids=torch.where(ev_ok, ev_pos,
                             torch.full_like(ev_pos, invalid))[:, :K],
@@ -380,6 +449,78 @@ def make_aligned_native_step(
             bulk_vel=frame.bulk_vel,
             payload=full_payload,
         )
+
+    return step
+
+
+def make_aligned_orbit_step(
+    event_capacity: int,
+    mode: str = "pericentric",
+    box_size=None,
+    id_dtype=np.int32,
+    angle_dtype=np.float32,
+    events_id_order: bool = True,
+    soa_batch: bool = False,
+):
+    """The legacy select-staged aligned step: ``step(carry, snap) ->
+    (SortedCarry, CompactEvents)``, the in-repo oracle of the aligned
+    engine.
+
+    The carry is a :class:`SortedCarry` in the stable layout (real IDs,
+    load slots, sign bits, float32 angles; :func:`init_sorted_carry`);
+    ``snap`` is staged by ``pack_snapshot_aligned`` (``snap.slot`` maps
+    positions to the row's load order; without it a position is its own
+    slot).  A position whose staged ID differs from the carry's gets the
+    FRESH flag (bit 27) on its prev sv, so the aligned detect kernel (K17,
+    ``native=False``) suppresses the stale prev state and restarts the
+    angle at 0.  Events come back as real IDs with float32 angles and the
+    previous load slots: in position order with ``CompactEvents.slots``
+    (``events_id_order=True``), or sorted by slot.
+    """
+    _check_aligned(mode, angle_dtype, id_dtype)
+    # step.py imports this module
+    from orbitanalysis_tpu_torch.ops.step import fused_static_detect
+
+    pericentric = mode == "pericentric"
+    invalid = invalid_id_for(id_dtype)
+    id_dt = torch_dtype(id_dtype)
+    K = int(event_capacity)
+
+    def step(carry: SortedCarry, snap):
+        h, p = snap.ids.shape
+        valid_cur = snap.ids != invalid
+        frame = region_frame(
+            snap.pos, snap.vel, valid_cur, snap.center, mass=snap.mass,
+            bulk_vel=snap.bulk_vel, box_size=box_size,
+            hubble_drag=snap.hubble_drag, soa=soa_batch,
+        )
+        iota = torch.arange(p, dtype=torch.int32,
+                            device=snap.ids.device).expand(h, p)
+        cur_slot = iota if snap.slot is None else snap.slot
+        cur_key = to_i32_bits((snap.ids.to(torch.int64) << 1) | 1)
+        cur_sv = cur_slot | (_vr_bits(frame.vrad) << 24)
+        # a continuing tenant carries its state; elsewhere FRESH makes the
+        # kernel ignore the stale prev planes
+        prev_sv = torch.where(
+            snap.ids == carry.ids,
+            carry.slot | ((carry.vrb & 3).to(torch.int32) << 24),
+            torch.full((), 1 << 27, dtype=torch.int32,
+                       device=snap.ids.device))
+        rh = frame.rhat
+        packed, evk, evsv, evang, count = fused_static_detect(
+            (to_i32_bits(carry.ids.to(torch.int64) << 1), prev_sv,
+             carry.rhat[0], carry.rhat[1], carry.rhat[2], carry.angles),
+            (cur_key, cur_sv, rh[0], rh[1], rh[2]),
+            pericentric, invalid, min(K, p))
+        match_o, ang_o = _decode_packed_angles(packed)
+        new_carry = _carry_from_channels(cur_key, cur_sv, rh[0], rh[1],
+                                         rh[2], ang_o, match_o, id_dt)
+        ev_ids, ev_angles, ev_slots = _finish_events(
+            count, (evk >> 1) & 0x7FFFFFFF, evsv & 0x00FFFFFF, evang, K,
+            invalid, id_dt, id_order=events_id_order)
+        return new_carry, CompactEvents(
+            count=count, ids=ev_ids, angles=ev_angles,
+            bulk_vel=frame.bulk_vel, slots=ev_slots)
 
     return step
 

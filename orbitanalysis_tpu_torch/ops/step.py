@@ -1,15 +1,23 @@
-"""The sorted engine's join-and-detect kernel (twin of
-``orbitanalysis_tpu/ops/pallas_step.py`` ``fused_join_detect``, K16).
+"""The detect-and-compact kernels of the sorted and aligned steps (twin
+of ``orbitanalysis_tpu/ops/pallas_step.py``: ``fused_join_detect``, K16,
+and ``fused_static_detect``, K17).
 
-One call joins the carry (``prev``, keys ascending) with the staged
-snapshot (``cur``, keys descending), detects apsides on the matched
-pairs, routes every result back to its source position and compacts
-the events in prev (ID) order.  On CUDA tensors it launches the
-hand-written kernel ``fused_join_detect`` of ``csrc/merge.cu`` (binary
-searches for partners, no merged row); on CPU tensors it runs
-:func:`fused_join_detect_torch`, the JAX kernel's merged-domain
-formulation (a sort of the concatenation, neighbour shifts, the inverse
-permutation back), so the two check each other's design.
+- :func:`fused_join_detect` joins the carry (``prev``, keys ascending)
+  with the staged snapshot (``cur``, keys descending), detects apsides
+  on the matched pairs, routes every result back to its source position
+  and compacts the events in prev (ID) order.  On CUDA tensors it
+  launches the hand-written kernel ``fused_join_detect`` of
+  ``csrc/merge.cu`` (binary searches for partners, no merged row); on
+  CPU tensors it runs :func:`fused_join_detect_torch`, the JAX kernel's
+  merged-domain formulation (a sort of the concatenation, neighbour
+  shifts, the inverse permutation back), so the two check each other's
+  design.
+- :func:`fused_static_detect` detects on aligned rows (a matched pair
+  shares a position, so no merge) and compacts the events in position
+  order: the aligned engine's ``detect_impl='pallas'`` (``native=True``)
+  and the legacy select-staged step.  On CUDA tensors it launches
+  ``static_detect_rows`` of ``csrc/static.cu``; on CPU tensors it runs
+  :func:`fused_static_detect_torch`.
 """
 
 from __future__ import annotations
@@ -17,7 +25,11 @@ from __future__ import annotations
 import torch
 
 from orbitanalysis_tpu_torch.ops import _cuda
-from orbitanalysis_tpu_torch.ops.compact import _front_pack, _k128
+from orbitanalysis_tpu_torch.ops.compact import (
+    _front_pack,
+    _k128,
+    compact_events_torch,
+)
 from orbitanalysis_tpu_torch.ops.merge import u32_order
 from orbitanalysis_tpu_torch.ops.sorted_step import (
     _BIT31,
@@ -30,11 +42,14 @@ _LANES = 128
 
 
 def _check(prev_ops, cur_ops):
+    """The JAX kernels' contract for K16 and K17: power-of-two rows of at
+    least 128 lanes (K16's bitonic merge network; the TPU's lane tiles),
+    6 prev and 5 cur planes.  Returns ``(H, P)``."""
     h, p = prev_ops[0].shape
     if p % _LANES or (p & (p - 1)):
         raise ValueError(
-            f"row length must be a power of two >= {_LANES} (bitonic "
-            f"merge network); got {p} — pad with round_up_pow2"
+            f"row length must be a power of two >= {_LANES}; got {p} — "
+            "pad with round_up_pow2"
         )
     if len(prev_ops) != 6 or len(cur_ops) != 5:
         raise ValueError("want (key, sv, rx, ry, rz, angles) prev planes "
@@ -123,3 +138,68 @@ def fused_join_detect(prev_ops, cur_ops, pericentric: bool, invalid_id: int,
     return _cuda.fused_join_detect(tuple(prev_ops), tuple(cur_ops),
                                    pericentric, invalid_id,
                                    _k128(event_capacity, p))
+
+
+def fused_static_detect_torch(prev_ops, cur_asc_ops, pericentric: bool,
+                              invalid_id: int, event_capacity: int,
+                              native: bool = False):
+    """Plain-torch twin of the aligned detect kernel: ``prev_ops = (key,
+    sv, rx, ry, rz, angles)``, ``cur_asc_ops = (key, sv, rx, ry, rz)``,
+    aligned ``[H, P]`` planes.  The prev key is never read: validity and
+    the event key come from the cur key.  FRESH (the position's tenant
+    changed: no flip fires and the angle restarts at 0) is bit 27 of the
+    prev sv, or with ``native`` bit 27 of the cur sv, where the prev
+    angles are the packed carry words (f32 angle bits 0-30, match flag
+    bit 31) instead of float32.
+
+    Returns ``(packed, ev_key, ev_sv, ev_angle, count)``: ``packed
+    [H, P]`` int32 words ``f32_bits(angle_new) | (valid & ~fresh) <<
+    31``; ``ev_*`` ``[H, k128]`` the events in position order (cur key,
+    PREV sv, f32 angle), zero past each row's count; ``count [H]`` the
+    exact apsides a row.
+    """
+    _check(prev_ops, cur_asc_ops)
+    _, psv, prx, pry, prz, pang = prev_ops
+    ck, csv, crx, cry, crz = cur_asc_ops
+    valid = ((ck >> 1) & 0x7FFFFFFF) != invalid_id
+    vrb_p = psv >> 24
+    vrb_c = csv >> 24
+    if native:
+        fresh = (vrb_c & 8) > 0
+        pang = (pang & 0x7FFFFFFF).view(torch.float32)
+    else:
+        fresh = (vrb_p & 8) > 0
+    cosang = torch.clamp(prx * crx + pry * cry + prz * crz, -1.0, 1.0)
+    zero = torch.zeros_like(cosang)
+    dtheta = torch.where(valid, _acos_f32(cosang), zero)
+    if pericentric:
+        flip = ((vrb_p & 1) > 0) & ((vrb_c & 2) > 0)
+    else:
+        flip = ((vrb_p & 2) > 0) & ((vrb_c & 1) > 0)
+    apsis = valid & flip & ~fresh
+    angle_acc = torch.where(fresh, zero, pang + dtheta)
+    bit31 = torch.tensor(_BIT31, dtype=torch.int32, device=ck.device)
+    nil = torch.zeros((), dtype=torch.int32, device=ck.device)
+    packed = (torch.where(apsis | ~valid, zero, angle_acc).view(torch.int32)
+              | torch.where(valid & ~fresh, bit31, nil))
+    evp = torch.where(apsis, angle_acc.view(torch.int32) | bit31, nil)
+    ev_key, ev_sv, ev_w = compact_events_torch(evp, ck, psv, event_capacity)
+    return (packed, ev_key, ev_sv,
+            (ev_w & 0x7FFFFFFF).view(torch.float32),
+            apsis.sum(dim=-1, dtype=torch.int32))
+
+
+def fused_static_detect(prev_ops, cur_asc_ops, pericentric: bool,
+                        invalid_id: int, event_capacity: int,
+                        native: bool = False):
+    """Aligned detection and event compaction in one call (K17): the
+    CUDA kernel on CUDA tensors, :func:`fused_static_detect_torch` on
+    CPU tensors; the same arguments and outputs."""
+    if not prev_ops[0].is_cuda:
+        return fused_static_detect_torch(prev_ops, cur_asc_ops, pericentric,
+                                         invalid_id, event_capacity, native)
+    h, p = _check(prev_ops, cur_asc_ops)
+    return _cuda.static_detect_rows(
+        tuple(t.contiguous() for t in prev_ops),
+        tuple(t.contiguous() for t in cur_asc_ops), pericentric, invalid_id,
+        _k128(event_capacity, p), native)

@@ -207,7 +207,8 @@ def test_moments_kernel_matches_twin(dev, n, h, mass):
 
 def _label_planes(dev, r, w, h, seed, packed, steps=3):
     """Inputs of one detect pass on a carry after ``steps`` steps of the
-    CPU label step (so matched lanes exist), on ``dev``."""
+    CPU label step (so matched lanes exist), on the CPU and on ``dev``,
+    and the frame table the rows plane was gathered from."""
     rng = np.random.default_rng(seed)
     n = r * w
     step = tls.make_label_orbit_step(128, box_size=100.0, row_width=w,
@@ -230,7 +231,7 @@ def _label_planes(dev, r, w, h, seed, packed, steps=3):
     rows = tf.frame_rows_torch(table, torch.from_numpy(lab)).reshape(6, r, w)
     cpu = [rows, torch.from_numpy(lab.reshape(r, w)),
            torch.from_numpy(pos), torch.from_numpy(vel), *c]
-    return cpu, [t.to(dev) for t in cpu]
+    return cpu, [t.to(dev) for t in cpu], table
 
 
 def _assert_detect_equal(got, want, packed):
@@ -254,7 +255,7 @@ def _assert_detect_equal(got, want, packed):
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("r,w", [(64, 32768), (4, 1024)])
 def test_detect_kernels_match_twin(dev, r, w, packed):
-    cpu, cuda = _label_planes(dev, r, w, 64, r + w, packed)
+    cpu, cuda, _ = _label_planes(dev, r, w, 64, r + w, packed)
     kw = dict(pericentric=True, box_size=100.0, rhat_packed=packed)
     k9 = tl.detect_label(*cuda, 0.01, **kw)
     k8 = tl.detect_label_compact(*cuda, 0.01, event_capacity=2048, **kw)
@@ -271,8 +272,75 @@ def test_detect_kernels_match_twin(dev, r, w, packed):
             packed)
 
 
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("r,w,h", [(64, 32768, 64), (4, 1024, 7),
+                                   (2, 1024, 2048)])
+@pytest.mark.parametrize("labels", ["carried", "untracked", "past_h",
+                                    "burst"])
+def test_fused_label_kernel_matches_plain(dev, r, w, h, packed, labels):
+    """K10 against its plain version (K6's gather then K9's chain) on the
+    card and on the CPU, every output bit for bit: labels carried from
+    three steps (about 10 % changed), all untracked (-1), a third past
+    the table (frame rows of zeros), and a burst where every tracked
+    particle moves outward (every inward one flips: counts of W / 3 and
+    more); H = 2048 fills the table's 48 KB."""
+    cpu, cuda, table = _label_planes(dev, r, w, min(h, 64), r + w + h,
+                                     packed)
+    rng = np.random.default_rng(r + w)
+    if h > 64:
+        extra = rng.normal(size=(h - 64, 6)).astype(np.float32)
+        table = torch.cat([table, torch.from_numpy(extra)])
+    lab = cpu[1].clone()
+    if labels == "untracked":
+        lab[:] = -1
+    elif labels == "past_h":
+        lab = torch.where(torch.rand(lab.shape, generator=torch.Generator(
+        ).manual_seed(1)) < 0.3, torch.full_like(lab, h + 5), lab)
+    elif labels == "burst":
+        # each particle moves outward along the r-hat it carries (cos = 1)
+        from orbitanalysis_tpu_torch.utils.numerics import oct_decode
+
+        cen = table[lab.clamp(min=0).long(), :3].permute(2, 0, 1)
+        prev = oct_decode(cpu[5]) if packed else cpu[5]
+        cpu[2] = (cen + 3.0 * prev).contiguous()
+        cpu[3] = (table[lab.clamp(min=0).long(), 3:].permute(2, 0, 1)
+                  + prev).contiguous()
+    cpu[1] = lab
+    args = cpu[1:]
+    kw = dict(pericentric=True, box_size=100.0, rhat_packed=packed)
+    got = tl.fused_label_detect(table.to(dev), *(t.to(dev) for t in args),
+                                0.01, **kw)
+    plain_cuda = tl.fused_label_detect_torch(
+        table.to(dev), *(t.to(dev) for t in args), 0.01, **kw)
+    plain_cpu = tl.fused_label_detect_torch(table, *args, 0.01, **kw)
+    torch.cuda.synchronize()
+    if labels == "burst":
+        assert int(plain_cpu[4].max()) > w // 4
+    for want in (plain_cuda, plain_cpu):
+        for g, v in zip(got, want):
+            assert torch.equal(g.cpu().view(torch.int32),
+                               v.cpu().view(torch.int32))
+
+
+def test_fused_label_kernel_counts_launches(dev):
+    """K10 launches once a call and refuses a table past its shared
+    memory; its plain version launches nothing."""
+    cpu, cuda, table = _label_planes(dev, 2, 1024, 7, 3, False)
+    _cuda.reset_launch_counts()
+    tl.fused_label_detect(table.to(dev), *cuda[1:], 0.0, pericentric=True,
+                          box_size=None)
+    tl.fused_label_detect_torch(table.to(dev), *cuda[1:], 0.0,
+                                pericentric=True, box_size=None)
+    assert {n: c for n, c in _cuda.launch_counts().items() if c} == {
+        "fused_label_rows": 1}
+    with pytest.raises(ValueError, match="shared memory"):
+        tl.fused_label_detect(torch.zeros((2049, 6), device=dev), *cuda[1:],
+                              0.0, pericentric=True, box_size=None)
+
+
 @pytest.mark.parametrize("frames,k", [("split", 128), ("split", 2048),
-                                      ("pallas2", 128), ("twolevel", 128)])
+                                      ("pallas2", 128), ("twolevel", 128),
+                                      ("fused", 128), ("pallas", 128)])
 def test_label_step_on_cuda_matches_cpu(dev, frames, k):
     """The label scan on the card (through K6-K9 and K4/K5) against the
     CPU scan, with the bulk velocities given: counts and positions
@@ -304,8 +372,33 @@ def test_label_step_on_cuda_matches_cpu(dev, frames, k):
                       else {"frame_rows", "detect_label_rows",
                             "compact_payload_rows"}),
             "pallas2": {"frame_rows", "compact_payload_rows"},
-            "twolevel": {"compact_payload_rows"}}[frames]
+            "twolevel": {"compact_payload_rows"},
+            "fused": {"fused_label_rows", "compact_payload_rows"},
+            "pallas": {"frame_rows", "compact_payload_rows"}}[frames]
     assert {n for n, c in counts.items() if c} == want
+
+
+@pytest.mark.parametrize("frames", ["fused", "pallas"])
+def test_label_routes_estimate_bulk_on_cuda(dev, frames):
+    """With the bulk velocities estimated on the card, 'fused' and
+    'pallas' launch the moments kernel once a step and find the events
+    'split' finds."""
+    from orbitanalysis_tpu_torch.models.synthetic import label_churn_workload
+
+    lab, pos, vel, cen, _ = label_churn_workload(4, 4096, 6, seed=2)
+    kw = dict(event_capacity=128, box_size=100.0, row_width=4096,
+              rhat_packed=True)
+    _, e_split = tls.scan_label_events(
+        tls.init_label_carry(lab.shape[1], True, 4096), pos, vel, lab, cen,
+        frames="split", **kw)
+    _cuda.reset_launch_counts()
+    _, e = tls.scan_label_events(
+        tls.init_label_carry(lab.shape[1], True, 4096), pos, vel, lab, cen,
+        frames=frames, **kw)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts()["segment_moments"] == 6
+    assert torch.equal(e.count, e_split.count) and int(e.count.sum()) > 0
+    assert torch.equal(e.index, e_split.index)
 
 
 # ----------------------------------------------------------------------
@@ -528,3 +621,159 @@ def test_sorted_tracker_on_cuda_matches_cpu(dev):
                                            atol=1e-6)
             else:
                 np.testing.assert_array_equal(a[g][ds], b[g][ds])
+
+
+# ----------------------------------------------------------------------
+# the aligned detect kernel (K17) and the aligned steps that run it
+# ----------------------------------------------------------------------
+
+def _static_planes(rng, h, p, native, density, kind):
+    """Aligned prev/cur planes of one K17 call: ``density`` of the valid
+    lanes flip (pericentric), FRESH on ~5 % of lanes (cur sv bit 27 when
+    native, else prev sv), ``kind`` 'pad' puts the padding sentinel key
+    on ~20 % of lanes and 'big' uses IDs near 2**31 (keys with their top
+    bit set); a third of the r-hat lanes repeat the prev vector (cos =
+    1)."""
+    inv = np.iinfo(np.int32).max
+    base = 2**31 - 4 * p * h if kind == "big" else 0
+    ids = (base + rng.permutation(2 * p * h)[:h * p]).reshape(h, p)
+    if kind == "pad":
+        ids = np.where(rng.random((h, p)) < 0.2, inv, ids)
+    ck = ((ids.astype(np.uint64) << 1) | 1).astype(np.uint32)
+    flip = rng.random((h, p)) < density
+    vp = np.where(flip, 1, rng.integers(0, 4, (h, p)))
+    vc = np.where(flip, 2, rng.integers(0, 2, (h, p)))
+    slots = np.argsort(rng.random((h, p)), axis=1).astype(np.int32)
+    psv = slots | (vp.astype(np.int32) << 24)
+    csv = slots | (vc.astype(np.int32) << 24)
+    fresh = (rng.random((h, p)) < 0.05).astype(np.int32) << 27
+    if native:
+        csv |= fresh
+    else:
+        psv |= fresh
+
+    def unit():
+        v = rng.normal(size=(3, h, p)).astype(np.float32)
+        return (v / np.linalg.norm(v, axis=0)).astype(np.float32)
+
+    prh, crh = unit(), unit()
+    same = rng.random((h, p)) < 0.33
+    crh = np.where(same[None], prh, crh)
+    ang = rng.uniform(0, 9, (h, p)).astype(np.float32)
+    pang = (_i32(ang.view(np.uint32) | (rng.integers(0, 2, (h, p)).astype(
+        np.uint32) << np.uint32(31))) if native
+        else torch.from_numpy(ang))
+    prev = [_i32((ids.astype(np.uint64) << 1).astype(np.uint32)),
+            torch.from_numpy(psv), *map(torch.from_numpy, prh), pang]
+    cur = [_i32(ck), torch.from_numpy(csv), *map(torch.from_numpy, crh)]
+    return prev, cur
+
+
+@pytest.mark.parametrize("h,p,k", [(64, 32768, 2048), (3, 256, 128),
+                                   (5, 4096, 128)])
+@pytest.mark.parametrize("density", [0.0, 0.017, 0.5, 1.0])
+@pytest.mark.parametrize("kind", ["pad", "big"])
+@pytest.mark.parametrize("native", [True, False])
+def test_static_detect_kernel_matches_plain(dev, h, p, k, density, kind,
+                                            native):
+    """K17 against its plain version on the card and on the CPU, every
+    output bit for bit (both zero-fill past the counts), counts past
+    k128 included."""
+    rng = np.random.default_rng(p + h + int(density * 100) + native)
+    prev, cur = _static_planes(rng, h, p, native, density, kind)
+    args = (True, np.iinfo(np.int32).max, k)
+    got = ts.fused_static_detect(tuple(t.to(dev) for t in prev),
+                                 tuple(t.to(dev) for t in cur), *args,
+                                 native=native)
+    plain_cuda = ts.fused_static_detect_torch(
+        tuple(t.to(dev) for t in prev), tuple(t.to(dev) for t in cur), *args,
+        native=native)
+    plain_cpu = ts.fused_static_detect_torch(tuple(prev), tuple(cur), *args,
+                                             native=native)
+    torch.cuda.synchronize()
+    if density == 1.0:
+        assert int(plain_cpu[4].max()) > k
+    for want in (plain_cuda, plain_cpu):
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu().view(torch.int32),
+                               w.cpu().view(torch.int32))
+
+
+def _aligned_batches(h, c, s, static=False):
+    """The bench's ID-form sequence staged in the stable layout, one
+    SnapshotBatch of NumPy arrays a snapshot."""
+    from orbitanalysis_tpu_torch.engine.packing import (
+        StableLayout,
+        align_packed,
+    )
+    from orbitanalysis_tpu_torch.models.synthetic import (
+        churn_workload,
+        static_workload,
+    )
+    from orbitanalysis_tpu_torch.ops.apsis import SnapshotBatch
+
+    make = static_workload if static else churn_workload
+    ids, pos, vel, cen, _ = make(h, c, s, seed=2)
+    lay = StableLayout(h, c)
+    out = []
+    for i in range(s):
+        a_ids, a_pos, a_vel, _, slot = align_packed(lay, ids[i], pos[i],
+                                                    vel[i])
+        out.append(SnapshotBatch(ids=a_ids, pos=a_pos, vel=a_vel,
+                                 center=cen[i], slot=slot))
+    return out
+
+
+def _on(batch, d):
+    return batch._replace(**{f: torch.from_numpy(np.ascontiguousarray(
+        getattr(batch, f))).to(d) for f in ("ids", "pos", "vel", "center",
+                                            "slot")})
+
+
+@pytest.mark.parametrize("static", [False, True])
+def test_aligned_steps_on_cuda_match_cpu(dev, static):
+    """The aligned step with detect_impl='pallas' and the legacy step on
+    the card (K17 once a step) against the same steps on the CPU, and
+    against the default step's events: counts and positions (IDs for the
+    legacy step) exact, angles within one f16 ulp or 2e-3 rad."""
+    batches = _aligned_batches(4, 4096, 5, static)
+    steps = dict(
+        xla=(tss.make_aligned_native_step(512, box_size=100.0),
+             lambda d: tss.init_aligned_carry(4, 4096, device=d)),
+        pallas=(tss.make_aligned_native_step(512, box_size=100.0,
+                                             detect_impl="pallas"),
+                lambda d: tss.init_aligned_carry(4, 4096, device=d)),
+        legacy=(tss.make_aligned_orbit_step(512, box_size=100.0),
+                lambda d: tss.init_sorted_carry(4, 4096, device=d)))
+    events = {}
+    for name, (step, init) in steps.items():
+        for d in (dev, "cpu"):
+            _cuda.reset_launch_counts()
+            carry, evs = init(d), []
+            for b in batches:
+                carry, ev = step(carry, _on(b, d))
+                evs.append(ev)
+            torch.cuda.synchronize()
+            if d == dev:
+                want = 0 if name == "xla" else len(batches)
+                assert _cuda.launch_counts()["static_detect_rows"] == want
+            events[name, str(d)] = evs
+    total = 0
+    for i, b in enumerate(batches):
+        x = events["xla", "cpu"][i]
+        cnt = x.count
+        total += int(cnt.sum())
+        sel = torch.arange(512)[None, :] < cnt[:, None]
+        pos_ids = torch.from_numpy(b.ids).gather(
+            1, torch.where(sel, x.ids, 0).long())
+        for key in events:
+            e = events[key][i]
+            assert torch.equal(e.count.cpu(), cnt)
+            want = pos_ids if key[0] == "legacy" else x.ids
+            assert torch.equal(e.ids.cpu()[sel], want[sel])
+            a = e.angles.cpu()[sel]
+            ulp = (a.to(torch.float16).view(torch.int16).int()
+                   - x.angles[sel].to(torch.float16).view(torch.int16).int())
+            assert bool(((ulp.abs() <= 1) | ((a - x.angles[sel]).abs()
+                                             <= 2e-3)).all())
+    assert total > 0

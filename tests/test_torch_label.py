@@ -190,7 +190,7 @@ def test_segment_moments_match_jax(mass):
 
 def _detect_inputs(seed, packed, steps=3):
     """Frame rows and carry planes after ``steps`` JAX 'matmul' steps, so
-    matched lanes exist; returns (JAX carry, rows, lab, pos, vel)."""
+    matched lanes exist; returns (JAX carry, rows, lab, pos, vel, table)."""
     pos, vel, lab, cen = _pool(seed)
     step = jax.jit(jls.make_label_orbit_step(
         128, box_size=100.0, row_width=W, frames="matmul",
@@ -208,7 +208,7 @@ def _detect_inputs(seed, packed, steps=3):
     rows = np.asarray(jpf.frame_rows_bf16x3(jnp.asarray(table),
                                             jnp.asarray(lab[s])))
     return (c, rows.reshape(6, R, W), lab[s].reshape(R, W),
-            pos[s].reshape(3, R, W), vel[s].reshape(3, R, W))
+            pos[s].reshape(3, R, W), vel[s].reshape(3, R, W), table)
 
 
 @pytest.mark.parametrize("mode", ["pericentric", "apocentric"])
@@ -216,7 +216,7 @@ def _detect_inputs(seed, packed, steps=3):
 def test_detect_kernels_match_jax(mode, packed):
     """K8/K9: the plain detect chain against detect_label_pallas and
     detect_label_compact_pallas on a carry with matched lanes."""
-    jc, rows, lab, pos, vel = _detect_inputs(3, packed)
+    jc, rows, lab, pos, vel, _ = _detect_inputs(3, packed)
     kw = dict(pericentric=mode == "pericentric", box_size=100.0,
               rhat_packed=packed)
     jin = [jnp.asarray(a) for a in (rows, lab, pos, vel)] + list(jc)
@@ -252,6 +252,73 @@ def test_detect_kernels_match_jax(mode, packed):
                      jls.LabelCarry(j[0], j[1], j[2]), packed)
 
 
+@pytest.mark.parametrize("packed", [False, True])
+def test_fused_detect_matches_jax(packed):
+    """K10: the plain fused pass (frame rows gathered from the table, then
+    the detect chain) against fused_label_detect, labels past H included:
+    counts, lab_sv and matched bits exact, payload positions exact and
+    angle bits within one f16 ulp; and the same bits as K6 then K9."""
+    jc, rows, lab, pos, vel, table = _detect_inputs(5, packed)
+    lab = np.where(np.arange(N).reshape(R, W) % 97 == 0, H + 1, lab)
+    kw = dict(pericentric=True, box_size=100.0, rhat_packed=packed)
+    tcarry = tls.label_carry_from_numpy(*jax.tree.map(np.asarray, jc),
+                                        device="cpu")
+    want = jax.tree.map(np.asarray, jpl.fused_label_detect(
+        jnp.asarray(table), jnp.asarray(lab), jnp.asarray(pos),
+        jnp.asarray(vel), *jc, jnp.float32(0.01), **kw))
+    got = tl.fused_label_detect(_t(table), _t(lab), _t(pos), _t(vel),
+                                *tcarry, 0.01, **kw)
+    assert int(want[4].sum()) > 0
+    np.testing.assert_array_equal(got[4].numpy(), want[4])
+    np.testing.assert_array_equal(got[0].numpy(), want[0])
+    got_pay, want_pay = got[3].numpy().view(np.uint32), want[3]
+    np.testing.assert_array_equal(got_pay >> 15, want_pay >> 15)
+    assert np.abs((got_pay & 0x7FFF).astype(np.int64)
+                  - (want_pay & 0x7FFF)).max() <= 1
+    _check_carry(tls.LabelCarry(*got[:3]), jls.LabelCarry(*want[:3]), packed)
+    rows = tf.frame_rows_torch(_t(table), _t(lab)).reshape(6, R, W)
+    split = tl.detect_label(rows, _t(lab), _t(pos), _t(vel), *tcarry, 0.01,
+                            **kw)
+    for a, b in zip(got, split):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [1000, 4096 + 77])
+def test_f32_frame_kernels_match_jax(n):
+    """K11/K12 (frames='pallas'): the port's frame rows and moments on
+    flat [N] labels of a length JAX pads to its block size, against
+    pallas_frames.frame_rows (bit for bit) and segment_moments, with and
+    without masses.  The port's moments are the float32 rounding of a
+    float64 sum (rtol = atol = 2e-6 against NumPy's float64 sum); the
+    JAX kernel sums in float32, so the two agree to float32 summation
+    error: 4 eps32 of the halo's sum of |m v|."""
+    rng = np.random.default_rng(n)
+    table = (rng.normal(size=(H, 6))
+             * np.exp2(rng.integers(-20, 20, size=(H, 6)))).astype(np.float32)
+    idx = rng.integers(-1, H + 2, size=n).astype(np.int32)
+    vel = rng.normal(size=(3, n)).astype(np.float32)
+    m = rng.uniform(0.5, 2.0, size=n).astype(np.float32)
+    want = np.asarray(jpf.frame_rows(jnp.asarray(table), jnp.asarray(idx)))
+    got = tf.frame_rows(_t(table), _t(idx)).numpy()
+    assert got.shape == want.shape == (6, n)
+    np.testing.assert_array_equal(got, want)
+    ok = (idx >= 0) & (idx < H)
+    for mass in (None, m):
+        want = np.asarray(jpf.segment_moments(
+            jnp.asarray(idx), jnp.asarray(vel), _j(mass), n_halos=H))
+        got = tf.segment_moments(_t(idx), _t(vel), _t(mass),
+                                 n_halos=H).numpy()
+        w = np.ones(n) if mass is None else mass.astype(np.float64)
+        terms = np.concatenate([vel * w, w[None]]).astype(np.float64)
+        for h in range(H):
+            sel = ok & (idx == h)
+            exact = terms[:, sel].sum(axis=1)
+            np.testing.assert_allclose(got[h], exact, rtol=2e-6, atol=2e-6)
+            f32_err = 4 * np.finfo(np.float32).eps * np.abs(
+                terms[:, sel]).sum(axis=1)
+            assert np.all(np.abs(got[h] - want[h]) <= f32_err), h
+
+
 # ----------------------------------------------------------------------
 # the step, the scan and the carry against the JAX package
 # ----------------------------------------------------------------------
@@ -260,7 +327,8 @@ def test_detect_kernels_match_jax(mode, packed):
 #: takes the detect-and-compact pass (blocked_ok), with K = 512 the
 #: detect pass and the payload compaction.
 ROUTES = [("split", 128), ("split", 512), ("pallas2", 128),
-          ("twolevel", 128), ("matmul", 128)]
+          ("twolevel", 128), ("matmul", 128), ("fused", 128),
+          ("pallas", 128)]
 #: (mode, rhat_packed, box, hubble, bulk given): two settings per route
 #: cover both values of every option.
 SETTINGS = [("pericentric", False, 100.0, 0.01, False),
@@ -394,11 +462,18 @@ def test_label_churn_workload_matches_bench():
 
 
 def test_unported_frames_raise():
-    for frames in ("fused", "pallas"):
-        with pytest.raises(NotImplementedError, match="M8"):
-            tls.make_label_orbit_step(128, frames=frames)
+    """Every route of the JAX package builds (none is left unported); an
+    unknown one, and a frame table past the fused pass's shared memory,
+    raise ValueError."""
+    for frames in tls._FRAMES:
+        assert callable(tls.make_label_orbit_step(128, frames=frames))
     with pytest.raises(ValueError, match="unknown frames"):
         tls.make_label_orbit_step(128, frames="nope")
+    h = 2049
+    lab = torch.zeros((1, 128), dtype=torch.int32)
+    with pytest.raises(ValueError, match="shared memory"):
+        tl.fused_label_detect(torch.zeros((h, 6)), lab, *([None] * 6),
+                              pericentric=True, box_size=None)
 
 
 def test_wrappers_serve_only_cpu_and_cuda():

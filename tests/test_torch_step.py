@@ -22,6 +22,7 @@ from orbitanalysis_tpu.engine import packing as jpk
 from orbitanalysis_tpu.models.synthetic import churn_snapshots
 from orbitanalysis_tpu.ops import apsis as japsis
 from orbitanalysis_tpu.ops import geometry as jgeo
+from orbitanalysis_tpu.ops import pallas_step as jps
 from orbitanalysis_tpu.ops import sorted_step as jss
 from orbitanalysis_tpu.utils import numerics as jnum
 from orbitanalysis_tpu.utils import padding as jpad
@@ -29,6 +30,7 @@ from orbitanalysis_tpu_torch.engine import packing as tpk
 from orbitanalysis_tpu_torch.ops import apsis as tapsis
 from orbitanalysis_tpu_torch.ops import geometry as tgeo
 from orbitanalysis_tpu_torch.ops import sorted_step as tss
+from orbitanalysis_tpu_torch.ops import step as tstep_mod
 from orbitanalysis_tpu_torch.utils import numerics as tnum
 from orbitanalysis_tpu_torch.utils import padding as tpad
 
@@ -420,18 +422,227 @@ def test_aligned_step_last_position_event(p):
 
 
 def test_aligned_step_rejects_what_it_cannot_run():
-    with pytest.raises(NotImplementedError, match="K17"):
-        tss.make_aligned_native_step(128, detect_impl="pallas")
-    with pytest.raises(ValueError, match="float32"):
-        tss.make_aligned_native_step(128, angle_dtype=np.float16)
-    with pytest.raises(ValueError, match="32-bit"):
-        tss.make_aligned_native_step(128, id_dtype=np.int64)
+    """The JAX package's errors: float32 angles and 32-bit IDs only, and
+    no r-hat words or payload plane on the fused detect kernel."""
+    for make in (tss.make_aligned_native_step, tss.make_aligned_orbit_step,
+                 jss.make_aligned_native_step):
+        with pytest.raises(ValueError, match="float32"):
+            make(128, angle_dtype=np.float16)
+        with pytest.raises(ValueError, match="32-bit"):
+            make(128, id_dtype=np.int64)
+    for make in (tss.make_aligned_native_step, jss.make_aligned_native_step):
+        with pytest.raises(ValueError, match="rhat_packed requires"):
+            make(128, detect_impl="pallas", rhat_packed=True)
+        with pytest.raises(ValueError, match="emit_payload requires"):
+            make(128, detect_impl="pallas", emit_payload=True)
+        with pytest.raises(ValueError, match="unknown detect_impl"):
+            make(128, detect_impl="cuda")
+
+
+# ----------------------------------------------------------------------
+# the aligned detect kernel (K17) and the steps that run it
+# ----------------------------------------------------------------------
+
+def _static_inputs(seed, native, pericentric, h=5, p=256):
+    """Aligned prev/cur planes of one K17 call, as uint32/f32 NumPy: cur
+    keys with padding (the sentinel key) and IDs near 2**31, random sign
+    bits, FRESH on ~10 % of lanes (bit 27 of the cur sv when native,
+    else of the prev sv), accumulated prev angles (native: packed carry
+    words with random match bits), unit r-hat.  Row 1 is a full row:
+    every lane valid, unfresh and flipping in the ``pericentric`` mode's
+    sense, so its count is P."""
+    rng = np.random.default_rng(seed)
+    inv = np.iinfo(np.int32).max
+    ids = rng.choice(2**31 - 2, size=(h, p), replace=False).astype(np.int64)
+    ids[0, -16:] = 2**31 - 2 - np.arange(16)       # keys past 2**31
+    pad = rng.random((h, p)) < 0.15
+    pad[1] = False
+    ids = np.where(pad, inv, ids)
+    ck = ((ids.astype(np.uint64) << 1) | 1).astype(np.uint32)
+
+    def sv():
+        return (rng.permutation(p * h).reshape(h, p).astype(np.int32) % p
+                | (rng.integers(0, 4, (h, p)).astype(np.int32) << 24))
+
+    psv, csv = sv(), sv()
+    fresh = rng.random((h, p)) < 0.1
+    fresh[1] = False
+    if native:
+        csv |= fresh.astype(np.int32) << 27
+    else:
+        psv |= fresh.astype(np.int32) << 27
+    before, now = (1, 2) if pericentric else (2, 1)
+    psv[1] = (psv[1] & 0xFFFFFF) | (before << 24)
+    csv[1] = (csv[1] & 0xFFFFFF) | (now << 24)
+
+    def unit():
+        v = rng.normal(size=(3, h, p)).astype(np.float32)
+        return v / np.linalg.norm(v, axis=0)
+
+    prh, crh = unit(), unit()
+    ang = rng.uniform(0, 9, (h, p)).astype(np.float32)
+    pang = (ang.view(np.uint32) | (rng.integers(0, 2, (h, p)).astype(
+        np.uint32) << np.uint32(31))) if native else ang
+    pk = (ids.astype(np.uint64) << 1).astype(np.uint32)
+    return (pk, psv, *prh, pang), (ck, csv, *crh)
+
+
+def _np_i32(a):
+    a = np.ascontiguousarray(a)
+    return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
+
+
+@pytest.mark.parametrize("pericentric", [True, False])
+@pytest.mark.parametrize("native", [True, False])
+def test_static_detect_matches_jax(native, pericentric):
+    """K17: the plain version against the JAX kernel (interpret mode) in
+    both modes, FRESH lanes, padding keys and a full row included: the
+    packed carry's match bits, counts, event keys and prev sv exact;
+    angles within ANGLE_ATOL."""
+    prev, cur = _static_inputs(3 + native + 2 * pericentric, native,
+                               pericentric)
+    inv = np.iinfo(np.int32).max
+    k = 128
+    want = [np.asarray(x) for x in jps.fused_static_detect(
+        tuple(map(jnp.asarray, prev)), tuple(map(jnp.asarray, cur)),
+        pericentric, inv, k, native=native)]
+    got = tstep_mod.fused_static_detect(
+        tuple(map(_np_i32, prev)), tuple(map(_np_i32, cur)), pericentric,
+        inv, k, native=native)
+    assert torch.equal(got[0], tstep_mod.fused_static_detect_torch(
+        tuple(map(_np_i32, prev)), tuple(map(_np_i32, cur)), pericentric,
+        inv, k, native=native)[0])
+    count = got[4].numpy()
+    np.testing.assert_array_equal(count, want[4])
+    assert count[1] == prev[0].shape[1] > k and count.sum() > count[1]
+    packed = got[0].numpy().view(np.uint32)
+    np.testing.assert_array_equal(packed >> 31, want[0] >> 31)
+    _assert_angles_close((packed & np.uint32(0x7FFFFFFF)).view(np.float32),
+                         (want[0] & np.uint32(0x7FFFFFFF)).view(np.float32))
+    for h, n in enumerate(np.minimum(count, k)):
+        np.testing.assert_array_equal(
+            got[1].numpy()[h, :n].view(np.uint32), want[1][h, :n])
+        np.testing.assert_array_equal(got[2].numpy()[h, :n], want[2][h, :n])
+        _assert_angles_close(got[3].numpy()[h, :n], want[3][h, :n])
+        assert (got[1].numpy()[h, n:] == 0).all()
+
+
+def _staged(loaded, lay, rows, soa=False):
+    """Each loaded snapshot staged aligned: (PackedSnapshot, JAX batch,
+    port batch); ``soa`` stages pos/vel as [3, H, P] planes."""
+    out = []
+    for rp, snap in loaded:
+        pk = tpk.pack_snapshot_aligned(snap, rows, 3, lay, rp)
+        if soa:
+            pk = pk._replace(
+                pos=np.ascontiguousarray(np.moveaxis(pk.pos, -1, 0)),
+                vel=np.ascontiguousarray(np.moveaxis(pk.vel, -1, 0)))
+        out.append((pk, *_batches(pk)))
+    return out
+
+
+@pytest.mark.parametrize("id_order", [True, False])
+@pytest.mark.parametrize("mode", ["pericentric", "apocentric"])
+def test_aligned_pallas_step_matches_jax(churn, mode, id_order):
+    """make_aligned_native_step(detect_impl='pallas') on 8 churn
+    snapshots: counts, event positions and prev load slots exact, carry
+    keys, sv and match bits exact, angles within ANGLE_ATOL."""
+    box, loaded = churn
+    P, K = 256, 128
+    kw = dict(mode=mode, box_size=box, detect_impl="pallas",
+              events_id_order=id_order)
+    jstep = jax.jit(jss.make_aligned_native_step(K, **kw))
+    tstep = tss.make_aligned_native_step(K, **kw)
+    jc, tc = jss.init_aligned_carry(3, P), tss.init_aligned_carry(
+        3, P, device="cpu")
+    total = 0
+    for s, (pk, jb, tb) in enumerate(_staged(loaded, tpk.StableLayout(3, P),
+                                             np.arange(3))):
+        jc, je = jstep(jc, jb)
+        tc, te = tstep(tc, tb)
+        total += _check_aligned_step(te, je, tc, jc, s)
+        if id_order:
+            for h, n in enumerate(te.count.numpy()):
+                np.testing.assert_array_equal(te.slots.numpy()[h, :n],
+                                              np.asarray(je.slots)[h, :n])
+        else:
+            assert te.slots is None and je.slots is None
+    assert total > 0
+
+
+@pytest.mark.parametrize("id_order", [True, False])
+def test_legacy_aligned_step_matches_jax(churn, id_order):
+    """The legacy select-staged step (SortedCarry, K17 with native=False)
+    on 8 churn snapshots: counts, event IDs and prev load slots exact,
+    carry IDs, slots and sign/match bits exact, angles and r-hat within
+    ANGLE_ATOL."""
+    box, loaded = churn
+    P, K = 256, 128
+    kw = dict(box_size=box, events_id_order=id_order)
+    jstep = jax.jit(jss.make_aligned_orbit_step(K, **kw))
+    tstep = tss.make_aligned_orbit_step(K, **kw)
+    jc = jss.init_sorted_carry(3, P)
+    tc = tss.init_sorted_carry(3, P, device="cpu")
+    total = 0
+    for pk, jb, tb in _staged(loaded, tpk.StableLayout(3, P), np.arange(3)):
+        jc, je = jstep(jc, jb)
+        tc, te = tstep(tc, tb)
+        count = te.count.numpy()
+        np.testing.assert_array_equal(count, np.asarray(je.count))
+        for h, n in enumerate(count):
+            total += n
+            np.testing.assert_array_equal(te.ids.numpy()[h, :n],
+                                          np.asarray(je.ids)[h, :n])
+            _assert_angles_close(te.angles.numpy()[h, :n],
+                                 np.asarray(je.angles)[h, :n])
+            if id_order:
+                np.testing.assert_array_equal(te.slots.numpy()[h, :n],
+                                              np.asarray(je.slots)[h, :n])
+        got = tss.sorted_carry_to_numpy(tc)
+        want = jax.tree.map(np.asarray, jc)
+        for f in ("ids", "slot", "vrb"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+        _assert_angles_close(got.angles, want.angles)
+        np.testing.assert_allclose(got.rhat, want.rhat, rtol=1e-6, atol=1e-6)
+    assert total > 0
+
+
+@pytest.mark.parametrize("rhat_packed,soa", [(True, False), (False, True)])
+def test_aligned_step_options_match_jax(churn, rhat_packed, soa):
+    """The default step with octahedral r-hat words in the carry, and
+    with SoA-staged batches: the JAX step's events and carries."""
+    box, loaded = churn
+    P, K = 256, 128
+    kw = dict(box_size=box, rhat_packed=rhat_packed, soa_batch=soa)
+    jstep = jax.jit(jss.make_aligned_native_step(K, **kw))
+    tstep = tss.make_aligned_native_step(K, **kw)
+    jc = jss.init_aligned_carry(3, P, rhat_packed=rhat_packed)
+    tc = tss.init_aligned_carry(3, P, rhat_packed=rhat_packed, device="cpu")
+    total = 0
+    for s, (pk, jb, tb) in enumerate(_staged(
+            loaded, tpk.StableLayout(3, P), np.arange(3), soa=soa)):
+        jc, je = jstep(jc, jb)
+        tc, te = tstep(tc, tb)
+        if rhat_packed:
+            got = tss.aligned_carry_to_numpy(tc).rhat
+            want = np.asarray(jc.rhat)
+            assert got.dtype == want.dtype == np.uint32
+            np.testing.assert_allclose(
+                tnum.oct_decode(_np_i32(got)).numpy(),
+                np.asarray(jnum.oct_decode(jnp.asarray(want))), atol=1e-4)
+            tc_cmp = tc._replace(rhat=torch.zeros(3, 3, P))
+            jc_cmp = jc._replace(rhat=jnp.zeros((3, 3, P)))
+        else:
+            tc_cmp, jc_cmp = tc, jc
+        total += _check_aligned_step(te, je, tc_cmp, jc_cmp, s)
+    assert total > 0
 
 
 def test_port_runs_without_jax(tmp_path):
     """With jax, the JAX package and h5py blocked, the port imports and
     runs its public surface (the three engines, in-memory savefiles, a
-    small label-native scan and a small sorted scan)."""
+    small label-native scan, a small sorted scan, a 'fused' label step
+    and a legacy aligned step)."""
     script = textwrap.dedent(f"""
         import sys
         for name in ("jax", "jaxlib", "orbitanalysis_tpu", "h5py"):
@@ -496,6 +707,33 @@ def test_port_runs_without_jax(tmp_path):
             counts.append(ev.count.numpy())
         assert counts[0].sum() > 0
         assert all(np.array_equal(c, counts[0]) for c in counts)
+        c = ls.init_label_carry(lab.shape[1], row_width=512, device="cpu")
+        fused = ls.make_label_orbit_step(64, box_size=100.0, row_width=512,
+                                         frames="fused")
+        for s in range(2):
+            c, ev = fused(c, (torch.from_numpy(pos[s]),
+                              torch.from_numpy(vel[s]),
+                              torch.from_numpy(lab[s]),
+                              torch.from_numpy(cen[s]), None, None, 0.0))
+        assert ev.count.shape == (2,)
+        # the legacy aligned step on the same ID-form sequence, staged in
+        # the stable layout
+        from orbitanalysis_tpu_torch.engine.packing import (
+            StableLayout, align_packed)
+        ids, pos, vel, cen, _ = churn_workload(2, 256, 4)
+        lay = StableLayout(2, 256)
+        legacy = ss.make_aligned_orbit_step(128, box_size=100.0)
+        lc = ss.init_sorted_carry(2, 256, device="cpu")
+        n_legacy = 0
+        for s in range(4):
+            a_ids, a_pos, a_vel, _, a_slot = align_packed(
+                lay, ids[s], pos[s], vel[s])
+            lc, lev = legacy(lc, SnapshotBatch(
+                ids=torch.from_numpy(a_ids), pos=torch.from_numpy(a_pos),
+                vel=torch.from_numpy(a_vel), center=torch.from_numpy(cen[s]),
+                slot=torch.from_numpy(a_slot)))
+            n_legacy += int(lev.count.sum())
+        assert n_legacy == int(sc[0].sum())
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "orbitanalysis_tpu", "h5py")
                and sys.modules[m] is not None]
