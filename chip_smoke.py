@@ -17,7 +17,9 @@ repository checkout; it imports nothing of JAX.  Phases:
 3. each CUDA kernel against its plain-torch version on the same CUDA
    tensors, at the shapes its main path gives it (the sorted engine's
    kernels and the aligned detect kernel on the inputs of real steps,
-   the fused label detect kernel on the label path's), with timings,
+   the fused label detect kernel on the label path's, the sorted
+   deposit on the stream of phase 12's first force evaluation, the
+   blocked direct forces at N = 16,384), with timings,
    the card's bound for the same work and, where one PyTorch call
    computes the same function, that call's time;
 4. aligned step parity: 8 churning snapshots at [64, 32768], the
@@ -66,7 +68,26 @@ repository checkout; it imports nothing of JAX.  Phases:
    ``'pallas'`` (the aligned detect kernel once a step) and the legacy
    ``make_aligned_orbit_step`` (the same kernel) must give the same
    events, exactly the 1,741,643, and the two native steps the same
-   carry bits; then step timings.
+   carry bits; then step timings;
+11. config 4's oracle (benchmarks/config4_onthefly_e2e.py): a 16,384
+   particle Kepler ensemble under point-mass forces, detection every 8
+   and every 32 steps: at 4x the snapshot cadence at least 99 % of the
+   particles within +-1 of the closed-form pericentre count, the
+   snapshot rate missing more; the same runs on the CPU, counts within
+   one on at most 0.1 % of the particles;
+12. config 4 at scale with PM forces (``make_pm_force_fn``, the sorted
+   deposit kernel once a force evaluation): 12,582,912 particles on
+   256^3 for 32 steps, integrator only and tracked, a profiler window
+   over 8 tracked steps, and one detection on the identity and the
+   gather paths; then 33,554,432 particles on 512^3
+   for 16 steps in 4-step chunks (s/step, peak memory); then at 1M on
+   128^3 the sorted deposit bit-equal CUDA vs CPU, one PM force
+   evaluation within 1e-4, and the detector's flags, counts and r-hat
+   bit-equal on identical states;
+13. direct summation through the blocked force kernel at N = 131,072
+   (16 steps, detection every 4), against the same run with the plain
+   blocked version on the card; one P3M force evaluation at 262,144
+   particles on 64^3 (finite, net force near zero).
 
 Any failed check exits non-zero without printing the result lines.  The
 last three lines are the card's name and power limit, the kernels' JSON
@@ -1685,6 +1706,472 @@ def aligned_full_width(dev, seq):
     return launches
 
 
+# ------------------------------------------- native integrator phases
+
+#: Config 4 (BASELINE.md:17, benchmarks/config4_onthefly_e2e.py): the
+#: oracle ensemble and its snapshot and detection cadences; halo rows of
+#: the PM runs; box and time step; the 12.6M run (rows, grid, steps,
+#: detect_every); the never-run 33.5M anchor (rows, grid, steps, chunk);
+#: the CUDA-vs-CPU parity size (rows, grid)
+C4_ORACLE = 16384
+C4_SNAPSHOT_EVERY, C4_DETECT_EVERY = 32, 8
+C4_ROW = 65536
+C4_BOX, C4_DT = 100.0, 1e-3
+C4_SCALE = (192, 256, 32, 8)
+C4_ANCHOR = (512, 512, 16, 4)
+C4_PARITY = (16, 128)
+#: direct summation through K14: rows x row width (all tracked), steps,
+#: detect_every, softening, time step; K14's check size (the JAX
+#: benchmark's, benchmarks/run_all.py:79); the P3M check (particles, grid)
+DIRECT = (32, 4096, 16, 4, 0.05, 0.01)
+K14_N = 16384
+P3M_CHECK = (1 << 18, 64)
+#: float32 operations a pair of K14 (csrc/nbody.cu: free space, periodic)
+#: and the H100's special-function rate (16 a clock per SM, 132 SMs, 1.98
+#: GHz) that bounds its rsqrtf
+K14_OPS = {False: 19, True: 31}
+PEAK_SFU = 16 * 132 * 1.98e9
+
+
+def c4_state(n, dev, seed=3):
+    """Config 4's scale state (benchmarks/config4_onthefly_e2e.py:200):
+    uniform positions in the box, velocities 0.02 N(0, 1), unit masses;
+    drawn with NumPy from ``seed``."""
+    from orbitanalysis_tpu_torch.models.nbody import nbody_state_from_numpy
+
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0, C4_BOX, size=(n, 3)).astype(np.float32)
+    vel = (0.02 * rng.normal(size=(n, 3))).astype(np.float32)
+    return nbody_state_from_numpy(pos, vel, np.ones(n, np.float32),
+                                  device=dev)
+
+
+def force_rel(a1, a2):
+    """The JAX test's force measure, max |a1 - a2| / (|a2| + 1e-3)."""
+    a1, a2 = a1.double(), a2.double()
+    return float(((a1 - a2).abs()
+                  / (a2.norm(dim=1, keepdim=True) + 1e-3)).max())
+
+
+def force_kernel_checks(dev):
+    """Phase 3 for K13 (the sorted stream of the 12.6M / 256^3 run's
+    first force evaluation) and K14 (N = 16384, free and periodic)."""
+    import torch
+
+    from orbitanalysis_tpu_torch.models import nbody as tnb
+    from orbitanalysis_tpu_torch.ops import deposit as td
+    from orbitanalysis_tpu_torch.ops import nbody as tn
+
+    results = {}
+    rows, grid = C4_SCALE[0], C4_SCALE[1]
+    st = c4_state(rows * C4_ROW, dev)
+    keys, fracs = td.sorted_stream(st.pos, st.mass, grid, C4_BOX)
+    n, v = keys.shape[0], (grid + 1) ** 3
+    got = td.deposit_stream(keys, fracs, grid)
+    want = td.deposit_stream_torch(keys, fracs, grid)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    total = float(td.fold_virtual(got, grid).double().sum())
+    check(torch.equal(got, want), "deposit_sorted differs from its twin")
+    check(abs(total - n) <= 1e-6 * n,
+          f"deposit_sorted: mass {total} of {n}")
+    offs = torch.tensor(td._offsets(grid), device=dev)
+    idx8 = (keys.long()[None, :] + offs[:, None]).reshape(-1)
+    w8 = td._corner_weights8(fracs).reshape(-1)
+
+    def library():
+        return torch.zeros(v, device=dev).index_add_(0, idx8, w8)
+
+    lib_err = float((library() - got).abs().max())
+    check(lib_err <= 2e-5 * float(got.abs().max()),
+          f"deposit_sorted: index_add_ differs by {lib_err}")
+    log(f"  deposit_sorted {n} entries onto {grid + 1}^3 (the 12.6M run's "
+        f"first force evaluation): bit-equal to its twin; mass {total:.1f} "
+        f"of {n}; index_add_ within {lib_err:.3g}")
+    # the function reads keys (4 B) and fracs (16 B) an entry and writes
+    # the virtual grid once
+    b_ms, b_by = bound(20 * n + 4 * v, 0)
+    results["deposit_sorted"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: td.deposit_stream(keys, fracs, grid)),
+        plain_ms=cuda_ms(lambda: td.deposit_stream_torch(keys, fracs, grid)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(library))
+    del st, keys, fracs, got, want, idx8, w8
+
+    log(f"  matmul: allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
+        f"float32 precision '{torch.get_float32_matmul_precision()}' (the "
+        "Gram form needs full float32; cudnn.allow_tf32="
+        f"{torch.backends.cudnn.allow_tf32} is not used)")
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "float32 matmuls are not full float32")
+    rng = np.random.default_rng(0)
+    for box in (None, 10.0):
+        if box is None:
+            pos = rng.normal(size=(K14_N, 3)).astype(np.float32)
+        else:
+            pos = rng.uniform(0, box, (K14_N, 3)).astype(np.float32)
+        mass = rng.uniform(0.5, 2.0, K14_N).astype(np.float32)
+        p = torch.from_numpy(pos).to(dev)
+        m = torch.from_numpy(mass).to(dev)
+        got = tn.direct_forces_blocked(p, m, softening=0.1, box_size=box)
+        twin = tn.direct_forces_blocked_torch(p, m, 0.1, 1.0, box)
+        dense = tnb.direct_forces(p, m, softening=0.1, box_size=box)
+        torch.cuda.synchronize()
+        r_twin, r_dense = force_rel(got, twin), force_rel(got, dense)
+        what = "free" if box is None else f"periodic box {box}"
+        log(f"  direct_forces N={K14_N} {what}: against its twin "
+            f"{r_twin:.3g}, against the {'Gram' if box is None else 'dense'}"
+            f" direct_forces {r_dense:.3g} (max |a1-a2|/(|a2|+1e-3) < 1e-3)")
+        check(r_twin < 1e-3 and r_dense < 1e-3,
+              f"direct_forces ({what}) disagrees")
+        if box is None:
+            pairs = K14_N * K14_N
+            b_ms, b_by = bound(16 * K14_N + 12 * K14_N,
+                               max(K14_OPS[False] * pairs,
+                                   pairs / PEAK_SFU * PEAK_OPS))
+            results["direct_forces"] = dict(
+                max_abs_err=float((got - twin).abs().max()),
+                ms=cuda_ms(lambda: tn.direct_forces_blocked(p, m, 0.1)),
+                plain_ms=cuda_ms(
+                    lambda: tn.direct_forces_blocked_torch(p, m, 0.1)),
+                bound_ms=b_ms, bound_by=b_by,
+                # no single PyTorch call sums softened pair forces
+                library_ms=None)
+        else:
+            t_ms = cuda_ms(lambda: tn.direct_forces_blocked(p, m, 0.1,
+                                                            box_size=box))
+            log(f"  direct_forces periodic: {t_ms:.4f} ms a call, bound "
+                f"{K14_OPS[True] * K14_N * K14_N / PEAK_OPS * 1e3:.4f} ms "
+                "(operations)")
+    return results
+
+
+def mean_anomaly_from_state(pos, vel, GM=1.0):
+    """Each particle's mean anomaly from (pos, vel) about a point mass at
+    the origin (benchmarks/config4_onthefly_e2e.py:54)."""
+    r = np.linalg.norm(pos, axis=-1)
+    v2 = np.sum(vel * vel, axis=-1)
+    a = -GM / (2.0 * (0.5 * v2 - GM / r))
+    h = np.linalg.norm(np.cross(pos, vel), axis=-1)
+    e = np.sqrt(np.clip(1.0 - h * h / (GM * a), 0.0, None))
+    cos_e = np.clip((1.0 - r / a) / np.maximum(e, 1e-12), -1.0, 1.0)
+    ecc = np.arccos(cos_e)
+    ecc = np.where(np.sum(pos * vel, axis=-1) >= 0, ecc, 2 * np.pi - ecc)
+    return np.mod(ecc - e * np.sin(ecc), 2 * np.pi)
+
+
+def c4_oracle(dev):
+    """Phase 11: the config-4 oracle (config4_onthefly_e2e.py:80-182) on
+    the card and on the CPU.  Returns the (zero) kernel launches."""
+    import torch
+
+    from orbitanalysis_tpu_torch.models import nbody as tnb
+    from orbitanalysis_tpu_torch.models.synthetic import kepler_ensemble
+    from orbitanalysis_tpu_torch.ops import _cuda
+
+    n = C4_ORACLE
+    ens = kepler_ensemble(n, 2, a_range=(0.5, 2.0), e_range=(0.05, 0.6),
+                          seed=7)
+    t_min, t_max = float(ens.period.min()), float(ens.period.max())
+    dt = t_min / (1.3 * C4_SNAPSHOT_EVERY)
+    n_steps = int(np.ceil(3.0 * t_max / dt))
+    t_total = n_steps * dt
+    pos = ens.positions[0].astype(np.float32)
+    vel = ens.velocities[0].astype(np.float32)
+    m0 = mean_anomaly_from_state(ens.positions[0], ens.velocities[0])
+    expected = (np.floor((m0 + 2 * np.pi / ens.period * t_total)
+                         / (2 * np.pi)).astype(np.int64)
+                - np.floor(m0 / (2 * np.pi)).astype(np.int64))
+    members = np.arange(n, dtype=np.int32).reshape(1, n)
+    log(f"  Kepler ensemble: {n} particles, periods {t_min:.2f}-"
+        f"{t_max:.2f}, {n_steps} KDK steps over {t_total:.1f} time units")
+    res = {}
+    launches = {}
+    for d in (dev, "cpu"):
+        zero = torch.zeros((1, 3), device=d)
+        st = tnb.nbody_state_from_numpy(pos, vel, np.full(n, 1e-12,
+                                                          np.float32),
+                                        device=d)
+        for every in (C4_DETECT_EVERY, C4_SNAPSHOT_EVERY):
+            cfg = tnb.OrbitNBodyConfig(
+                dt=dt, n_steps=n_steps, detect_every=every,
+                mode="pericentric", softening=0.0, centers=zero,
+                bulk_vels=zero)
+            # ---- the main path, counted (point-mass forces: no kernel)
+            if d == dev:
+                _cuda.reset_launch_counts()
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, tr, ev = tnb.simulate_with_tracking(
+                st, members, cfg, tnb.point_mass_forces(GM=1.0))
+            counts = tr.counts[0].cpu().numpy().astype(np.int64)
+            wall = time.perf_counter() - t0
+            if d == dev:
+                for k, c in _cuda.launch_counts().items():
+                    launches[k] = launches.get(k, 0) + c
+            # ---- end of the counted main path
+            err = counts - expected
+            within1 = float(np.mean(np.abs(err) <= 1))
+            missed = float(np.mean(np.maximum(expected - counts, 0))
+                           / max(np.mean(expected), 1e-9))
+            res[str(d), every] = (counts, within1, missed)
+            log(f"  {d}, detect_every={every}: {int(ev.sum())} passages, "
+                f"exact {float(np.mean(err == 0)):.4f}, within +-1 "
+                f"{within1:.4f}, missed {missed:.3%}; {wall:.2f} s wall "
+                f"({n_steps / wall:.1f} steps/s)")
+    g = str(dev)
+    check(res[g, C4_DETECT_EVERY][1] >= 0.99,
+          f"4x cadence: only {res[g, C4_DETECT_EVERY][1]:.4f} within +-1")
+    check(res[g, C4_SNAPSHOT_EVERY][2] > res[g, C4_DETECT_EVERY][2],
+          "snapshot-rate detection does not miss more than 4x cadence")
+    for every in (C4_DETECT_EVERY, C4_SNAPSHOT_EVERY):
+        diff = res[g, every][0] - res["cpu", every][0]
+        n_diff = int((diff != 0).sum())
+        log(f"  CUDA vs CPU, detect_every={every}: {n_diff} of {n} "
+            f"particles' counts differ (max |diff| "
+            f"{int(np.abs(diff).max())}; torch.rsqrt on the card is not "
+            "the CPU's, so trajectories drift apart over "
+            f"{n_steps} steps)")
+        check(np.abs(diff).max() <= 1 and n_diff <= n // 1000,
+              f"CUDA and CPU counts differ on {n_diff} particles")
+    return launches
+
+
+def _timed_run(dev, st, members, cfg, force, chunk=None):
+    """``simulate_with_tracking`` (in ``chunk``-step pieces through
+    ``track``/``step_offset`` when given), synchronized; returns
+    ``(state, track, events, wall s)``."""
+    import torch
+
+    from orbitanalysis_tpu_torch.models.nbody import simulate_with_tracking
+
+    chunk = chunk or cfg.n_steps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr = None
+    evs = []
+    for c in range(cfg.n_steps // chunk):
+        st, tr, ev = simulate_with_tracking(
+            st, members, cfg._replace(n_steps=chunk), force, track=tr,
+            step_offset=c * chunk)
+        evs.append(ev)
+    torch.cuda.synchronize()
+    return st, tr, torch.cat(evs), time.perf_counter() - t0
+
+
+def c4_scale(dev):
+    """Phase 12: config-4 scale with PM forces and K13 (12.6M / 256^3,
+    then the 33.5M / 512^3 anchor in chunks), and CUDA-vs-CPU parity at
+    1M / 128^3.  Returns the kernel launches of the counted runs."""
+    import torch
+
+    from orbitanalysis_tpu_torch.models import nbody as tnb
+    from orbitanalysis_tpu_torch.models.pm import make_pm_force_fn
+    from orbitanalysis_tpu_torch.ops import _cuda
+    from orbitanalysis_tpu_torch.ops import deposit as td
+
+    rows, grid, steps, every = C4_SCALE
+    n = rows * C4_ROW
+    st = c4_state(n, dev)
+    members = np.arange(n, dtype=np.int32).reshape(rows, C4_ROW)
+    force = make_pm_force_fn(grid)
+    base = dict(dt=C4_DT, mode="pericentric", box_size=C4_BOX,
+                softening=0.0, G=1.0)
+    # warm-up: cuFFT plans and the allocator, one step
+    _timed_run(dev, st, members, tnb.OrbitNBodyConfig(
+        n_steps=1, detect_every=2, **base), force)
+    totals = {}
+    for label, det in (("integrator only", steps + 1), (
+            f"tracked, detect_every={every}", every)):
+        cfg = tnb.OrbitNBodyConfig(n_steps=steps, detect_every=det, **base)
+        # ---- the main path, counted
+        _cuda.reset_launch_counts()
+        _, tr, ev, wall = _timed_run(dev, st, members, cfg, force)
+        counts = _cuda.launch_counts()
+        # ---- end of the counted main path
+        for k, c in counts.items():
+            totals[k] = totals.get(k, 0) + c
+        k13 = counts["deposit_sorted"]
+        log(f"  {n} particles, {grid}^3, {steps} steps, {label}: "
+            f"{wall:.3f} s, {steps / wall:.3f} steps/s, "
+            f"{n * steps / wall:.4g} particle-steps/s; {int(ev.sum())} "
+            f"events; deposit_sorted {k13} launches")
+        check(k13 == steps + 1, f"K13 launched {k13} times, not {steps + 1}")
+        check(bool(torch.isfinite(tr.angles).all()), "non-finite angles")
+        check(set(launch_diff(counts)) == {"deposit_sorted"},
+              f"unexpected kernels {launch_diff(counts)}")
+    # where a tracked PM step's device time goes (8 steps, 9 force
+    # evaluations with the opening one)
+    cfg = tnb.OrbitNBodyConfig(n_steps=8, detect_every=every, **base)
+    wall = _timed_run(dev, st, members, cfg, force)[3]
+    profile_scan(lambda: _timed_run(dev, st, members, cfg, force), 8,
+                 wall * 1e3)
+    tr0 = tnb.init_track_state(rows, C4_ROW, device=dev)
+    members_dev = torch.from_numpy(members).to(dev)
+    for ident, label in ((True, "identity"), (False, "gather")):
+        ms = device_ms(lambda i=ident: tnb.detect_apsides_static(
+            tr0, st, members_dev, box_size=C4_BOX, identity=i), reps=4) / 4
+        log(f"  one detection, {label} path: {ms:.3f} ms ({n / ms / 1e6:.4g}"
+            "e9 detection updates/s)")
+    del st, tr0, members, members_dev, tr, ev
+    torch.cuda.empty_cache()
+
+    # the anchor the TPU never ran: 33.5M particles on 512^3, in chunks
+    rows, grid, steps, chunk = C4_ANCHOR
+    n = rows * C4_ROW
+    st = c4_state(n, dev)
+    members = np.arange(n, dtype=np.int32).reshape(rows, C4_ROW)
+    force = make_pm_force_fn(grid)
+    force(st.pos, st.mass, box_size=C4_BOX)          # warm-up: cuFFT plans
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = tnb.OrbitNBodyConfig(n_steps=steps, detect_every=C4_DETECT_EVERY,
+                               **base)
+    # ---- the main path, counted
+    _cuda.reset_launch_counts()
+    _, tr, ev, wall = _timed_run(dev, st, members, cfg, force, chunk=chunk)
+    counts = _cuda.launch_counts()
+    # ---- end of the counted main path
+    for k, c in counts.items():
+        totals[k] = totals.get(k, 0) + c
+    peak = torch.cuda.max_memory_allocated()
+    k13 = counts["deposit_sorted"]
+    log(f"  {n} particles, {grid}^3, {steps} steps in {chunk}-step chunks, "
+        f"detect_every={C4_DETECT_EVERY}: {wall:.3f} s, {wall / steps:.4f} "
+        f"s/step, {n * steps / wall:.4g} particle-steps/s, {int(ev.sum())} "
+        f"events; peak memory {peak / 2**30:.2f} GiB; deposit_sorted {k13} "
+        "launches")
+    check(k13 == (steps // chunk) * (chunk + 1),
+          f"K13 launched {k13} times at 512^3")
+    check(bool(torch.isfinite(tr.angles).all()), "non-finite angles at 512^3")
+    del st, tr, ev, members
+    torch.cuda.empty_cache()
+
+    # CUDA vs CPU at 1M / 128^3: one PM force evaluation, the deposit,
+    # and the detector on identical states
+    rows, grid = C4_PARITY
+    n = rows * C4_ROW
+    st = {d: c4_state(n, d, seed=11) for d in (dev, "cpu")}
+    force = make_pm_force_fn(grid)
+    rho = {d: td.cic_deposit_sorted(s.pos, s.mass, grid, C4_BOX)
+           for d, s in st.items()}
+    check(torch.equal(rho[dev].cpu(), rho["cpu"]),
+          "the sorted deposit differs between CUDA and CPU")
+    acc = {d: force(s.pos, s.mass, box_size=C4_BOX) for d, s in st.items()}
+    scale = float(acc["cpu"].abs().max())
+    err = float((acc[dev].cpu() - acc["cpu"]).abs().max())
+    log(f"  {n} particles, {grid}^3, CUDA vs CPU: sorted deposit "
+        f"bit-equal; PM force max |diff| {err:.3g} = {err / scale:.3g} of "
+        "the largest (cuFFT against pocketfft, K13 against index_add_; "
+        "limit 1e-4)")
+    check(err <= 1e-4 * scale, "PM forces differ between CUDA and CPU")
+    later = tnb.kdk_step(st[dev], acc[dev], 0.5, force, box_size=C4_BOX)[0]
+    later = {dev: later, "cpu": tnb.NBodyState(*(t.cpu() for t in later))}
+    members = np.arange(n, dtype=np.int32).reshape(rows, C4_ROW)
+    for ident in (True, False):
+        out = {}
+        for d in (dev, "cpu"):
+            tr = tnb.init_track_state(rows, C4_ROW, device=d)
+            tr, _ = tnb.detect_apsides_static(tr, st[d], members,
+                                              box_size=C4_BOX, identity=ident)
+            out[d] = tnb.detect_apsides_static(tr, later[d], members,
+                                               box_size=C4_BOX,
+                                               identity=ident)
+        (tg, (ag, *_)), (tc, (ac, *_)) = out[dev], out["cpu"]
+        dang = float((tg.angles.cpu() - tc.angles).abs().max())
+        log(f"  detector on identical states ({'identity' if ident else 'gather'}"
+            f"): {int(ac.sum())} apsides, flags, counts and r-hat "
+            f"{'bit-equal' if torch.equal(tg.rhat.cpu(), tc.rhat) else 'DIFFER'}"
+            f"; angles within {dang:.3g} rad (torch.acos; limit 1e-5)")
+        check(torch.equal(ag.cpu(), ac) and torch.equal(tg.counts.cpu(),
+                                                        tc.counts),
+              "the detector differs between CUDA and CPU")
+        check(torch.equal(tg.rhat.cpu(), tc.rhat) and dang <= 1e-5,
+              "detector r-hat or angles differ between CUDA and CPU")
+    return totals
+
+
+def direct_phase(dev):
+    """Phase 13: direct summation with K14 at N = 131072 (the Gram form
+    would need a 68.7 GB pair matrix), against the same run with the
+    plain blocked version on the card; then one P3M force evaluation.
+    Returns the kernel launches of the counted run."""
+    import torch
+
+    from orbitanalysis_tpu_torch.models import nbody as tnb
+    from orbitanalysis_tpu_torch.models.p3m import make_p3m_force_fn
+    from orbitanalysis_tpu_torch.ops import _cuda
+    from orbitanalysis_tpu_torch.ops import nbody as tn
+
+    rows, width, steps, every, soft, dt = DIRECT
+    n = rows * width
+    rng = np.random.default_rng(21)
+    st = tnb.nbody_state_from_numpy(
+        rng.normal(size=(n, 3)).astype(np.float32),
+        rng.normal(scale=0.3, size=(n, 3)).astype(np.float32),
+        np.full(n, 1.0 / n, np.float32), device=dev)
+    members = np.arange(n, dtype=np.int32).reshape(rows, width)
+    cfg = tnb.OrbitNBodyConfig(dt=dt, n_steps=steps, detect_every=every,
+                               softening=soft)
+    kernel = tnb.make_direct_force_fn(use_pallas=True)
+
+    def twin(pos, mass, softening=0.05, G=1.0, box_size=None, **_):
+        return tn.direct_forces_blocked_torch(pos, mass, softening, G,
+                                              box_size)
+
+    kernel(st.pos, st.mass, softening=soft)            # warm-up
+    # ---- the main path, counted
+    _cuda.reset_launch_counts()
+    _, tr_k, ev_k, wall = _timed_run(dev, st, members, cfg, kernel)
+    launches = _cuda.launch_counts()
+    # ---- end of the counted main path
+    k14 = launches["direct_forces"]
+    pairs = (steps + 1) * n * n
+    one = device_ms(lambda: kernel(st.pos, st.mass, softening=soft), 3) / 3
+    log(f"  {n} particles ({rows} x {width}, identity), {steps} steps, "
+        f"detect_every={every}: {wall:.3f} s, {pairs / wall:.4g} pairs/s "
+        f"over the run; one force evaluation {one:.3f} ms = "
+        f"{n * n / one * 1e3:.4g} pairs/s; direct_forces {k14} launches")
+    check(k14 == steps + 1, f"K14 launched {k14} times, not {steps + 1}")
+    _, tr_t, ev_t, wall_t = _timed_run(dev, st, members, cfg, twin)
+    diff = (tr_k.counts - tr_t.counts).abs()
+    n_diff = int((diff != 0).sum())
+    det = ev_k[every - 1::every].tolist()
+    log(f"  the plain blocked version on the card: {wall_t:.3f} s; events "
+        f"a detection {det} against {ev_t[every - 1::every].tolist()}; "
+        f"{n_diff} particles' counts differ (limit {n // 10000}: sums in "
+        "other orders move knife-edge sign flips)")
+    check(int(diff.max()) <= 1 and n_diff <= n // 10000,
+          f"K14 and its twin disagree on {n_diff} particles' counts")
+    check(sum(det) > 0, "no apsides in the direct-summation run")
+    del st, tr_k, tr_t
+    torch.cuda.empty_cache()
+
+    n, grid = P3M_CHECK
+    rng = np.random.default_rng(31)
+    pos = torch.from_numpy(rng.uniform(0, C4_BOX, (n, 3)).astype(
+        np.float32)).to(dev)
+    mass = torch.from_numpy(rng.uniform(0.5, 2.0, n).astype(
+        np.float32)).to(dev)
+    p3m = make_p3m_force_fn(grid)
+    p3m(pos, mass, box_size=C4_BOX, softening=0.05)     # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc = p3m(pos, mass, box_size=C4_BOX, softening=0.05)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ma = mass[:, None].double() * acc.double()
+    net = ma.sum(0).abs()
+    scale = ma.abs().sum(0)
+    log(f"  P3M, {n} particles on {grid}^3: {wall:.3f} s; finite "
+        f"{bool(torch.isfinite(acc).all())}; net force / sum |m a| = "
+        f"{(net / scale).max().item():.3g} (limit 1e-3)")
+    check(bool(torch.isfinite(acc).all()), "P3M forces not finite")
+    check(bool((net < 1e-3 * scale).all()), "P3M net force not near zero")
+    return launches
+
+
 def main():
     import torch
 
@@ -1724,6 +2211,7 @@ def main():
     timings = kernel_checks(dev)
     timings.update(label_kernel_checks(dev, work))
     timings.update(sorted_kernel_checks(dev, seq))
+    timings.update(force_kernel_checks(dev))
     log_timings(timings)
     log(f"== phase 4: aligned step parity, CUDA vs CPU, {PARITY[:2]}")
     step_parity(dev)
@@ -1743,10 +2231,23 @@ def main():
     log("== phase 10: the aligned engine on the benchmark's churn sequence "
         "(default step, detect_impl='pallas', legacy step)")
     aligned_launches = aligned_full_width(dev, seq)
+    # the earlier phases' workloads go before the 33.5M run
+    del seq, ctx
+    torch.cuda.empty_cache()
+    log("== phase 11: config-4 oracle, Kepler ensemble under point-mass "
+        "forces, on the card and on the CPU")
+    oracle_launches = c4_oracle(dev)
+    log("== phase 12: config-4 scale, PM forces through K13 (12.6M / 256^3, "
+        "33.5M / 512^3, CUDA-vs-CPU parity at 1M / 128^3)")
+    scale_launches = c4_scale(dev)
+    log("== phase 13: direct summation through K14 at N = 131072, and P3M")
+    direct_launches = direct_phase(dev)
     kernels = []
     for name, k in _cuda.KERNELS.items():
         n = (launches[name] + label_launches[name] + sorted_launches[name]
-             + e2e_sorted[name] + aligned_launches[name])
+             + e2e_sorted[name] + aligned_launches[name]
+             + oracle_launches[name] + scale_launches[name]
+             + direct_launches[name])
         r = timings[name]
         kernels.append(dict(
             name=name, route=k.route, source=k.source, replaces=k.replaces,

@@ -1,3 +1,71 @@
-from orbitanalysis_tpu_torch.models import synthetic  # noqa: F401
+"""Models of the port (twin of ``orbitanalysis_tpu/models``): the N-body
+integrator with on-the-fly orbit detection and its force solvers, and
+the synthetic data generators.
 
-__all__ = ["synthetic"]
+- :mod:`~orbitanalysis_tpu_torch.models.nbody`:
+  :func:`simulate_with_tracking` (a KDK loop with the static apsis
+  detector every ``detect_every`` steps; ``mode='both'``;
+  ``track``/``step_offset`` resume), :func:`run_tracked_simulation`
+  (``torch.save`` checkpoints, ``resume=True``), the forces
+  :func:`direct_forces` (Gram form, full float32: it raises on CUDA
+  tensors under TF32), :func:`make_direct_force_fn` (``use_pallas=True``
+  is the blocked CUDA kernel K14) and :func:`point_mass_forces`, and the
+  JAX state carried across (``nbody_state_from_numpy``,
+  ``track_state_from_numpy`` and their ``_to_numpy`` inverses);
+- :mod:`~orbitanalysis_tpu_torch.models.pm`: :func:`make_pm_force_fn`
+  (``deposit='auto'``: the sorted-stream CUDA kernel K13 on CUDA
+  tensors, ``index_add_`` on CPU ones), :func:`pm_forces`;
+- :mod:`~orbitanalysis_tpu_torch.models.p3m`: :func:`make_p3m_force_fn`;
+- :mod:`~orbitanalysis_tpu_torch.models.synthetic`: Kepler ensembles,
+  churn snapshots and the JAX benchmark's workloads.
+
+On the CPU pass ``device='cpu'`` to the state constructors (they default
+to CUDA and raise without it); the CPU tests are
+``tests/test_torch_nbody.py`` and ``tests/test_torch_pm.py``.  The
+distributed PM (``pm_sharded``) is not ported yet.
+"""
+
+from orbitanalysis_tpu_torch.models import nbody, p3m, pm, synthetic  # noqa: F401
+from orbitanalysis_tpu_torch.models.nbody import (  # noqa: F401
+    NBodyState,
+    OrbitNBodyConfig,
+    TrackState,
+    direct_forces,
+    kdk_step,
+    make_direct_force_fn,
+    nbody_state_from_numpy,
+    nbody_state_to_numpy,
+    point_mass_forces,
+    run_tracked_simulation,
+    simulate_with_tracking,
+    track_state_from_numpy,
+    track_state_to_numpy,
+)
+from orbitanalysis_tpu_torch.models.p3m import make_p3m_force_fn  # noqa: F401
+from orbitanalysis_tpu_torch.models.pm import (  # noqa: F401
+    make_pm_force_fn,
+    pm_forces,
+)
+
+__all__ = [
+    "nbody",
+    "pm",
+    "p3m",
+    "synthetic",
+    "NBodyState",
+    "OrbitNBodyConfig",
+    "TrackState",
+    "direct_forces",
+    "kdk_step",
+    "make_direct_force_fn",
+    "nbody_state_from_numpy",
+    "nbody_state_to_numpy",
+    "point_mass_forces",
+    "run_tracked_simulation",
+    "simulate_with_tracking",
+    "track_state_from_numpy",
+    "track_state_to_numpy",
+    "make_p3m_force_fn",
+    "make_pm_force_fn",
+    "pm_forces",
+]

@@ -91,6 +91,10 @@ KERNELS = {
                _sites("pallas_compact.py:173")),
         Kernel("compact_rows_groups", _SRC + "compact.cu",
                _sites("pallas_compact.py:137")),
+        Kernel("deposit_sorted", _SRC + "deposit.cu",
+               _sites("pallas_deposit.py:217")),
+        Kernel("direct_forces", _SRC + "nbody.cu",
+               _sites("pallas_nbody.py:130")),
     )
 }
 
@@ -216,6 +220,8 @@ def _library():
                     "compact_events_rows": [p] * 6 + [i] * 3 + [p],
                     "compact_rows_groups": [
                         p, pp, pp, i, i, p, pp, pp, i, i, i, i, p],
+                    "deposit_sorted": [p, p, p, p, i, ll, i, i, p],
+                    "direct_forces": [p, p, p, i, f, f, i, f, f, p],
                 }
                 for name, argtypes in signatures.items():
                     fn = getattr(lib, name)
@@ -223,6 +229,17 @@ def _library():
                     fn.restype = i
                 _lib = lib
     return _lib
+
+
+def on_cpu(x: torch.Tensor, what: str) -> bool:
+    """Where a wrapper routes: True for a CPU tensor (the plain-torch
+    version), False for a CUDA tensor (the kernel); ValueError for any
+    other device.  Nothing falls back from one to the other."""
+    if x.is_cuda:
+        return False
+    if x.device.type == "cpu":
+        return True
+    raise ValueError(f"no {what} kernel for device {x.device}")
 
 
 def _check(name, *tensors, dtype=torch.int32, dim=2):
@@ -597,3 +614,54 @@ def compact_rows_groups(sel_a, ops_a, len_a: int, sel_b, ops_b,
             sel_b.data_ptr(), _pointers(ops_b), _pointers(outs[1]),
             len(ops_b), len_b, h, n, device=sel_a.device)
     return outs[0], outs[1]
+
+
+def deposit_sorted(keys: torch.Tensor, fracs: torch.Tensor, n_cells: int,
+                   sx: int, sy: int) -> torch.Tensor:
+    """Launch the sorted-stream CIC deposit (K13): ``keys [N]`` int32
+    ascending base-cell keys on the virtual grid (strides ``sx``, ``sy``,
+    1), ``fracs [4, N]`` f32 ``(fx, fy, fz, m)`` -> the flat virtual grid
+    ``[n_cells]`` f32.  Keys outside ``[0, n_cells)`` deposit nothing."""
+    name = "deposit_sorted"
+    n = keys.shape[0]
+    _check(name, keys, dim=1)
+    _check(name, fracs, dtype=torch.float32)
+    if fracs.shape != (4, n):
+        raise ValueError(f"{name}: fracs must be [4, {n}]")
+    if keys.device != fracs.device:
+        raise ValueError(f"{name}: tensors on different devices")
+    if n >= 2**31:
+        raise ValueError(f"{name}: {n} entries exceed int32 indexing")
+    r8 = torch.empty((8, n_cells), dtype=torch.float32, device=keys.device)
+    out = torch.empty(n_cells, dtype=torch.float32, device=keys.device)
+    _launch(name, _library().deposit_sorted, keys.data_ptr(),
+            fracs.data_ptr(), r8.data_ptr(), out.data_ptr(), n, n_cells,
+            sx, sy, device=keys.device)
+    return out
+
+
+def direct_forces(pos: torch.Tensor, mass: torch.Tensor, softening: float,
+                  G: float, box_size) -> torch.Tensor:
+    """Launch the blocked direct-summation forces (K14): ``pos [N, 3]``
+    f32, ``mass [N]`` f32 -> ``[N, 3]`` f32 accelerations, minimum image
+    when ``box_size`` is not None."""
+    name = "direct_forces"
+    n = pos.shape[0]
+    _check(name, pos, dtype=torch.float32)
+    _check(name, mass, dtype=torch.float32, dim=1)
+    if pos.shape != (n, 3) or mass.shape != (n,):
+        raise ValueError(f"{name}: want pos [N, 3] and mass [N], got "
+                         f"{tuple(pos.shape)} and {tuple(mass.shape)}")
+    if pos.device != mass.device:
+        raise ValueError(f"{name}: tensors on different devices")
+    if n >= 2**31 // 3:
+        raise ValueError(f"{name}: {n} particles exceed int32 indexing")
+    out = torch.empty((n, 3), dtype=torch.float32, device=pos.device)
+    f = ctypes.c_float
+    box = 0.0 if box_size is None else float(box_size)
+    _launch(name, _library().direct_forces, pos.data_ptr(), mass.data_ptr(),
+            out.data_ptr(), n, f(float(softening) * float(softening)),
+            f(float(G)), int(box_size is not None), f(box),
+            f(1.0 / box if box_size is not None else 0.0),
+            device=pos.device)
+    return out

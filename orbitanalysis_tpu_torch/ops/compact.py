@@ -168,19 +168,11 @@ def compact_rows_torch(sel_a, ops_a, len_a: int, sel_b, ops_b, len_b: int):
             _pack_group(sel_b, ops_b, len_b))
 
 
-def _route(x: torch.Tensor) -> str:
-    if x.is_cuda:
-        return "cuda"
-    if x.device.type == "cpu":
-        return "cpu"
-    raise ValueError(f"no compaction kernel for device {x.device}")
-
-
 def compact_angle_blocked(aw: torch.Tensor, event_capacity: int):
     """The aligned step's event compaction for rows up to
     :data:`PAYLOAD_MAX_ROW`: the CUDA kernel ``compact_angle_rows`` on a
     CUDA tensor, :func:`compact_angle_blocked_torch` on a CPU tensor."""
-    if _route(aw) == "cpu":
+    if _cuda.on_cpu(aw, "compaction"):
         return compact_angle_blocked_torch(aw, event_capacity)
     h, p = aw.shape
     _check_rows(p, single_word=True)
@@ -192,7 +184,7 @@ def compact_payload_pair(posw: torch.Tensor, angw: torch.Tensor,
     """Two-stream compaction for rows wider than :data:`PAYLOAD_MAX_ROW`:
     the CUDA kernel ``compact_pair_rows`` on CUDA tensors,
     :func:`compact_payload_pair_torch` on CPU tensors."""
-    if _route(posw) == "cpu":
+    if _cuda.on_cpu(posw, "compaction"):
         return compact_payload_pair_torch(posw, angw, event_capacity)
     h, p = posw.shape
     _check_rows(p, single_word=False)
@@ -203,7 +195,7 @@ def compact_payload(payload: torch.Tensor, event_capacity: int):
     """The label-native detector's single-stream payload compaction
     (K4): the CUDA kernel ``compact_payload_rows`` on a CUDA tensor,
     :func:`compact_payload_torch` on a CPU tensor."""
-    if _route(payload) == "cpu":
+    if _cuda.on_cpu(payload, "compaction"):
         return compact_payload_torch(payload, event_capacity)
     h, p = payload.shape
     _check_rows(p, single_word=True)
@@ -224,7 +216,7 @@ def compact_events(packed: torch.Tensor, key: torch.Tensor,
     :func:`compact_events_torch` on CPU tensors.  ``packed``: ``[H, P]``
     words ``f32_bits(angle) | apsis << 31``; ``key``/``sv``: the event
     payloads.  Returns ``(evk, evsv, evpacked)``, each ``[H, k128]``."""
-    if _route(packed) == "cpu":
+    if _cuda.on_cpu(packed, "compaction"):
         return compact_events_torch(packed, key, sv, event_capacity)
     h, p = packed.shape
     _check_rows(p, single_word=False)
@@ -239,7 +231,7 @@ def compact_rows(sel_a, ops_a, len_a: int, sel_b, ops_b, len_b: int):
     on CPU tensors.  ``sel_*`` are int32 0/1 masks, ``ops_*`` tuples of
     ``[H, N]`` 32-bit planes; returns ``(tuple_a [H, len_a], tuple_b
     [H, len_b])``."""
-    if _route(sel_a) == "cpu":
+    if _cuda.on_cpu(sel_a, "compaction"):
         return compact_rows_torch(sel_a, ops_a, len_a, sel_b, ops_b, len_b)
     _check_groups(sel_a, ops_a, len_a, ops_b, len_b)
     return _cuda.compact_rows_groups(sel_a, tuple(ops_a), len_a, sel_b,

@@ -45,14 +45,6 @@ _MOMENT_CHUNK = 1024
 _ONEHOT_ELEMS = 1 << 24
 
 
-def _route(x: torch.Tensor) -> str:
-    if x.is_cuda:
-        return "cuda"
-    if x.device.type == "cpu":
-        return "cpu"
-    raise ValueError(f"no frame kernel for device {x.device}")
-
-
 def frame_rows_torch(table: torch.Tensor, labels: torch.Tensor):
     """Plain-torch twin of the frame-row kernel: ``table [H, C]`` f32,
     ``labels`` any shape (flattened) -> ``[C, N]`` f32 gather, zeros
@@ -68,7 +60,7 @@ def frame_rows(table: torch.Tensor, labels: torch.Tensor):
     """``table[labels].T`` as SoA ``[C, N]`` f32 (K6, K11): the CUDA kernel
     on CUDA tensors, :func:`frame_rows_torch` on CPU tensors.
     ``labels`` may be any shape; it is flattened."""
-    if _route(labels) == "cpu":
+    if _cuda.on_cpu(labels, "frame"):
         return frame_rows_torch(table, labels)
     return _cuda.frame_rows(table.to(torch.float32).contiguous(),
                             labels.reshape(-1).contiguous())
@@ -118,7 +110,7 @@ def segment_moments(labels: torch.Tensor, vel: torch.Tensor, mass=None, *,
     ``[0, H)`` (K7, K12): the CUDA kernel on CUDA tensors,
     :func:`segment_moments_torch` on CPU tensors.  ``labels``/``mass``
     any shape, ``vel`` ``[3, ...]``, flattened."""
-    if _route(labels) == "cpu":
+    if _cuda.on_cpu(labels, "frame"):
         return segment_moments_torch(labels, vel, mass, n_halos=n_halos)
     lab = labels.reshape(-1).contiguous()
     n = lab.shape[0]

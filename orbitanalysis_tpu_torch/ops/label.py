@@ -52,14 +52,6 @@ from orbitanalysis_tpu_torch.utils.numerics import (
 )
 
 
-def _route(x: torch.Tensor) -> str:
-    if x.is_cuda:
-        return "cuda"
-    if x.device.type == "cpu":
-        return "cpu"
-    raise ValueError(f"no detect kernel for device {x.device}")
-
-
 def _f32(x) -> float:
     """A Python float holding the float32 value of ``x``."""
     return float(np.float32(x))
@@ -147,7 +139,7 @@ def detect_label(rows, lab, pos, vel, sv, rhat, packed, hubble_drag, *,
     """The detect pass without compaction (K9): the CUDA kernel
     ``detect_label_rows`` on CUDA tensors, :func:`detect_label_torch`
     on CPU tensors.  Returns ``(sv', rhat', packed', payload, count)``."""
-    if _route(lab) == "cpu":
+    if _cuda.on_cpu(lab, "detect"):
         return detect_label_torch(
             rows, lab, pos, vel, sv, rhat, packed, hubble_drag,
             pericentric=pericentric, box_size=box_size,
@@ -167,7 +159,7 @@ def detect_label_compact(rows, lab, pos, vel, sv, rhat, packed,
     :func:`detect_label_compact_torch` on CPU tensors.  Returns
     ``(sv', rhat', packed', events [R, k128], count [R])``; the counts
     are exact even past ``k128``."""
-    if _route(lab) == "cpu":
+    if _cuda.on_cpu(lab, "detect"):
         return detect_label_compact_torch(
             rows, lab, pos, vel, sv, rhat, packed, hubble_drag,
             event_capacity=event_capacity, pericentric=pericentric,
@@ -211,7 +203,7 @@ def fused_label_detect(table, lab, pos, vel, sv, rhat, packed, hubble_drag,
     # the kernel's bound holds on every device, so a route that runs on
     # the CPU runs on the card
     _cuda.check_fused_table(table.shape[0])
-    if _route(lab) == "cpu":
+    if _cuda.on_cpu(lab, "detect"):
         return fused_label_detect_torch(
             table, lab, pos, vel, sv, rhat, packed, hubble_drag,
             pericentric=pericentric, box_size=box_size,

@@ -46,12 +46,26 @@ def div_rn(a, b: torch.Tensor) -> torch.Tensor:
     return (a.to(torch.float64) / b.to(torch.float64)).to(torch.float32)
 
 
+def box_tensor(box_size, like: torch.Tensor) -> torch.Tensor:
+    """``box_size`` (a scalar or a length-3 vector) as a tensor of
+    ``like``'s dtype on its device.  A number is filled there, not copied
+    from the host: a copy from pageable host memory waits for the
+    device's stream."""
+    if isinstance(box_size, torch.Tensor):
+        return box_size.to(device=like.device, dtype=like.dtype)
+    box = np.asarray(box_size, np.float64)
+    if box.ndim == 0:
+        return like.new_full((), float(box))
+    return torch.stack([like.new_full((), float(b)) for b in box])
+
+
 def periodic_displacement(dx: torch.Tensor, box_size) -> torch.Tensor:
     """Minimum-image displacement: each component of ``dx`` mapped into
-    ``[-L/2, L/2]``.  ``box_size`` is a scalar or a length-3 vector
-    broadcast against the trailing axis."""
-    box = torch.as_tensor(box_size, dtype=dx.dtype, device=dx.device)
-    return dx - box * torch.round(dx / box)
+    ``[-L/2, L/2]``, the quotient the IEEE one (:func:`div_rn`).
+    ``box_size`` is a scalar or a length-3 vector broadcast against the
+    trailing axis."""
+    box = box_tensor(box_size, dx)
+    return dx - box * torch.round(div_rn(dx, box))
 
 
 def recenter_coordinates(position: torch.Tensor, box_size) -> torch.Tensor:

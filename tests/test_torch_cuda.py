@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels on the card, against their
 plain-torch twins, and the port's main paths (the tracker's aligned and
-sorted engines, the label-native detector, the sorted scan) on CUDA
-against the same paths on the CPU.
+sorted engines, the label-native detector, the sorted scan, the N-body
+integrator with PM and direct forces) on CUDA against the same paths on
+the CPU.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports nothing of JAX (the machine with the card has none), so run it
@@ -777,3 +778,190 @@ def test_aligned_steps_on_cuda_match_cpu(dev, static):
             assert bool(((ulp.abs() <= 1) | ((a - x.angles[sel]).abs()
                                              <= 2e-3)).all())
     assert total > 0
+
+
+# ---------------------------------------------------------------- K13, K14
+
+def _rel(a1, a2):
+    """The JAX test's force measure: max |a1 - a2| / (|a2| + 1e-3)."""
+    a1, a2 = a1.double().cpu(), a2.double().cpu()
+    return float(((a1 - a2).abs()
+                  / (a2.norm(dim=1, keepdim=True) + 1e-3)).max())
+
+
+@pytest.mark.parametrize("n", [1, 127, 128, 1000, 4099])
+@pytest.mark.parametrize("box", [None, 10.0])
+def test_direct_forces_kernel_matches_twin(dev, n, box):
+    from orbitanalysis_tpu_torch.ops import nbody as tn
+
+    rng = np.random.default_rng(n)
+    pos = (rng.uniform(0, 10.0, (n, 3)) if box else rng.normal(size=(n, 3))
+           ).astype(np.float32)
+    mass = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    mass[::7] = 0.0                                   # zero-mass sources
+    p, m = torch.from_numpy(pos), torch.from_numpy(mass)
+    got = tn.direct_forces_blocked(p.to(dev), m.to(dev), softening=0.1,
+                                   G=1.5, box_size=box)
+    torch.cuda.synchronize()
+    assert got.shape == (n, 3) and got.is_cuda
+    assert _rel(got, tn.direct_forces_blocked_torch(
+        p.to(dev), m.to(dev), 0.1, 1.5, box)) < 1e-3
+    assert _rel(got, tn.direct_forces_blocked_torch(p, m, 0.1, 1.5,
+                                                    box)) < 1e-3
+
+
+def test_direct_forces_kernel_refuses_bad_inputs_and_counts(dev):
+    from orbitanalysis_tpu_torch.models import nbody as tnb
+    from orbitanalysis_tpu_torch.ops import nbody as tn
+
+    _cuda.reset_launch_counts()
+    pos = torch.randn(300, 3, device=dev)
+    mass = torch.ones(300, device=dev)
+    tn.direct_forces_blocked(pos, mass)
+    tnb.make_direct_force_fn(use_pallas=True)(pos, mass, box_size=5.0)
+    tn.direct_forces_blocked_torch(pos, mass)         # the twin: not counted
+    assert _cuda.launch_counts()["direct_forces"] == 2
+    with pytest.raises(ValueError, match="CUDA"):
+        _cuda.direct_forces(pos.cpu(), mass.cpu(), 0.1, 1.0, None)
+    with pytest.raises(ValueError, match="float32"):
+        _cuda.direct_forces(pos.double(), mass, 0.1, 1.0, None)
+    with pytest.raises(ValueError, match="contiguous"):
+        _cuda.direct_forces(torch.randn(3, 300, device=dev).T, mass, 0.1,
+                            1.0, None)
+    with pytest.raises(ValueError, match="mass"):
+        _cuda.direct_forces(pos, mass[:10], 0.1, 1.0, None)
+
+
+def test_gram_forces_refuse_tf32(dev):
+    from orbitanalysis_tpu_torch.models import nbody as tnb
+
+    pos = torch.randn(64, 3, device=dev)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    tnb.direct_forces(pos, torch.ones(64, device=dev))
+    old = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        with pytest.raises(RuntimeError, match="TF32"):
+            tnb.direct_forces(pos, torch.ones(64, device=dev))
+    finally:
+        torch.set_float32_matmul_precision(old)
+
+
+def _stream(rng, n, grid, box, clustered=False):
+    from orbitanalysis_tpu_torch.ops import deposit as td
+
+    pos = rng.uniform(0, box, (n, 3)).astype(np.float32)
+    if clustered and n:
+        pos[: n // 3] = rng.uniform(0.2 * box, 0.3 * box, (n // 3, 3))
+    pos[:2] = np.array([[0.0, 0.0, 0.0], [box, box, box]])[:n]
+    mass = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    return td.sorted_stream(torch.from_numpy(pos), torch.from_numpy(mass),
+                            grid, box), pos, mass
+
+
+@pytest.mark.parametrize("n", [0, 1, 1000, 50000])
+@pytest.mark.parametrize("grid", [8, 16, 33])
+@pytest.mark.parametrize("clustered", [False, True])
+def test_deposit_kernel_matches_twin(dev, n, grid, clustered):
+    """K13 equals its plain version bit for bit, on the card and on the
+    CPU (the same adds in the same order), runs of equal keys included."""
+    from orbitanalysis_tpu_torch.ops import deposit as td
+
+    rng = np.random.default_rng(n + grid)
+    (keys, fracs), _, _ = _stream(rng, n, grid, 10.0, clustered)
+    got = td.deposit_stream(keys.to(dev), fracs.to(dev), grid)
+    want_dev = td.deposit_stream_torch(keys.to(dev), fracs.to(dev), grid)
+    want_cpu = td.deposit_stream_torch(keys, fracs, grid)
+    torch.cuda.synchronize()
+    assert got.shape == ((grid + 1) ** 3,)
+    assert torch.equal(got, want_dev)
+    assert torch.equal(got.cpu(), want_cpu)
+
+
+def test_sorted_deposit_cuda_equals_cpu(dev):
+    """The whole sorted deposit (stream, kernel, fold) and its slab form
+    on the card equal the CPU's bit for bit (IEEE cell index), and mass
+    is conserved."""
+    from orbitanalysis_tpu_torch.ops import deposit as td
+
+    rng = np.random.default_rng(5)
+    n, grid, box = 200000, 32, 10.0
+    pos = rng.uniform(0, box, (n, 3)).astype(np.float32)
+    h = box / grid
+    pos[:4] = [[h, h, h], [h / 2, 2 * h, 3 * h], [box - h / 2, 0, 0],
+               [box, box, box]]
+    p = torch.from_numpy(pos)
+    got = td.cic_deposit_sorted(p.to(dev), 1.25, grid, box)
+    assert torch.equal(got.cpu(), td.cic_deposit_sorted(p, 1.25, grid, box))
+    assert float(got.double().sum()) == pytest.approx(1.25 * n, rel=1e-6)
+    for ns in (2, 4):
+        s = td.cic_deposit_sorted_slabs(p.to(dev), 1.25, grid, box,
+                                        n_slabs=ns)
+        assert torch.equal(s.cpu(), td.cic_deposit_sorted_slabs(
+            p, 1.25, grid, box, n_slabs=ns))
+        torch.testing.assert_close(s, got, rtol=2e-5, atol=2e-5)
+
+
+def test_deposit_kernel_refuses_bad_inputs_and_counts(dev):
+    from orbitanalysis_tpu_torch.models import pm as tpm
+
+    _cuda.reset_launch_counts()
+    keys = torch.zeros(10, dtype=torch.int32, device=dev)
+    fracs = torch.zeros(4, 10, device=dev)
+    _cuda.deposit_sorted(keys, fracs, 729, 81, 9)
+    pos = torch.rand(500, 3, device=dev) * 4.0
+    tpm.make_pm_force_fn(8)(pos, torch.ones(500, device=dev), box_size=4.0)
+    tpm.make_pm_force_fn(8, deposit="scatter")(
+        pos, torch.ones(500, device=dev), box_size=4.0)
+    counts = _cuda.launch_counts()
+    assert counts.pop("deposit_sorted") == 2
+    assert set(counts.values()) == {0}
+    with pytest.raises(ValueError, match="CUDA"):
+        _cuda.deposit_sorted(keys.cpu(), fracs.cpu(), 729, 81, 9)
+    with pytest.raises(ValueError, match="int32"):
+        _cuda.deposit_sorted(keys.long(), fracs, 729, 81, 9)
+    with pytest.raises(ValueError, match="float32"):
+        _cuda.deposit_sorted(keys, fracs.double(), 729, 81, 9)
+    with pytest.raises(ValueError, match="contiguous"):
+        _cuda.deposit_sorted(keys, torch.zeros(10, 4, device=dev).T, 729,
+                             81, 9)
+    with pytest.raises(ValueError, match="fracs"):
+        _cuda.deposit_sorted(keys, fracs[:, :5].contiguous(), 729, 81, 9)
+
+
+def test_integrator_on_cuda_matches_cpu(dev):
+    """PM-driven tracking on the card against the CPU: one force
+    evaluation agrees to 1e-4 of its scale (cuFFT against pocketfft, K13
+    against index_add_), and the detector gives the same flags and
+    counts on identical states."""
+    from orbitanalysis_tpu_torch.models import nbody as tnb
+    from orbitanalysis_tpu_torch.models import pm as tpm
+
+    rng = np.random.default_rng(4)
+    n, grid, box = 4096, 32, 50.0
+    pos = rng.uniform(0, box, (n, 3)).astype(np.float32)
+    vel = rng.normal(scale=0.2, size=(n, 3)).astype(np.float32)
+    mass = np.full(n, 1.0 / n, np.float32)
+    force = tpm.make_pm_force_fn(grid)
+    st = {d: tnb.nbody_state_from_numpy(pos, vel, mass, device=d)
+          for d in (dev, "cpu")}
+    acc = {d: force(s.pos, s.mass, box_size=box) for d, s in st.items()}
+    scale = float(acc["cpu"].abs().max())
+    assert float((acc[dev].cpu() - acc["cpu"]).abs().max()) < 1e-4 * scale
+    members = np.arange(n, dtype=np.int32).reshape(4, n // 4)
+    s1 = tnb.kdk_step(st[dev], acc[dev], 0.5, force, box_size=box)[0]
+    later = tnb.NBodyState(*(t.cpu() for t in s1))
+    for ident in (True, False):
+        out = {}
+        for d, s0, s in ((dev, st[dev], s1), ("cpu", st["cpu"], later)):
+            tr = tnb.init_track_state(4, n // 4, device=d)
+            tr, _ = tnb.detect_apsides_static(tr, s0, members, box_size=box,
+                                              identity=ident)
+            out[d] = tnb.detect_apsides_static(tr, s, members, box_size=box,
+                                               identity=ident)
+        (tg, (ag, *_)), (tc, (ac, *_)) = out[dev], out["cpu"]
+        assert torch.equal(ag.cpu(), ac) and int(ac.sum()) > 0
+        assert torch.equal(tg.counts.cpu(), tc.counts)
+        assert torch.equal(tg.rhat.cpu(), tc.rhat)
+        torch.testing.assert_close(tg.angles.cpu(), tc.angles, rtol=0,
+                                   atol=1e-5)
