@@ -18,8 +18,9 @@ repository checkout; it imports nothing of JAX.  Phases:
    tensors, at the shapes its main path gives it (the sorted engine's
    kernels and the aligned detect kernel on the inputs of real steps,
    the fused label detect kernel on the label path's, the sorted
-   deposit on the stream of phase 12's first force evaluation, the
-   blocked direct forces at N = 16,384), with timings,
+   deposit on the streams of the first force evaluations of phase 12's
+   two runs, 12.6M / 257^3 and 33.5M / 513^3, the blocked direct forces
+   at N = 16,384 and 131,072, free and periodic), with timings,
    the card's bound for the same work and, where one PyTorch call
    computes the same function, that call's time;
 4. aligned step parity: 8 churning snapshots at [64, 32768], the
@@ -1726,11 +1727,41 @@ C4_PARITY = (16, 128)
 DIRECT = (32, 4096, 16, 4, 0.05, 0.01)
 K14_N = 16384
 P3M_CHECK = (1 << 18, 64)
-#: float32 operations a pair of K14 (csrc/nbody.cu: free space, periodic)
-#: and the H100's special-function rate (16 a clock per SM, 132 SMs, 1.98
-#: GHz) that bounds its rsqrtf
-K14_OPS = {False: 19, True: 31}
-PEAK_SFU = 16 * 132 * 1.98e9
+#: float32 instructions a pair of K14 at a softening of 1e-9 or more, an
+#: FMA counted once (csrc/nbody.cu: free space, periodic), issued at 128
+#: lanes a clock per SM, and its one reciprocal root on the
+#: special-function unit at 16 a clock per SM
+K14_INSTR = {False: 12, True: 21}
+FP32_LANES, SFU_LANES = 128, 16
+
+
+def sm_clock_hz():
+    """The card's maximum SM clock, in Hz (``nvidia-smi
+    --query-gpu=clocks.max.sm``)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout
+    return float(out.split()[0]) * 1e6
+
+
+def k14_bound(n, periodic, dev):
+    """K14's ``(bound_ms, bound_by, which binds)`` for ``n`` particles: the
+    larger of the float32 pipe's time (K14_INSTR a pair at FP32_LANES a
+    clock per SM), the SFU's (one rsqrtf a pair at SFU_LANES) and the
+    bytes' (16 read and 12 written a particle)."""
+    import torch
+
+    rate = torch.cuda.get_device_properties(dev).multi_processor_count \
+        * sm_clock_hz()
+    pairs = float(n) * n
+    t = {"float32 pipe": K14_INSTR[periodic] * pairs / (FP32_LANES * rate),
+         "SFU rsqrt": pairs / (SFU_LANES * rate),
+         "bytes": 28.0 * n / PEAK_BYTES}
+    what = max(t, key=t.get)
+    return (t[what] * 1e3, "bytes" if what == "bytes" else "operations",
+            f"the {what} binds; "
+            + ", ".join(f"{k} {v * 1e3:.4f} ms" for k, v in t.items()))
 
 
 def c4_state(n, dev, seed=3):
@@ -1753,28 +1784,30 @@ def force_rel(a1, a2):
                   / (a2.norm(dim=1, keepdim=True) + 1e-3)).max())
 
 
-def force_kernel_checks(dev):
-    """Phase 3 for K13 (the sorted stream of the 12.6M / 256^3 run's
-    first force evaluation) and K14 (N = 16384, free and periodic)."""
+def _k13_check(dev, n, grid, results):
+    """K13 on the sorted stream of the first force evaluation of config
+    4's ``n``-particle run on ``grid``^3: bit-equal to its plain version,
+    mass kept, ``index_add_`` close; returns the timings."""
     import torch
 
-    from orbitanalysis_tpu_torch.models import nbody as tnb
     from orbitanalysis_tpu_torch.ops import deposit as td
-    from orbitanalysis_tpu_torch.ops import nbody as tn
 
-    results = {}
-    rows, grid = C4_SCALE[0], C4_SCALE[1]
-    st = c4_state(rows * C4_ROW, dev)
+    st = c4_state(n, dev)
     keys, fracs = td.sorted_stream(st.pos, st.mass, grid, C4_BOX)
-    n, v = keys.shape[0], (grid + 1) ** 3
+    del st
+    v = (grid + 1) ** 3
     got = td.deposit_stream(keys, fracs, grid)
+    again = td.deposit_stream(keys, fracs, grid)
     want = td.deposit_stream_torch(keys, fracs, grid)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     total = float(td.fold_virtual(got, grid).double().sum())
-    check(torch.equal(got, want), "deposit_sorted differs from its twin")
+    check(torch.equal(got, want), f"deposit_sorted differs from its twin "
+          f"at {n} / {grid + 1}^3")
+    check(torch.equal(got, again), "deposit_sorted is not deterministic")
     check(abs(total - n) <= 1e-6 * n,
           f"deposit_sorted: mass {total} of {n}")
+    del want, again
     offs = torch.tensor(td._offsets(grid), device=dev)
     idx8 = (keys.long()[None, :] + offs[:, None]).reshape(-1)
     w8 = td._corner_weights8(fracs).reshape(-1)
@@ -1785,19 +1818,92 @@ def force_kernel_checks(dev):
     lib_err = float((library() - got).abs().max())
     check(lib_err <= 2e-5 * float(got.abs().max()),
           f"deposit_sorted: index_add_ differs by {lib_err}")
-    log(f"  deposit_sorted {n} entries onto {grid + 1}^3 (the 12.6M run's "
-        f"first force evaluation): bit-equal to its twin; mass {total:.1f} "
-        f"of {n}; index_add_ within {lib_err:.3g}")
     # the function reads keys (4 B) and fracs (16 B) an entry and writes
     # the virtual grid once
     b_ms, b_by = bound(20 * n + 4 * v, 0)
-    results["deposit_sorted"] = dict(
+    big = n > C4_SCALE[0] * C4_ROW
+    r = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: td.deposit_stream(keys, fracs, grid)),
-        plain_ms=cuda_ms(lambda: td.deposit_stream_torch(keys, fracs, grid)),
+        plain_ms=cuda_ms(lambda: td.deposit_stream_torch(keys, fracs, grid),
+                         runs=3 if big else 5, reps=2 if big else 10,
+                         warmup=1 if big else 3),
         bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(library))
-    del st, keys, fracs, got, want, idx8, w8
+    log(f"  deposit_sorted {n} entries onto {grid + 1}^3: bit-equal to its "
+        f"twin, twice the same bits; mass {total:.1f} of {n}; index_add_ "
+        f"within {lib_err:.3g}; kernel {r['ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f}, index_add_ {r['library_ms']:.4f}, bound "
+        f"{b_ms:.4f} ({b_by})")
+    results[n, grid] = r
+    return r
 
+
+def _k14_check(dev, n, box, results):
+    """K14 at ``n`` particles (free, or periodic in ``box``) against its
+    plain version and, where its pair matrix fits, the Gram or dense
+    ``direct_forces``; returns the timings."""
+    import torch
+
+    from orbitanalysis_tpu_torch.models import nbody as tnb
+    from orbitanalysis_tpu_torch.ops import nbody as tn
+
+    rng = np.random.default_rng(0)
+    if box is None:
+        pos = rng.normal(size=(n, 3)).astype(np.float32)
+    else:
+        pos = rng.uniform(0, box, (n, 3)).astype(np.float32)
+    mass = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    p = torch.from_numpy(pos).to(dev)
+    m = torch.from_numpy(mass).to(dev)
+    got = tn.direct_forces_blocked(p, m, softening=0.1, box_size=box)
+    again = tn.direct_forces_blocked(p, m, softening=0.1, box_size=box)
+    twin = tn.direct_forces_blocked_torch(p, m, 0.1, 1.0, box)
+    torch.cuda.synchronize()
+    r_twin = force_rel(got, twin)
+    what = "free" if box is None else f"periodic box {box}"
+    check(torch.equal(got, again), f"direct_forces ({what}) is not "
+          "deterministic")
+    check(r_twin < 1e-3, f"direct_forces ({what}) disagrees with its twin")
+    line = f"  direct_forces N={n} {what}: against its twin {r_twin:.3g}"
+    if n <= K14_N:
+        r_dense = force_rel(got, tnb.direct_forces(p, m, softening=0.1,
+                                                   box_size=box))
+        check(r_dense < 1e-3, f"direct_forces ({what}) disagrees with the "
+              "dense form")
+        line += (f", against the {'Gram' if box is None else 'dense'} "
+                 f"direct_forces {r_dense:.3g}")
+    big = n > K14_N
+    b_ms, b_by, parts = k14_bound(n, box is not None, dev)
+    r = dict(
+        max_abs_err=float((got - twin).abs().max()),
+        ms=cuda_ms(lambda: tn.direct_forces_blocked(p, m, 0.1, box_size=box),
+                   runs=3 if big else 5, reps=2 if big else 10),
+        plain_ms=cuda_ms(
+            lambda: tn.direct_forces_blocked_torch(p, m, 0.1, 1.0, box),
+            runs=3 if big else 5, reps=1 if big else 10,
+            warmup=1 if big else 3),
+        bound_ms=b_ms, bound_by=b_by,
+        # no single PyTorch call sums softened pair forces
+        library_ms=None)
+    log(f"{line} (max |a1-a2|/(|a2|+1e-3) < 1e-3); twice the same bits; "
+        f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, bound "
+        f"{b_ms:.4f} ms ({parts}); {n * n / r['ms'] * 1e3:.4g} pairs/s")
+    results[n, box] = r
+    return r
+
+
+def force_kernel_checks(dev):
+    """Phase 3 for K13 (the sorted streams of the first force evaluations
+    of the 12.6M / 256^3 and 33.5M / 512^3 runs) and K14 (N = 16384 and
+    131072, free and periodic).  Returns the timings at the kernels' main
+    shapes (12.6M / 257^3; N = 16384 free) and logs every shape's."""
+    import torch
+
+    k13, k14 = {}, {}
+    results = {"deposit_sorted": _k13_check(
+        dev, C4_SCALE[0] * C4_ROW, C4_SCALE[1], k13)}
+    _k13_check(dev, C4_ANCHOR[0] * C4_ROW, C4_ANCHOR[1], k13)
+    torch.cuda.empty_cache()
     log(f"  matmul: allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
         f"float32 precision '{torch.get_float32_matmul_precision()}' (the "
         "Gram form needs full float32; cudnn.allow_tf32="
@@ -1805,45 +1911,14 @@ def force_kernel_checks(dev):
     check(not torch.backends.cuda.matmul.allow_tf32
           and torch.get_float32_matmul_precision() == "highest",
           "float32 matmuls are not full float32")
-    rng = np.random.default_rng(0)
-    for box in (None, 10.0):
-        if box is None:
-            pos = rng.normal(size=(K14_N, 3)).astype(np.float32)
-        else:
-            pos = rng.uniform(0, box, (K14_N, 3)).astype(np.float32)
-        mass = rng.uniform(0.5, 2.0, K14_N).astype(np.float32)
-        p = torch.from_numpy(pos).to(dev)
-        m = torch.from_numpy(mass).to(dev)
-        got = tn.direct_forces_blocked(p, m, softening=0.1, box_size=box)
-        twin = tn.direct_forces_blocked_torch(p, m, 0.1, 1.0, box)
-        dense = tnb.direct_forces(p, m, softening=0.1, box_size=box)
-        torch.cuda.synchronize()
-        r_twin, r_dense = force_rel(got, twin), force_rel(got, dense)
-        what = "free" if box is None else f"periodic box {box}"
-        log(f"  direct_forces N={K14_N} {what}: against its twin "
-            f"{r_twin:.3g}, against the {'Gram' if box is None else 'dense'}"
-            f" direct_forces {r_dense:.3g} (max |a1-a2|/(|a2|+1e-3) < 1e-3)")
-        check(r_twin < 1e-3 and r_dense < 1e-3,
-              f"direct_forces ({what}) disagrees")
-        if box is None:
-            pairs = K14_N * K14_N
-            b_ms, b_by = bound(16 * K14_N + 12 * K14_N,
-                               max(K14_OPS[False] * pairs,
-                                   pairs / PEAK_SFU * PEAK_OPS))
-            results["direct_forces"] = dict(
-                max_abs_err=float((got - twin).abs().max()),
-                ms=cuda_ms(lambda: tn.direct_forces_blocked(p, m, 0.1)),
-                plain_ms=cuda_ms(
-                    lambda: tn.direct_forces_blocked_torch(p, m, 0.1)),
-                bound_ms=b_ms, bound_by=b_by,
-                # no single PyTorch call sums softened pair forces
-                library_ms=None)
-        else:
-            t_ms = cuda_ms(lambda: tn.direct_forces_blocked(p, m, 0.1,
-                                                            box_size=box))
-            log(f"  direct_forces periodic: {t_ms:.4f} ms a call, bound "
-                f"{K14_OPS[True] * K14_N * K14_N / PEAK_OPS * 1e3:.4f} ms "
-                "(operations)")
+    results["direct_forces"] = _k14_check(dev, K14_N, None, k14)
+    for n, box in ((K14_N, 10.0), (8 * K14_N, None), (8 * K14_N, 10.0)):
+        _k14_check(dev, n, box, k14)
+    for (n, grid), r in k13.items():
+        log(f"  K13 at {n} / {grid + 1}^3: {json.dumps(r)}")
+    for (n, box), r in k14.items():
+        log(f"  K14 at N={n} {'free' if box is None else 'periodic'}: "
+            f"{json.dumps(r)}")
     return results
 
 

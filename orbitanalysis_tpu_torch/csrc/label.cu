@@ -12,9 +12,11 @@
 // are detect_label_kernel<kPacked, kTable>, K8 detect_label_compact_kernel.
 // K8 and K9 read each particle's frame row (halo centre, bulk velocity)
 // from a [6, R, W] rows plane, the output of K6; K10 (kTable) reads it
-// from the [H, 6] frame table staged in shared memory, table[label] and 0
-// where the label is outside [0, H) (the TPU's exact one-hot MXU gather;
-// here a copy, so it is the same bits as K6 followed by K9).
+// from the [H, 6] frame table in global memory, table[label] and 0 where
+// the label is outside [0, H) (the TPU's exact one-hot MXU gather; here a
+// copy, so it is the same bits as K6 followed by K9).  The table stays
+// resident in L2 (50 MB; a 12,000-halo table is 288 KB) and its rows in
+// the read-only cache, so the number of halos has no limit of its own.
 //
 // Per particle i of the [R, W] row planes (row r = i / W, position
 // p = i % W), the elementwise chain of pallas_label._detect_core:
@@ -48,8 +50,7 @@
 // 159 MB, 47.7 us at 3.35 TB/s; K10 reads 40 B and writes 16 B, the
 // frame rows never leaving the chip: 117 MB, 35 us.  Design, simple
 // first: K9 and K10 run one 256-thread block per 256 particles (grid
-// W / 256 x R), so they fill the card (each K10 block stages the whole
-// table, H * 24 bytes, before it starts); K8 runs one 1024-thread block
+// W / 256 x R), so they fill the card; K8 runs one 1024-thread block
 // per row walking 1024-entry tiles
 // with a running event base (the compact.cu scan), so at R = 64 it
 // fills 64 of 132 SMs and each tile waits on its loads and two
@@ -123,18 +124,17 @@ __device__ __forceinline__ void oct_decode(uint32_t p, float& x, float& y, float
 // The chain for particle i at row position p; writes the carry planes
 // (and the payload plane when opay is set) and returns the payload word
 // (0 where no apsis fired).  The frame row comes from the rows plane, or
-// with kTable from tab, the table in shared memory.
+// with kTable from the table.
 template <bool kPacked, bool kTable>
-__device__ __forceinline__ uint32_t detect_one(const DetectArgs& a, long long i, int p,
-                                               const float* tab) {
+__device__ __forceinline__ uint32_t detect_one(const DetectArgs& a, long long i, int p) {
   const long long n = a.n;
   const int32_t lab = a.lab[i];
   float frame[6];
   if (kTable) {
     const bool in_table = lab >= 0 && lab < a.n_halos;
-    const float* row = tab + (in_table ? lab : 0) * 6;
+    const float* row = a.table + (in_table ? lab : 0) * 6;
 #pragma unroll
-    for (int c = 0; c < 6; ++c) frame[c] = in_table ? row[c] : 0.0f;
+    for (int c = 0; c < 6; ++c) frame[c] = in_table ? __ldg(row + c) : 0.0f;
   } else {
 #pragma unroll
     for (int c = 0; c < 6; ++c) frame[c] = a.rows[c * n + i];
@@ -204,23 +204,18 @@ __device__ __forceinline__ uint32_t detect_one(const DetectArgs& a, long long i,
   return payload;
 }
 
-// K9 and K10: grid (W / 256, R), one particle per thread; K10 (kTable)
-// first stages the [H, 6] table in dynamic shared memory.
+// K9 and K10: grid (W / 256, R), one particle per thread.
 template <bool kPacked, bool kTable>
 __global__ void __launch_bounds__(kDetectThreads)
 detect_label_kernel(DetectArgs a) {
-  extern __shared__ float tab[];
   __shared__ int block_count;
   const int row = blockIdx.y;
   const int p = blockIdx.x * kDetectThreads + threadIdx.x;
-  if (kTable) {
-    for (int j = threadIdx.x; j < a.n_halos * 6; j += kDetectThreads) tab[j] = a.table[j];
-  }
   if (threadIdx.x == 0) block_count = 0;
   __syncthreads();
   bool apsis = false;
   if (p < a.w) {
-    apsis = detect_one<kPacked, kTable>(a, static_cast<long long>(row) * a.w + p, p, tab) != 0u;
+    apsis = detect_one<kPacked, kTable>(a, static_cast<long long>(row) * a.w + p, p) != 0u;
   }
   const unsigned ballot = __ballot_sync(0xffffffffu, apsis);
   if ((threadIdx.x & 31) == 0 && ballot) atomicAdd(&block_count, __popc(ballot));
@@ -242,7 +237,7 @@ detect_label_compact_kernel(DetectArgs a) {
   for (int start = 0; start < a.w; start += kCompactThreads) {
     const int p = start + threadIdx.x;
     const uint32_t w =
-        p < a.w ? detect_one<kPacked, false>(a, static_cast<long long>(row) * a.w + p, p, nullptr)
+        p < a.w ? detect_one<kPacked, false>(a, static_cast<long long>(row) * a.w + p, p)
                 : 0u;
     const bool sel = w != 0u;
     const uint32_t ballot = __ballot_sync(0xffffffffu, sel);
@@ -339,9 +334,8 @@ extern "C" int detect_label_compact_rows(
   return static_cast<int>(cudaGetLastError());
 }
 
-// K10: table [H, 6] f32 (H * 24 bytes of dynamic shared memory; the
-// wrapper bounds H); the outputs of detect_label_rows, count arriving
-// zeroed.
+// K10: table [H, 6] f32, read from global memory; the outputs of
+// detect_label_rows, count arriving zeroed.
 extern "C" int fused_label_rows(const void* table, const void* lab,
                                 const void* pos, const void* vel,
                                 const void* sv, const void* rh,
@@ -355,16 +349,12 @@ extern "C" int fused_label_rows(const void* table, const void* lab,
                                    pk, osv, orh, opk, opay, nullptr, count, R,
                                    W, 0, hub, box, has_box, pericentric);
     const dim3 grid((W + kDetectThreads - 1) / kDetectThreads, R);
-    const int smem = H * 6 * static_cast<int>(sizeof(float));
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    // the kernel's static shared memory comes on top of the table: opt in
-    // past the 48 KB a block gets by default
-    const auto kernel = packed ? detect_label_kernel<true, true>
-                               : detect_label_kernel<false, true>;
-    const cudaError_t rc = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-    kernel<<<grid, kDetectThreads, smem, s>>>(a);
+    if (packed) {
+      detect_label_kernel<true, true><<<grid, kDetectThreads, 0, s>>>(a);
+    } else {
+      detect_label_kernel<false, true><<<grid, kDetectThreads, 0, s>>>(a);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

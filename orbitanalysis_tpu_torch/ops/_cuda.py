@@ -31,6 +31,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 #: --fmad=false: no a*b+c contraction, so the kernels round as the plain
 #: torch versions do; IEEE sqrt and division stated (nvcc's defaults).
+#: K14 (``nbody.cu``), held to a tolerance and not to bits, writes its
+#: FMAs out (``fmaf``), which the flag leaves alone.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-prec-sqrt=true", "-prec-div=true", "-Xcompiler",
@@ -221,7 +223,8 @@ def _library():
                     "compact_rows_groups": [
                         p, pp, pp, i, i, p, pp, pp, i, i, i, i, p],
                     "deposit_sorted": [p, p, p, p, i, ll, i, i, p],
-                    "direct_forces": [p, p, p, i, f, f, i, f, f, p],
+                    "direct_forces": [p, p, p, p, i, i, i, f, f, i, f, f,
+                                      p],
                 }
                 for name, argtypes in signatures.items():
                     fn = getattr(lib, name)
@@ -418,31 +421,14 @@ def detect_label_rows(rows, lab, pos, vel, sv, rhat, packed, hub: float,
                            rhat, packed, hub, box, pericentric, rhat_packed)
 
 
-#: Shared memory the fused detect pass may give its frame table: the
-#: 48 KB a block gets without opting in to more (H <= 2048 halos).
-FUSED_TABLE_BYTES = 48 * 1024
-
-
-def check_fused_table(n_halos: int):
-    """ValueError where the ``[n_halos, 6]`` frame table of the fused
-    detect pass does not fit :data:`FUSED_TABLE_BYTES`."""
-    if n_halos * 24 > FUSED_TABLE_BYTES:
-        raise ValueError(
-            f"the [{n_halos}, 6] frame table exceeds the fused detect "
-            f"pass's shared memory ({FUSED_TABLE_BYTES} bytes, "
-            f"{FUSED_TABLE_BYTES // 24} halos); use frames='split'")
-
-
 def fused_label_rows(table, lab, pos, vel, sv, rhat, packed, hub: float,
                      box, pericentric: bool, rhat_packed: bool):
     """Launch the fused detect pass (K10): ``table [H, 6]`` f32 (halo
     centre ++ bulk velocity) in place of K9's rows plane, the same
     outputs ``(sv', rhat', packed', payload [R, W], count [R])``."""
-    h = table.shape[0]
-    check_fused_table(h)
     return _detect_payload("fused_label_rows", table, lab, pos, vel, sv,
                            rhat, packed, hub, box, pericentric, rhat_packed,
-                           h)
+                           table.shape[0])
 
 
 def detect_label_compact_rows(rows, lab, pos, vel, sv, rhat, packed,
@@ -632,19 +618,50 @@ def deposit_sorted(keys: torch.Tensor, fracs: torch.Tensor, n_cells: int,
         raise ValueError(f"{name}: tensors on different devices")
     if n >= 2**31:
         raise ValueError(f"{name}: {n} entries exceed int32 indexing")
-    r8 = torch.empty((8, n_cells), dtype=torch.float32, device=keys.device)
+    if sy < 1 or sx % sy:
+        raise ValueError(f"{name}: sx ({sx}) must be a multiple of sy ({sy})")
+    rows = -(-n_cells // sy)
+    if rows >= 2**31 - 1:
+        raise ValueError(f"{name}: {n_cells} cells exceed int32 row indexing")
+    # the row edges' stream offsets: 8 bytes a row of sy cells
+    bounds = torch.empty((2, rows + 1), dtype=torch.int32,
+                         device=keys.device)
     out = torch.empty(n_cells, dtype=torch.float32, device=keys.device)
     _launch(name, _library().deposit_sorted, keys.data_ptr(),
-            fracs.data_ptr(), r8.data_ptr(), out.data_ptr(), n, n_cells,
+            fracs.data_ptr(), bounds.data_ptr(), out.data_ptr(), n, n_cells,
             sx, sy, device=keys.device)
     return out
+
+
+#: Targets a block of K14 owns (``csrc/nbody.cu``: kThreads * kTargets)
+#: and the sources a thread stages a tile (kThreads).
+K14_BLOCK_TARGETS, K14_TILE = 512, 128
+#: K14 splits the sources while its target blocks number fewer than
+#: this many a streaming multiprocessor.
+K14_BLOCKS_PER_SM = 4
+
+
+def direct_force_split(n: int, n_sm: int) -> tuple[int, int]:
+    """``(splits, chunk)`` of K14 for ``n`` particles on a card of
+    ``n_sm`` SMs: one chunk of all ``n`` sources where the target blocks
+    fill :data:`K14_BLOCKS_PER_SM` blocks an SM, else the fewest chunks
+    of whole tiles that bring the blocks up to it."""
+    blocks = -(-n // K14_BLOCK_TARGETS)
+    want = K14_BLOCKS_PER_SM * n_sm
+    if n <= 0 or blocks >= want:
+        return 1, max(n, 1)
+    chunk = -(-n // -(-want // blocks))
+    chunk = -(-chunk // K14_TILE) * K14_TILE
+    return -(-n // chunk), chunk
 
 
 def direct_forces(pos: torch.Tensor, mass: torch.Tensor, softening: float,
                   G: float, box_size) -> torch.Tensor:
     """Launch the blocked direct-summation forces (K14): ``pos [N, 3]``
     f32, ``mass [N]`` f32 -> ``[N, 3]`` f32 accelerations, minimum image
-    when ``box_size`` is not None."""
+    when ``box_size`` is not None; the sources split into chunks by
+    :func:`direct_force_split`, their partial sums added in chunk order
+    (one launch counted)."""
     name = "direct_forces"
     n = pos.shape[0]
     _check(name, pos, dtype=torch.float32)
@@ -656,11 +673,16 @@ def direct_forces(pos: torch.Tensor, mass: torch.Tensor, softening: float,
         raise ValueError(f"{name}: tensors on different devices")
     if n >= 2**31 // 3:
         raise ValueError(f"{name}: {n} particles exceed int32 indexing")
+    splits, chunk = direct_force_split(
+        n, torch.cuda.get_device_properties(pos.device).multi_processor_count)
     out = torch.empty((n, 3), dtype=torch.float32, device=pos.device)
+    partial = (torch.empty((splits, n, 3), dtype=torch.float32,
+                           device=pos.device) if splits > 1 else None)
     f = ctypes.c_float
     box = 0.0 if box_size is None else float(box_size)
     _launch(name, _library().direct_forces, pos.data_ptr(), mass.data_ptr(),
-            out.data_ptr(), n, f(float(softening) * float(softening)),
+            out.data_ptr(), None if partial is None else partial.data_ptr(),
+            n, splits, chunk, f(float(softening) * float(softening)),
             f(float(G)), int(box_size is not None), f(box),
             f(1.0 / box if box_size is not None else 0.0),
             device=pos.device)

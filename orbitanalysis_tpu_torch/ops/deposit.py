@@ -12,10 +12,11 @@ The deposit runs in three parts, as in the JAX package:
    stable ``torch.sort`` (the JAX package sorts unstably);
 2. :func:`deposit_stream` (K13): the 8 trilinear weights of every entry
    added onto the flat virtual grid.  On CUDA tensors it launches the
-   kernel ``deposit_sorted`` (``csrc/deposit.cu``: a pass that sums each
-   run of equal keys in stream order into a dense ``[8, V]`` corner
-   table, then a pass that gathers each cell's 8 corners in a fixed
-   order; no atomics), on CPU tensors its plain version
+   kernel ``deposit_sorted`` (``csrc/deposit.cu``: binary searches find
+   where each row of ``G+1`` cells starts in the stream, then a block
+   walks a run of rows, sums each run of equal keys in stream order in
+   a two-row shared-memory ring and writes each cell's 8 corners in a
+   fixed order; no atomics), on CPU tensors its plain version
    :func:`deposit_stream_torch`, which adds in the same orders: the two
    equal bit for bit.  Nothing falls back;
 3. :func:`fold_virtual` (plain torch): the three ``== G`` faces folded
@@ -27,10 +28,11 @@ quotient on every backend: a CUDA division by a CPU scalar is a
 reciprocal multiply, which moves ``floor`` for particles on a cell
 boundary.
 
-On the card the whole virtual grid and the ``[8, V]`` table lie in
-device memory (4.9 GB at 512^3), so there is no VMEM budget and no
-window loop: :func:`cic_deposit_sorted` runs one kernel call at every
-grid whose flat keys fit int32 (``(G+1)^3 < 2^31``, G <= 1289).
+On the card the virtual grid lies in device memory (0.54 GB at 512^3;
+the kernel's scratch is 8 bytes a row of cells), so there is no VMEM
+budget and no window loop: :func:`cic_deposit_sorted` runs one kernel
+call at every grid whose flat keys fit int32 (``(G+1)^3 < 2^31``, G <=
+1289).
 :func:`cic_deposit_sorted_slabs` keeps the JAX slab form's results and
 overflow contract (NaN when a slab's population exceeds ``headroom * N /
 n_slabs``, counted as the JAX package counts it, its chunk padding
@@ -65,7 +67,7 @@ def _offsets(grid: int) -> tuple[int, ...]:
 def deposit_supported(grid: int) -> bool:
     """True when the virtual ``(grid+1)^3`` grid's flat keys fit int32:
     the card's only limit on the single-call deposit (there is no VMEM
-    budget; the grid and its corner table lie in device memory)."""
+    budget; the grid lies in device memory)."""
     gv = grid + 1
     return grid >= 1 and gv * gv * gv < 2**31
 
@@ -199,22 +201,30 @@ def _unsupported(grid: int) -> ValueError:
         "scatter deposit (models.pm.cic_deposit) for this mesh")
 
 
-def cic_deposit_sorted(pos: torch.Tensor, mass, grid: int,
-                       box_size) -> torch.Tensor:
+def cic_deposit_sorted(pos: torch.Tensor, mass, grid: int, box_size, *,
+                       slab_headroom: float = 2.0) -> torch.Tensor:
     """Cloud-in-cell deposit onto a periodic ``[grid]^3`` mesh through the
-    sorted-stream kernel: one K13 launch at every supported grid (the
-    JAX package's slab fallback past its VMEM budget has no counterpart
-    on the card).  Drop-in for
-    :func:`orbitanalysis_tpu_torch.models.pm.cic_deposit`, the same adds
-    in another order; ``mass`` a scalar or ``[N]``."""
+    sorted-stream kernel: one K13 launch at every supported grid.  Drop-in
+    for :func:`orbitanalysis_tpu_torch.models.pm.cic_deposit`, the same
+    adds in another order; ``mass`` a scalar or ``[N]``.
+
+    ``slab_headroom`` is the JAX keyword: the ``headroom`` its slab
+    fallback gets past the VMEM budget (:func:`cic_deposit_sorted_slabs`).
+    The card has no such budget, so this function never takes the slab
+    form and the value changes nothing, as it changes nothing in JAX at a
+    grid that fits its VMEM."""
     if not deposit_supported(grid):
         raise _unsupported(grid)
     skeys, fracs = sorted_stream(pos, mass, grid, box_size)
     return fold_virtual(deposit_stream(skeys, fracs, grid), grid)
 
 
+#: The slab count ``n_slabs=None`` takes.
+DEFAULT_SLABS = 2
+
+
 def cic_deposit_sorted_slabs(pos: torch.Tensor, mass, grid: int, box_size,
-                             *, n_slabs: int = 2,
+                             *, n_slabs: int | None = None,
                              headroom: float = 2.0) -> torch.Tensor:
     """The sorted deposit by X-plane slabs of the one sorted stream (the
     JAX package's form for grids past its VMEM budget).
@@ -229,11 +239,17 @@ def cic_deposit_sorted_slabs(pos: torch.Tensor, mass, grid: int, box_size,
     The JAX overflow contract holds: each slab's segment holds at most
     ``headroom * N / n_slabs`` entries (rounded up to the JAX kernel's
     2048-entry chunks, its chunk padding counted in the last slab), and
-    a slab past it makes the whole result NaN (fail loud).  (The JAX
-    package picks ``n_slabs`` by its VMEM budget, which the card has
-    not.)"""
+    a slab past it makes the whole result NaN (fail loud).
+
+    ``n_slabs=None`` takes :data:`DEFAULT_SLABS` (2).  The JAX package
+    takes the fewest power of two from 2 up whose slab fits its VMEM
+    budget, which is 2 at every grid it can hold whole; the card has no
+    such budget (K13's scratch is 8 bytes a row of cells, whatever the
+    slab), so the port takes 2 at every grid."""
     if not deposit_slab_supported(grid):
         raise _unsupported(grid)
+    if n_slabs is None:
+        n_slabs = DEFAULT_SLABS
     sx, sy = strides(grid)
     gv3 = (grid + 1) ** 3
     slab_x = -(-grid // n_slabs)

@@ -52,6 +52,12 @@ from orbitanalysis_tpu_torch.utils.numerics import (
 )
 
 
+#: The JAX fused pass's one-hot budget (``pallas_label.py:49``): a frame
+#: table and rows with ``H * W * 2`` bytes past it are refused, on every
+#: device, as JAX refuses them (the card itself has no such limit).
+_MAX_ONEHOT_BYTES = 32 * 1024 * 1024
+
+
 def _f32(x) -> float:
     """A Python float holding the float32 value of ``x``."""
     return float(np.float32(x))
@@ -194,15 +200,18 @@ def fused_label_detect(table, lab, pos, vel, sv, rhat, packed, hubble_drag,
     detection, carry update and payload words in one pass, each plane
     read or written once.  ``table``: ``[H, 6]`` f32 (centres ++ bulk
     velocities); ``lab``: ``[R, W]`` int32 in ``[-1, H)``; the rest as
-    :func:`detect_label`.  The CUDA kernel ``fused_label_rows`` stages the
-    table in shared memory (ValueError past its size) on CUDA tensors;
-    :func:`fused_label_detect_torch` runs on CPU tensors.  Returns
-    ``(sv', rhat', packed', payload [R, W], count [R])``; feed the
-    payload to :func:`~orbitanalysis_tpu_torch.ops.compact.
-    compact_payload_blocked`."""
-    # the kernel's bound holds on every device, so a route that runs on
-    # the CPU runs on the card
-    _cuda.check_fused_table(table.shape[0])
+    :func:`detect_label`.  On CUDA tensors the kernel ``fused_label_rows``
+    reads the table from global memory (through L2, any number of halos);
+    :func:`fused_label_detect_torch` runs on CPU tensors.  ValueError
+    where ``H * W * 2`` exceeds the JAX pass's 32 MiB one-hot budget, as
+    JAX raises.  Returns ``(sv', rhat', packed', payload [R, W], count
+    [R])``; feed the payload to :func:`~orbitanalysis_tpu_torch.ops.
+    compact.compact_payload_blocked`."""
+    h, w = table.shape[0], lab.shape[1]
+    if h * w * 2 > _MAX_ONEHOT_BYTES:
+        raise ValueError(
+            f"one-hot block [{h}, {w}] exceeds the fused pass's 32 MiB "
+            "budget (the JAX package's limit); use frames='twolevel'")
     if _cuda.on_cpu(lab, "detect"):
         return fused_label_detect_torch(
             table, lab, pos, vel, sv, rhat, packed, hubble_drag,

@@ -4,22 +4,25 @@
 The Gram form of :func:`orbitanalysis_tpu_torch.models.nbody.direct_forces`
 holds the ``[N, N]`` pair matrix in device memory (68.7 GB at N =
 131,072); this one never does.  :func:`direct_forces_blocked` launches
-the CUDA kernel ``direct_forces`` (``csrc/nbody.cu``: one thread a
-target, source tiles in shared memory, sums in registers, no atomics) on
-CUDA tensors, and its plain-torch version
+the CUDA kernel ``direct_forces`` (``csrc/nbody.cu``: four targets a
+thread, source tiles in shared memory, sums in registers; below four
+blocks an SM the sources split over blocks and the partial sums add in
+a fixed order; no atomics) on CUDA tensors, and its plain-torch version
 :func:`direct_forces_blocked_torch` only on CPU tensors; nothing falls
 back.
 
 Both compute, for each target i, ``G * sum_j m_j d_ij r^-3`` with
 ``d_ij = x_j - x_i`` (minimum image ``d - box * round(d * (1/box))``
 with a box, rounding half to even), ``r^2 = max(|d|^2 + eps^2, 1e-18)``
-and ``r^-3`` as ``rsqrt(r^2)`` cubed.  The kernel's ``rsqrtf`` is the
-card's approximate reciprocal root (within 2 ulp) and each target adds
-its sources in index order; the plain version takes ``torch.rsqrt`` and
-``torch.sum``'s order.  So the two agree to float32 summation error,
-not bit for bit: the tests and ``chip_smoke.py`` hold them to the JAX
-test's ``max |a1 - a2| / (|a2| + 1e-3) < 1e-3``.  (The JAX kernel
-computes ``rsqrt(d2) / d2``.)
+and ``r^-3`` as ``rsqrt(r^2)`` cubed.  The kernel's reciprocal root is
+the card's approximate one (``rsqrtf``'s, within 2 ulp), it contracts
+products and sums into FMAs, and each target adds its sources in index
+order within a chunk and the chunks in order; the plain version takes
+``torch.rsqrt``, rounds each operation and sums in ``torch.sum``'s
+order.  So the two agree to float32 rounding and summation error, not
+bit for bit (the kernel is the same bits from run to run): the tests
+and ``chip_smoke.py`` hold them to the JAX test's ``max |a1 - a2| /
+(|a2| + 1e-3) < 1e-3``.  (The JAX kernel computes ``rsqrt(d2) / d2``.)
 """
 
 from __future__ import annotations

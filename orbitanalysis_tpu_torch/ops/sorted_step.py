@@ -138,15 +138,23 @@ class AlignedCarry(NamedTuple):
 
 
 def init_aligned_carry(n_halos: int, capacity: int,
-                       rhat_packed: bool = False,
+                       pos_dtype=torch.float32, rhat_packed: bool = False,
                        device="cuda") -> AlignedCarry:
     """All-invalid carry (32-bit signed IDs: the int32-max sentinel's key
     is ``0xFFFFFFFF``, i.e. -1 as int32) on ``device``, CUDA by default
     (RuntimeError without it).  ``rhat_packed=True`` keeps the radial
     unit vectors as one plane of octahedral words (pair it with
     ``make_aligned_native_step(..., rhat_packed=True)``): counts are
-    unaffected, angles move by the ~1e-4 rad quantization a step."""
+    unaffected, angles move by the ~1e-4 rad quantization a step.
+
+    ``pos_dtype`` (a torch or NumPy dtype) is the dtype of the unpacked
+    r-hat planes, as in JAX.  A step writes float32 planes, so it sets
+    only the first step's carry, whose planes no valid slot reads; the
+    aligned detect kernel (``detect_impl='pallas'`` on the card) takes
+    float32 planes only."""
     device = resolve_device(device, "init_aligned_carry")
+    if not isinstance(pos_dtype, torch.dtype):
+        pos_dtype = getattr(torch, np.dtype(pos_dtype).name)
     shape = (n_halos, capacity)
     return AlignedCarry(
         key=torch.full(shape, -1, dtype=torch.int32, device=device),
@@ -154,7 +162,7 @@ def init_aligned_carry(n_halos: int, capacity: int,
                         device=device).expand(shape).contiguous(),
         rhat=(torch.zeros(shape, dtype=torch.int32, device=device)
               if rhat_packed else
-              torch.zeros((3,) + shape, dtype=torch.float32, device=device)),
+              torch.zeros((3,) + shape, dtype=pos_dtype, device=device)),
         packed=torch.zeros(shape, dtype=torch.int32, device=device),
     )
 

@@ -323,20 +323,46 @@ def test_fused_label_kernel_matches_plain(dev, r, w, h, packed, labels):
                                v.cpu().view(torch.int32))
 
 
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("h", [4096, 12000])
+def test_fused_label_kernel_large_tables(dev, h, packed):
+    """K10 with labels spread over tables past the 2048 halos it once
+    took: 4096 halos (98 KB) and 12,000 (288 KB, more than a block's
+    shared memory could hold), every output bit for bit against the
+    plain version on the card and on the CPU."""
+    cpu, cuda, table = _label_planes(dev, 2, 1024, h, 11, packed)
+    kw = dict(pericentric=True, box_size=100.0, rhat_packed=packed)
+    got = tl.fused_label_detect(table.to(dev), *cuda[1:], 0.01, **kw)
+    plain_cuda = tl.fused_label_detect_torch(table.to(dev), *cuda[1:], 0.01,
+                                             **kw)
+    plain_cpu = tl.fused_label_detect_torch(table, *cpu[1:], 0.01, **kw)
+    torch.cuda.synchronize()
+    assert int(plain_cpu[4].sum()) > 0
+    for want in (plain_cuda, plain_cpu):
+        for g, v in zip(got, want):
+            assert torch.equal(g.cpu().view(torch.int32),
+                               v.cpu().view(torch.int32))
+
+
 def test_fused_label_kernel_counts_launches(dev):
-    """K10 launches once a call and refuses a table past its shared
-    memory; its plain version launches nothing."""
+    """K10 launches once a call, at any table the JAX package takes (past
+    the 2048 halos of the default 48 KB too), and refuses a one-hot block
+    past the JAX 32 MiB budget, as JAX does; its plain version launches
+    nothing."""
     cpu, cuda, table = _label_planes(dev, 2, 1024, 7, 3, False)
     _cuda.reset_launch_counts()
     tl.fused_label_detect(table.to(dev), *cuda[1:], 0.0, pericentric=True,
                           box_size=None)
     tl.fused_label_detect_torch(table.to(dev), *cuda[1:], 0.0,
                                 pericentric=True, box_size=None)
+    tl.fused_label_detect(torch.zeros((2049, 6), device=dev), *cuda[1:],
+                          0.0, pericentric=True, box_size=None)
     assert {n: c for n, c in _cuda.launch_counts().items() if c} == {
-        "fused_label_rows": 1}
-    with pytest.raises(ValueError, match="shared memory"):
-        tl.fused_label_detect(torch.zeros((2049, 6), device=dev), *cuda[1:],
-                              0.0, pericentric=True, box_size=None)
+        "fused_label_rows": 2}
+    with pytest.raises(ValueError, match="32 MiB"):
+        tl.fused_label_detect(torch.zeros((16385, 6), device=dev),
+                              *cuda[1:], 0.0, pericentric=True,
+                              box_size=None)
 
 
 @pytest.mark.parametrize("frames,k", [("split", 128), ("split", 2048),
@@ -789,9 +815,13 @@ def _rel(a1, a2):
                   / (a2.norm(dim=1, keepdim=True) + 1e-3)).max())
 
 
-@pytest.mark.parametrize("n", [1, 127, 128, 1000, 4099])
+@pytest.mark.parametrize("n", [1, 127, 128, 1000, 4099, 16384])
 @pytest.mark.parametrize("box", [None, 10.0])
 def test_direct_forces_kernel_matches_twin(dev, n, box):
+    """K14 against its plain version on the card and on the CPU; a second
+    call on the same inputs gives the same bits (the source chunks'
+    partial sums are added in a fixed order, no atomics), and each call
+    counts one launch, whatever its passes."""
     from orbitanalysis_tpu_torch.ops import nbody as tn
 
     rng = np.random.default_rng(n)
@@ -800,13 +830,71 @@ def test_direct_forces_kernel_matches_twin(dev, n, box):
     mass = rng.uniform(0.5, 2.0, n).astype(np.float32)
     mass[::7] = 0.0                                   # zero-mass sources
     p, m = torch.from_numpy(pos), torch.from_numpy(mass)
+    _cuda.reset_launch_counts()
     got = tn.direct_forces_blocked(p.to(dev), m.to(dev), softening=0.1,
                                    G=1.5, box_size=box)
+    again = tn.direct_forces_blocked(p.to(dev), m.to(dev), softening=0.1,
+                                     G=1.5, box_size=box)
     torch.cuda.synchronize()
     assert got.shape == (n, 3) and got.is_cuda
+    assert torch.equal(got, again)
+    assert _cuda.launch_counts()["direct_forces"] == 2
     assert _rel(got, tn.direct_forces_blocked_torch(
         p.to(dev), m.to(dev), 0.1, 1.5, box)) < 1e-3
     assert _rel(got, tn.direct_forces_blocked_torch(p, m, 0.1, 1.5,
+                                                    box)) < 1e-3
+
+
+def _split_sides(dev):
+    """The largest N that K14 splits over source chunks on this card,
+    and the next N, which it does not."""
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    n = _cuda.K14_BLOCKS_PER_SM * n_sm * _cuda.K14_BLOCK_TARGETS
+    n -= _cuda.K14_BLOCK_TARGETS
+    assert _cuda.direct_force_split(n, n_sm)[0] > 1
+    assert _cuda.direct_force_split(n + 1, n_sm)[0] == 1
+    return n, n + 1
+
+
+@pytest.mark.parametrize("side", [0, 1])
+@pytest.mark.parametrize("box", [None, 10.0])
+def test_direct_forces_kernel_split_threshold(dev, side, box):
+    """K14 on both sides of its source-split threshold (the last N that
+    splits the sources over blocks, and the first that does not) against
+    its plain version on the card, free and periodic."""
+    from orbitanalysis_tpu_torch.ops import nbody as tn
+
+    n = _split_sides(dev)[side]
+    rng = np.random.default_rng(side)
+    pos = (rng.uniform(0, 10.0, (n, 3)) if box else rng.normal(size=(n, 3))
+           ).astype(np.float32)
+    p = torch.from_numpy(pos).to(dev)
+    m = torch.from_numpy(rng.uniform(0.5, 2.0, n).astype(np.float32)).to(dev)
+    got = tn.direct_forces_blocked(p, m, softening=0.1, box_size=box)
+    want = tn.direct_forces_blocked_torch(p, m, 0.1, 1.0, box)
+    torch.cuda.synchronize()
+    assert _rel(got, want) < 1e-3
+
+
+@pytest.mark.parametrize("box", [None, 10.0])
+def test_direct_forces_kernel_unsoftened(dev, box):
+    """K14 without softening (the kernel's clamped path: r^2 at least
+    1e-18) against its plain version, coincident particles included
+    (their pair adds nothing)."""
+    from orbitanalysis_tpu_torch.ops import nbody as tn
+
+    rng = np.random.default_rng(9)
+    pos = rng.uniform(0, 10.0, (3000, 3)).astype(np.float32)
+    pos[1:40:2] = pos[0:40:2]                      # 20 coincident pairs
+    p = torch.from_numpy(pos)
+    m = torch.from_numpy(rng.uniform(0.5, 2.0, 3000).astype(np.float32))
+    got = tn.direct_forces_blocked(p.to(dev), m.to(dev), softening=0.0,
+                                   box_size=box)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, tn.direct_forces_blocked_torch(
+        p.to(dev), m.to(dev), 0.0, 1.0, box)) < 1e-3
+    assert _rel(got, tn.direct_forces_blocked_torch(p, m, 0.0, 1.0,
                                                     box)) < 1e-3
 
 
@@ -878,6 +966,70 @@ def test_deposit_kernel_matches_twin(dev, n, grid, clustered):
     assert torch.equal(got.cpu(), want_cpu)
 
 
+def _edge_stream(rng, grid, case):
+    """A sorted stream ``(keys [N] int32, fracs [4, N] f32)`` on the
+    virtual ``(grid+1)^3`` grid that K13's row design must get right:
+
+    - ``one_cell``: 5,000 entries in one cell, in a uniform stream, so a
+      run crosses many 256-entry tiles;
+    - ``chunk_edges``: clustered runs in the rows of cells around each
+      16-row block edge, and keys on the last cell of those rows (the
+      cell a row's key range shares with the next row);
+    - ``empty_rows``: entries in a few x-planes only, most rows empty;
+    - ``faces``: keys in the bx = 0, by = 0 and == G faces (raw keys,
+      the kernel's contract; the base cells of real particles stop at
+      G - 1), with keys below 0 and past the grid, which deposit
+      nothing."""
+    g1 = grid + 1
+    sx, sy = g1 * g1, g1
+    v = g1 ** 3
+    if case == "one_cell":
+        keys = rng.integers(0, v, 3000)
+        hot = (grid // 2) * (sx + sy + 1)
+        keys = np.concatenate([keys, np.full(5000, hot)])
+    elif case == "chunk_edges":
+        rows = [r for e in range(16, g1 * g1, 16) for r in (e - 1, e)]
+        rows = np.array(rows[:40])
+        keys = np.concatenate([
+            np.repeat(rows * sy + rng.integers(0, grid, rows.size), 40),
+            rows * sy + grid, rows * sy - 1, rng.integers(0, v, 2000)])
+    elif case == "empty_rows":
+        bx = rng.choice([0, grid // 2, grid - 1], 4000)
+        keys = (bx * sx + rng.integers(0, grid, 4000) * sy
+                + rng.integers(0, grid, 4000))
+    else:
+        ax = rng.integers(0, g1, (3, 3000))
+        ax[0, :1000] = 0
+        ax[1, 1000:2000] = 0
+        ax[:, 2000:2500] = grid
+        keys = np.concatenate([ax[0] * sx + ax[1] * sy + ax[2],
+                               [-3, -1, v, v + 5]])
+    keys = np.sort(keys).astype(np.int32)
+    fracs = rng.uniform(0, 1, (4, keys.size)).astype(np.float32)
+    fracs[3] = rng.uniform(0.5, 2.0, keys.size)
+    return torch.from_numpy(keys), torch.from_numpy(fracs)
+
+
+@pytest.mark.parametrize("case", ["one_cell", "chunk_edges", "empty_rows",
+                                  "faces"])
+@pytest.mark.parametrize("grid", [8, 33, 129])
+def test_deposit_kernel_edge_streams(dev, grid, case):
+    """K13 bit for bit against its plain version, on the card and on the
+    CPU, on the streams of :func:`_edge_stream`; two calls give equal
+    bits."""
+    from orbitanalysis_tpu_torch.ops import deposit as td
+
+    keys, fracs = _edge_stream(np.random.default_rng(grid), grid, case)
+    got = td.deposit_stream(keys.to(dev), fracs.to(dev), grid)
+    again = td.deposit_stream(keys.to(dev), fracs.to(dev), grid)
+    want_dev = td.deposit_stream_torch(keys.to(dev), fracs.to(dev), grid)
+    want_cpu = td.deposit_stream_torch(keys, fracs, grid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, want_dev)
+    assert torch.equal(got.cpu(), want_cpu)
+
+
 def test_sorted_deposit_cuda_equals_cpu(dev):
     """The whole sorted deposit (stream, kernel, fold) and its slab form
     on the card equal the CPU's bit for bit (IEEE cell index), and mass
@@ -894,7 +1046,7 @@ def test_sorted_deposit_cuda_equals_cpu(dev):
     got = td.cic_deposit_sorted(p.to(dev), 1.25, grid, box)
     assert torch.equal(got.cpu(), td.cic_deposit_sorted(p, 1.25, grid, box))
     assert float(got.double().sum()) == pytest.approx(1.25 * n, rel=1e-6)
-    for ns in (2, 4):
+    for ns in (2, 4, None):
         s = td.cic_deposit_sorted_slabs(p.to(dev), 1.25, grid, box,
                                         n_slabs=ns)
         assert torch.equal(s.cpu(), td.cic_deposit_sorted_slabs(

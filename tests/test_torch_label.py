@@ -188,27 +188,28 @@ def test_segment_moments_match_jax(mass):
         np.testing.assert_allclose(got[h], ref, rtol=2e-6, atol=2e-6)
 
 
-def _detect_inputs(seed, packed, steps=3):
+def _detect_inputs(seed, packed, steps=3, h=H, r=R, w=W):
     """Frame rows and carry planes after ``steps`` JAX 'matmul' steps, so
-    matched lanes exist; returns (JAX carry, rows, lab, pos, vel, table)."""
-    pos, vel, lab, cen = _pool(seed)
+    matched lanes exist, for ``h`` halos on ``[r, w]`` rows; returns (JAX
+    carry, rows, lab, pos, vel, table)."""
+    pos, vel, lab, cen = _pool(seed, h=h, r=r, w=w)
     step = jax.jit(jls.make_label_orbit_step(
-        128, box_size=100.0, row_width=W, frames="matmul",
+        128, box_size=100.0, row_width=w, frames="matmul",
         rhat_packed=packed))
-    c = jls.init_label_carry(N, row_width=W, rhat_packed=packed)
-    bulk = np.random.default_rng(seed).normal(size=(H, 3)).astype(np.float32)
+    c = jls.init_label_carry(r * w, row_width=w, rhat_packed=packed)
+    bulk = np.random.default_rng(seed).normal(size=(h, 3)).astype(np.float32)
     for s in range(steps):
-        c, _ = step(c, (jnp.asarray(pos[s].reshape(3, R, W)),
-                        jnp.asarray(vel[s].reshape(3, R, W)),
-                        jnp.asarray(lab[s].reshape(R, W)),
+        c, _ = step(c, (jnp.asarray(pos[s].reshape(3, r, w)),
+                        jnp.asarray(vel[s].reshape(3, r, w)),
+                        jnp.asarray(lab[s].reshape(r, w)),
                         jnp.asarray(cen[s]), jnp.asarray(bulk), None,
                         jnp.float32(0.01)))
     s = steps
     table = np.concatenate([cen[s], bulk], axis=1)
     rows = np.asarray(jpf.frame_rows_bf16x3(jnp.asarray(table),
                                             jnp.asarray(lab[s])))
-    return (c, rows.reshape(6, R, W), lab[s].reshape(R, W),
-            pos[s].reshape(3, R, W), vel[s].reshape(3, R, W), table)
+    return (c, rows.reshape(6, r, w), lab[s].reshape(r, w),
+            pos[s].reshape(3, r, w), vel[s].reshape(3, r, w), table)
 
 
 @pytest.mark.parametrize("mode", ["pericentric", "apocentric"])
@@ -260,6 +261,24 @@ def test_fused_detect_matches_jax(packed):
     angle bits within one f16 ulp; and the same bits as K6 then K9."""
     jc, rows, lab, pos, vel, table = _detect_inputs(5, packed)
     lab = np.where(np.arange(N).reshape(R, W) % 97 == 0, H + 1, lab)
+    _check_fused_against_jax(jc, lab, pos, vel, table, packed)
+
+
+def test_fused_detect_many_halos_matches_jax():
+    """K10 with 4096 halos on [8, 128] rows, a table past the 48 KB a
+    block's shared memory holds by default, which JAX accepts (its limit
+    is a 32 MiB one-hot block): the port runs it and agrees."""
+    h, r, w = 4096, 8, 128
+    jc, _, lab, pos, vel, table = _detect_inputs(7, False, h=h, r=r, w=w)
+    _check_fused_against_jax(jc, lab, pos, vel, table, False)
+
+
+def _check_fused_against_jax(jc, lab, pos, vel, table, packed):
+    """The port's fused pass against JAX's on the same planes: counts,
+    lab_sv and matched bits exact, payload positions exact and angle
+    bits within one f16 ulp, the carry as :func:`_check_carry`; and the
+    same bits as the frame rows gathered from the table, then K9."""
+    r, w = lab.shape
     kw = dict(pericentric=True, box_size=100.0, rhat_packed=packed)
     tcarry = tls.label_carry_from_numpy(*jax.tree.map(np.asarray, jc),
                                         device="cpu")
@@ -276,7 +295,7 @@ def test_fused_detect_matches_jax(packed):
     assert np.abs((got_pay & 0x7FFF).astype(np.int64)
                   - (want_pay & 0x7FFF)).max() <= 1
     _check_carry(tls.LabelCarry(*got[:3]), jls.LabelCarry(*want[:3]), packed)
-    rows = tf.frame_rows_torch(_t(table), _t(lab)).reshape(6, R, W)
+    rows = tf.frame_rows_torch(_t(table), _t(lab)).reshape(6, r, w)
     split = tl.detect_label(rows, _t(lab), _t(pos), _t(vel), *tcarry, 0.01,
                             **kw)
     for a, b in zip(got, split):
@@ -463,17 +482,22 @@ def test_label_churn_workload_matches_bench():
 
 def test_unported_frames_raise():
     """Every route of the JAX package builds (none is left unported); an
-    unknown one, and a frame table past the fused pass's shared memory,
-    raise ValueError."""
+    unknown one raises ValueError, and so does a fused pass whose one-hot
+    block the JAX package refuses (H * W * 2 past 32 MiB), where JAX
+    does."""
     for frames in tls._FRAMES:
         assert callable(tls.make_label_orbit_step(128, frames=frames))
     with pytest.raises(ValueError, match="unknown frames"):
         tls.make_label_orbit_step(128, frames="nope")
-    h = 2049
-    lab = torch.zeros((1, 128), dtype=torch.int32)
-    with pytest.raises(ValueError, match="shared memory"):
-        tl.fused_label_detect(torch.zeros((h, 6)), lab, *([None] * 6),
+    h = (1 << 17) + 1
+    lab = np.zeros((1, 128), dtype=np.int32)
+    with pytest.raises(ValueError, match="32 MiB"):
+        tl.fused_label_detect(torch.zeros((h, 6)), _t(lab), *([None] * 6),
                               pericentric=True, box_size=None)
+    with pytest.raises(ValueError, match="VMEM"):
+        jpl.fused_label_detect(jnp.zeros((h, 6)), jnp.asarray(lab),
+                               *([None] * 6), pericentric=True,
+                               box_size=None)
 
 
 def test_wrappers_serve_only_cpu_and_cuda():

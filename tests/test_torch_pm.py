@@ -125,7 +125,7 @@ def test_deposit_stream_twin_against_float64(rng):
     np.testing.assert_array_equal(short, flat[:50])
 
 
-@pytest.mark.parametrize("n_slabs", [2, 4])
+@pytest.mark.parametrize("n_slabs", [2, 4, None])
 def test_slab_deposit_matches_jax(rng, n_slabs):
     n, grid, box = 4096, 16, 10.0
     h = box / grid
@@ -140,6 +140,45 @@ def test_slab_deposit_matches_jax(rng, n_slabs):
                                         n_slabs=n_slabs)
     _assert_close(got, want)
     _assert_close(got, tdep.cic_deposit_sorted(_t(pos), _t(mass), grid, box))
+
+
+def test_slab_count_default_matches_jax(rng):
+    """``n_slabs=None``: JAX picks its count by VMEM budget, 2 at this
+    grid, and the port takes 2: the same density, and the same overflow
+    NaN at a headroom the default count cannot hold."""
+    n, grid, box = 4096, 16, 10.0
+    pos = _seam_positions(n, grid, box, rng)
+    assert jdep._pick_n_slabs(grid) == tdep.DEFAULT_SLABS
+    got = tdep.cic_deposit_sorted_slabs(_t(pos), 1.0, grid, box)
+    assert torch.equal(got, tdep.cic_deposit_sorted_slabs(
+        _t(pos), 1.0, grid, box, n_slabs=2))
+    _assert_close(got, np.asarray(jdep.cic_deposit_sorted_slabs(
+        jnp.asarray(pos), 1.0, grid, box)))
+    crowded = rng.uniform(0, box / 8, size=(n, 3)).astype(np.float32)
+    want = np.asarray(jdep.cic_deposit_sorted_slabs(
+        jnp.asarray(crowded), 1.0, grid, box, headroom=1.0))
+    got = tdep.cic_deposit_sorted_slabs(_t(crowded), 1.0, grid, box,
+                                        headroom=1.0)
+    assert np.isnan(want).all() and torch.isnan(got).all()
+
+
+@pytest.mark.parametrize("slab_headroom", [0.5, 2.0, 8.0])
+def test_sorted_deposit_slab_headroom_matches_jax(rng, slab_headroom):
+    """``cic_deposit_sorted(slab_headroom=)``: at a grid that fits its
+    VMEM the JAX call takes the single block and ignores the value, and
+    so does the port at every grid (no VMEM budget): the same density as
+    the default, and as JAX's with the same argument."""
+    n, grid, box = 4096, 16, 10.0
+    pos = _seam_positions(n, grid, box, rng)
+    mass = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    want = np.asarray(jdep.cic_deposit_sorted(
+        jnp.asarray(pos), jnp.asarray(mass), grid, box,
+        slab_headroom=slab_headroom))
+    got = tdep.cic_deposit_sorted(_t(pos), _t(mass), grid, box,
+                                  slab_headroom=slab_headroom)
+    _assert_close(got, want)
+    assert torch.equal(got, tdep.cic_deposit_sorted(_t(pos), _t(mass),
+                                                    grid, box))
 
 
 def test_slab_deposit_overflow_is_nan(rng):

@@ -638,6 +638,31 @@ def test_aligned_step_options_match_jax(churn, rhat_packed, soa):
     assert total > 0
 
 
+@pytest.mark.parametrize("pos_dtype", [np.float32, np.float16])
+def test_aligned_carry_pos_dtype_matches_jax(churn, pos_dtype):
+    """``init_aligned_carry(pos_dtype=)``, positionally as JAX takes it:
+    the same r-hat planes (dtype and zeros), and the steps from that
+    carry give the JAX steps' events and carries."""
+    box, loaded = churn
+    P, K = 256, 128
+    jc = jss.init_aligned_carry(3, P, pos_dtype)
+    tc = tss.init_aligned_carry(3, P, pos_dtype, device="cpu")
+    want = jax.tree.map(np.asarray, jc)
+    got = tss.aligned_carry_to_numpy(tc)
+    assert got.rhat.dtype == want.rhat.dtype == np.dtype(pos_dtype)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    jstep = jax.jit(jss.make_aligned_native_step(K, box_size=box))
+    tstep = tss.make_aligned_native_step(K, box_size=box)
+    total = 0
+    for s, (pk, jb, tb) in enumerate(_staged(
+            loaded[:4], tpk.StableLayout(3, P), np.arange(3))):
+        jc, je = jstep(jc, jb)
+        tc, te = tstep(tc, tb)
+        total += _check_aligned_step(te, je, tc, jc, s)
+    assert total > 0
+
+
 def test_port_runs_without_jax(tmp_path):
     """With jax, the JAX package and h5py blocked, the port imports and
     runs its public surface (the three engines, in-memory savefiles, a
