@@ -1278,7 +1278,7 @@ def sorted_kernel_checks(dev, seq):
         f"{int(want[4].max())} a row, "
         f"{int((want[0] < 0).sum())} matched cur lanes")
     # 11 planes in; packed, three event planes and the counts out; ~80
-    # operations a lane (two 15-step searches, the detect chain)
+    # operations a lane (the merge's comparisons, the detect chain)
     record("fused_join_detect", got, want, lambda: tstep.fused_join_detect(*a),
            lambda: tstep.fused_join_detect_torch(*a),
            12 * hp * 4 + 3 * h * k128 * 4 + h * 4, 80 * 2 * hp,

@@ -1,0 +1,189 @@
+"""Device time of variants of K16 (``csrc/merge.cu`` fused_join_detect) and
+K17 (``csrc/static.cu`` static_detect_rows) on ``chip_smoke.py`` phase
+3's inputs, in one process.
+
+Each variant is the checked-in source with a few text substitutions: a
+tile shape (threads a block, entries a thread) or a phase left out.  A
+variant that leaves a phase out gives wrong outputs and is timed only,
+to show what that phase costs; the others are checked bit for bit
+against the plain versions.  Every variant is built by its own ``nvcc``
+(all started together) into its own library next to the package's
+git-ignored build directory, so the package's own build is untouched.
+Prints one line a variant: its name, then the milliseconds of two
+timings (``chip_smoke.cuda_ms``) and, for a variant that leaves a phase
+out, the count of output lanes that differ.  It needs a CUDA card:
+
+    python3 detect_variants.py
+"""
+import ctypes
+import os
+import shutil
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(ROOT, "orbitanalysis_tpu_torch", "csrc")
+BUILD = os.path.join(ROOT, "orbitanalysis_tpu_torch", "_build", "variants")
+
+LOOKBACK = (
+    "const int before =\n"
+    "      lookback_prefix(a.scratch + 1 + static_cast<size_t>(row) * "
+    "a.tiles, t, total, &slot);",
+    "const int before = 0;")
+CLAIM = ("const int tile = claim_tile(a.scratch, &slot);",
+         "const int tile = blockIdx.x;")
+
+
+def shape(vt_line, vt, threads):
+    """Substitutions for ``vt`` entries a thread and ``threads`` a block."""
+    return [(vt_line, vt_line.rsplit("=", 1)[0] + f"= {vt};"),
+            ("constexpr int kThreads = 256;",
+             f"constexpr int kThreads = {threads};")]
+
+
+#: (kernel, name, substitutions, checked): the shipped shapes first.
+K16_VT = "constexpr int kJoinVT = 4;"
+K17_VT = "constexpr int kVT = 8;"
+VARIANTS = [
+    ("K16", "shipped (256 threads x 4)", [], True),
+    ("K16", "256 x 2", shape(K16_VT, 2, 256), True),
+    ("K16", "256 x 8", shape(K16_VT, 8, 256), True),
+    ("K16", "128 x 8", shape(K16_VT, 8, 128), True),
+    ("K16", "no look-back", [LOOKBACK], False),
+    ("K16", "no tile counter (blockIdx)", [CLAIM], False),
+    ("K16", "no diagonal search (d / 2)", [(
+        "const int i = merge_split(pk, ck, P, warp == 0 ? d0 : d1);",
+        "const int i = min(P, (warp == 0 ? d0 : d1) / 2);")], False),
+    ("K16", "no detection", [("if (q != 0) {", "if (false) {")], False),
+    ("K16", "no merge (so no detection)", [(
+        "  if (s < n) {\n    // this thread's split",
+        "  if (false) {\n    // this thread's split")], False),
+    ("K17", "shipped (256 threads x 8)", [], True),
+    ("K17", "256 x 4", shape(K17_VT, 4, 256), True),
+    ("K17", "512 x 4", shape(K17_VT, 4, 512), True),
+    ("K17", "128 x 16", shape(K17_VT, 16, 128), True),
+    ("K17", "no look-back", [LOOKBACK], False),
+    ("K17", "no tile counter (blockIdx)", [CLAIM], False),
+    ("K17", "detect pass alone", [
+        LOOKBACK, CLAIM, ("if (take[v] && o < a.len) {", "if (false) {"),
+        ("  const int total = tile_ranks<kThreads, kVT>(take, rank, "
+         "counts);", "  const int total = 0;")], False),
+]
+
+
+def build(variants):
+    """Compile each variant's source into its own library; returns
+    ``{index: ctypes.CDLL}``.  Raises on a substitution that does not
+    apply or a failed build."""
+    from orbitanalysis_tpu_torch.ops import _cuda
+
+    shutil.rmtree(BUILD, ignore_errors=True)
+    procs = []
+    for i, (kernel, name, subs, _) in enumerate(variants):
+        src = os.path.join(CSRC, "merge.cu" if kernel == "K16"
+                           else "static.cu")
+        text = open(src).read()
+        for a, b in subs:
+            if a not in text:
+                raise SystemExit(f"{kernel} {name}: {a!r} not in {src}")
+            text = text.replace(a, b)
+        d = os.path.join(BUILD, str(i))
+        os.makedirs(d)
+        shutil.copy(os.path.join(CSRC, "common.cuh"), d)
+        with open(os.path.join(d, "k.cu"), "w") as f:
+            f.write(text)
+        so = os.path.join(d, "lib.so")
+        procs.append((i, so, subprocess.Popen(
+            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-o", so,
+             os.path.join(d, "k.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    libs = {}
+    for i, so, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"variant {variants[i][:2]} failed:\n{out}")
+        libs[i] = ctypes.CDLL(so)
+    return libs
+
+
+def launcher(lib, name, planes, h, p, k128, flags):
+    """A call of entry point ``name`` of ``lib`` on ``planes``, the
+    wrapper's outputs and scratch allocated anew each call, as
+    ``_cuda._detect_events`` does."""
+    import torch
+
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    words_fn = getattr(lib, f"{name}_scratch")
+    words_fn.argtypes, words_fn.restype = [i32, i32], i64
+    fn = getattr(lib, name)
+    fn.argtypes = ([vp] * (len(planes) + 6) + [i64]
+                   + [i32] * (3 + len(flags)) + [vp])
+    fn.restype = i32
+    words = words_fn(h, p)
+    dev = planes[0].device
+
+    def run(poison=False):
+        # poison: outputs filled with -1 first, so a lane the kernel does
+        # not write differs from the plain version
+        new = torch.full if poison else (lambda shape, _, **kw:
+                                         torch.empty(shape, **kw))
+        packed = new((h, p), -1, dtype=torch.int32, device=dev)
+        ev_key = new((h, k128), -1, dtype=torch.int32, device=dev)
+        ev_sv = new((h, k128), -1, dtype=torch.int32, device=dev)
+        ev_ang = new((h, k128), -1, dtype=torch.int32, device=dev)
+        count = new((h,), -1, dtype=torch.int32, device=dev)
+        scratch = torch.empty(words, dtype=torch.int64, device=dev)
+        rc = fn(*(t.data_ptr() for t in planes), packed.data_ptr(),
+                ev_key.data_ptr(), ev_sv.data_ptr(), ev_ang.data_ptr(),
+                count.data_ptr(), scratch.data_ptr(), words, h, p, k128,
+                *flags, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+        return packed, ev_key, ev_sv, ev_ang, count
+    return run
+
+
+def main():
+    sys.path.insert(0, ROOT)
+    import torch
+
+    import chip_smoke as cs
+    import kernel_ab
+    from orbitanalysis_tpu_torch.ops import compact
+    from orbitanalysis_tpu_torch.ops import step as tstep
+
+    dev = torch.device("cuda")
+    libs = build(VARIANTS)
+    (prev, cur, peri, invalid, cap), k17 = kernel_ab.detect_inputs(cs, dev)
+    (a17, kw17) = k17[0]  # the native call of the aligned churn step
+    h, p = prev[0].shape
+    calls = {
+        "K16": ("fused_join_detect", [*prev, *cur], compact._k128(cap, p),
+                [int(invalid), int(peri)],
+                tstep.fused_join_detect_torch(prev, cur, peri, invalid,
+                                              cap)),
+        "K17": ("static_detect_rows",
+                [t.contiguous() for t in (*a17[0][1:], *a17[1])],
+                compact._k128(a17[4], p),
+                [int(a17[3]), int(a17[2]), int(kw17.get("native", False))],
+                tstep.fused_static_detect_torch(*a17, **kw17)),
+    }
+    print(f"{torch.cuda.get_device_name(0)}; K16 on sorted churn step 2, "
+          f"K17 on aligned churn step 2 (native), [{h}, {p}]", flush=True)
+    for i, (kernel, name, _, checked) in enumerate(VARIANTS):
+        entry, planes, k128, flags, want = calls[kernel]
+        fn = launcher(libs[i], entry, planes, h, p, k128, flags)
+        ne = 0
+        for got in (fn(True), fn(True)):
+            torch.cuda.synchronize()
+            ne = max(ne, cs._bitwise(got, want)[0])
+        cs.check(ne == 0 or not checked,
+                 f"{kernel} {name} differs from its plain version")
+        times = [cs.cuda_ms(fn) for _ in range(2)]
+        note = "" if checked else f" (leaves a phase out: {ne} lanes differ)"
+        print(f"{kernel} {name}: {times[0]:.5f} {times[1]:.5f} ms{note}",
+              flush=True)
+
+
+if __name__ == "__main__":
+    main()

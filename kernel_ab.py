@@ -1,6 +1,7 @@
 """Device time of K10 (the fused label detect), K13 (the sorted CIC
-deposit) and K14 (the blocked direct forces) of one checkout, measured
-by that checkout's own ``chip_smoke.py`` checks.
+deposit), K14 (the blocked direct forces), K16 (the fused join-detect)
+and K17 (the aligned static detect) of one checkout, measured by that
+checkout's own ``chip_smoke.py`` checks.
 
 K10 runs on phase 3's inputs (the label route's 64 halos on rows of
 32768) and on the same particles with their labels spread over 512
@@ -8,16 +9,24 @@ halos, the most the JAX one-hot budget lets that row width have (the
 table repeated, so every output keeps its bits); K13 on the sorted
 streams of the first force evaluations of config 4's two runs (12.6M
 particles on 256^3, 33.5M on 512^3; ``chip_smoke._k13_check``); K14 at
-N = 16384 and 131072, free and periodic (``chip_smoke._k14_check``).
+N = 16384 and 131072, free and periodic (``chip_smoke._k14_check``);
+K16 and K17 on phase 3's inputs (the bench's first three snapshots at
+[64, 32768], K = 2048, recorded at step 2: K16 of the sorted churn step,
+K17 of the aligned churn step, native, and of the legacy aligned static
+step), each with its device time split by CUDA kernel (torch.profiler).
+``STEPS`` (not in the default set) runs phases 8 and 10's step timings
+on the bench's churn sequence through the checkout's own
+``chip_smoke.time_scan``, which prints them: wall, device span and busy
+ms a step, the host's ms to issue one, kernels a step, idle share.
 Each is checked against its plain version as ``chip_smoke.py`` checks it.
 Prints one JSON line of milliseconds, with a digest of K14's forces at
 N = 16384 so that two builds can be compared bit for bit.  Two checkouts
 are compared on one card by running it in each, in the order A, B, B, A:
 
-    python3 kernel_ab.py PATH_TO_CHECKOUT_A old [K10,K13,K14]
-    python3 kernel_ab.py . new [K10,K13,K14]
+    python3 kernel_ab.py PATH_TO_CHECKOUT_A old [K10,K13,K14,K16,K17]
+    python3 kernel_ab.py . new [K10,K13,K14,K16,K17]
 
-The third argument picks the kernels (all three by default).  A
+The third argument picks the kernels (all five by default).  A
 checkout whose ``chip_smoke.py`` predates ``_k13_check``/``_k14_check``
 gets the same checks and timings from this script's own
 :func:`k13_fallback` and :func:`k14_fallback`.  It needs a CUDA card and
@@ -114,7 +123,142 @@ def k14_fallback(cs, dev, n, box):
         runs=3 if big else 5, reps=2 if big else 10)}
 
 
-def main(root, tag, which="K10,K13,K14"):
+def kernel_split(fn, reps=20):
+    """Device ms a call of ``fn`` spends in each CUDA kernel (and
+    memset) it launches, by torch.profiler over ``reps`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0))
+        if t > 0:
+            out[e.key[:60]] = t / 1e3 / reps
+    return out
+
+
+def detect_inputs(cs, dev):
+    """Phase 3's K16 and K17 inputs: the arguments the steps pass at
+    step 2 of the bench's sequences (their first three snapshots, which
+    the generator makes as it makes the first three of 48)."""
+    import torch
+
+    from orbitanalysis_tpu_torch.models.synthetic import (
+        churn_workload,
+        static_workload,
+    )
+    from orbitanalysis_tpu_torch.ops import sorted_step as tss
+    from orbitanalysis_tpu_torch.ops import step as tstep
+    from orbitanalysis_tpu_torch.ops.apsis import SnapshotBatch
+
+    h, p = cs.LABEL[:2]
+    churn = churn_workload(h, p, 3, seed=0, churn=0.07)
+    static = static_workload(h, p, 3, seed=0)
+    ids, pos, vel, cen, _ = churn
+    b = tss.presort_snapshot(SnapshotBatch(ids=ids, pos=pos, vel=vel,
+                                           center=cen), soa=True)
+    stack = SnapshotBatch(**{f: torch.from_numpy(getattr(b, f)).to(dev)
+                             for f in ("ids", "pos", "vel", "center",
+                                       "slot")})
+    k16 = cs.staged_call(dev, stack, tstep, "fused_join_detect", fused=True)
+    k17 = []
+    for form, make, init in (
+            (churn, lambda: tss.make_aligned_native_step(
+                cs.LABEL_K, box_size=cs.LABEL_BOX, soa_batch=True,
+                detect_impl="pallas"),
+             lambda d: tss.init_aligned_carry(h, p, device=d)),
+            (static, lambda: tss.make_aligned_orbit_step(
+                cs.LABEL_K, box_size=cs.LABEL_BOX, soa_batch=True),
+             lambda d: tss.init_sorted_carry(h, p, device=d))):
+        aligned = cs.stage_aligned(dev, form, 3)
+        k17.append(cs.recorded_call(tstep, "fused_static_detect",
+                                    lambda: cs.run_steps(dev, aligned, make,
+                                                         init, 3)))
+    return k16, k17
+
+
+def detect_times(cs, dev, which):
+    """K16's and K17's milliseconds on phase 3's inputs, each bit-equal
+    to its plain version, with the split by CUDA kernel."""
+    from orbitanalysis_tpu_torch.ops import step as tstep
+
+    k16, k17 = detect_inputs(cs, dev)
+    runs = []
+    if "K16" in which:
+        runs.append(("K16", lambda: tstep.fused_join_detect(*k16),
+                     lambda: tstep.fused_join_detect_torch(*k16)))
+    if "K17" in which:
+        for tag, (a, kw) in zip(("K17_native", "K17_legacy"), k17):
+            runs.append((tag,
+                         lambda a=a, kw=kw: tstep.fused_static_detect(*a,
+                                                                      **kw),
+                         lambda a=a, kw=kw: tstep.fused_static_detect_torch(
+                             *a, **kw)))
+    out = {}
+    for tag, fn, plain in runs:
+        got, want = fn(), plain()
+        ne, _ = cs._bitwise(got, want)
+        cs.check(ne == 0, f"{tag} differs from its plain version")
+        first = fn()
+        ne, _ = cs._bitwise(first, got)
+        cs.check(ne == 0, f"{tag} gives other bits on a second call")
+        out[tag] = cs.cuda_ms(fn)
+        out[f"{tag}_events"] = int(want[4].sum())
+        out[f"{tag}_split"] = kernel_split(fn)
+    return out
+
+
+def step_times(cs, dev):
+    """Phases 8 and 10's step timings on the bench's churn sequence (48
+    snapshots of [64, 32768]), through the checkout's own
+    ``chip_smoke.time_scan``, which prints them: the fused sorted step
+    (K16) and the aligned ``'xla'``, ``'pallas'`` (K17) and legacy (K17)
+    steps."""
+    import torch
+
+    from orbitanalysis_tpu_torch.models.synthetic import churn_workload
+    from orbitanalysis_tpu_torch.ops import sorted_step as tss
+    from orbitanalysis_tpu_torch.ops.apsis import SnapshotBatch
+
+    h, p, s_n = cs.LABEL
+    churn = churn_workload(h, p, s_n, seed=0, churn=0.07)
+    ids, pos, vel, cen, n_valid = churn
+    b = tss.presort_snapshot(SnapshotBatch(ids=ids, pos=pos, vel=vel,
+                                           center=cen), soa=True)
+    stack = SnapshotBatch(**{f: torch.from_numpy(getattr(b, f)).to(dev)
+                             for f in ("ids", "pos", "vel", "center",
+                                       "slot")})
+    del b
+    cs.time_scan(dev, stack, s_n, n_valid, "sorted step, churn (K16)",
+                 tss.make_sorted_orbit_step(
+                     cs.LABEL_K, box_size=cs.LABEL_BOX, fused=True,
+                     cur_presorted=True, soa_batch=True),
+                 lambda d: tss.init_sorted_carry(h, p, device=d))
+    del stack
+    aligned = cs.stage_aligned(dev, churn, s_n)
+    kw = dict(box_size=cs.LABEL_BOX, soa_batch=True)
+    for what, step, init in (
+            ("aligned step, 'xla' (torch chain + K1)",
+             tss.make_aligned_native_step(cs.LABEL_K, **kw),
+             lambda d: tss.init_aligned_carry(h, p, device=d)),
+            ("aligned step, 'pallas' (K17)",
+             tss.make_aligned_native_step(cs.LABEL_K, detect_impl="pallas",
+                                          **kw),
+             lambda d: tss.init_aligned_carry(h, p, device=d)),
+            ("legacy aligned step (K17)",
+             tss.make_aligned_orbit_step(cs.LABEL_K, **kw),
+             lambda d: tss.init_sorted_carry(h, p, device=d))):
+        cs.time_scan(dev, aligned, s_n, n_valid, what, step, init)
+
+
+def main(root, tag, which="K10,K13,K14,K16,K17"):
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import numpy as np
@@ -159,11 +303,15 @@ def main(root, tag, which="K10,K13,K14"):
         acc = tn.direct_forces_blocked(p, m, 0.1).cpu().numpy()
         out[f"K14_N{cs.K14_N}_free_sha256"] = hashlib.sha256(
             acc.tobytes()).hexdigest()
+    if "K16" in which or "K17" in which:
+        out.update(detect_times(cs, dev, which))
+    if "STEPS" in which:
+        step_times(cs, dev)
     print(json.dumps(out), flush=True)
 
 
 if __name__ == "__main__":
     if len(sys.argv) not in (3, 4):
         raise SystemExit("usage: python3 kernel_ab.py CHECKOUT TAG "
-                         "[K10,K13,K14]")
+                         "[K10,K13,K14,K16,K17]")
     main(*sys.argv[1:])

@@ -217,8 +217,10 @@ def _library():
                         p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, f, f,
                         i, i, i, p],
                     "merge_rows": [pp, pp, pp, i, i, i, p],
-                    "fused_join_detect": [p] * 17 + [i] * 5 + [p],
-                    "static_detect_rows": [p] * 16 + [i] * 6 + [p],
+                    "fused_join_detect_scratch": [i, i],
+                    "fused_join_detect": [p] * 17 + [ll] + [i] * 5 + [p],
+                    "static_detect_rows_scratch": [i, i],
+                    "static_detect_rows": [p] * 16 + [ll] + [i] * 6 + [p],
                     "compact_events_rows": [p] * 6 + [i] * 3 + [p],
                     "compact_rows_groups": [
                         p, pp, pp, i, i, p, pp, pp, i, i, i, i, p],
@@ -229,7 +231,7 @@ def _library():
                 for name, argtypes in signatures.items():
                     fn = getattr(lib, name)
                     fn.argtypes = argtypes
-                    fn.restype = i
+                    fn.restype = ll if name.endswith("_scratch") else i
                 _lib = lib
     return _lib
 
@@ -511,19 +513,24 @@ def _check_pairs(name, prev, cur, pang_dtype):
 
 def _detect_events(name, planes, h, p, k128, *flags):
     """Launch K16 or K17 on the checked input ``planes`` (``flags``: the
-    ints after k128).  Returns ``(packed [H, P], ev_key, ev_sv, ev_angle
-    [H, k128], count [H])``."""
+    ints after k128).  The kernel's look-back scratch (a tile counter and
+    an 8-byte status word a tile: ``{name}_scratch(H, P)`` int64 words)
+    is allocated here on the caller's stream and zeroed by the entry
+    point before its launch.  Returns ``(packed [H, P], ev_key, ev_sv,
+    ev_angle [H, k128], count [H])``."""
     dev = planes[0].device
+    lib = _library()
     packed = torch.empty((h, p), dtype=torch.int32, device=dev)
-    evp = torch.empty((h, p), dtype=torch.int32, device=dev)
     ev_key = torch.empty((h, k128), dtype=torch.int32, device=dev)
     ev_sv = torch.empty_like(ev_key)
     ev_ang = torch.empty((h, k128), dtype=torch.float32, device=dev)
     count = torch.empty(h, dtype=torch.int32, device=dev)
-    _launch(name, getattr(_library(), name),
+    words = getattr(lib, f"{name}_scratch")(h, p)
+    scratch = torch.empty(words, dtype=torch.int64, device=dev)
+    _launch(name, getattr(lib, name),
             *(t.data_ptr() for t in planes), packed.data_ptr(),
-            evp.data_ptr(), ev_key.data_ptr(), ev_sv.data_ptr(),
-            ev_ang.data_ptr(), count.data_ptr(), h, p, k128, *flags,
+            ev_key.data_ptr(), ev_sv.data_ptr(), ev_ang.data_ptr(),
+            count.data_ptr(), scratch.data_ptr(), words, h, p, k128, *flags,
             device=dev)
     return packed, ev_key, ev_sv, ev_ang, count
 

@@ -7,11 +7,11 @@ and ``fused_static_detect``, K17).
   on the matched pairs, routes every result back to its source position
   and compacts the events in prev (ID) order.  On CUDA tensors it
   launches the hand-written kernel ``fused_join_detect`` of
-  ``csrc/merge.cu`` (binary searches for partners, no merged row); on
-  CPU tensors it runs :func:`fused_join_detect_torch`, the JAX kernel's
-  merged-domain formulation (a sort of the concatenation, neighbour
-  shifts, the inverse permutation back), so the two check each other's
-  design.
+  ``csrc/merge.cu`` (one launch: merge-path tiles of the merged row,
+  the events placed by a decoupled look-back); on CPU tensors it runs
+  :func:`fused_join_detect_torch`, the JAX kernel's merged-domain
+  formulation (a sort of the concatenation, neighbour shifts, the
+  inverse permutation back), so the two check each other's design.
 - :func:`fused_static_detect` detects on aligned rows (a matched pair
   shares a position, so no merge) and compacts the events in position
   order: the aligned engine's ``detect_impl='pallas'`` (``native=True``)

@@ -445,26 +445,51 @@ def _keys(rng, h, p, n_valid, side, pool):
     return keys
 
 
+#: Merged positions (prev and cur entries) of one tile of K16
+#: (``csrc/merge.cu`` kJoinTile) and lanes of one tile of K17
+#: (``csrc/static.cu`` kTile): the row lengths of the tile-edge cases.
+K16_TILE, K17_TILE = 1024, 2048
+
+
 def _join_planes(rng, h, p, kind):
     """Prev (ascending) and cur (descending) planes of one join.
     ``kind``: 'churn' (half the cur IDs shared, padding on both sides),
     'static' (the same IDs, no padding), 'disjoint' (no ID shared),
-    'big' (IDs near 2**31, so the keys' top bit is set)."""
+    'big' (IDs near 2**31, so the keys' top bit is set), 'straddle'
+    (every ID shared but one unmatched prev ID below them all and one
+    cur ID above: each pair sits at merged positions (2m - 1, 2m), so the
+    pairs at multiples of K16's tile straddle two tiles), 'clustered'
+    (all prev IDs; the cur IDs, at most 64, a contiguous run in the
+    middle, so every cur key falls inside one prev tile), 'padding'
+    (the churn planes with the first row all padding on both sides)."""
     n_prev = rng.integers(p // 2, p + 1, h)
     n_cur = rng.integers(p // 2, p + 1, h)
-    if kind == "static":
+    if kind in ("static", "straddle", "clustered"):
         n_prev = n_cur = np.full(h, p)
     base = (1 << 31) - 4 * p if kind == "big" else 0
     pools = [base + rng.permutation(3 * p) for _ in range(h)]
+    if kind in ("straddle", "clustered"):
+        pools = [np.arange(3 * p) for _ in range(h)]
     pk = _keys(rng, h, p, n_prev, 0, [q[:p] for q in pools])
     if kind == "static":
         ck = pk | np.uint32(1)
     elif kind == "disjoint":
         ck = _keys(rng, h, p, n_cur, 1, [q[p:] for q in pools])
+    elif kind == "straddle":
+        ck = np.concatenate([pk[:, 1:] | np.uint32(1),
+                             np.full((h, 1), (2 * p + 5) << 1 | 1,
+                                     np.uint32)], axis=1)
+    elif kind == "clustered":
+        n = min(64, p // 2)
+        ck = _keys(rng, h, p, np.full(h, n), 1,
+                   [np.arange(p // 2 - n // 2, p // 2 + n) for _ in range(h)])
     else:
         shared = [np.concatenate([(pk[r, :n_prev[r]] >> np.uint32(1))[
             : n_cur[r] // 2], q[p:2 * p]]) for r, q in enumerate(pools)]
         ck = _keys(rng, h, p, np.minimum(n_cur, p), 1, shared)
+    if kind == "padding":
+        pk[0] = 0xFFFFFFFE
+        ck[0] = 0xFFFFFFFF
     ck = np.ascontiguousarray(ck[:, ::-1])
 
     def unit():
@@ -499,9 +524,15 @@ def test_merge_kernel_matches_plain(dev, h, p, kind):
         assert torch.equal(g.cpu().view(torch.int32), w.view(torch.int32))
 
 
-@pytest.mark.parametrize("h,p,k", [(64, 32768, 2048), (3, 128, 128),
-                                   (5, 4096, 4096)])
-@pytest.mark.parametrize("kind", ["churn", "static", "disjoint", "big"])
+@pytest.mark.parametrize("h,p,k", [
+    (64, 32768, 2048), (3, 128, 128), (5, 4096, 4096),
+    # rows at and around K16's tile (P = K16_TILE / 2 fills one tile of
+    # 2P merged positions), many short rows, the aligned engine's widest
+    # row, and counts past k128 on rows of several tiles
+    (2, K16_TILE // 4, 128), (2, K16_TILE // 2, 256), (2, K16_TILE, 128),
+    (3, 2 * K16_TILE, 128), (4096, 128, 128), (1, 1 << 19, 2048)])
+@pytest.mark.parametrize("kind", ["churn", "static", "disjoint", "big",
+                                  "straddle", "clustered", "padding"])
 @pytest.mark.parametrize("pericentric", [True, False])
 def test_join_detect_kernel_matches_plain(dev, h, p, k, kind, pericentric):
     """K16 against its merged-domain plain version, on the CPU and on the
@@ -515,8 +546,12 @@ def test_join_detect_kernel_matches_plain(dev, h, p, k, kind, pericentric):
         tuple(t.to(dev) for t in prev), tuple(t.to(dev) for t in cur), *args)
     plain_cpu = ts.fused_join_detect_torch(tuple(prev), tuple(cur), *args)
     torch.cuda.synchronize()
-    if kind != "disjoint":
+    if kind != "disjoint" and (kind, h) != ("padding", 1):
         assert int(plain_cpu[4].sum()) > 0
+    if kind == "padding":
+        assert int(plain_cpu[4][0]) == 0
+    if kind in ("static", "straddle") and p >= 8 * k:
+        assert int(plain_cpu[4].max()) > k
     for want in (plain_cuda, plain_cpu):
         for g, w in zip(got, want):
             assert torch.equal(g.cpu().view(torch.int32),
@@ -658,14 +693,16 @@ def _static_planes(rng, h, p, native, density, kind):
     """Aligned prev/cur planes of one K17 call: ``density`` of the valid
     lanes flip (pericentric), FRESH on ~5 % of lanes (cur sv bit 27 when
     native, else prev sv), ``kind`` 'pad' puts the padding sentinel key
-    on ~20 % of lanes and 'big' uses IDs near 2**31 (keys with their top
-    bit set); a third of the r-hat lanes repeat the prev vector (cos =
-    1)."""
+    on ~20 % of lanes, 'padding' does so too and pads the whole first
+    row, and 'big' uses IDs near 2**31 (keys with their top bit set); a
+    third of the r-hat lanes repeat the prev vector (cos = 1)."""
     inv = np.iinfo(np.int32).max
     base = 2**31 - 4 * p * h if kind == "big" else 0
     ids = (base + rng.permutation(2 * p * h)[:h * p]).reshape(h, p)
-    if kind == "pad":
+    if kind in ("pad", "padding"):
         ids = np.where(rng.random((h, p)) < 0.2, inv, ids)
+    if kind == "padding":
+        ids[0] = inv
     ck = ((ids.astype(np.uint64) << 1) | 1).astype(np.uint32)
     flip = rng.random((h, p)) < density
     vp = np.where(flip, 1, rng.integers(0, 4, (h, p)))
@@ -696,10 +733,14 @@ def _static_planes(rng, h, p, native, density, kind):
     return prev, cur
 
 
-@pytest.mark.parametrize("h,p,k", [(64, 32768, 2048), (3, 256, 128),
-                                   (5, 4096, 128)])
+@pytest.mark.parametrize("h,p,k", [
+    (64, 32768, 2048), (3, 256, 128), (5, 4096, 128),
+    # rows at and around K17's tile, many short rows and the aligned
+    # engine's widest row (MAX_ALIGNED_CAPACITY)
+    (2, K17_TILE // 2, 128), (2, K17_TILE, 128), (3, 2 * K17_TILE, 256),
+    (4096, 128, 128), (1, 1 << 19, 2048)])
 @pytest.mark.parametrize("density", [0.0, 0.017, 0.5, 1.0])
-@pytest.mark.parametrize("kind", ["pad", "big"])
+@pytest.mark.parametrize("kind", ["pad", "big", "padding"])
 @pytest.mark.parametrize("native", [True, False])
 def test_static_detect_kernel_matches_plain(dev, h, p, k, density, kind,
                                             native):
@@ -718,12 +759,63 @@ def test_static_detect_kernel_matches_plain(dev, h, p, k, density, kind,
     plain_cpu = ts.fused_static_detect_torch(tuple(prev), tuple(cur), *args,
                                              native=native)
     torch.cuda.synchronize()
-    if density == 1.0:
+    if density == 1.0 and p > k and (kind, h) != ("padding", 1):
         assert int(plain_cpu[4].max()) > k
+    if kind == "padding":
+        assert int(plain_cpu[4][0]) == 0
     for want in (plain_cuda, plain_cpu):
         for g, w in zip(got, want):
             assert torch.equal(g.cpu().view(torch.int32),
                                w.cpu().view(torch.int32))
+
+
+def _detect_call(which, planes_dev, k):
+    """One K16 or K17 call on the given device planes."""
+    prev, cur = planes_dev
+    if which == "K16":
+        return ts.fused_join_detect(prev, cur, True, np.iinfo(np.int32).max,
+                                    k)
+    return ts.fused_static_detect(prev, cur, True, np.iinfo(np.int32).max,
+                                  k, native=True)
+
+
+@pytest.mark.parametrize("which", ["K16", "K17"])
+def test_detect_kernels_streams_and_repeats(dev, which):
+    """K16 and K17 issued at once on two CUDA streams give what they give
+    one after the other, two calls give the same bits, and each call is
+    one counted launch (each call's look-back scratch is its own)."""
+    rng = np.random.default_rng(8)
+    h, p, k = 8, 8 * K16_TILE, 256
+    inputs = []
+    for kind in ("churn", "big"):
+        if which == "K16":
+            prev, cur = _join_planes(rng, h, p, kind)
+        else:
+            prev, cur = _static_planes(rng, h, p, True, 0.5,
+                                       "pad" if kind == "churn" else kind)
+        inputs.append((tuple(t.to(dev) for t in prev),
+                       tuple(t.to(dev) for t in cur)))
+    name = ("fused_join_detect" if which == "K16"
+            else "static_detect_rows")
+    _cuda.reset_launch_counts()
+    serial = [_detect_call(which, x, k) for x in inputs]
+    again = [_detect_call(which, x, k) for x in inputs]
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts()[name] == 4
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    concurrent = [None, None]
+    for _ in range(3):
+        for i, (st, x) in enumerate(zip(streams, inputs)):
+            with torch.cuda.stream(st):
+                concurrent[i] = _detect_call(which, x, k)
+        torch.cuda.synchronize()
+        for outs in (again, concurrent):
+            for got, want in zip(outs, serial):
+                for g, w in zip(got, want):
+                    assert torch.equal(g.view(torch.int32),
+                                       w.view(torch.int32))
+    assert all(int(s[4].max()) > k for s in serial)
 
 
 def _aligned_batches(h, c, s, static=False):
