@@ -48,7 +48,8 @@ repository checkout; it imports nothing of JAX.  Phases:
    kernel, payload compaction) and the ``'pallas'`` route (moments, frame
    rows, plain chain, payload compaction) estimating the bulk velocities
    themselves, each kernel once a snapshot; then the step's device time,
-   host queue time and update rate for ``'auto'`` and ``'fused'``;
+   host queue time and update rate for ``'auto'``, ``'fused'`` and
+   ``'pallas'``;
 8. the sorted engine at full width, the JAX benchmark's merge-join and
    static cells: ``scan_events_sorted(fused=True, cur_presorted=True,
    soa_batch=True)`` over the 48-snapshot churn sequence must find
@@ -131,8 +132,11 @@ LABEL = (64, 32768, 48)
 LABEL_ROW, LABEL_K, LABEL_BOX = 32768, 2048, 100.0
 LABEL_EVENTS = 1741643
 LABEL_PARITY = (8, 8)
-#: timed scans of phase 7 (after one warm-up scan)
+#: timed scans of phase 7 (after one warm-up scan), and its timed routes
 LABEL_SCANS = 5
+LABEL_TIMED = (("auto", "'split': K7 -> K6 -> K8"),
+               ("fused", "K7 -> K10 -> K5"),
+               ("pallas", "K12 -> K11 -> plain chain -> K5"))
 #: phase 8: snapshots of the sorted engine's cross-checks and of the
 #: static cell (the JAX benchmark's secondary slice, bench.py:1103), and
 #: the events the static cell holds
@@ -897,6 +901,9 @@ def label_kernel_checks(dev, work):
                           ).abs().max())
             check(d16 <= 1 or dang <= ANGLE_ATOL,
                   f"{name}: angles differ by {d16} f16 ulps, {dang:.3g} rad")
+            check(name != "detect_label_compact_rows"
+                  or not any(diff.values()),
+                  f"{name}: lanes differ from the plain version: {diff}")
             worst[name] = max(worst[name], dang)
             log(f"  {name} [{r}, {w}] rhat {'packed' if packed else 'f32'}: "
                 f"{int(want[4].sum())} events, {matched} matched lanes in; "
@@ -1127,48 +1134,62 @@ def label_full_width(dev, work):
 
     # ---- timing: wall and device ms per step over whole scans, the
     # host's time to queue a step, and where the device time goes
-    for frames, what in (("auto", "'split': K7 -> K6 -> K8"),
-                         ("fused", "K7 -> K10 -> K5")):
-        step = ls.make_label_orbit_step(LABEL_K, frames=frames, **kw)
-
-        def run_scan(queue=None):
-            carry = ls.init_label_carry(n, True, LABEL_ROW, device=dev)
-            for s in range(s_n):
-                t1 = time.perf_counter()
-                carry, _ = step(carry, (work["pos"][s], work["vel"][s],
-                                        work["label"][s],
-                                        work["centers"][s], None, None,
-                                        0.0))
-                if queue is not None:
-                    queue.append((time.perf_counter() - t1) * 1e3)
-
-        run_scan()  # warm-up
-        walls, busy, queue = [], [], []
-        for _ in range(LABEL_SCANS):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            a.record()
-            run_scan(queue)
-            b.record()
-            b.synchronize()
-            walls.append(a.elapsed_time(b))
-            busy.append(device_ms(run_scan))
-        wall_ms, dev_ms = statistics.median(walls), statistics.median(busy)
-        host_ms = statistics.median(queue)
-        updates = s_n * work["n_valid"]
-        log(f"  label step, frames='{frames}' ({what}), medians of "
-            f"{LABEL_SCANS} scans of {s_n} steps (CUDA events): wall "
-            f"{wall_ms / s_n:.4f} ms/step (scans {min(walls):.3f}-"
-            f"{max(walls):.3f} ms), device {dev_ms / s_n:.4f} ms/step (the "
-            f"card held busy while the host queues the scan; scans "
-            f"{min(busy):.3f}-{max(busy):.3f} ms); the host takes "
-            f"{host_ms:.4f} ms to queue a step; "
-            f"{updates / (wall_ms * 1e-3):.4g} particle-snapshot updates/s "
-            f"at the wall, {updates / (dev_ms * 1e-3):.4g} at the device "
-            f"time ({s_n} x {work['n_valid']} updates a scan)")
-        profile_scan(run_scan, s_n, wall_ms)
+    for frames, what in LABEL_TIMED:
+        time_label_step(dev, work, frames, what)
     return launches
+
+
+def time_label_step(dev, work, frames, what):
+    """Wall and device ms a step of the label step on ``frames`` over
+    whole scans of ``work`` (medians of LABEL_SCANS scans after a warm-up
+    one), the host's time to queue a step, and where the device time goes
+    (:func:`profile_scan`); prints them and checks nothing."""
+    import torch
+
+    from orbitanalysis_tpu_torch.ops import label_step as ls
+
+    n = work["label"].shape[1]
+    s_n = work["label"].shape[0]
+    step = ls.make_label_orbit_step(LABEL_K, frames=frames,
+                                    box_size=LABEL_BOX, row_width=LABEL_ROW,
+                                    rhat_packed=True)
+
+    def run_scan(queue=None):
+        carry = ls.init_label_carry(n, True, LABEL_ROW, device=dev)
+        for s in range(s_n):
+            t1 = time.perf_counter()
+            carry, _ = step(carry, (work["pos"][s], work["vel"][s],
+                                    work["label"][s], work["centers"][s],
+                                    None, None, 0.0))
+            if queue is not None:
+                queue.append((time.perf_counter() - t1) * 1e3)
+
+    run_scan()  # warm-up
+    walls, busy, queue = [], [], []
+    for _ in range(LABEL_SCANS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        run_scan(queue)
+        b.record()
+        b.synchronize()
+        walls.append(a.elapsed_time(b))
+        busy.append(device_ms(run_scan))
+    wall_ms, dev_ms = statistics.median(walls), statistics.median(busy)
+    host_ms = statistics.median(queue)
+    updates = s_n * work["n_valid"]
+    log(f"  label step, frames='{frames}' ({what}), medians of "
+        f"{LABEL_SCANS} scans of {s_n} steps (CUDA events): wall "
+        f"{wall_ms / s_n:.4f} ms/step (scans {min(walls):.3f}-"
+        f"{max(walls):.3f} ms), device {dev_ms / s_n:.4f} ms/step (the "
+        f"card held busy while the host queues the scan; scans "
+        f"{min(busy):.3f}-{max(busy):.3f} ms); the host takes "
+        f"{host_ms:.4f} ms to queue a step; "
+        f"{updates / (wall_ms * 1e-3):.4g} particle-snapshot updates/s "
+        f"at the wall, {updates / (dev_ms * 1e-3):.4g} at the device "
+        f"time ({s_n} x {work['n_valid']} updates a scan)")
+    profile_scan(run_scan, s_n, wall_ms)
 
 
 # ---------------------------------------------------- sorted-engine phases

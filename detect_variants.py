@@ -1,6 +1,8 @@
-"""Device time of variants of K16 (``csrc/merge.cu`` fused_join_detect) and
-K17 (``csrc/static.cu`` static_detect_rows) on ``chip_smoke.py`` phase
-3's inputs, in one process.
+"""Device time of variants of K4/K5 (``csrc/compact.cu``
+compact_payload_rows), K8 (``csrc/label.cu`` detect_label_compact_rows),
+K16 (``csrc/merge.cu`` fused_join_detect) and K17 (``csrc/static.cu``
+static_detect_rows) on ``chip_smoke.py`` phase 3's inputs, in one
+process.
 
 Each variant is the checked-in source with a few text substitutions: a
 tile shape (threads a block, entries a thread) or a phase left out.  A
@@ -8,12 +10,15 @@ variant that leaves a phase out gives wrong outputs and is timed only,
 to show what that phase costs; the others are checked bit for bit
 against the plain versions.  Every variant is built by its own ``nvcc``
 (all started together) into its own library next to the package's
-git-ignored build directory, so the package's own build is untouched.
-Prints one line a variant: its name, then the milliseconds of two
-timings (``chip_smoke.cuda_ms``) and, for a variant that leaves a phase
-out, the count of output lanes that differ.  It needs a CUDA card:
+git-ignored build directory, so the package's own build is untouched;
+K4 and K8 variants run through the package's own wrappers with the
+variant library in place of the package's.  Prints one line a variant:
+its name, then the milliseconds of two timings (``chip_smoke.cuda_ms``)
+and, for a variant that leaves a phase out, the count of output lanes
+that differ.  It needs a CUDA card; the argument picks the kernels (all
+four by default):
 
-    python3 detect_variants.py
+    python3 detect_variants.py [K4,K8,K16,K17]
 """
 import ctypes
 import os
@@ -34,17 +39,43 @@ CLAIM = ("const int tile = claim_tile(a.scratch, &slot);",
          "const int tile = blockIdx.x;")
 
 
-def shape(vt_line, vt, threads):
+def shape(vt_line, vt, threads, threads_line="constexpr int kThreads = 256;"):
     """Substitutions for ``vt`` entries a thread and ``threads`` a block."""
     return [(vt_line, vt_line.rsplit("=", 1)[0] + f"= {vt};"),
-            ("constexpr int kThreads = 256;",
-             f"constexpr int kThreads = {threads};")]
+            (threads_line, threads_line.rsplit("=", 1)[0] + f"= {threads};")]
 
 
+#: The source of each kernel's variants.
+SOURCES = {"K4": "compact.cu", "K8": "label.cu", "K16": "merge.cu",
+           "K17": "static.cu"}
+#: The kernel function each variant's ptxas lines are printed for.
+KERNEL_FUNCTIONS = {"K4": "compact_payload_kernel",
+                    "K8": "detect_label_compact_kernel",
+                    "K16": "join_detect_kernel", "K17": "static_detect_kernel"}
 #: (kernel, name, substitutions, checked): the shipped shapes first.
 K16_VT = "constexpr int kJoinVT = 4;"
 K17_VT = "constexpr int kVT = 8;"
+K4_SHAPE = ("constexpr int kPayVT = 16;", "constexpr int kPayThreads = 256;")
+K8_SHAPE = ("constexpr int kCompactVT = 4;",
+            "constexpr int kCompactThreads = 256;")
+ROW_LOOKBACK = ("lookback_prefix(scratch + 1 + static_cast<size_t>(row) * "
+                "tiles, t, total, &slot);", "0;")
 VARIANTS = [
+    ("K4", "shipped (256 threads x 16)", [], True),
+    ("K4", "256 x 8", shape(K4_SHAPE[0], 8, 256, K4_SHAPE[1]), True),
+    ("K4", "256 x 32", shape(K4_SHAPE[0], 32, 256, K4_SHAPE[1]), True),
+    ("K4", "512 x 8", shape(K4_SHAPE[0], 8, 512, K4_SHAPE[1]), True),
+    ("K4", "no look-back", [ROW_LOOKBACK], False),
+    ("K8", "shipped (256 threads x 4)", [], True),
+    ("K8", "256 x 2", shape(K8_SHAPE[0], 2, 256, K8_SHAPE[1]), True),
+    ("K8", "256 x 8", shape(K8_SHAPE[0], 8, 256, K8_SHAPE[1]), True),
+    ("K8", "128 x 8", shape(K8_SHAPE[0], 8, 128, K8_SHAPE[1]), True),
+    ("K8", "512 x 2", shape(K8_SHAPE[0], 2, 512, K8_SHAPE[1]), True),
+    ("K8", "no look-back", [ROW_LOOKBACK], False),
+    ("K8", "detect chain alone", [
+        ROW_LOOKBACK, ("if (take[v] && dst < a.k128)", "if (false)"),
+        ("  const int total = tile_ranks<kCompactThreads, kCompactVT>(take, "
+         "rank, counts);", "  const int total = 0;")], False),
     ("K16", "shipped (256 threads x 4)", [], True),
     ("K16", "256 x 2", shape(K16_VT, 2, 256), True),
     ("K16", "256 x 8", shape(K16_VT, 8, 256), True),
@@ -73,15 +104,14 @@ VARIANTS = [
 
 def build(variants):
     """Compile each variant's source into its own library; returns
-    ``{index: ctypes.CDLL}``.  Raises on a substitution that does not
-    apply or a failed build."""
+    ``({index: ctypes.CDLL}, {index: nvcc's output})``.  Raises on a
+    substitution that does not apply or a failed build."""
     from orbitanalysis_tpu_torch.ops import _cuda
 
     shutil.rmtree(BUILD, ignore_errors=True)
     procs = []
     for i, (kernel, name, subs, _) in enumerate(variants):
-        src = os.path.join(CSRC, "merge.cu" if kernel == "K16"
-                           else "static.cu")
+        src = os.path.join(CSRC, SOURCES[kernel])
         text = open(src).read()
         for a, b in subs:
             if a not in text:
@@ -94,16 +124,29 @@ def build(variants):
             f.write(text)
         so = os.path.join(d, "lib.so")
         procs.append((i, so, subprocess.Popen(
-            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-o", so,
-             os.path.join(d, "k.cu")],
+            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-Xptxas", "-v", "-shared",
+             "-o", so, os.path.join(d, "k.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    libs = {}
+    libs, logs = {}, {}
     for i, so, proc in procs:
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise SystemExit(f"variant {variants[i][:2]} failed:\n{out}")
-        libs[i] = ctypes.CDLL(so)
-    return libs
+        libs[i] = _cuda.bind(ctypes.CDLL(so))
+        logs[i] = out
+    return libs, logs
+
+
+def ptxas_lines(log, kernel):
+    """What ``-Xptxas -v`` printed for the entry functions whose mangled
+    name holds ``kernel``: registers, stack, spills."""
+    out, keep = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            keep = kernel in line
+        if keep and ("Used" in line or "spill" in line):
+            out.append("    " + line.strip())
+    return out
 
 
 def launcher(lib, name, planes, h, p, k128, flags):
@@ -143,38 +186,74 @@ def launcher(lib, name, planes, h, p, k128, flags):
     return run
 
 
-def main():
+def with_library(lib, fn):
+    """``fn`` run with ``lib`` in place of the package's library, so the
+    package's wrappers launch the variant."""
+    from orbitanalysis_tpu_torch.ops import _cuda
+
+    def run():
+        saved, _cuda._lib = _cuda._library(), lib
+        try:
+            return fn()
+        finally:
+            _cuda._lib = saved
+    return run
+
+
+def main(which="K4,K8,K16,K17"):
     sys.path.insert(0, ROOT)
     import torch
 
     import chip_smoke as cs
     import kernel_ab
-    from orbitanalysis_tpu_torch.ops import compact
+    from orbitanalysis_tpu_torch.ops import compact, label
     from orbitanalysis_tpu_torch.ops import step as tstep
 
+    which = set(which.split(","))
+    variants = [v for v in VARIANTS if v[0] in which]
     dev = torch.device("cuda")
-    libs = build(VARIANTS)
-    (prev, cur, peri, invalid, cap), k17 = kernel_ab.detect_inputs(cs, dev)
-    (a17, kw17) = k17[0]  # the native call of the aligned churn step
-    h, p = prev[0].shape
-    calls = {
-        "K16": ("fused_join_detect", [*prev, *cur], compact._k128(cap, p),
-                [int(invalid), int(peri)],
-                tstep.fused_join_detect_torch(prev, cur, peri, invalid,
-                                              cap)),
-        "K17": ("static_detect_rows",
-                [t.contiguous() for t in (*a17[0][1:], *a17[1])],
-                compact._k128(a17[4], p),
-                [int(a17[3]), int(a17[2]), int(kw17.get("native", False))],
-                tstep.fused_static_detect_torch(*a17, **kw17)),
-    }
-    print(f"{torch.cuda.get_device_name(0)}; K16 on sorted churn step 2, "
-          f"K17 on aligned churn step 2 (native), [{h}, {p}]", flush=True)
-    for i, (kernel, name, _, checked) in enumerate(VARIANTS):
-        entry, planes, k128, flags, want = calls[kernel]
-        fn = launcher(libs[i], entry, planes, h, p, k128, flags)
+    libs, logs = build(variants)
+    calls = {}
+    if which & {"K4", "K8"}:
+        args, _ = cs._detect_inputs(dev, kernel_ab.label_work(cs, dev), True)
+        kw = dict(pericentric=True, box_size=cs.LABEL_BOX, rhat_packed=True)
+        k = cs.LABEL_K
+        pay = label.detect_label(*args, 0.0, **kw)[3]
+        calls["K4"] = (lambda: (compact.compact_payload(pay, k),),
+                       (compact.compact_payload_torch(pay, k),))
+        kw["event_capacity"] = k
+        calls["K8"] = (lambda: label.detect_label_compact(*args, 0.0, **kw),
+                       label.detect_label_compact_torch(*args, 0.0, **kw))
+    if which & {"K16", "K17"}:
+        (prev, cur, peri, invalid, cap), k17 = kernel_ab.detect_inputs(
+            cs, dev)
+        (a17, kw17) = k17[0]  # the native call of the aligned churn step
+        h, p = prev[0].shape
+        calls["K16"] = ("fused_join_detect", [*prev, *cur],
+                        compact._k128(cap, p), [int(invalid), int(peri)],
+                        tstep.fused_join_detect_torch(prev, cur, peri,
+                                                      invalid, cap))
+        calls["K17"] = ("static_detect_rows",
+                        [t.contiguous() for t in (*a17[0][1:], *a17[1])],
+                        compact._k128(a17[4], p),
+                        [int(a17[3]), int(a17[2]),
+                         int(kw17.get("native", False))],
+                        tstep.fused_static_detect_torch(*a17, **kw17))
+    print(f"{torch.cuda.get_device_name(0)}; K4 on the payload plane and K8 "
+          "on the inputs of label step 3, K16 on sorted churn step 2, K17 "
+          "on aligned churn step 2 (native), [64, 32768]", flush=True)
+    for i, (kernel, name, _, checked) in enumerate(variants):
+        if kernel in ("K4", "K8"):
+            fn, want = calls[kernel]
+            fn = with_library(libs[i], fn)
+            fn_poison = fn
+        else:
+            entry, planes, k128, flags, want = calls[kernel]
+            h, p = planes[0].shape
+            fn = launcher(libs[i], entry, planes, h, p, k128, flags)
+            fn_poison = lambda fn=fn: fn(True)  # noqa: E731
         ne = 0
-        for got in (fn(True), fn(True)):
+        for got in (fn_poison(), fn_poison()):
             torch.cuda.synchronize()
             ne = max(ne, cs._bitwise(got, want)[0])
         cs.check(ne == 0 or not checked,
@@ -183,7 +262,9 @@ def main():
         note = "" if checked else f" (leaves a phase out: {ne} lanes differ)"
         print(f"{kernel} {name}: {times[0]:.5f} {times[1]:.5f} ms{note}",
               flush=True)
+        print("\n".join(ptxas_lines(logs[i], KERNEL_FUNCTIONS[kernel])),
+              flush=True)
 
 
 if __name__ == "__main__":
-    main()
+    main(*sys.argv[1:2])

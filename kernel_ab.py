@@ -1,10 +1,14 @@
-"""Device time of K10 (the fused label detect), K13 (the sorted CIC
+"""Device time of K4/K5 (the payload compaction), K8 (the label detect
+with its compaction), K10 (the fused label detect), K13 (the sorted CIC
 deposit), K14 (the blocked direct forces), K16 (the fused join-detect)
 and K17 (the aligned static detect) of one checkout, measured by that
 checkout's own ``chip_smoke.py`` checks.
 
-K10 runs on phase 3's inputs (the label route's 64 halos on rows of
-32768) and on the same particles with their labels spread over 512
+K4 runs on phase 3's payload plane (``[64, 32768]``, 1.7 % events,
+K = 2048, the same draws) and on the payload plane the label step's
+detect pass writes for snapshot 3 of the bench's label sequence; K8 and
+K10 on phase 3's inputs (that snapshot, the label route's 64 halos on
+rows of 32768, packed r-hat), K10 also with its labels spread over 512
 halos, the most the JAX one-hot budget lets that row width have (the
 table repeated, so every output keeps its bits); K13 on the sorted
 streams of the first force evaluations of config 4's two runs (12.6M
@@ -13,24 +17,31 @@ N = 16384 and 131072, free and periodic (``chip_smoke._k14_check``);
 K16 and K17 on phase 3's inputs (the bench's first three snapshots at
 [64, 32768], K = 2048, recorded at step 2: K16 of the sorted churn step,
 K17 of the aligned churn step, native, and of the legacy aligned static
-step), each with its device time split by CUDA kernel (torch.profiler).
+step).  K4, K8, K16 and K17 are checked bit for bit against their plain
+versions and against a second call, and their device time is split by
+CUDA kernel (torch.profiler).
 ``STEPS`` (not in the default set) runs phases 8 and 10's step timings
 on the bench's churn sequence through the checkout's own
 ``chip_smoke.time_scan``, which prints them: wall, device span and busy
 ms a step, the host's ms to issue one, kernels a step, idle share.
+``LABEL_STEPS`` (not in the default set either) runs phase 7's label
+step timings (``'split'``, ``'fused'``, ``'pallas'``) on the bench's
+label sequence through the checkout's own
+``chip_smoke.time_label_step``, or :func:`label_step_fallback` for a
+checkout that predates it, which prints the same.
 Each is checked against its plain version as ``chip_smoke.py`` checks it.
 Prints one JSON line of milliseconds, with a digest of K14's forces at
 N = 16384 so that two builds can be compared bit for bit.  Two checkouts
 are compared on one card by running it in each, in the order A, B, B, A:
 
-    python3 kernel_ab.py PATH_TO_CHECKOUT_A old [K10,K13,K14,K16,K17]
-    python3 kernel_ab.py . new [K10,K13,K14,K16,K17]
+    python3 kernel_ab.py PATH_TO_CHECKOUT_A old [K4,K8,K10,...]
+    python3 kernel_ab.py . new [K4,K8,K10,...]
 
-The third argument picks the kernels (all five by default).  A
-checkout whose ``chip_smoke.py`` predates ``_k13_check``/``_k14_check``
-gets the same checks and timings from this script's own
-:func:`k13_fallback` and :func:`k14_fallback`.  It needs a CUDA card and
-builds the checkout's kernels at first use.
+The third argument picks the kernels (K4, K8, K10, K13, K14, K16 and
+K17 by default).  A checkout whose ``chip_smoke.py`` predates
+``_k13_check``/``_k14_check`` gets the same checks and timings from this
+script's own :func:`k13_fallback` and :func:`k14_fallback`.  It needs a
+CUDA card and builds the checkout's kernels at first use.
 """
 import hashlib
 import json
@@ -38,23 +49,32 @@ import os
 import sys
 
 
-def k10_times(cs, dev):
+def label_work(cs, dev, n_snap=4):
+    """The first ``n_snap`` snapshots of the bench's label sequence on the
+    card (the generator makes them as it makes the first of 48)."""
+    import torch
+
+    from orbitanalysis_tpu_torch.models.synthetic import label_churn_workload
+
+    h, p, s_n = cs.LABEL
+    lab, pos, vel, cen, n_valid = label_churn_workload(h, p, s_n, seed=0,
+                                                       churn=0.07)
+    return dict(label=torch.from_numpy(lab[:n_snap]).to(dev),
+                pos=torch.from_numpy(pos[:n_snap]).to(dev),
+                vel=torch.from_numpy(vel[:n_snap]).to(dev),
+                centers=torch.from_numpy(cen[:n_snap]).to(dev),
+                n_valid=n_valid)
+
+
+def k10_times(cs, dev, label_args):
     """K10's milliseconds at 64 halos (phase 3's inputs) and with the
     labels spread over 512 halos, each bit-equal to the plain version
     and with the same events."""
     import torch
 
-    from orbitanalysis_tpu_torch.models.synthetic import label_churn_workload
     from orbitanalysis_tpu_torch.ops import label
 
-    lab, pos, vel, cen, _ = label_churn_workload(*cs.LABEL, seed=0,
-                                                 churn=0.07)
-    work = dict(label=torch.from_numpy(lab[:4]).to(dev),
-                pos=torch.from_numpy(pos[:4]).to(dev),
-                vel=torch.from_numpy(vel[:4]).to(dev),
-                centers=torch.from_numpy(cen[:4]).to(dev))
-    del lab, pos, vel
-    args, table = cs._detect_inputs(dev, work, True)
+    args, table = label_args
     kw = dict(pericentric=True, box_size=cs.LABEL_BOX, rhat_packed=True)
     lab, sv = args[1], args[4]
     h0 = table.shape[0]
@@ -144,6 +164,125 @@ def kernel_split(fn, reps=20):
     return out
 
 
+def checked_times(cs, tag, fn, plain):
+    """``fn``'s milliseconds, after checking it bit for bit against its
+    plain version and against a second call, with the split of its
+    device time by CUDA kernel."""
+    got, want = fn(), plain()
+    ne, _ = cs._bitwise(got, want)
+    cs.check(ne == 0, f"{tag} differs from its plain version")
+    ne, _ = cs._bitwise(fn(), got)
+    cs.check(ne == 0, f"{tag} gives other bits on a second call")
+    return {tag: cs.cuda_ms(fn), f"{tag}_split": kernel_split(fn)}
+
+
+def k4_times(cs, dev, label_args):
+    """K4 on phase 3's payload plane (the draws ``chip_smoke.py`` makes
+    for its densities 0 and 0.017, the second timed) and on the payload
+    plane of the detect pass of snapshot 3 (K9's output on phase 3's K8
+    inputs)."""
+    import numpy as np
+    import torch
+
+    from orbitanalysis_tpu_torch.ops import compact, label
+
+    r, w, k = cs.LABEL[0], cs.LABEL_ROW, cs.LABEL_K
+    rng = np.random.default_rng(4)
+    pos1 = np.arange(1, w + 1, dtype=np.uint32)
+    for density in (0.0, 0.017):
+        sel = rng.random((r, w)) < density
+        ang = rng.integers(0, 0x7BFF, (r, w)).astype(np.uint32)
+    pay = np.where(sel, (pos1 << np.uint32(15)) | ang, np.uint32(0))
+    planes = {"K4": torch.from_numpy(pay.view(np.int32)).to(dev)}
+    args, _ = label_args
+    planes["K4_label"] = label.detect_label(
+        *args, 0.0, pericentric=True, box_size=cs.LABEL_BOX,
+        rhat_packed=True)[3]
+    out = {}
+    for tag, x in planes.items():
+        out.update(checked_times(
+            cs, tag, lambda x=x: (compact.compact_payload(x, k),),
+            lambda x=x: (compact.compact_payload_torch(x, k),)))
+        out[f"{tag}_events"] = int(((x >> 15) != 0).sum())
+    return out
+
+
+def k8_times(cs, dev, label_args):
+    """K8 on phase 3's inputs, every output bit for bit."""
+    from orbitanalysis_tpu_torch.ops import label
+
+    args, _ = label_args
+    kw = dict(event_capacity=cs.LABEL_K, pericentric=True,
+              box_size=cs.LABEL_BOX, rhat_packed=True)
+    out = checked_times(
+        cs, "K8", lambda: label.detect_label_compact(*args, 0.0, **kw),
+        lambda: label.detect_label_compact_torch(*args, 0.0, **kw))
+    out["K8_events"] = int(
+        label.detect_label_compact_torch(*args, 0.0, **kw)[4].sum())
+    return out
+
+
+def label_step_fallback(dev, work, frames, what, cs):
+    """``chip_smoke.time_label_step`` for a checkout that predates it:
+    the same scans, timings and profile."""
+    import statistics
+    import time
+
+    import torch
+
+    from orbitanalysis_tpu_torch.ops import label_step as ls
+
+    n = work["label"].shape[1]
+    s_n = work["label"].shape[0]
+    step = ls.make_label_orbit_step(cs.LABEL_K, frames=frames,
+                                    box_size=cs.LABEL_BOX,
+                                    row_width=cs.LABEL_ROW, rhat_packed=True)
+
+    def run_scan(queue=None):
+        carry = ls.init_label_carry(n, True, cs.LABEL_ROW, device=dev)
+        for s in range(s_n):
+            t1 = time.perf_counter()
+            carry, _ = step(carry, (work["pos"][s], work["vel"][s],
+                                    work["label"][s], work["centers"][s],
+                                    None, None, 0.0))
+            if queue is not None:
+                queue.append((time.perf_counter() - t1) * 1e3)
+
+    run_scan()
+    walls, busy, queue = [], [], []
+    for _ in range(cs.LABEL_SCANS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        run_scan(queue)
+        b.record()
+        b.synchronize()
+        walls.append(a.elapsed_time(b))
+        busy.append(cs.device_ms(run_scan))
+    wall_ms, dev_ms = statistics.median(walls), statistics.median(busy)
+    cs.log(f"  label step, frames='{frames}' ({what}), medians of "
+           f"{cs.LABEL_SCANS} scans of {s_n} steps (CUDA events): wall "
+           f"{wall_ms / s_n:.4f} ms/step (scans {min(walls):.3f}-"
+           f"{max(walls):.3f} ms), device {dev_ms / s_n:.4f} ms/step (scans "
+           f"{min(busy):.3f}-{max(busy):.3f} ms); the host takes "
+           f"{statistics.median(queue):.4f} ms to queue a step")
+    cs.profile_scan(run_scan, s_n, wall_ms)
+
+
+def label_step_times(cs, dev):
+    """Phase 7's label step timings on the bench's label sequence (48
+    snapshots of [64, 32768]): ``'split'`` (K7, K6, K8), ``'fused'``
+    (K7, K10, K5) and ``'pallas'`` (K12, K11, the plain chain, K5)."""
+    work = label_work(cs, dev, cs.LABEL[2])
+    timed = getattr(cs, "time_label_step", None) or (
+        lambda *a: label_step_fallback(*a, cs))
+    for frames, what in (("auto", "'split': K7 -> K6 -> K8"),
+                         ("fused", "K7 -> K10 -> K5"),
+                         ("pallas", "K12 -> K11 -> plain chain -> K5")):
+        timed(dev, work, frames, what)
+
+
 def detect_inputs(cs, dev):
     """Phase 3's K16 and K17 inputs: the arguments the steps pass at
     step 2 of the bench's sequences (their first three snapshots, which
@@ -203,15 +342,8 @@ def detect_times(cs, dev, which):
                              *a, **kw)))
     out = {}
     for tag, fn, plain in runs:
-        got, want = fn(), plain()
-        ne, _ = cs._bitwise(got, want)
-        cs.check(ne == 0, f"{tag} differs from its plain version")
-        first = fn()
-        ne, _ = cs._bitwise(first, got)
-        cs.check(ne == 0, f"{tag} gives other bits on a second call")
-        out[tag] = cs.cuda_ms(fn)
-        out[f"{tag}_events"] = int(want[4].sum())
-        out[f"{tag}_split"] = kernel_split(fn)
+        out.update(checked_times(cs, tag, fn, plain))
+        out[f"{tag}_events"] = int(plain()[4].sum())
     return out
 
 
@@ -258,7 +390,7 @@ def step_times(cs, dev):
         cs.time_scan(dev, aligned, s_n, n_valid, what, step, init)
 
 
-def main(root, tag, which="K10,K13,K14,K16,K17"):
+def main(root, tag, which="K4,K8,K10,K13,K14,K16,K17"):
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import numpy as np
@@ -273,8 +405,13 @@ def main(root, tag, which="K10,K13,K14,K16,K17"):
     which = which.split(",")
     dev = torch.device("cuda")
     out = {"tag": tag, "build_s": _cuda.build()}
-    if "K10" in which:
-        out.update(k10_times(cs, dev))
+    if {"K4", "K8", "K10"} & set(which):
+        label_args = cs._detect_inputs(dev, label_work(cs, dev), True)
+        for name, fn in (("K4", k4_times), ("K8", k8_times),
+                         ("K10", k10_times)):
+            if name in which:
+                out.update(fn(cs, dev, label_args))
+        del label_args
     if "K13" in which:
         for rows, grid in ((cs.C4_SCALE[0], cs.C4_SCALE[1]),
                            (cs.C4_ANCHOR[0], cs.C4_ANCHOR[1])):
@@ -307,11 +444,13 @@ def main(root, tag, which="K10,K13,K14,K16,K17"):
         out.update(detect_times(cs, dev, which))
     if "STEPS" in which:
         step_times(cs, dev)
+    if "LABEL_STEPS" in which:
+        label_step_times(cs, dev)
     print(json.dumps(out), flush=True)
 
 
 if __name__ == "__main__":
     if len(sys.argv) not in (3, 4):
         raise SystemExit("usage: python3 kernel_ab.py CHECKOUT TAG "
-                         "[K10,K13,K14,K16,K17]")
+                         "[K4,K8,K10,K13,K14,K16,K17,STEPS,LABEL_STEPS]")
     main(*sys.argv[1:])

@@ -234,6 +234,13 @@ __device__ __forceinline__ void finish_row(uint32_t* a, uint32_t* b, uint32_t* c
   }
 }
 
+// The one-output-row form: the row's exact count n where count is set,
+// and zeros in [min(n, len), len) of its output row.
+__device__ __forceinline__ void finish_row(uint32_t* a, int len, int n, int32_t* count) {
+  if (count != nullptr && threadIdx.x == 0) *count = n;
+  for (int j = min(n, len) + threadIdx.x; j < len; j += blockDim.x) a[j] = 0u;
+}
+
 // Status words a launch of tiles_per_row tiles over H rows needs, with
 // the tile counter.
 inline long long lookback_words(int H, int tiles_per_row) {

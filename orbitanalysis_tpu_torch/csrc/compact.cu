@@ -16,10 +16,6 @@
 //       -> compact_events_rows below
 //   K19 _compact_kernel                (entry compact_rows, call :137)
 //       -> compact_rows_groups below
-// All but compact_angle_rows (which builds its output word from the
-// input) run common.cuh's compact_streams_kernel, the same tile scan
-// with up to six streams moving together unchanged.
-//
 // Contract (every entry point): each row of an [H, P] uint32 plane is
 // compacted, in position order, into the front of an [H, k128] row;
 // entries past the row's event count are written as zero.
@@ -42,13 +38,28 @@
 //     entries of both past their counts are zero.
 //
 // The TPU splits K1/K2 and K4/K5 exist for VMEM and the 16-entry block
-// fronts of the blocked network; here there is one exact ordered stream
-// compaction with no occupancy limit, so nothing reroutes.  Design: one
-// block per row, 1024 threads walking the row in tiles of 1024 entries.  In a tile,
-// __ballot_sync + __popc give each event its rank inside its warp, warp
-// 0 scans the 32 warp totals in shared memory, and a running base
-// carries the count across tiles.  A row stops reading once its k128
-// outputs are full.
+// fronts of the blocked network; here each compaction is exact with no
+// occupancy limit, so nothing reroutes.  Two designs:
+//   one block a row (K1 its own loop, as it builds its output word from
+//     the input; K3, K18 and K19 through common.cuh's
+//     compact_streams_kernel, up to six streams moving together
+//     unchanged): 1024 threads walk the row in tiles of 1024 entries.  In
+//     a tile, __ballot_sync + __popc give each event its rank inside its
+//     warp, warp 0 scans the 32 warp totals in shared memory, and a
+//     running base carries the count across tiles.  K1 stops reading
+//     once its k128 outputs are full.
+//   (row, tile) tiles in arrival order (K4/K5, compact_payload_rows): a
+//     block takes a tile of kPayThreads x kPayVT words of one row through
+//     common.cuh's claim_tile, loads them coalesced (word v *
+//     kPayThreads + threadIdx.x of the tile is the thread's v-th), keeps
+//     them in registers, ranks the events (tile_ranks), gets the count
+//     of the row's earlier tiles by the decoupled look-back
+//     (lookback_prefix) and writes each event to prefix + rank where that
+//     is below k128; the row's last tile (its highest index, which may
+//     finish before others of the row: they write below the row's total,
+//     it writes at or above) zero-fills [min(n, k128), k128).  Every tile
+//     reads its whole tile: it cannot know its prefix before it publishes
+//     its own count.
 //
 // What bounds K18 and K19 on the H100: bytes.  The selection plane is
 // read whole; a payload stream is read only at the selected lanes, so it
@@ -60,17 +71,20 @@
 // lanes selected; group b with three, len 2048, about 1 %) reads its two
 // masks whole and writes six [64, 32768] and three [64, 2048] planes.
 // chip_smoke.py reckons each bound from its run's selection.  Both keep
-// the one-block-a-row design below, so K19's six-channel group moves its
+// the one-block-a-row design above, so K19's six-channel group moves its
 // payload with sparse, half-coalesced reads and writes.
 //
 // What bounds K1-K5 on the H100: bytes.  Each entry is one coalesced u32
 // read; the writes are sparse (events are a few percent of entries) and
 // the zero fill is k128 words per row.  At the aligned step's shape of
-// [64, 32768] the plane is 8 MB, 2.5 us at 3.35 TB/s, but one block per
-// row fills only 64 of 132 SMs and each tile waits for its load and two
-// barriers, so the kernel is latency-bound well above that floor.  That
-// is accepted for bring-up; splitting rows over several blocks (with a
-// decoupled look-back for the row base) is the way to the floor.
+// [64, 32768] the plane is 8 MB, 2.5 us at 3.35 TB/s.  One block a row
+// fills only 64 of 132 SMs and each tile waits for its load and two
+// barriers, so K1 is latency-bound well above that floor.  K4/K5 cut the
+// same shape into 64 x 8 tiles of 4096 words, one resident wave of
+// 256-thread blocks with sixteen loads in flight a thread (the fastest
+// of 256 x 4, 8, 16 and 512 x 8 on the card, detect_variants.py); what
+// is left above the floor is the launch, the scratch memset and the
+// look-back.
 //
 // The only float work is one multiply by the exact power of two 2^24,
 // so FMA contraction cannot change a result; the build still passes
@@ -112,6 +126,44 @@ compact_angle_rows_kernel(const uint32_t* __restrict__ aw,
   }
   for (int j = min(base, k128) + threadIdx.x; j < k128; j += kThreads) o[j] = 0u;
 }
+
+// K4/K5: tiles of kPayTile words in arrival order; an event is a word
+// >= 2^15, moved unchanged.
+constexpr int kPayThreads = 256;
+constexpr int kPayVT = 16;  // words a thread
+constexpr int kPayTile = kPayThreads * kPayVT;
+
+__global__ void __launch_bounds__(kPayThreads)
+compact_payload_kernel(const uint32_t* __restrict__ pay, uint32_t* __restrict__ out,
+                       unsigned long long* scratch, int P, int tiles, int k128) {
+  __shared__ int slot;
+  __shared__ int counts[kPayVT * (kPayThreads / 32) + 1];
+  const int tile = claim_tile(scratch, &slot);
+  const int row = tile / tiles;
+  const int t = tile - row * tiles;
+  const uint32_t* in = pay + static_cast<size_t>(row) * P;
+  uint32_t w[kPayVT];
+  bool take[kPayVT];
+#pragma unroll
+  for (int v = 0; v < kPayVT; ++v) {
+    const int x = t * kPayTile + v * kPayThreads + threadIdx.x;
+    w[v] = x < P ? __ldg(in + x) : 0u;
+    take[v] = (w[v] & 0xFFFF8000u) != 0u;
+  }
+  int rank[kPayVT];
+  const int total = tile_ranks<kPayThreads, kPayVT>(take, rank, counts);
+  const int before =
+      lookback_prefix(scratch + 1 + static_cast<size_t>(row) * tiles, t, total, &slot);
+  uint32_t* o = out + static_cast<size_t>(row) * k128;
+#pragma unroll
+  for (int v = 0; v < kPayVT; ++v) {
+    const int dst = before + rank[v];
+    if (take[v] && dst < k128) o[dst] = w[v];
+  }
+  if (t == tiles - 1) finish_row(o, k128, before + total, nullptr);
+}
+
+int payload_tiles(int P) { return (P + kPayTile - 1) / kPayTile; }
 
 // One group of common.cuh's multi-stream scan: n uint32 streams of [H, P]
 // rows selected where sel & sel_mask != 0, each moved unchanged into the
@@ -194,10 +246,25 @@ extern "C" int compact_rows_groups(const void* sel_a, const void* const* in_a,
   return launch_compact_streams(g[0], &g[1], H, N, static_cast<cudaStream_t>(stream));
 }
 
-// w >= 2^15 is the test (w & 0xFFFF8000) != 0.
-extern "C" int compact_payload_rows(const void* pay, void* out, int H, int P,
+// Scratch words (int64) compact_payload_rows needs for H rows of P.
+extern "C" long long compact_payload_rows_scratch(int H, int P) {
+  return lookback_words(H, payload_tiles(P));
+}
+
+// K4/K5: zeroes the look-back scratch (scratch_words int64 words, at
+// least compact_payload_rows_scratch(H, P)) on the stream, then launches.
+extern "C" int compact_payload_rows(const void* pay, void* out, void* scratch,
+                                    long long scratch_words, int H, int P,
                                     int k128, void* stream) {
-  const void* in[1] = {pay};
-  void* outs[1] = {out};
-  return launch_one_group(pay, 0xFFFF8000u, in, outs, 1, H, P, k128, stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (H <= 0 || P <= 0) return static_cast<int>(cudaGetLastError());
+  const int tiles = payload_tiles(P);
+  const long long words = lookback_words(H, tiles);
+  if (scratch_words < words) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t rc = cudaMemsetAsync(scratch, 0, words * sizeof(unsigned long long), s);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  compact_payload_kernel<<<static_cast<unsigned>(words - 1), kPayThreads, 0, s>>>(
+      static_cast<const uint32_t*>(pay), static_cast<uint32_t*>(out),
+      static_cast<unsigned long long*>(scratch), P, tiles, k128);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -48,22 +48,30 @@
 // What bounds it on the H100: bytes.  K8 at the bench shape (R = 64,
 // W = 32768, packed r-hat) reads 64 B and writes 12 B per particle:
 // 159 MB, 47.7 us at 3.35 TB/s; K10 reads 40 B and writes 16 B, the
-// frame rows never leaving the chip: 117 MB, 35 us.  Design, simple
-// first: K9 and K10 run one 256-thread block per 256 particles (grid
-// W / 256 x R), so they fill the card; K8 runs one 1024-thread block
-// per row walking 1024-entry tiles
-// with a running event base (the compact.cu scan), so at R = 64 it
-// fills 64 of 132 SMs and each tile waits on its loads and two
-// barriers.  Splitting K8's rows over several blocks (a decoupled
-// look-back for the row base) is the way to its floor.
+// frame rows never leaving the chip: 117 MB, 35 us.  Design: K9 and K10
+// run one 256-thread block per 256 particles (grid W / 256 x R), so they
+// fill the card.  K8 is one launch over (row, tile) tiles of
+// kCompactThreads x kCompactVT positions, taken in arrival order
+// (common.cuh claim_tile): each thread runs the chain on its kCompactVT
+// lanes (position v * kCompactThreads + threadIdx.x of the tile, so
+// every plane is read and written coalesced), keeps each lane's payload
+// word in a register, and the tile's events go to prefix + rank of the
+// row's [k128] events, the rank from tile_ranks and the prefix (the
+// events of the row's earlier tiles) from the decoupled look-back
+// (lookback_prefix).  The row's last tile writes the exact count and
+// zero-fills the row's tail (finish_row); the other tiles of the row
+// write below its total, so that is safe in any finishing order.
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int kDetectThreads = 256;   // K9
-constexpr int kCompactThreads = 1024;  // K8: one block per row
-constexpr int kCompactWarps = kCompactThreads / 32;
+// K8's tile: the fastest of 256 x 2, 4, 8, 128 x 8 and 512 x 2 on the
+// card (detect_variants.py); 40 registers a thread, no spills.
+constexpr int kCompactThreads = 256;  // K8: threads a tile
+constexpr int kCompactVT = 4;         // K8: positions a thread
+constexpr int kCompactTile = kCompactThreads * kCompactVT;
 
 struct DetectArgs {
   const float* rows;     // [6, R, W] centre xyz, bulk velocity xyz (K8, K9)
@@ -223,36 +231,39 @@ detect_label_kernel(DetectArgs a) {
   if (threadIdx.x == 0 && block_count) atomicAdd(a.count + row, block_count);
 }
 
-// K8: one block per row, tiles of 1024 positions, a running event base.
+// K8: a tile of kCompactTile positions of one row, in arrival order.
+// scratch: the tile counter, then [R, tiles] status words.
 template <bool kPacked>
 __global__ void __launch_bounds__(kCompactThreads)
-detect_label_compact_kernel(DetectArgs a) {
-  __shared__ int warp_off[kCompactWarps];
-  __shared__ int tile_total;
-  const int row = blockIdx.x;
-  uint32_t* o = a.oev + static_cast<size_t>(row) * a.k128;
-  const int lane = threadIdx.x & 31;
-  const uint32_t lanes_below = (1u << lane) - 1u;
-  int base = 0;  // events in earlier tiles: uniform across the block
-  for (int start = 0; start < a.w; start += kCompactThreads) {
-    const int p = start + threadIdx.x;
-    const uint32_t w =
-        p < a.w ? detect_one<kPacked, false>(a, static_cast<long long>(row) * a.w + p, p)
-                : 0u;
-    const bool sel = w != 0u;
-    const uint32_t ballot = __ballot_sync(0xffffffffu, sel);
-    int before, total;
-    tile_offsets<kCompactWarps>(__popc(ballot), warp_off, &tile_total, before, total);
-    if (sel) {
-      const int off = base + before + __popc(ballot & lanes_below);
-      if (off < a.k128) o[off] = w;
-    }
-    base += total;
-    __syncthreads();  // warp_off / tile_total are rewritten next tile
+detect_label_compact_kernel(DetectArgs a, unsigned long long* scratch, int tiles) {
+  __shared__ int slot;
+  __shared__ int counts[kCompactVT * (kCompactThreads / 32) + 1];
+  const int tile = claim_tile(scratch, &slot);
+  const int row = tile / tiles;
+  const int t = tile - row * tiles;
+  uint32_t w[kCompactVT];
+  bool take[kCompactVT];
+#pragma unroll
+  for (int v = 0; v < kCompactVT; ++v) {
+    const int p = t * kCompactTile + v * kCompactThreads + threadIdx.x;
+    w[v] = p < a.w ? detect_one<kPacked, false>(a, static_cast<long long>(row) * a.w + p, p)
+                   : 0u;
+    take[v] = w[v] != 0u;
   }
-  for (int j = min(base, a.k128) + threadIdx.x; j < a.k128; j += kCompactThreads) o[j] = 0u;
-  if (threadIdx.x == 0) a.count[row] = base;
+  int rank[kCompactVT];
+  const int total = tile_ranks<kCompactThreads, kCompactVT>(take, rank, counts);
+  const int before =
+      lookback_prefix(scratch + 1 + static_cast<size_t>(row) * tiles, t, total, &slot);
+  uint32_t* o = a.oev + static_cast<size_t>(row) * a.k128;
+#pragma unroll
+  for (int v = 0; v < kCompactVT; ++v) {
+    const int dst = before + rank[v];
+    if (take[v] && dst < a.k128) o[dst] = w[v];
+  }
+  if (t == tiles - 1) finish_row(o, a.k128, before + total, a.count + row);
 }
+
+int compact_tiles(int W) { return (W + kCompactTile - 1) / kCompactTile; }
 
 DetectArgs make_args(const void* rows, const void* table, int n_halos,
                      const void* lab, const void* pos,
@@ -315,21 +326,35 @@ extern "C" int detect_label_rows(const void* rows, const void* lab,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Scratch words (int64) detect_label_compact_rows needs for R rows of W.
+extern "C" long long detect_label_compact_rows_scratch(int R, int W) {
+  return lookback_words(R, compact_tiles(W));
+}
+
+// K8: zeroes the look-back scratch (scratch_words int64 words, at least
+// detect_label_compact_rows_scratch(R, W)) on the stream, then launches.
 extern "C" int detect_label_compact_rows(
     const void* rows, const void* lab, const void* pos, const void* vel,
     const void* sv, const void* rh, const void* pk, void* osv, void* orh,
-    void* opk, void* oev, void* count, int R, int W, int k128, float hub,
-    float box, int has_box, int pericentric, int packed, void* stream) {
-  if (R > 0 && W > 0) {
-    const DetectArgs a = make_args(rows, nullptr, 0, lab, pos, vel, sv, rh,
-                                   pk, osv, orh, opk, nullptr, oev, count, R,
-                                   W, k128, hub, box, has_box, pericentric);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (packed) {
-      detect_label_compact_kernel<true><<<R, kCompactThreads, 0, s>>>(a);
-    } else {
-      detect_label_compact_kernel<false><<<R, kCompactThreads, 0, s>>>(a);
-    }
+    void* opk, void* oev, void* count, void* scratch, long long scratch_words,
+    int R, int W, int k128, float hub, float box, int has_box, int pericentric,
+    int packed, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (R <= 0 || W <= 0) return static_cast<int>(cudaGetLastError());
+  const int tiles = compact_tiles(W);
+  const long long words = lookback_words(R, tiles);
+  if (scratch_words < words) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t rc = cudaMemsetAsync(scratch, 0, words * sizeof(unsigned long long), s);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const DetectArgs a = make_args(rows, nullptr, 0, lab, pos, vel, sv, rh, pk, osv,
+                                 orh, opk, nullptr, oev, count, R, W, k128, hub,
+                                 box, has_box, pericentric);
+  auto* sc = static_cast<unsigned long long*>(scratch);
+  const unsigned grid = static_cast<unsigned>(words - 1);
+  if (packed) {
+    detect_label_compact_kernel<true><<<grid, kCompactThreads, 0, s>>>(a, sc, tiles);
+  } else {
+    detect_label_compact_kernel<false><<<grid, kCompactThreads, 0, s>>>(a, sc, tiles);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -189,50 +189,53 @@ def build() -> float:
     return time.perf_counter() - t0
 
 
+def bind(lib):
+    """Set the argument and result types of every entry point that the
+    loaded library ``lib`` exports (a variant built from one source
+    exports only that source's); returns ``lib``."""
+    p, i, ll, f = (ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_float)
+    pp = ctypes.POINTER(ctypes.c_void_p)
+    signatures = {
+        "compact_angle_rows": [p, p, i, i, i, p],
+        "compact_pair_rows": [p, p, p, p, i, i, i, p],
+        "compact_payload_rows_scratch": [i, i],
+        "compact_payload_rows": [p, p, p, ll, i, i, i, p],
+        "frame_rows": [p, p, p, i, i, ll, p],
+        "segment_moments_geometry": [i, i, ctypes.POINTER(i),
+                                     ctypes.POINTER(i)],
+        "segment_moments": [p, p, p, p, p, i, ll, i, i, i, p],
+        "detect_label_rows": [p] * 12 + [i, i, f, f, i, i, i, p],
+        "detect_label_compact_rows_scratch": [i, i],
+        "detect_label_compact_rows": [p] * 13 + [ll, i, i, i, f, f, i, i,
+                                                 i, p],
+        "fused_label_rows": [p] * 12 + [i, i, i, f, f, i, i, i, p],
+        "merge_rows": [pp, pp, pp, i, i, i, p],
+        "fused_join_detect_scratch": [i, i],
+        "fused_join_detect": [p] * 17 + [ll] + [i] * 5 + [p],
+        "static_detect_rows_scratch": [i, i],
+        "static_detect_rows": [p] * 16 + [ll] + [i] * 6 + [p],
+        "compact_events_rows": [p] * 6 + [i] * 3 + [p],
+        "compact_rows_groups": [p, pp, pp, i, i, p, pp, pp, i, i, i, i,
+                                p],
+        "deposit_sorted": [p, p, p, p, i, ll, i, i, p],
+        "direct_forces": [p, p, p, p, i, i, i, f, f, i, f, f, p],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ll if name.endswith("_scratch") else i
+    return lib
+
+
 def _library():
     global _lib
     if _lib is None:
         with _lock:
             if _lib is None:
                 build()
-                lib = ctypes.CDLL(library_path())
-                p, i, ll, f = (ctypes.c_void_p, ctypes.c_int,
-                               ctypes.c_longlong, ctypes.c_float)
-                pp = ctypes.POINTER(ctypes.c_void_p)
-                signatures = {
-                    "compact_angle_rows": [p, p, i, i, i, p],
-                    "compact_pair_rows": [p, p, p, p, i, i, i, p],
-                    "compact_payload_rows": [p, p, i, i, i, p],
-                    "frame_rows": [p, p, p, i, i, ll, p],
-                    "segment_moments_geometry": [
-                        i, i, ctypes.POINTER(i), ctypes.POINTER(i)],
-                    "segment_moments": [p, p, p, p, p, i, ll, i, i, i, p],
-                    "detect_label_rows": [
-                        p, p, p, p, p, p, p, p, p, p, p, p, i, i, f, f, i,
-                        i, i, p],
-                    "detect_label_compact_rows": [
-                        p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, f, f,
-                        i, i, i, p],
-                    "fused_label_rows": [
-                        p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, f, f,
-                        i, i, i, p],
-                    "merge_rows": [pp, pp, pp, i, i, i, p],
-                    "fused_join_detect_scratch": [i, i],
-                    "fused_join_detect": [p] * 17 + [ll] + [i] * 5 + [p],
-                    "static_detect_rows_scratch": [i, i],
-                    "static_detect_rows": [p] * 16 + [ll] + [i] * 6 + [p],
-                    "compact_events_rows": [p] * 6 + [i] * 3 + [p],
-                    "compact_rows_groups": [
-                        p, pp, pp, i, i, p, pp, pp, i, i, i, i, p],
-                    "deposit_sorted": [p, p, p, p, i, ll, i, i, p],
-                    "direct_forces": [p, p, p, p, i, i, i, f, f, i, f, f,
-                                      p],
-                }
-                for name, argtypes in signatures.items():
-                    fn = getattr(lib, name)
-                    fn.argtypes = argtypes
-                    fn.restype = ll if name.endswith("_scratch") else i
-                _lib = lib
+                _lib = bind(ctypes.CDLL(library_path()))
     return _lib
 
 
@@ -295,16 +298,28 @@ def compact_pair_rows(posw: torch.Tensor, angw: torch.Tensor, k128: int):
     return out_pos, out_ang
 
 
+def _lookback_scratch(name, h, p, device):
+    """The decoupled look-back's scratch for one launch of ``name`` over
+    ``h`` rows of ``p`` (a tile counter and an 8-byte status word a tile:
+    ``{name}_scratch(H, P)`` int64 words), allocated on the caller's
+    stream; the entry point zeroes it before its launch, so two calls on
+    two streams never share one.  Returns ``(scratch, words)``."""
+    words = getattr(_library(), f"{name}_scratch")(h, p)
+    return torch.empty(words, dtype=torch.int64, device=device), words
+
+
 def compact_payload_rows(payload: torch.Tensor, k128: int) -> torch.Tensor:
     """Launch the payload-word compaction: ``payload [H, P]`` int32
     (uint32 words, an event where the word is >= 2**15) -> ``[H, k128]``
     int32, events front-packed in position order, zero past each row's
     count."""
+    name = "compact_payload_rows"
     h, p = payload.shape
     out = torch.empty((h, k128), dtype=torch.int32, device=payload.device)
-    _check("compact_payload_rows", payload, out)
-    _launch("compact_payload_rows", _library().compact_payload_rows,
-            payload.data_ptr(), out.data_ptr(), h, p, k128,
+    _check(name, payload, out)
+    scratch, words = _lookback_scratch(name, h, p, payload.device)
+    _launch(name, _library().compact_payload_rows, payload.data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), words, h, p, k128,
             device=payload.device)
     return out
 
@@ -445,11 +460,12 @@ def detect_label_compact_rows(rows, lab, pos, vel, sv, rhat, packed,
                      torch.empty_like(packed))
     ev = torch.empty((r, k128), dtype=torch.int32, device=lab.device)
     count = torch.empty(r, dtype=torch.int32, device=lab.device)
+    scratch, words = _lookback_scratch(name, r, w, lab.device)
     _launch(name, _library().detect_label_compact_rows, rows.data_ptr(),
             lab.data_ptr(), pos.data_ptr(), vel.data_ptr(), sv.data_ptr(),
             rhat.data_ptr(), packed.data_ptr(), osv.data_ptr(),
             orh.data_ptr(), opk.data_ptr(), ev.data_ptr(),
-            count.data_ptr(), r, w, k128,
+            count.data_ptr(), scratch.data_ptr(), words, r, w, k128,
             *_scalars(hub, box, pericentric, rhat_packed), device=lab.device)
     return osv, orh, opk, ev, count
 
@@ -513,21 +529,17 @@ def _check_pairs(name, prev, cur, pang_dtype):
 
 def _detect_events(name, planes, h, p, k128, *flags):
     """Launch K16 or K17 on the checked input ``planes`` (``flags``: the
-    ints after k128).  The kernel's look-back scratch (a tile counter and
-    an 8-byte status word a tile: ``{name}_scratch(H, P)`` int64 words)
-    is allocated here on the caller's stream and zeroed by the entry
-    point before its launch.  Returns ``(packed [H, P], ev_key, ev_sv,
-    ev_angle [H, k128], count [H])``."""
+    ints after k128), with its own look-back scratch
+    (:func:`_lookback_scratch`).  Returns ``(packed [H, P], ev_key,
+    ev_sv, ev_angle [H, k128], count [H])``."""
     dev = planes[0].device
-    lib = _library()
     packed = torch.empty((h, p), dtype=torch.int32, device=dev)
     ev_key = torch.empty((h, k128), dtype=torch.int32, device=dev)
     ev_sv = torch.empty_like(ev_key)
     ev_ang = torch.empty((h, k128), dtype=torch.float32, device=dev)
     count = torch.empty(h, dtype=torch.int32, device=dev)
-    words = getattr(lib, f"{name}_scratch")(h, p)
-    scratch = torch.empty(words, dtype=torch.int64, device=dev)
-    _launch(name, getattr(lib, name),
+    scratch, words = _lookback_scratch(name, h, p, dev)
+    _launch(name, getattr(_library(), name),
             *(t.data_ptr() for t in planes), packed.data_ptr(),
             ev_key.data_ptr(), ev_sv.data_ptr(), ev_ang.data_ptr(),
             count.data_ptr(), scratch.data_ptr(), words, h, p, k128, *flags,

@@ -170,6 +170,62 @@ def test_payload_kernel_matches_twin(dev, h, p, k, density):
         assert torch.equal(got.cpu(), tc.compact_payload_torch(pay, k))
 
 
+#: Words of one tile of K4/K5 (``csrc/compact.cu`` kPayTile) and
+#: positions of one tile of K8 (``csrc/label.cu`` kCompactTile): the row
+#: lengths of the tile-edge cases.
+K4_TILE, K8_TILE = 4096, 1024
+
+
+def _poison(*shapes):
+    """Allocate int32 blocks of ``shapes`` filled with -1 and free them,
+    so that the caching allocator hands them to the next outputs of those
+    sizes: a lane a kernel fails to write then shows."""
+    junk = [torch.full(s, -1, dtype=torch.int32, device="cuda")
+            for s in shapes]
+    del junk
+
+
+def _payload_plane(rng, h, p, density, burst_at=None):
+    """Payload words ``((pos + 1) << 15) | f16`` of ``[h, p]`` rows at
+    ``density``, row 0 with a run of events around ``burst_at``."""
+    sel = rng.random((h, p)) < density
+    if burst_at is not None:
+        sel[0, max(0, burst_at - 300):burst_at + 200] = True
+    ang = rng.integers(0, 0x7BFF, (h, p)).astype(np.uint32)
+    pos1 = np.arange(1, p + 1, dtype=np.uint32)
+    return _i32(np.where(sel, (pos1 << np.uint32(15)) | ang, np.uint32(0)))
+
+
+@pytest.mark.parametrize("h,p,k", [
+    (3, 1, 128), (3, 127, 128), (3, K4_TILE, 128), (3, K4_TILE + 1, 256),
+    (64, 32768, 2048), (2, tc.PAYLOAD_MAX_ROW, 4096), (4096, 128, 128)])
+@pytest.mark.parametrize("density", [0.0, 0.017, 1.0])
+def test_payload_kernel_tile_edges(dev, h, p, k, density):
+    """K4/K5 at rows around its tile (one word, a partial tile, one tile,
+    one word past it), at the bench shape, at the widest single-word row
+    and on 4096 short rows: bit-equal to the plain front-pack on the same
+    CUDA tensors and on the CPU, with a burst across a tile edge, counts
+    past k128 at density 1 and rows without events at density 0.  Rows
+    that are not a multiple of 128 go to the kernel's wrapper directly:
+    the entry point refuses them, the kernel does not."""
+    rng = np.random.default_rng(p + h + int(density * 100))
+    burst = min(K4_TILE, p - 1) if p > 64 and density < 1.0 else None
+    x = _payload_plane(rng, h, p, density, burst)
+    k128 = tc._k128(k, p)
+    xd = x.to(dev)
+    _poison((h, k128))
+    got = _cuda.compact_payload_rows(xd, k128)
+    plain_cuda = tc._front_pack((xd >> 15) != 0, [xd], k128)[0]
+    plain_cpu = tc._front_pack((x >> 15) != 0, [x], k128)[0]
+    torch.cuda.synchronize()
+    if p % 128 == 0:
+        assert torch.equal(plain_cpu, tc.compact_payload_torch(x, k))
+    if density == 1.0 and p > k128:
+        assert int(((x >> 15) != 0).sum(1).min()) > k128
+    assert torch.equal(got, plain_cuda)
+    assert torch.equal(got.cpu(), plain_cpu)
+
+
 @pytest.mark.parametrize("n,h", [(1 << 21, 64), (5000, 7), (4096, 300)])
 def test_frame_rows_kernel_exact(dev, n, h):
     rng = np.random.default_rng(n + h)
@@ -271,6 +327,56 @@ def test_detect_kernels_match_twin(dev, r, w, packed):
             (k8[0], k8[1], k8[2], k8[3], k8[4]),
             (want[0], want[1], want[2], ev.to(k8[3].device), want[4]),
             packed)
+
+
+def _burst_row(planes, pericentric):
+    """Row 0 of the CPU detect inputs ``planes`` rebuilt so that every
+    tracked lane fires: the carry says matched and moving inward
+    (outward when apocentric), the particle sits within 5 of its frame's
+    centre (no periodic wrap) and moves outward (inward)."""
+    rows, lab, pos, vel, sv, rhat, packed = planes
+    rng = np.random.default_rng(int(lab.shape[1]))
+    tracked = lab[0] >= 0
+    off = torch.from_numpy(rng.uniform(-5, 5, (3, lab.shape[1])).astype(
+        np.float32))
+    pos[:, 0] = rows[:3, 0] + off
+    vel[:, 0] = rows[3:, 0] + (2.0 if pericentric else -2.0) * off
+    prev_vrb = 1 if pericentric else 2
+    sv[0] = torch.where(tracked, (lab[0] + 1) | (prev_vrb << 28), 0).int()
+    packed[0] = torch.where(tracked, packed[0] | -(1 << 31), packed[0])
+
+
+@pytest.mark.parametrize("w,k", [
+    (128, 128), (K8_TILE - 128, 128), (K8_TILE + 128, 128), (32768, 2048),
+    ((1 << 17) - 128, 2048)])
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("pericentric", [True, False])
+def test_detect_compact_kernel_tile_edges(dev, w, k, packed, pericentric):
+    """K8 at rows below one tile, around it, at the bench width and at the
+    widest label row (``label_step``'s row_width limit), packed and f32
+    r-hat, pericentric and apocentric, row 0 a burst whose events exceed
+    k128 (but at W = 128): every output bit-equal to the plain version
+    on the same CUDA tensors (zeros past the counts, counts past k128),
+    and to the plain version on the CPU as the detect tests compare it."""
+    r = 3
+    cpu, _, _ = _label_planes("cpu", r, w, 16, w + packed, packed)
+    _burst_row(cpu, pericentric)
+    cuda = [t.to(dev) for t in cpu]
+    kw = dict(pericentric=pericentric, box_size=100.0, rhat_packed=packed,
+              event_capacity=k)
+    k128 = tc._k128(k, w)
+    _poison((r, k128), (r,))
+    got = tl.detect_label_compact(*cuda, 0.01, **kw)
+    plain_cuda = tl.detect_label_compact_torch(*cuda, 0.01, **kw)
+    plain_cpu = tl.detect_label_compact_torch(*cpu, 0.01, **kw)
+    torch.cuda.synchronize()
+    n_tracked = int((cpu[1][0] >= 0).sum())
+    assert int(plain_cpu[4][0]) == n_tracked
+    if w > k128:
+        assert n_tracked > k128
+    for g, want in zip(got, plain_cuda):
+        assert torch.equal(g.view(torch.int32), want.view(torch.int32))
+    _assert_detect_equal(got, plain_cpu, packed)
 
 
 @pytest.mark.parametrize("packed", [False, True])
@@ -769,53 +875,76 @@ def test_static_detect_kernel_matches_plain(dev, h, p, k, density, kind,
                                w.cpu().view(torch.int32))
 
 
-def _detect_call(which, planes_dev, k):
-    """One K16 or K17 call on the given device planes."""
-    prev, cur = planes_dev
-    if which == "K16":
-        return ts.fused_join_detect(prev, cur, True, np.iinfo(np.int32).max,
-                                    k)
-    return ts.fused_static_detect(prev, cur, True, np.iinfo(np.int32).max,
-                                  k, native=True)
-
-
-@pytest.mark.parametrize("which", ["K16", "K17"])
-def test_detect_kernels_streams_and_repeats(dev, which):
-    """K16 and K17 issued at once on two CUDA streams give what they give
-    one after the other, two calls give the same bits, and each call is
-    one counted launch (each call's look-back scratch is its own)."""
-    rng = np.random.default_rng(8)
-    h, p, k = 8, 8 * K16_TILE, 256
-    inputs = []
+def _stream_calls(dev, rng, which):
+    """Two calls of one kernel on two inputs with a row whose events
+    exceed the capacity k (K16, K17 and K4 at density 0.5 and the 'big'
+    keys, K8 on two carries with a burst row), the kernel's counter name,
+    and a check that a call's result holds such a row."""
+    h, k, invalid = 8, 256, np.iinfo(np.int32).max
+    calls = []
+    if which == "K4":
+        for density in (0.5, 0.03):
+            x = _payload_plane(rng, h, 8 * K4_TILE, density, 3 * K4_TILE).to(
+                dev)
+            calls.append(lambda x=x: (tc.compact_payload(x, k),))
+        return calls, "compact_payload_rows", k, lambda out: bool(
+            (out[0][0] != 0).all())
+    if which == "K8":
+        for packed in (True, False):
+            cpu, _, _ = _label_planes("cpu", h, 8 * K8_TILE, 16,
+                                      int(rng.integers(1 << 16)), packed)
+            _burst_row(cpu, True)
+            x = [t.to(dev) for t in cpu]
+            calls.append(lambda x=x, packed=packed: tl.detect_label_compact(
+                *x, 0.01, pericentric=True, box_size=100.0,
+                rhat_packed=packed, event_capacity=k))
+        return calls, "detect_label_compact_rows", k, lambda out: int(
+            out[4].max()) > k
+    p = 8 * K16_TILE
     for kind in ("churn", "big"):
         if which == "K16":
             prev, cur = _join_planes(rng, h, p, kind)
         else:
             prev, cur = _static_planes(rng, h, p, True, 0.5,
                                        "pad" if kind == "churn" else kind)
-        inputs.append((tuple(t.to(dev) for t in prev),
-                       tuple(t.to(dev) for t in cur)))
-    name = ("fused_join_detect" if which == "K16"
-            else "static_detect_rows")
+        x = (tuple(t.to(dev) for t in prev), tuple(t.to(dev) for t in cur))
+        if which == "K16":
+            calls.append(lambda x=x: ts.fused_join_detect(*x, True, invalid,
+                                                          k))
+        else:
+            calls.append(lambda x=x: ts.fused_static_detect(
+                *x, True, invalid, k, native=True))
+    name = "fused_join_detect" if which == "K16" else "static_detect_rows"
+    return calls, name, k, lambda out: int(out[4].max()) > k
+
+
+@pytest.mark.parametrize("which", ["K16", "K17", "K4", "K8"])
+def test_detect_kernels_streams_and_repeats(dev, which):
+    """K16, K17, K4 and K8 issued at once on two CUDA streams give what
+    they give one after the other, two calls give the same bits, and each
+    call is one counted launch (each call's look-back scratch is its
+    own)."""
+    rng = np.random.default_rng(8)
+    calls, name, k, overflows = _stream_calls(dev, rng, which)
     _cuda.reset_launch_counts()
-    serial = [_detect_call(which, x, k) for x in inputs]
-    again = [_detect_call(which, x, k) for x in inputs]
+    serial = [c() for c in calls]
+    again = [c() for c in calls]
     torch.cuda.synchronize()
     assert _cuda.launch_counts()[name] == 4
     streams = [torch.cuda.Stream(), torch.cuda.Stream()]
     torch.cuda.synchronize()
     concurrent = [None, None]
     for _ in range(3):
-        for i, (st, x) in enumerate(zip(streams, inputs)):
+        for i, (st, c) in enumerate(zip(streams, calls)):
             with torch.cuda.stream(st):
-                concurrent[i] = _detect_call(which, x, k)
+                concurrent[i] = c()
         torch.cuda.synchronize()
         for outs in (again, concurrent):
             for got, want in zip(outs, serial):
                 for g, w in zip(got, want):
                     assert torch.equal(g.view(torch.int32),
                                        w.view(torch.int32))
-    assert all(int(s[4].max()) > k for s in serial)
+    assert all(overflows(out) for out in serial)
 
 
 def _aligned_batches(h, c, s, static=False):

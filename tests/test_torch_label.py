@@ -188,11 +188,12 @@ def test_segment_moments_match_jax(mass):
         np.testing.assert_allclose(got[h], ref, rtol=2e-6, atol=2e-6)
 
 
-def _detect_inputs(seed, packed, steps=3, h=H, r=R, w=W):
+def _detect_inputs(seed, packed, steps=3, h=H, r=R, w=W, burst=False):
     """Frame rows and carry planes after ``steps`` JAX 'matmul' steps, so
-    matched lanes exist, for ``h`` halos on ``[r, w]`` rows; returns (JAX
-    carry, rows, lab, pos, vel, table)."""
-    pos, vel, lab, cen = _pool(seed, h=h, r=r, w=w)
+    matched lanes exist, for ``h`` halos on ``[r, w]`` rows (``burst``:
+    :func:`_pool`'s, every tracked lane of snapshot 3 a pericentre);
+    returns (JAX carry, rows, lab, pos, vel, table)."""
+    pos, vel, lab, cen = _pool(seed, h=h, r=r, w=w, burst=burst)
     step = jax.jit(jls.make_label_orbit_step(
         128, box_size=100.0, row_width=w, frames="matmul",
         rhat_packed=packed))
@@ -251,6 +252,78 @@ def test_detect_kernels_match_jax(mode, packed):
     for t, j in ((t9, j9), (t8, j8)):
         _check_carry(tls.LabelCarry(t[0], t[1], t[2]),
                      jls.LabelCarry(j[0], j[1], j[2]), packed)
+
+
+#: Tiles of the card's K4 (words) and K8 (positions) kernels; the edge
+#: cases below cut rows across them.
+K4_TILE, K8_TILE = 4096, 1024
+
+
+@pytest.mark.parametrize("w", [K8_TILE + 128, 3 * K8_TILE])
+@pytest.mark.parametrize("packed", [False, True])
+def test_detect_compact_edge_rows_match_jax(w, packed):
+    """K8's contract at rows that are not a multiple of the card's tile,
+    every row a burst past event_capacity: the plain detect-and-compact
+    against the JAX package's own route at that width:
+    detect_label_compact_pallas (its events rerouted through
+    compact_payload where a block overflowed, as its step does) where its
+    blocked network takes the row (a multiple of 1024), else
+    detect_label_pallas then compact_payload.  Counts exact (past k128),
+    events exact in position and within one f16 ulp in angle, the carry
+    as JAX's."""
+    jc, rows, lab, pos, vel, _ = _detect_inputs(11, packed, r=2, w=w,
+                                                burst=True)
+    kw = dict(pericentric=True, box_size=100.0, rhat_packed=packed)
+    jin = [jnp.asarray(a) for a in (rows, lab, pos, vel)] + list(jc)
+    tcarry = tls.label_carry_from_numpy(*jax.tree.map(np.asarray, jc),
+                                        device="cpu")
+    tin = [_t(a) for a in (rows, lab, pos, vel)] + list(tcarry)
+    if w % 1024 == 0:
+        j = jax.tree.map(np.asarray, jpl.detect_label_compact_pallas(
+            *jin, jnp.float32(0.01), event_capacity=128, **kw))
+        assert j[6].max() > jpc.BLOCK_CAP
+        j = j[:3] + (j[3], j[5])
+    else:
+        j = jax.tree.map(np.asarray, jpl.detect_label_pallas(
+            *jin, jnp.float32(0.01), **kw))
+    want_ev = np.asarray(jpc.compact_payload(jnp.asarray(j[3]), 128))
+    t8 = tl.detect_label_compact_torch(*tin, 0.01, event_capacity=128, **kw)
+    np.testing.assert_array_equal(t8[4].numpy(), j[4])
+    assert int(j[4].min()) > 128
+    ev = t8[3].numpy().view(np.uint32)
+    assert ev.shape == want_ev.shape == (2, 128)
+    np.testing.assert_array_equal(ev >> 15, want_ev >> 15)
+    assert np.abs((ev & 0x7FFF).astype(np.int64)
+                  - (want_ev & 0x7FFF)).max() <= 1
+    _check_carry(tls.LabelCarry(t8[0], t8[1], t8[2]),
+                 jls.LabelCarry(j[0], j[1], j[2]), packed)
+
+
+@pytest.mark.parametrize("p", [K4_TILE // 2 + 128, 2 * K4_TILE + 128])
+def test_payload_compaction_edge_rows_match_jax(p):
+    """K4/K5's contract at rows that end in a partial card tile: a burst
+    straddling a tile edge, a row of events only (count past k128) and a
+    row without any, against compact_payload and compact_payload_blocked
+    (its blocked network rerouting on overflow)."""
+    rng = np.random.default_rng(p)
+    h, k = 4, 256
+    sel = rng.random((h, p)) < 0.017
+    edge = min(K4_TILE, p - 128)
+    sel[0, edge - 200:edge + 100] = True
+    sel[1] = True
+    sel[2] = False
+    ang = rng.integers(0, 0x7BFF, (h, p)).astype(np.uint32)
+    pos1 = np.arange(1, p + 1, dtype=np.uint32)
+    pay = np.where(sel, (pos1 << np.uint32(15)) | ang, np.uint32(0))
+    got = tc.compact_payload_torch(_i32(pay), k).numpy().view(np.uint32)
+    counts = np.minimum(sel.sum(axis=1), got.shape[1])
+    assert counts[0] == counts[1] == k and counts[2] == 0
+    for entry in (jpc.compact_payload, jpc.compact_payload_blocked):
+        want = np.asarray(entry(jnp.asarray(pay), k))
+        assert want.shape == got.shape
+        for r, n in enumerate(counts):
+            np.testing.assert_array_equal(got[r, :n], want[r, :n])
+            assert (got[r, n:] == 0).all()
 
 
 @pytest.mark.parametrize("packed", [False, True])
