@@ -1323,10 +1323,11 @@ def sorted_kernel_checks(dev, seq):
     got = merge.merge_rows(*a)
     want = merge.merge_rows_torch(*a)
     keys = merge.u32_order(torch.cat([a[0][0], a[1][0]], dim=1))
-    # six channels a side in, six [H, 2P] channels out; two or three
-    # 15-step searches a lane
+    # six channels a side in, six [H, 2P] channels out; a merge step and
+    # a share of one 11-step search in shared memory, ~8 operations a
+    # merged position
     record("merge_rows", got, want, lambda: merge.merge_rows(*a),
-           lambda: merge.merge_rows_torch(*a), 24 * hp * 4, 3 * 15 * 2 * hp,
+           lambda: merge.merge_rows_torch(*a), 24 * hp * 4, 8 * 2 * hp,
            lib=lambda: torch.sort(keys, dim=1), what="(churn step 2)")
 
     # K19 with the unfused routes' channel counts

@@ -1,8 +1,9 @@
-"""Device time of variants of K4/K5 (``csrc/compact.cu``
-compact_payload_rows), K8 (``csrc/label.cu`` detect_label_compact_rows),
-K16 (``csrc/merge.cu`` fused_join_detect) and K17 (``csrc/static.cu``
-static_detect_rows) on ``chip_smoke.py`` phase 3's inputs, in one
-process.
+"""Device time of variants of K1/K2 and K4/K5 (``csrc/compact.cu``
+compact_angle_rows and compact_payload_rows, one tile kernel), K8
+(``csrc/label.cu`` detect_label_compact_rows), K15 and K16
+(``csrc/merge.cu`` merge_rows and fused_join_detect) and K17
+(``csrc/static.cu`` static_detect_rows) on ``chip_smoke.py`` phase 3's
+inputs, in one process.
 
 Each variant is the checked-in source with a few text substitutions: a
 tile shape (threads a block, entries a thread) or a phase left out.  A
@@ -11,14 +12,15 @@ to show what that phase costs; the others are checked bit for bit
 against the plain versions.  Every variant is built by its own ``nvcc``
 (all started together) into its own library next to the package's
 git-ignored build directory, so the package's own build is untouched;
-K4 and K8 variants run through the package's own wrappers with the
-variant library in place of the package's.  Prints one line a variant:
+K1, K4, K8 and K15 variants run through the package's own wrappers with
+the variant library in place of the package's (a K1 tile shape is K4's
+too: the two share the kernel).  Prints one line a variant:
 its name, then the milliseconds of two timings (``chip_smoke.cuda_ms``)
 and, for a variant that leaves a phase out, the count of output lanes
 that differ.  It needs a CUDA card; the argument picks the kernels (all
-four by default):
+six by default):
 
-    python3 detect_variants.py [K4,K8,K16,K17]
+    python3 detect_variants.py [K1,K4,K8,K15,K16,K17]
 """
 import ctypes
 import os
@@ -46,21 +48,51 @@ def shape(vt_line, vt, threads, threads_line="constexpr int kThreads = 256;"):
 
 
 #: The source of each kernel's variants.
-SOURCES = {"K4": "compact.cu", "K8": "label.cu", "K16": "merge.cu",
-           "K17": "static.cu"}
-#: The kernel function each variant's ptxas lines are printed for.
-KERNEL_FUNCTIONS = {"K4": "compact_payload_kernel",
+SOURCES = {"K1": "compact.cu", "K4": "compact.cu", "K8": "label.cu",
+           "K15": "merge.cu", "K16": "merge.cu", "K17": "static.cu"}
+#: The kernel function each variant's ptxas lines are printed for (a
+#: part of its mangled name).
+KERNEL_FUNCTIONS = {"K1": "AngleWords", "K4": "PayloadWords",
                     "K8": "detect_label_compact_kernel",
+                    "K15": "merge_rows_kernel",
                     "K16": "join_detect_kernel", "K17": "static_detect_kernel"}
 #: (kernel, name, substitutions, checked): the shipped shapes first.
 K16_VT = "constexpr int kJoinVT = 4;"
 K17_VT = "constexpr int kVT = 8;"
-K4_SHAPE = ("constexpr int kPayVT = 16;", "constexpr int kPayThreads = 256;")
+K4_SHAPE = ("constexpr int kTileVT = 16;", "constexpr int kTileThreads = 256;")
+K15_SHAPE = ("constexpr int kMergeVT = 4;",
+             "constexpr int kMergeThreads = 256;")
 K8_SHAPE = ("constexpr int kCompactVT = 4;",
             "constexpr int kCompactThreads = 256;")
+def k15_blocks(n):
+    """K15 built for at least ``n`` resident blocks an SM (ptxas caps its
+    registers to fit them; 1: no cap)."""
+    old = "constexpr int kMergeBlocks = 8;"
+    return (old, old.rsplit("=", 1)[0] + f"= {n};")
+
+
 ROW_LOOKBACK = ("lookback_prefix(scratch + 1 + static_cast<size_t>(row) * "
                 "tiles, t, total, &slot);", "0;")
 VARIANTS = [
+    ("K1", "shipped (256 threads x 16)", [], True),
+    ("K1", "256 x 8", shape(K4_SHAPE[0], 8, 256, K4_SHAPE[1]), True),
+    ("K1", "256 x 32", shape(K4_SHAPE[0], 32, 256, K4_SHAPE[1]), True),
+    ("K1", "512 x 8", shape(K4_SHAPE[0], 8, 512, K4_SHAPE[1]), True),
+    ("K1", "no look-back", [ROW_LOOKBACK], False),
+    ("K15", "shipped (256 threads x 4, 8 blocks an SM)", [], True),
+    ("K15", "256 x 4, no register cap", [k15_blocks(1)], True),
+    ("K15", "256 x 8, 4 blocks an SM",
+     shape(K15_SHAPE[0], 8, 256, K15_SHAPE[1]) + [k15_blocks(4)], True),
+    ("K15", "256 x 8, no register cap",
+     shape(K15_SHAPE[0], 8, 256, K15_SHAPE[1]) + [k15_blocks(1)], True),
+    ("K15", "256 x 2, 8 blocks an SM",
+     shape(K15_SHAPE[0], 2, 256, K15_SHAPE[1]), True),
+    ("K15", "512 x 4, 4 blocks an SM",
+     shape(K15_SHAPE[0], 4, 512, K15_SHAPE[1]) + [k15_blocks(4)], True),
+    ("K15", "128 x 8, 16 blocks an SM",
+     shape(K15_SHAPE[0], 8, 128, K15_SHAPE[1]) + [k15_blocks(16)], True),
+    ("K15", "128 x 4, 16 blocks an SM",
+     shape(K15_SHAPE[0], 4, 128, K15_SHAPE[1]) + [k15_blocks(16)], True),
     ("K4", "shipped (256 threads x 16)", [], True),
     ("K4", "256 x 8", shape(K4_SHAPE[0], 8, 256, K4_SHAPE[1]), True),
     ("K4", "256 x 32", shape(K4_SHAPE[0], 32, 256, K4_SHAPE[1]), True),
@@ -200,13 +232,13 @@ def with_library(lib, fn):
     return run
 
 
-def main(which="K4,K8,K16,K17"):
+def main(which="K1,K4,K8,K15,K16,K17"):
     sys.path.insert(0, ROOT)
     import torch
 
     import chip_smoke as cs
     import kernel_ab
-    from orbitanalysis_tpu_torch.ops import compact, label
+    from orbitanalysis_tpu_torch.ops import compact, label, merge
     from orbitanalysis_tpu_torch.ops import step as tstep
 
     which = set(which.split(","))
@@ -214,6 +246,14 @@ def main(which="K4,K8,K16,K17"):
     dev = torch.device("cuda")
     libs, logs = build(variants)
     calls = {}
+    if "K1" in which:
+        x, k1 = kernel_ab.k1_plane(cs, dev)
+        calls["K1"] = (lambda: (compact.compact_angle_blocked(x, k1),),
+                       (compact.compact_angle_blocked_torch(x, k1),))
+    if "K15" in which:
+        a15 = kernel_ab.k15_args(cs, dev)
+        calls["K15"] = (lambda: merge.merge_rows(*a15),
+                        merge.merge_rows_torch(*a15))
     if which & {"K4", "K8"}:
         args, _ = cs._detect_inputs(dev, kernel_ab.label_work(cs, dev), True)
         kw = dict(pericentric=True, box_size=cs.LABEL_BOX, rhat_packed=True)
@@ -239,11 +279,13 @@ def main(which="K4,K8,K16,K17"):
                         [int(a17[3]), int(a17[2]),
                          int(kw17.get("native", False))],
                         tstep.fused_static_detect_torch(*a17, **kw17))
-    print(f"{torch.cuda.get_device_name(0)}; K4 on the payload plane and K8 "
-          "on the inputs of label step 3, K16 on sorted churn step 2, K17 "
-          "on aligned churn step 2 (native), [64, 32768]", flush=True)
+    print(f"{torch.cuda.get_device_name(0)}; K1 on phase 3's angle words, "
+          "K4 on the payload plane and K8 on the inputs of label step 3, "
+          "K15 on unfused sorted churn step 2 (six channels), K16 on sorted "
+          "churn step 2, K17 on aligned churn step 2 (native), [64, 32768]",
+          flush=True)
     for i, (kernel, name, _, checked) in enumerate(variants):
-        if kernel in ("K4", "K8"):
+        if kernel in ("K1", "K4", "K8", "K15"):
             fn, want = calls[kernel]
             fn = with_library(libs[i], fn)
             fn_poison = fn

@@ -1,9 +1,14 @@
-"""Device time of K4/K5 (the payload compaction), K8 (the label detect
-with its compaction), K10 (the fused label detect), K13 (the sorted CIC
-deposit), K14 (the blocked direct forces), K16 (the fused join-detect)
+"""Device time of K1/K2 (the angle-word compaction), K4/K5 (the payload
+compaction), K8 (the label detect with its compaction), K10 (the fused
+label detect), K13 (the sorted CIC deposit), K14 (the blocked direct
+forces), K15 (the merge of presorted rows), K16 (the fused join-detect)
 and K17 (the aligned static detect) of one checkout, measured by that
 checkout's own ``chip_smoke.py`` checks.
 
+K1 runs on phase 3's angle-word plane (``[64, 32768]``, 1.7 % events,
+K = 2048, the same draws, the f16 clamp lanes in row 0); K15 on phase
+3's input, the six-channel merge of sorted churn step 2 of the unfused
+route (the bench's first three snapshots at [64, 32768]).
 K4 runs on phase 3's payload plane (``[64, 32768]``, 1.7 % events,
 K = 2048, the same draws) and on the payload plane the label step's
 detect pass writes for snapshot 3 of the bench's label sequence; K8 and
@@ -17,13 +22,14 @@ N = 16384 and 131072, free and periodic (``chip_smoke._k14_check``);
 K16 and K17 on phase 3's inputs (the bench's first three snapshots at
 [64, 32768], K = 2048, recorded at step 2: K16 of the sorted churn step,
 K17 of the aligned churn step, native, and of the legacy aligned static
-step).  K4, K8, K16 and K17 are checked bit for bit against their plain
-versions and against a second call, and their device time is split by
-CUDA kernel (torch.profiler).
+step).  K1, K4, K8, K15, K16 and K17 are checked bit for bit against
+their plain versions and against a second call, and their device time is
+split by CUDA kernel (torch.profiler).
 ``STEPS`` (not in the default set) runs phases 8 and 10's step timings
 on the bench's churn sequence through the checkout's own
 ``chip_smoke.time_scan``, which prints them: wall, device span and busy
-ms a step, the host's ms to issue one, kernels a step, idle share.
+ms a step, the host's ms to issue one, kernels a step, idle share; the
+unfused sorted route (K15 + K19) on phase 8's first 12 snapshots too.
 ``LABEL_STEPS`` (not in the default set either) runs phase 7's label
 step timings (``'split'``, ``'fused'``, ``'pallas'``) on the bench's
 label sequence through the checkout's own
@@ -34,11 +40,11 @@ Prints one JSON line of milliseconds, with a digest of K14's forces at
 N = 16384 so that two builds can be compared bit for bit.  Two checkouts
 are compared on one card by running it in each, in the order A, B, B, A:
 
-    python3 kernel_ab.py PATH_TO_CHECKOUT_A old [K4,K8,K10,...]
-    python3 kernel_ab.py . new [K4,K8,K10,...]
+    python3 kernel_ab.py PATH_TO_CHECKOUT_A old [K1,K4,K8,K10,...]
+    python3 kernel_ab.py . new [K1,K4,K8,K10,...]
 
-The third argument picks the kernels (K4, K8, K10, K13, K14, K16 and
-K17 by default).  A checkout whose ``chip_smoke.py`` predates
+The third argument picks the kernels (K1, K4, K8, K10, K13, K14, K15,
+K16 and K17 by default).  A checkout whose ``chip_smoke.py`` predates
 ``_k13_check``/``_k14_check`` gets the same checks and timings from this
 script's own :func:`k13_fallback` and :func:`k14_fallback`.  It needs a
 CUDA card and builds the checkout's kernels at first use.
@@ -176,6 +182,34 @@ def checked_times(cs, tag, fn, plain):
     return {tag: cs.cuda_ms(fn), f"{tag}_split": kernel_split(fn)}
 
 
+def k1_plane(cs, dev):
+    """Phase 3's timed K1 input: the angle words ``chip_smoke.py`` draws
+    for its density 0.017 (after those of density 0), and K."""
+    import numpy as np
+    import torch
+
+    h, p, k = cs.ANGLE_ROWS
+    rng = np.random.default_rng(1)
+    for density in (0.0, 0.017):
+        ang = rng.uniform(0, 7, (h, p)).astype(np.float32)
+        sel = rng.random((h, p)) < density
+    ang[0, :4] = [65504.0, 65519.0, 65520.0, 1e30]  # clamp lanes
+    sel[0, :4] = True
+    aw = ang.view(np.uint32) | (sel.astype(np.uint32) << np.uint32(31))
+    return torch.from_numpy(aw.view(np.int32)).to(dev), k
+
+
+def k1_times(cs, dev):
+    """K1 on phase 3's angle words, bit for bit."""
+    from orbitanalysis_tpu_torch.ops import compact
+
+    x, k = k1_plane(cs, dev)
+    out = checked_times(cs, "K1", lambda: (compact.compact_angle_blocked(x, k),),
+                        lambda: (compact.compact_angle_blocked_torch(x, k),))
+    out["K1_events"] = int((x < 0).sum())
+    return out
+
+
 def k4_times(cs, dev, label_args):
     """K4 on phase 3's payload plane (the draws ``chip_smoke.py`` makes
     for its densities 0 and 0.017, the second timed) and on the payload
@@ -283,29 +317,58 @@ def label_step_times(cs, dev):
         timed(dev, work, frames, what)
 
 
+def sorted_stack(dev, churn):
+    """A churn workload staged ID-sorted on the card, as phase 8 stages
+    it."""
+    import torch
+
+    from orbitanalysis_tpu_torch.ops import sorted_step as tss
+    from orbitanalysis_tpu_torch.ops.apsis import SnapshotBatch
+
+    ids, pos, vel, cen, _ = churn
+    b = tss.presort_snapshot(SnapshotBatch(ids=ids, pos=pos, vel=vel,
+                                           center=cen), soa=True)
+    return SnapshotBatch(**{f: torch.from_numpy(getattr(b, f)).to(dev)
+                            for f in ("ids", "pos", "vel", "center",
+                                      "slot")})
+
+
+def k15_args(cs, dev):
+    """Phase 3's K15 input: the merge's arguments at sorted churn step 2
+    of the unfused route (``merge_impl='pallas'``)."""
+    from orbitanalysis_tpu_torch.models.synthetic import churn_workload
+    from orbitanalysis_tpu_torch.ops import sorted_step as tss
+
+    h, p = cs.LABEL[:2]
+    stack = sorted_stack(dev, churn_workload(h, p, 3, seed=0, churn=0.07))
+    return cs.staged_call(dev, stack, tss, "merge_rows", merge_impl="pallas",
+                          compact_impl="pallas")
+
+
+def k15_times(cs, dev):
+    """K15 on phase 3's input, every channel bit for bit."""
+    from orbitanalysis_tpu_torch.ops import merge
+
+    a = k15_args(cs, dev)
+    return checked_times(cs, "K15", lambda: merge.merge_rows(*a),
+                         lambda: merge.merge_rows_torch(*a))
+
+
 def detect_inputs(cs, dev):
     """Phase 3's K16 and K17 inputs: the arguments the steps pass at
     step 2 of the bench's sequences (their first three snapshots, which
     the generator makes as it makes the first three of 48)."""
-    import torch
-
     from orbitanalysis_tpu_torch.models.synthetic import (
         churn_workload,
         static_workload,
     )
     from orbitanalysis_tpu_torch.ops import sorted_step as tss
     from orbitanalysis_tpu_torch.ops import step as tstep
-    from orbitanalysis_tpu_torch.ops.apsis import SnapshotBatch
 
     h, p = cs.LABEL[:2]
     churn = churn_workload(h, p, 3, seed=0, churn=0.07)
     static = static_workload(h, p, 3, seed=0)
-    ids, pos, vel, cen, _ = churn
-    b = tss.presort_snapshot(SnapshotBatch(ids=ids, pos=pos, vel=vel,
-                                           center=cen), soa=True)
-    stack = SnapshotBatch(**{f: torch.from_numpy(getattr(b, f)).to(dev)
-                             for f in ("ids", "pos", "vel", "center",
-                                       "slot")})
+    stack = sorted_stack(dev, churn)
     k16 = cs.staged_call(dev, stack, tstep, "fused_join_detect", fused=True)
     k17 = []
     for form, make, init in (
@@ -351,29 +414,30 @@ def step_times(cs, dev):
     """Phases 8 and 10's step timings on the bench's churn sequence (48
     snapshots of [64, 32768]), through the checkout's own
     ``chip_smoke.time_scan``, which prints them: the fused sorted step
-    (K16) and the aligned ``'xla'``, ``'pallas'`` (K17) and legacy (K17)
-    steps."""
-    import torch
-
+    (K16), the unfused sorted route (K15 + K19) on phase 8's first
+    ``SORTED_CHECK`` snapshots, and the aligned ``'xla'``, ``'pallas'``
+    (K17) and legacy (K17) steps."""
     from orbitanalysis_tpu_torch.models.synthetic import churn_workload
     from orbitanalysis_tpu_torch.ops import sorted_step as tss
-    from orbitanalysis_tpu_torch.ops.apsis import SnapshotBatch
 
     h, p, s_n = cs.LABEL
     churn = churn_workload(h, p, s_n, seed=0, churn=0.07)
-    ids, pos, vel, cen, n_valid = churn
-    b = tss.presort_snapshot(SnapshotBatch(ids=ids, pos=pos, vel=vel,
-                                           center=cen), soa=True)
-    stack = SnapshotBatch(**{f: torch.from_numpy(getattr(b, f)).to(dev)
-                             for f in ("ids", "pos", "vel", "center",
-                                       "slot")})
-    del b
+    n_valid = churn[4]
+    stack = sorted_stack(dev, churn)
+    init = lambda d: tss.init_sorted_carry(h, p, device=d)  # noqa: E731
+    kw = dict(box_size=cs.LABEL_BOX, cur_presorted=True, soa_batch=True)
     cs.time_scan(dev, stack, s_n, n_valid, "sorted step, churn (K16)",
-                 tss.make_sorted_orbit_step(
-                     cs.LABEL_K, box_size=cs.LABEL_BOX, fused=True,
-                     cur_presorted=True, soa_batch=True),
-                 lambda d: tss.init_sorted_carry(h, p, device=d))
-    del stack
+                 tss.make_sorted_orbit_step(cs.LABEL_K, fused=True, **kw),
+                 init)
+    n_chk = cs.SORTED_CHECK
+    head = stack._replace(**{f: getattr(stack, f)[:n_chk] for f in (
+        "ids", "pos", "vel", "center", "slot")})
+    cs.time_scan(dev, head, n_chk, n_valid,
+                 "sorted step, unfused (K15 + K19)",
+                 tss.make_sorted_orbit_step(cs.LABEL_K, merge_impl="pallas",
+                                            compact_impl="pallas", **kw),
+                 init)
+    del stack, head
     aligned = cs.stage_aligned(dev, churn, s_n)
     kw = dict(box_size=cs.LABEL_BOX, soa_batch=True)
     for what, step, init in (
@@ -390,7 +454,7 @@ def step_times(cs, dev):
         cs.time_scan(dev, aligned, s_n, n_valid, what, step, init)
 
 
-def main(root, tag, which="K4,K8,K10,K13,K14,K16,K17"):
+def main(root, tag, which="K1,K4,K8,K10,K13,K14,K15,K16,K17"):
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import numpy as np
@@ -405,6 +469,10 @@ def main(root, tag, which="K4,K8,K10,K13,K14,K16,K17"):
     which = which.split(",")
     dev = torch.device("cuda")
     out = {"tag": tag, "build_s": _cuda.build()}
+    if "K1" in which:
+        out.update(k1_times(cs, dev))
+    if "K15" in which:
+        out.update(k15_times(cs, dev))
     if {"K4", "K8", "K10"} & set(which):
         label_args = cs._detect_inputs(dev, label_work(cs, dev), True)
         for name, fn in (("K4", k4_times), ("K8", k8_times),
@@ -452,5 +520,6 @@ def main(root, tag, which="K4,K8,K10,K13,K14,K16,K17"):
 if __name__ == "__main__":
     if len(sys.argv) not in (3, 4):
         raise SystemExit("usage: python3 kernel_ab.py CHECKOUT TAG "
-                         "[K4,K8,K10,K13,K14,K16,K17,STEPS,LABEL_STEPS]")
+                         "[K1,K4,K8,K10,K13,K14,K15,K16,K17,STEPS,"
+                         "LABEL_STEPS]")
     main(*sys.argv[1:])

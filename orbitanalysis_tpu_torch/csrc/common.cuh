@@ -269,9 +269,10 @@ struct StreamGroup {
   int32_t* count;  // [H] or nullptr
 };
 
-// One block per row (blockIdx.x) and group (blockIdx.y: a, else b), the
-// compact.cu tile scan: ballot + popc ranks inside a warp, one warp scans
-// the warp totals, a running base carries the count across tiles.  The
+// One block per row (blockIdx.x) and group (blockIdx.y: a, else b),
+// walking the row in tiles of kStreamThreads entries: ballot + popc ranks
+// inside a warp, one warp scans the warp totals, a running base carries
+// the count across tiles.  The
 // block's group is picked field by field into registers (the stream loops
 // unrolled to fixed indices): binding a reference to one group would make
 // every field read an indirect load on each tile's critical path.  kN

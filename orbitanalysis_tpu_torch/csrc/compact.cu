@@ -40,27 +40,27 @@
 // The TPU splits K1/K2 and K4/K5 exist for VMEM and the 16-entry block
 // fronts of the blocked network; here each compaction is exact with no
 // occupancy limit, so nothing reroutes.  Two designs:
-//   one block a row (K1 its own loop, as it builds its output word from
-//     the input; K3, K18 and K19 through common.cuh's
+//   one block a row (K3, K18 and K19 through common.cuh's
 //     compact_streams_kernel, up to six streams moving together
 //     unchanged): 1024 threads walk the row in tiles of 1024 entries.  In
 //     a tile, __ballot_sync + __popc give each event its rank inside its
 //     warp, warp 0 scans the 32 warp totals in shared memory, and a
-//     running base carries the count across tiles.  K1 stops reading
-//     once its k128 outputs are full.
-//   (row, tile) tiles in arrival order (K4/K5, compact_payload_rows): a
-//     block takes a tile of kPayThreads x kPayVT words of one row through
-//     common.cuh's claim_tile, loads them coalesced (word v *
-//     kPayThreads + threadIdx.x of the tile is the thread's v-th), keeps
-//     them in registers, ranks the events (tile_ranks), gets the count
-//     of the row's earlier tiles by the decoupled look-back
+//     running base carries the count across tiles.
+//   (row, tile) tiles in arrival order (K1/K2, compact_angle_rows, and
+//     K4/K5, compact_payload_rows: one kernel, compact_tiles_kernel,
+//     whose Words parameter picks the events and builds each output word
+//     at its write): a block takes a tile of kTileThreads x kTileVT words
+//     of one row through common.cuh's claim_tile, loads them coalesced
+//     (word v * kTileThreads + threadIdx.x of the tile is the thread's
+//     v-th), keeps them in registers, ranks the events (tile_ranks), gets
+//     the count of the row's earlier tiles by the decoupled look-back
 //     (lookback_prefix) and writes each event to prefix + rank where that
 //     is below k128; the row's last tile (its highest index, which may
 //     finish before others of the row: they write below the row's total,
 //     it writes at or above) zero-fills [min(n, k128), k128).  Every tile
-//     reads its whole tile: it cannot know its prefix before it publishes
-//     its own count.
-//
+//     reads its whole tile, also in a row whose k128 outputs are full: it
+//     cannot know its prefix before it publishes its own count.
+
 // What bounds K18 and K19 on the H100: bytes.  The selection plane is
 // read whole; a payload stream is read only at the selected lanes, so it
 // costs the 32-byte sectors that hold one.  K18 at the sorted engine's
@@ -78,12 +78,13 @@
 // read; the writes are sparse (events are a few percent of entries) and
 // the zero fill is k128 words per row.  At the aligned step's shape of
 // [64, 32768] the plane is 8 MB, 2.5 us at 3.35 TB/s.  One block a row
-// fills only 64 of 132 SMs and each tile waits for its load and two
-// barriers, so K1 is latency-bound well above that floor.  K4/K5 cut the
-// same shape into 64 x 8 tiles of 4096 words, one resident wave of
-// 256-thread blocks with sixteen loads in flight a thread (the fastest
-// of 256 x 4, 8, 16 and 512 x 8 on the card, detect_variants.py); what
-// is left above the floor is the launch, the scratch memset and the
+// would fill only 64 of 132 SMs, each tile waiting for its load and two
+// barriers.  The tiles cut the same shape into 64 x 8 tiles of 4096
+// words, one resident wave of 256-thread blocks with sixteen loads in
+// flight a thread (the fastest of 256 x 4, 8, 16 and 512 x 8 for K4 and
+// of 256 x 8, 16, 32 and 512 x 8 for K1 on the card,
+// detect_variants.py); K1's f16 conversion runs only at the events.
+// What is left above the floor is the launch, the scratch memset and the
 // look-back.
 //
 // The only float work is one multiply by the exact power of two 2^24,
@@ -94,76 +95,84 @@
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
+// K1/K2 and K4/K5: tiles of kTileWords words in arrival order.  Words
+// picks the events and builds each one's output word from the input word
+// and its position in the row.
+constexpr int kTileThreads = 256;
+constexpr int kTileVT = 16;  // words a thread
+constexpr int kTileWords = kTileThreads * kTileVT;
 
-__global__ void __launch_bounds__(kThreads)
-compact_angle_rows_kernel(const uint32_t* __restrict__ aw,
-                          uint32_t* __restrict__ out, int P, int k128) {
-  __shared__ int warp_off[kWarps];
-  __shared__ int tile_total;
-  const uint32_t* in = aw + static_cast<size_t>(blockIdx.x) * P;
-  uint32_t* o = out + static_cast<size_t>(blockIdx.x) * k128;
-  const int lane = threadIdx.x & 31;
-  const uint32_t lanes_below = (1u << lane) - 1u;
-  int base = 0;  // events in earlier tiles: uniform across the block
-  for (int start = 0; start < P && base < k128; start += kThreads) {
-    const int i = start + threadIdx.x;
-    const uint32_t w = i < P ? in[i] : 0u;
-    const bool sel = (w >> 31) != 0u;
-    const uint32_t ballot = __ballot_sync(0xffffffffu, sel);
-    int before, total;
-    tile_offsets<kWarps>(__popc(ballot), warp_off, &tile_total, before, total);
-    if (sel) {
-      const int off = base + before + __popc(ballot & lanes_below);
-      if (off < k128) {
-        const float ang = __int_as_float(static_cast<int32_t>(w & 0x7FFFFFFFu));
-        o[off] = (static_cast<uint32_t>(i + 1) << 15) | (f16_bits_rne(ang) & 0x7FFFu);
-      }
-    }
-    base += total;
-    __syncthreads();  // warp_off / tile_total are rewritten next tile
+// K1/K2: an event is a word with bit 31 set; its output word is the
+// positional payload ((x + 1) << 15) | f16_rne(angle).
+struct AngleWords {
+  static __device__ __forceinline__ bool take(uint32_t w) { return (w >> 31) != 0u; }
+  static __device__ __forceinline__ uint32_t word(uint32_t w, int x) {
+    const float ang = __int_as_float(static_cast<int32_t>(w & 0x7FFFFFFFu));
+    return (static_cast<uint32_t>(x + 1) << 15) | (f16_bits_rne(ang) & 0x7FFFu);
   }
-  for (int j = min(base, k128) + threadIdx.x; j < k128; j += kThreads) o[j] = 0u;
-}
+};
 
-// K4/K5: tiles of kPayTile words in arrival order; an event is a word
-// >= 2^15, moved unchanged.
-constexpr int kPayThreads = 256;
-constexpr int kPayVT = 16;  // words a thread
-constexpr int kPayTile = kPayThreads * kPayVT;
+// K4/K5: an event is a word >= 2^15, moved unchanged.
+struct PayloadWords {
+  static __device__ __forceinline__ bool take(uint32_t w) {
+    return (w & 0xFFFF8000u) != 0u;
+  }
+  static __device__ __forceinline__ uint32_t word(uint32_t w, int) { return w; }
+};
 
-__global__ void __launch_bounds__(kPayThreads)
-compact_payload_kernel(const uint32_t* __restrict__ pay, uint32_t* __restrict__ out,
-                       unsigned long long* scratch, int P, int tiles, int k128) {
+template <typename Words>
+__global__ void __launch_bounds__(kTileThreads)
+compact_tiles_kernel(const uint32_t* __restrict__ in_rows, uint32_t* __restrict__ out,
+                     unsigned long long* scratch, int P, int tiles, int k128) {
   __shared__ int slot;
-  __shared__ int counts[kPayVT * (kPayThreads / 32) + 1];
+  __shared__ int counts[kTileVT * (kTileThreads / 32) + 1];
   const int tile = claim_tile(scratch, &slot);
   const int row = tile / tiles;
   const int t = tile - row * tiles;
-  const uint32_t* in = pay + static_cast<size_t>(row) * P;
-  uint32_t w[kPayVT];
-  bool take[kPayVT];
+  const uint32_t* in = in_rows + static_cast<size_t>(row) * P;
+  uint32_t w[kTileVT];
+  bool take[kTileVT];
 #pragma unroll
-  for (int v = 0; v < kPayVT; ++v) {
-    const int x = t * kPayTile + v * kPayThreads + threadIdx.x;
+  for (int v = 0; v < kTileVT; ++v) {
+    const int x = t * kTileWords + v * kTileThreads + threadIdx.x;
     w[v] = x < P ? __ldg(in + x) : 0u;
-    take[v] = (w[v] & 0xFFFF8000u) != 0u;
+    take[v] = Words::take(w[v]);
   }
-  int rank[kPayVT];
-  const int total = tile_ranks<kPayThreads, kPayVT>(take, rank, counts);
+  int rank[kTileVT];
+  const int total = tile_ranks<kTileThreads, kTileVT>(take, rank, counts);
   const int before =
       lookback_prefix(scratch + 1 + static_cast<size_t>(row) * tiles, t, total, &slot);
   uint32_t* o = out + static_cast<size_t>(row) * k128;
 #pragma unroll
-  for (int v = 0; v < kPayVT; ++v) {
+  for (int v = 0; v < kTileVT; ++v) {
     const int dst = before + rank[v];
-    if (take[v] && dst < k128) o[dst] = w[v];
+    if (take[v] && dst < k128) {
+      o[dst] = Words::word(w[v], t * kTileWords + v * kTileThreads + threadIdx.x);
+    }
   }
   if (t == tiles - 1) finish_row(o, k128, before + total, nullptr);
 }
 
-int payload_tiles(int P) { return (P + kPayTile - 1) / kPayTile; }
+int row_tiles(int P) { return (P + kTileWords - 1) / kTileWords; }
+
+// Zeroes the look-back scratch (scratch_words int64 words, at least
+// lookback_words(H, row_tiles(P))) on the stream, then launches
+// compact_tiles_kernel<Words>.
+template <typename Words>
+int launch_tiles(const void* in, void* out, void* scratch, long long scratch_words,
+                 int H, int P, int k128, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (H <= 0 || P <= 0) return static_cast<int>(cudaGetLastError());
+  const int tiles = row_tiles(P);
+  const long long words = lookback_words(H, tiles);
+  if (scratch_words < words) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t rc = cudaMemsetAsync(scratch, 0, words * sizeof(unsigned long long), s);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  compact_tiles_kernel<Words><<<static_cast<unsigned>(words - 1), kTileThreads, 0, s>>>(
+      static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out),
+      static_cast<unsigned long long*>(scratch), P, tiles, k128);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // One group of common.cuh's multi-stream scan: n uint32 streams of [H, P]
 // rows selected where sel & sel_mask != 0, each moved unchanged into the
@@ -190,13 +199,19 @@ int launch_one_group(const void* sel, uint32_t sel_mask, const void* const* in,
 // Each entry point launches on the caller's stream and returns
 // cudaGetLastError() (0 = launched).  Pointers are device pointers to
 // C-contiguous uint32 rows: inputs [H, P], outputs [H, k128].
-extern "C" int compact_angle_rows(const void* aw, void* out, int H, int P,
+
+// Scratch words (int64) compact_angle_rows needs for H rows of P.
+extern "C" long long compact_angle_rows_scratch(int H, int P) {
+  return lookback_words(H, row_tiles(P));
+}
+
+// K1/K2: zeroes the look-back scratch (scratch_words int64 words, at
+// least compact_angle_rows_scratch(H, P)) on the stream, then launches.
+extern "C" int compact_angle_rows(const void* aw, void* out, void* scratch,
+                                  long long scratch_words, int H, int P,
                                   int k128, void* stream) {
-  if (H > 0) {
-    compact_angle_rows_kernel<<<H, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(aw), static_cast<uint32_t*>(out), P, k128);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_tiles<AngleWords>(aw, out, scratch, scratch_words, H, P, k128,
+                                  stream);
 }
 
 extern "C" int compact_pair_rows(const void* posw, const void* angw,
@@ -248,7 +263,7 @@ extern "C" int compact_rows_groups(const void* sel_a, const void* const* in_a,
 
 // Scratch words (int64) compact_payload_rows needs for H rows of P.
 extern "C" long long compact_payload_rows_scratch(int H, int P) {
-  return lookback_words(H, payload_tiles(P));
+  return lookback_words(H, row_tiles(P));
 }
 
 // K4/K5: zeroes the look-back scratch (scratch_words int64 words, at
@@ -256,15 +271,6 @@ extern "C" long long compact_payload_rows_scratch(int H, int P) {
 extern "C" int compact_payload_rows(const void* pay, void* out, void* scratch,
                                     long long scratch_words, int H, int P,
                                     int k128, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (H <= 0 || P <= 0) return static_cast<int>(cudaGetLastError());
-  const int tiles = payload_tiles(P);
-  const long long words = lookback_words(H, tiles);
-  if (scratch_words < words) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t rc = cudaMemsetAsync(scratch, 0, words * sizeof(unsigned long long), s);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  compact_payload_kernel<<<static_cast<unsigned>(words - 1), kPayThreads, 0, s>>>(
-      static_cast<const uint32_t*>(pay), static_cast<uint32_t*>(out),
-      static_cast<unsigned long long*>(scratch), P, tiles, k128);
-  return static_cast<int>(cudaGetLastError());
+  return launch_tiles<PayloadWords>(pay, out, scratch, scratch_words, H, P, k128,
+                                    stream);
 }

@@ -15,13 +15,30 @@
 // [2 x 65536] row of six channels is 3 MB, so neither kernel holds the
 // merged row.
 //
-// merge_rows (K15): each entry finds its output index by a binary search
-// of the other row: its rank in its own row plus the count of the other
-// row's keys below it; the result equals a stable sort of the
-// concatenation [prev, cur], ties among the padding sentinels included
-// (prev before cur, each side in its own index order), and every channel
-// of the entry is scattered there.
-//
+// merge_rows (K15), one launch, by merge path: the output is a stable
+// sort of the concatenation [prev, cur] (prev before cur at equal keys,
+// each side in its own index order).  A block takes a tile of
+// kMergeTile merged positions of one row (blockIdx order: no block waits
+// on another) and
+//   0. finds where the tile's two diagonals cut A and B, by one
+//      warp-wide 32-way search each, with prev first at equal keys; a
+//      run of equal cur keys that crosses a tile edge gets its far end
+//      by one more warp-wide search of the cur row;
+//   1. loads the tile's contiguous prev and cur key ranges into shared
+//      memory with coalesced loads and merges them there: each thread
+//      walks kMergeVT merged positions after a binary search, noting each
+//      position's source in shared memory.  A cur entry merged at B[j]
+//      inside a run of equal keys B[js, je) comes from cur index
+//      P - je + (j - js): the stable sort takes a run in cur index order,
+//      the reverse of B's (the padding sentinel 0xFFFFFFFF opens every
+//      padded cur row, and its run may span many tiles);
+//   2. moves each channel through one shared-memory buffer: the tile's
+//      prev range and its cur entries (at the indices of step 1) are
+//      staged with coalesced loads (the next channel's loads in flight
+//      while this one is written), and the tile's output positions are
+//      written contiguously, coalesced.
+// Every word is read once and written once; no block scatters.
+
 // fused_join_detect (K16), one launch, by merge path.  Read the cur keys
 // backwards (B[j] = ck[P - 1 - j], ascending) and merge them with the
 // prev keys A: prev keys are even and cur keys odd, so no key of one
@@ -63,12 +80,16 @@
 // What bounds them on the H100: bytes.  At the bench shape [64, 32768]
 // merge_rows (six channels a side) reads 100 MB and writes 100 MB, 60 us
 // at 3.35 TB/s; fused_join_detect reads 11 planes (92 MB) and writes
-// packed and the events (10 MB), 31 us.  K16 reads each key once from
-// device memory and the detection planes once, coalesced, keeps no
-// [H, P] scratch plane, and with tiles of 1024 merged positions puts
-// 4096 blocks on the 132 SMs at the bench shape.  merge_rows still searches
-// 15 keys a lane in L2 and scatters each channel with no coalescing
-// across a warp; a merge path per block is its faster form.
+// packed and the events (10 MB), 31 us.  Both read each key once from
+// device memory, coalesced, and keep no [H, P] scratch plane.  K16's
+// tiles of 1024 merged positions put 4096 blocks on the 132 SMs at the
+// bench shape; K15's tiles of 1024 put 4096 there, each moving 48 KB of
+// its six channels through 10 KB of shared memory (the one-channel
+// buffer, the sources of the tile's positions and the cur indices of its
+// B entries).  Built for 32 registers a thread, eight K15 blocks share an
+// SM, so one block's loads overlap the others' searches, barriers and
+// writes (256 x 8 positions at 80 registers, three blocks an SM, took
+// 1.27x as long on the card; detect_variants.py).
 
 #include "common.cuh"
 
@@ -76,19 +97,47 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// Length of the prefix of a[0, n) on which pred holds (pred must hold on
-// a prefix and fail after it): on an ascending row, pred x < k counts the
-// keys below k; on a descending row, pred x >= k counts those at or
-// above it.
+// The first x in [lo, hi) at which pred fails (hi where it holds on the
+// whole range); pred must hold on a prefix of the range and fail after
+// it.  The whole warp calls it with the same arguments: each round its
+// 32 lanes probe 32 evenly spaced x, and the first failing probe cuts the
+// range to a 32nd (3 rounds of loads at rows of 32768).
 template <typename Pred>
-__device__ __forceinline__ int partition_point(const uint32_t* a, int n, Pred pred) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (pred(a[mid])) lo = mid + 1; else hi = mid;
+__device__ __forceinline__ int warp_partition_point(int lo, int hi, Pred pred) {
+  const int lane = threadIdx.x & 31;
+  for (;;) {
+    const int n = hi - lo;
+    const int step = n <= 32 ? 1 : (n + 31) / 32;
+    const int x = lo + lane * step;
+    const bool holds = x < hi && pred(x);
+    const int c = __popc(__ballot_sync(0xffffffffu, holds));
+    if (step == 1 || c == 0) return lo + (step == 1 ? c : 0);
+    const int next_lo = lo + (c - 1) * step + 1;
+    hi = min(hi, lo + c * step);
+    lo = next_lo;
   }
-  return lo;
 }
+
+// How many of the first d merged entries of a row are prev entries (A
+// the prev keys, B[j] = ck[P - 1 - j]): the first i in [max(0, d - P),
+// min(d, P)] with B[d - 1 - i] before A[i].  kPrevFirst: a prev key
+// goes before an equal cur key (K15's stable sort); K16's keys never tie
+// across sides.  The whole warp calls it.
+template <bool kPrevFirst>
+__device__ __forceinline__ int merge_split(const uint32_t* pk, const uint32_t* ck,
+                                           int P, int d) {
+  return warp_partition_point(max(0, d - P), min(d, P), [=](int x) {
+    // B[d - 1 - x] = ck[P - d + x]
+    const uint32_t a = __ldg(pk + x), b = __ldg(ck + (P - d + x));
+    return kPrevFirst ? a <= b : a < b;
+  });
+}
+
+// K15: tiles of kMergeTile merged positions.
+constexpr int kMergeThreads = 256;
+constexpr int kMergeVT = 4;      // merged positions a thread
+constexpr int kMergeBlocks = 8;  // resident blocks an SM: 32 registers a thread
+constexpr int kMergeTile = kMergeThreads * kMergeVT;
 
 struct MergeArgs {
   const uint32_t* prev[kMaxStreams];  // channel 0 is the key
@@ -96,31 +145,152 @@ struct MergeArgs {
   uint32_t* out[kMaxStreams];         // [H, 2P]
   int n_chan;
   int P;
+  int tiles;                          // tiles a row
 };
 
-// grid (H, P / kThreads, 2): row, tile, side (0 prev, 1 cur).
-__global__ void __launch_bounds__(kThreads)
-merge_rows_kernel(MergeArgs a) {
-  const int i = blockIdx.y * kThreads + threadIdx.x;
-  if (i >= a.P) return;
-  const size_t row = blockIdx.x;
-  const size_t P = a.P;
-  const uint32_t* pk = a.prev[0] + row * P;
-  const uint32_t* ck = a.cur[0] + row * P;
-  const bool cur = blockIdx.z != 0;
-  int dst;
-  if (!cur) {
-    const uint32_t k = pk[i];
-    dst = i + (a.P - partition_point(ck, a.P, [k](uint32_t x) { return x >= k; }));
-  } else {
-    const uint32_t k = ck[i];
-    dst = partition_point(pk, a.P, [k](uint32_t x) { return x <= k; }) +
-          (a.P - partition_point(ck, a.P, [k](uint32_t x) { return x >= k; })) +
-          (i - partition_point(ck, a.P, [k](uint32_t x) { return x > k; }));
+// The tile's words of one channel, buf[x] for x = v * kMergeThreads +
+// threadIdx.x: the prev range [i0, i0 + na), then the cur words of B
+// positions j0 .. j0 + nb - 1, from cur index at(x - na).  Loads only:
+// the caller stores w to buf after a barrier.
+template <typename CurIndex>
+__device__ __forceinline__ void load_tile(const uint32_t* prev, const uint32_t* cur,
+                                          int na, int n, CurIndex at,
+                                          uint32_t (&w)[kMergeVT]) {
+#pragma unroll
+  for (int v = 0; v < kMergeVT; ++v) {
+    const int x = v * kMergeThreads + threadIdx.x;
+    w[v] = x < na ? __ldg(prev + x) : x < n ? __ldg(cur + at(x - na)) : 0u;
   }
-  for (int c = 0; c < a.n_chan; ++c) {
-    const uint32_t* src = cur ? a.cur[c] : a.prev[c];
-    a.out[c][row * 2 * P + dst] = src[row * P + i];
+}
+
+__device__ __forceinline__ void store_tile(uint32_t* buf, int n,
+                                           const uint32_t (&w)[kMergeVT]) {
+#pragma unroll
+  for (int v = 0; v < kMergeVT; ++v) {
+    const int x = v * kMergeThreads + threadIdx.x;
+    if (x < n) buf[x] = w[v];
+  }
+}
+
+// grid: one block a tile, H * tiles blocks.
+__global__ void __launch_bounds__(kMergeThreads, kMergeBlocks)
+merge_rows_kernel(MergeArgs a) {
+  __shared__ uint32_t buf[kMergeTile];  // one channel's prev range, then its cur entries
+  // src[o + o / 32]: the buf index output position o takes (padded
+  // against bank conflicts)
+  __shared__ uint16_t src[kMergeTile + kMergeTile / 32];
+  __shared__ int cur_at[kMergeTile];    // the cur index of B position j0 + x
+  // split[w]: prev entries before diagonal w; edge[0]: js of the run of
+  // B[j0] (j0 unless it starts before the tile), edge[1]: je of the run
+  // of B[j1 - 1] (j1 unless it ends after the tile)
+  __shared__ int split[2], edge[2];
+  const int row = blockIdx.x / a.tiles;
+  const int t = blockIdx.x - row * a.tiles;
+  const int P = a.P;
+  const size_t base = static_cast<size_t>(row) * P;
+  const uint32_t* pk = a.prev[0] + base;
+  const uint32_t* ck = a.cur[0] + base;
+  const int d0 = t * kMergeTile;
+  const int d1 = min(2 * P, d0 + kMergeTile);
+  const int warp = threadIdx.x >> 5;
+  if (warp < 2) {
+    const int d = warp == 0 ? d0 : d1;
+    const int i = merge_split<true>(pk, ck, P, d);
+    // warp 0: does the run of B[j0] start before the tile?  warp 1: does
+    // the run of B[j1 - 1] end after it?  Then its far end.
+    const int j = d - i;
+    int e = j;
+    if (j > 0 && j < P) {
+      const uint32_t k = __ldg(ck + (P - j));  // B[j - 1]
+      if (k == __ldg(ck + (P - 1 - j))) {      // B[j]
+        e = warp == 0
+                ? warp_partition_point(0, j - 1, [=](int x) { return __ldg(ck + (P - 1 - x)) < k; })
+                : warp_partition_point(j + 1, P, [=](int x) { return __ldg(ck + (P - 1 - x)) <= k; });
+      }
+    }
+    if ((threadIdx.x & 31) == 0) {
+      split[warp] = i;
+      edge[warp] = e;
+    }
+  }
+  __syncthreads();
+  const int i0 = split[0], i1 = split[1];
+  const int j0 = d0 - i0, j1 = d1 - i1;
+  const int na = i1 - i0, nb = j1 - j0, n = na + nb;
+  const int js_first = edge[0], je_last = edge[1];
+  uint32_t w[kMergeVT];
+  load_tile(pk + i0, ck, na, n, [=](int x) { return P - 1 - j0 - x; }, w);
+  store_tile(buf, n, w);
+  __syncthreads();
+
+  // 1. the merge: thread's positions [s, s + kMergeVT) of the tile
+  const uint32_t* sb = buf + na;  // B[j0 .. j1)
+  const int s = threadIdx.x * kMergeVT;
+  if (s < n) {
+    int lo = max(0, s - nb), hi = min(s, na);
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (buf[mid] <= sb[s - 1 - mid]) lo = mid + 1; else hi = mid;
+    }
+    int ia = lo, jb = s - lo;
+    uint32_t run_key = 0u;
+    int run_js = -1, run_je = -1;  // the last run looked up: B[run_js, run_je)
+    for (int v = 0; v < kMergeVT; ++v) {
+      const int o = s + v;
+      if (o < n) {
+        int from;
+        if (ia < na && (jb >= nb || buf[ia] <= sb[jb])) {
+          from = ia++;
+        } else {
+          const uint32_t k = sb[jb];
+          const bool left = jb > 0 ? sb[jb - 1] == k : js_first < j0;
+          const bool right = jb + 1 < nb ? sb[jb + 1] == k : je_last > j1;
+          int c = P - 1 - (j0 + jb);
+          if (left || right) {
+            if (run_js < 0 || run_key != k) {
+              int l = 0, h = jb;  // first x with sb[x] >= k
+              while (l < h) {
+                const int m = (l + h) >> 1;
+                if (sb[m] < k) l = m + 1; else h = m;
+              }
+              run_js = l == 0 ? js_first : j0 + l;
+              l = jb + 1, h = nb;  // first x with sb[x] > k
+              while (l < h) {
+                const int m = (l + h) >> 1;
+                if (sb[m] <= k) l = m + 1; else h = m;
+              }
+              run_je = l == nb ? je_last : j0 + l;
+              run_key = k;
+            }
+            c = P - run_je + (j0 + jb - run_js);
+          }
+          cur_at[jb] = c;
+          from = na + jb++;
+        }
+        src[o + (o >> 5)] = static_cast<uint16_t>(from);
+      }
+    }
+  }
+  __syncthreads();
+
+  // 2. the channels, one buffer: channel c is written while channel
+  // c + 1's loads are in flight
+  const auto at = [&](int x) { return cur_at[x]; };
+  if (a.n_chan > 1) load_tile(a.prev[1] + base + i0, a.cur[1] + base, na, n, at, w);
+  const size_t out = static_cast<size_t>(row) * 2 * P + d0;
+  for (int c = 0;; ++c) {
+#pragma unroll
+    for (int v = 0; v < kMergeVT; ++v) {
+      const int o = v * kMergeThreads + threadIdx.x;
+      if (o < n) a.out[c][out + o] = buf[src[o + (o >> 5)]];
+    }
+    if (c + 1 == a.n_chan) break;
+    __syncthreads();  // every thread has read channel c from buf
+    store_tile(buf, n, w);
+    __syncthreads();
+    if (c + 2 < a.n_chan) {
+      load_tile(a.prev[c + 2] + base + i0, a.cur[c + 2] + base, na, n, at, w);
+    }
   }
 }
 
@@ -153,28 +323,6 @@ struct JoinArgs {
   int pericentric;
 };
 
-// How many of the first d merged entries of a row are prev entries: the
-// first i in [max(0, d - P), min(d, P)] with A[i] > B[d - 1 - i] (A the
-// prev keys, B[j] = ck[P - 1 - j]).  The whole warp calls it: each round
-// its 32 lanes probe 32 evenly spaced i, and the first failing probe cuts
-// the range to a 32nd.
-__device__ int merge_split(const uint32_t* pk, const uint32_t* ck, int P, int d) {
-  const int lane = threadIdx.x & 31;
-  int lo = max(0, d - P), hi = min(d, P);
-  for (;;) {
-    const int n = hi - lo;
-    const int step = n <= 32 ? 1 : (n + 31) / 32;
-    const int x = lo + lane * step;
-    // B[d - 1 - x] = ck[P - d + x]
-    const bool below = x < hi && __ldg(pk + x) < __ldg(ck + (P - d + x));
-    const int c = __popc(__ballot_sync(0xffffffffu, below));
-    if (step == 1 || c == 0) return lo + (step == 1 ? c : 0);
-    const int next_lo = lo + (c - 1) * step + 1;
-    hi = min(hi, lo + c * step);
-    lo = next_lo;
-  }
-}
-
 // grid: one block a tile, H * tiles blocks.
 __global__ void __launch_bounds__(kThreads)
 join_detect_kernel(JoinArgs a) {
@@ -199,7 +347,7 @@ join_detect_kernel(JoinArgs a) {
   const int d1 = min(2 * P, d0 + kJoinTile);
   const int warp = threadIdx.x >> 5;
   if (warp < 2) {
-    const int i = merge_split(pk, ck, P, warp == 0 ? d0 : d1);
+    const int i = merge_split<false>(pk, ck, P, warp == 0 ? d0 : d1);
     if ((threadIdx.x & 31) == 0) split[warp] = i;
   }
   for (int x = threadIdx.x; x < kJoinTile; x += kThreads) {
@@ -351,8 +499,10 @@ extern "C" int merge_rows(const void* const* prev, const void* const* cur,
     }
     a.n_chan = n_chan;
     a.P = P;
-    const dim3 grid(H, (P + kThreads - 1) / kThreads, 2);
-    merge_rows_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+    a.tiles = (2 * P + kMergeTile - 1) / kMergeTile;
+    const long long blocks = static_cast<long long>(H) * a.tiles;
+    merge_rows_kernel<<<static_cast<unsigned>(blocks), kMergeThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

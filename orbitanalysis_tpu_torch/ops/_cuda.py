@@ -197,7 +197,8 @@ def bind(lib):
                    ctypes.c_longlong, ctypes.c_float)
     pp = ctypes.POINTER(ctypes.c_void_p)
     signatures = {
-        "compact_angle_rows": [p, p, i, i, i, p],
+        "compact_angle_rows_scratch": [i, i],
+        "compact_angle_rows": [p, p, p, ll, i, i, i, p],
         "compact_pair_rows": [p, p, p, p, i, i, i, p],
         "compact_payload_rows_scratch": [i, i],
         "compact_payload_rows": [p, p, p, ll, i, i, i, p],
@@ -271,18 +272,6 @@ def _launch(name, fn, *args, device):
     KERNELS[name].launches += 1
 
 
-def compact_angle_rows(aw: torch.Tensor, k128: int) -> torch.Tensor:
-    """Launch the angle-word compaction: ``aw [H, P]`` int32 (uint32
-    bits) -> ``[H, k128]`` int32 payload words, zero past each row's
-    count."""
-    h, p = aw.shape
-    out = torch.empty((h, k128), dtype=torch.int32, device=aw.device)
-    _check("compact_angle_rows", aw, out)
-    _launch("compact_angle_rows", _library().compact_angle_rows,
-            aw.data_ptr(), out.data_ptr(), h, p, k128, device=aw.device)
-    return out
-
-
 def compact_pair_rows(posw: torch.Tensor, angw: torch.Tensor, k128: int):
     """Launch the two-stream compaction: ``posw``/``angw [H, P]`` ->
     two ``[H, k128]`` int32 planes, zero past each row's count."""
@@ -308,20 +297,33 @@ def _lookback_scratch(name, h, p, device):
     return torch.empty(words, dtype=torch.int64, device=device), words
 
 
-def compact_payload_rows(payload: torch.Tensor, k128: int) -> torch.Tensor:
-    """Launch the payload-word compaction: ``payload [H, P]`` int32
-    (uint32 words, an event where the word is >= 2**15) -> ``[H, k128]``
-    int32, events front-packed in position order, zero past each row's
-    count."""
-    name = "compact_payload_rows"
-    h, p = payload.shape
-    out = torch.empty((h, k128), dtype=torch.int32, device=payload.device)
-    _check(name, payload, out)
-    scratch, words = _lookback_scratch(name, h, p, payload.device)
-    _launch(name, _library().compact_payload_rows, payload.data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), words, h, p, k128,
-            device=payload.device)
+def _compact_tiles(name, x, k128):
+    """Launch one of the two tile compactions of ``csrc/compact.cu`` on
+    ``x [H, P]`` int32 (uint32 words) with its own look-back scratch:
+    the ``[H, k128]`` int32 output, zero past each row's count."""
+    h, p = x.shape
+    out = torch.empty((h, k128), dtype=torch.int32, device=x.device)
+    _check(name, x, out)
+    scratch, words = _lookback_scratch(name, h, p, x.device)
+    _launch(name, getattr(_library(), name), x.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), words, h, p, k128, device=x.device)
     return out
+
+
+def compact_angle_rows(aw: torch.Tensor, k128: int) -> torch.Tensor:
+    """Launch the angle-word compaction (K1/K2): ``aw [H, P]`` int32
+    (uint32 words ``f32_bits(angle) | apsis << 31``) -> ``[H, k128]``
+    int32 payload words ``((pos + 1) << 15) | f16(angle)``, events
+    front-packed in position order, zero past each row's count."""
+    return _compact_tiles("compact_angle_rows", aw, k128)
+
+
+def compact_payload_rows(payload: torch.Tensor, k128: int) -> torch.Tensor:
+    """Launch the payload-word compaction (K4/K5): ``payload [H, P]``
+    int32 (uint32 words, an event where the word is >= 2**15) -> ``[H,
+    k128]`` int32, events front-packed in position order, zero past each
+    row's count."""
+    return _compact_tiles("compact_payload_rows", payload, k128)
 
 
 def frame_rows(table: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

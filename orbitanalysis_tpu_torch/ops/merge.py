@@ -4,8 +4,9 @@
 The sorted engine's join merges two ID-sorted rows per halo: the carry
 (``prev``, keys ascending) and the snapshot (``cur``, keys descending).
 On a CUDA tensor :func:`merge_rows` launches the hand-written kernel
-``merge_rows`` of ``csrc/merge.cu`` (K15; each entry finds its output
-index by a binary search of the other row); on a CPU tensor it runs
+``merge_rows`` of ``csrc/merge.cu`` (K15; a merge path over tiles of
+output positions, each tile's words staged in shared memory and written
+coalesced); on a CPU tensor it runs
 :func:`merge_rows_torch`, a stable sort of the concatenation.  Both give
 the same bits, the ties among padding sentinels included.
 

@@ -25,6 +25,9 @@ torch.set_num_threads(1)
 
 SHAPES = [(3, 256, 128), (4, 1024, 128), (2, 4096, 512)]
 DENSITIES = [0.0, 0.017, 0.07, 0.5, 1.0]
+#: Rows that are not a multiple of the angle kernel's tile of 4096 words
+#: (``csrc/compact.cu`` kTileWords): one tile and a part, two and a part.
+ANGLE_EDGE_SHAPES = [(2, 4096 + 128, 256), (2, 2 * 4096 + 640, 512)]
 
 
 def _i32(a):
@@ -51,7 +54,7 @@ def _assert_front_packed(got, want, counts):
 
 
 @pytest.mark.parametrize("density", DENSITIES)
-@pytest.mark.parametrize("h,p,k", SHAPES)
+@pytest.mark.parametrize("h,p,k", SHAPES + ANGLE_EDGE_SHAPES)
 def test_angle_twin_matches_jax(h, p, k, density):
     rng = np.random.default_rng(int(density * 1000) + p)
     aw, sel = _angle_words(rng, h, p, density)

@@ -48,18 +48,43 @@ def _angle_words(rng, h, p, density):
     return ang.view(np.uint32) | (sel.astype(np.uint32) << np.uint32(31))
 
 
-@pytest.mark.parametrize("h,p,k", [(64, 32768, 2048), (3, 256, 256),
-                                   (5, 131072 - 128, 4096), (2, 4096, 128)])
+#: Words of one tile of K1/K2 and K4/K5 (``csrc/compact.cu`` kTileWords).
+K1_TILE = 4096
+
+
+@pytest.mark.parametrize("h,p,k", [
+    (64, 32768, 2048), (3, 256, 256), (5, 131072 - 128, 4096), (2, 4096, 128),
+    # rows at and around K1's tile: one row of lanes, one tile less and
+    # one more row of lanes, and 4096 short rows
+    (3, 128, 128), (3, K1_TILE - 128, 256), (3, K1_TILE + 128, 256),
+    (4096, 128, 128)])
 @pytest.mark.parametrize("density", [0.0, 0.017, 0.07, 0.5, 1.0])
 def test_angle_kernel_matches_twin(dev, h, p, k, density):
+    """K1/K2 bit-equal to the plain version on the card and on the CPU,
+    with a clustered block, the f16 clamp lanes at the row's end and, on
+    rows of more than one tile, a burst of events and the clamp lanes
+    across a tile edge; at density 1 the counts pass k128 on rows of
+    several tiles."""
     rng = np.random.default_rng(int(density * 100) + p)
     aw = _angle_words(rng, h, p, density)
     aw[0, 1000 % p:1000 % p + 100] |= np.uint32(1 << 31)  # clustered block
     aw[-1, -1] = np.float32(65520.0).view(np.uint32) | np.uint32(1 << 31)
+    if p > K1_TILE:
+        aw[-1, K1_TILE - 300:K1_TILE + 200] |= np.uint32(1 << 31)
+        aw[0, K1_TILE - 2:K1_TILE + 2] = np.array(
+            [65504.0, 65519.0, 65520.0, 1e30], np.float32).view(
+                np.uint32) | np.uint32(1 << 31)
     x = _i32(aw)
+    k128 = tc._k128(k, p)
+    _poison((h, k128))
     got = tc.compact_angle_blocked(x.to(dev), k)
+    plain_cuda = tc.compact_angle_blocked_torch(x.to(dev), k)
     torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), tc.compact_angle_blocked_torch(x, k))
+    want = tc.compact_angle_blocked_torch(x, k)
+    if density == 1.0 and p > K1_TILE:
+        assert int(((x >> 31) != 0).sum(1).min()) > k128
+    assert torch.equal(got, plain_cuda)
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.parametrize("p,k", [(1 << 17, 128), (1 << 18, 16384)])
@@ -613,20 +638,56 @@ def _join_planes(rng, h, p, kind):
     return prev, cur
 
 
-@pytest.mark.parametrize("h,p", [(64, 32768), (3, 128), (5, 4096)])
-@pytest.mark.parametrize("kind", ["churn", "static", "disjoint", "big"])
-def test_merge_kernel_matches_plain(dev, h, p, kind):
-    """K15 equals the stable sort of the concatenation on every channel,
-    the ties among padding sentinels included."""
-    rng = np.random.default_rng(p + h)
-    prev, cur = _join_planes(rng, h, p, kind)
+#: Merged positions of one tile of K15 (``csrc/merge.cu`` kMergeTile).
+K15_TILE = 1024
+
+
+def _merge_planes(rng, h, p, kind, n_chan):
+    """K15's ``n_chan`` prev and cur planes: ``_join_planes`` with the
+    cur angles a zero plane, or for kind 'runs' keys drawn from seven
+    values (the top bit set in four, the two sentinels among them), so
+    that runs of equal keys on both sides cross many tiles and prev and
+    cur keys tie."""
+    prev, cur = _join_planes(rng, h, p, "churn" if kind == "runs" else kind)
     prev[5] = prev[5].view(torch.int32)
     cur.append(torch.zeros_like(prev[5]))
-    got = tm.merge_rows(tuple(t.to(dev) for t in prev),
-                        tuple(t.to(dev) for t in cur))
+    if kind == "runs":
+        vals = np.array([3, 4, 9, 2**31 - 1, 2**31, 0xFFFFFFFE, 0xFFFFFFFF],
+                        np.uint32)
+        pk = np.sort(rng.choice(vals, (h, p)), axis=1)
+        ck = np.sort(rng.choice(vals, (h, p)), axis=1)[:, ::-1]
+        prev[0], cur[0] = _i32(pk), _i32(ck)
+    return prev[:n_chan], cur[:n_chan]
+
+
+@pytest.mark.parametrize("h,p", [
+    (64, 32768), (3, 128), (5, 4096),
+    # rows of 2P = 1/4, 1/2, 1 and 2 of K15's tiles, the widest rows and
+    # many short rows
+    (2, K15_TILE // 8), (2, K15_TILE // 4), (2, K15_TILE // 2), (2, K15_TILE),
+    (2, 1 << 17), (4096, 128)])
+@pytest.mark.parametrize("kind", ["churn", "static", "disjoint", "big",
+                                  "padding", "straddle", "clustered", "runs"])
+@pytest.mark.parametrize("n_chan", [1, 6])
+def test_merge_kernel_matches_plain(dev, h, p, kind, n_chan):
+    """K15 equals the stable sort of the concatenation on every channel,
+    on the card and on the CPU: the ties among padding sentinels
+    included ('padding' has a first row of sentinels only, a run of P on
+    each side that crosses several tiles from P = 1024 on), and any run
+    of equal keys on either side, ties across the sides too ('runs')."""
+    rng = np.random.default_rng(p + h)
+    prev, cur = _merge_planes(rng, h, p, kind, n_chan)
+    xp, xc = tuple(t.to(dev) for t in prev), tuple(t.to(dev) for t in cur)
+    _poison(*[(h, 2 * p)] * n_chan)
+    got = tm.merge_rows(xp, xc)
+    plain_cuda = tm.merge_rows_torch(xp, xc)
     want = tm.merge_rows_torch(tuple(prev), tuple(cur))
     torch.cuda.synchronize()
-    for g, w in zip(got, want):
+    assert len(got) == n_chan
+    if kind == "padding":
+        assert bool((want[0][0] < 0).all())  # row 0: sentinels only
+    for g, c, w in zip(got, plain_cuda, want):
+        assert torch.equal(g.view(torch.int32), c.view(torch.int32))
         assert torch.equal(g.cpu().view(torch.int32), w.view(torch.int32))
 
 
@@ -878,10 +939,29 @@ def test_static_detect_kernel_matches_plain(dev, h, p, k, density, kind,
 def _stream_calls(dev, rng, which):
     """Two calls of one kernel on two inputs with a row whose events
     exceed the capacity k (K16, K17 and K4 at density 0.5 and the 'big'
-    keys, K8 on two carries with a burst row), the kernel's counter name,
-    and a check that a call's result holds such a row."""
+    keys, K8 on two carries with a burst row, K1 on angle words with a
+    burst row), the kernel's counter name, and a check that a call's
+    result holds such a row; for K15, two six-channel merges whose first
+    row is padding only (runs of sentinels across several tiles) and a
+    check that the merged row holds them."""
     h, k, invalid = 8, 256, np.iinfo(np.int32).max
     calls = []
+    if which == "K1":
+        for density in (0.5, 0.03):
+            aw = _angle_words(rng, h, 8 * K1_TILE, density)
+            aw[0, 3 * K1_TILE - 300:3 * K1_TILE + 200] |= np.uint32(1 << 31)
+            x = _i32(aw).to(dev)
+            calls.append(lambda x=x: (tc.compact_angle_blocked(x, k),))
+        return calls, "compact_angle_rows", k, lambda out: bool(
+            (out[0][0] != 0).all())
+    if which == "K15":
+        for seed in (1, 2):
+            prev, cur = _merge_planes(np.random.default_rng(seed), h,
+                                      4 * K15_TILE, "padding", 6)
+            x = (tuple(t.to(dev) for t in prev), tuple(t.to(dev) for t in cur))
+            calls.append(lambda x=x: tm.merge_rows(*x))
+        return calls, "merge_rows", k, lambda out: bool(
+            (out[0][0] < 0).all())
     if which == "K4":
         for density in (0.5, 0.03):
             x = _payload_plane(rng, h, 8 * K4_TILE, density, 3 * K4_TILE).to(
@@ -918,12 +998,12 @@ def _stream_calls(dev, rng, which):
     return calls, name, k, lambda out: int(out[4].max()) > k
 
 
-@pytest.mark.parametrize("which", ["K16", "K17", "K4", "K8"])
+@pytest.mark.parametrize("which", ["K16", "K17", "K4", "K8", "K1", "K15"])
 def test_detect_kernels_streams_and_repeats(dev, which):
-    """K16, K17, K4 and K8 issued at once on two CUDA streams give what
-    they give one after the other, two calls give the same bits, and each
-    call is one counted launch (each call's look-back scratch is its
-    own)."""
+    """K16, K17, K4, K8, K1 and K15 issued at once on two CUDA streams
+    give what they give one after the other, two calls give the same
+    bits, and each call is one counted launch (each call's look-back
+    scratch is its own; K15 has none)."""
     rng = np.random.default_rng(8)
     calls, name, k, overflows = _stream_calls(dev, rng, which)
     _cuda.reset_launch_counts()

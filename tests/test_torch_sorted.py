@@ -124,36 +124,50 @@ def _join_inputs(seed, h=3, p=256, padded=True):
     return prev, cur
 
 
-@pytest.mark.parametrize("p,padded", [(128, False), (512, True)])
-def test_merge_rows_matches_jax(p, padded):
+@pytest.mark.parametrize("p,padded,n_pay", [
+    pytest.param(128, False, 2, id="128-False"),
+    pytest.param(512, True, 2, id="512-True"),
+    # every row half padding: sentinel runs of P / 2 = 2048 on each side,
+    # two tiles of the CUDA kernel (1024 merged positions, csrc/merge.cu
+    # kMergeTile); the key alone and six channels
+    pytest.param(4096, "half", 0, id="4096-half-1chan"),
+    pytest.param(4096, "half", 5, id="4096-half-6chan"),
+])
+def test_merge_rows_matches_jax(p, padded, n_pay):
     """K15: the merged keys equal the JAX bitonic merge's; payloads too,
     except among the sentinel ties, whose order the JAX network leaves
     open (the port's is a stable sort's: prev before cur, index order)."""
     rng = np.random.default_rng(p)
     h = 3
-    n_valid = rng.integers(p // 2, p + 1, h) if padded else np.full(h, p)
+    if padded == "half":
+        n_valid = np.full(h, p // 2)
+    else:
+        n_valid = rng.integers(p // 2, p + 1, h) if padded else np.full(h, p)
     pk = _rows(rng, h, p, n_valid, 0)
     ck = _rows(rng, h, p, n_valid[::-1], 1)[:, ::-1].copy()
-    pay = [rng.integers(0, 2**31, (2, h, p)).astype(np.int32),
-           rng.normal(size=(2, h, p)).astype(np.float32)]
-    prev = (pk, pay[0][0], pay[1][0])
-    cur = (ck, pay[0][1], pay[1][1])
+    pay = [rng.integers(0, 2**31, (2, h, p)).astype(np.int32) if c % 2 == 0
+           else rng.normal(size=(2, h, p)).astype(np.float32)
+           for c in range(n_pay)]
+    prev = (pk, *(x[0] for x in pay))
+    cur = (ck, *(x[1] for x in pay))
     want = jmerge.merge_rows(tuple(map(jnp.asarray, prev)),
                              tuple(map(jnp.asarray, cur)))
-    got = tmerge.merge_rows((_bits(pk), _t(pay[0][0]), _t(pay[1][0])),
-                            (_bits(ck), _t(pay[0][1]), _t(pay[1][1])))
+    got = tmerge.merge_rows((_bits(pk), *(_t(x[0]) for x in pay)),
+                            (_bits(ck), *(_t(x[1]) for x in pay)))
     keys = _u32(got[0])
     np.testing.assert_array_equal(keys, np.asarray(want[0]))
     assert np.all(np.diff(keys.astype(np.int64), axis=1) >= 0)
     real = (keys >> np.uint32(1)) != np.uint32(INVALID)
+    if padded == "half":
+        assert (~real).sum(axis=1).min() == p
     for g, w in zip(got[1:], want[1:]):
         np.testing.assert_array_equal(g.numpy()[real], np.asarray(w)[real])
     # the plain version is the stable sort of the concatenation
     cat = np.concatenate([pk, ck], axis=1)
     order = np.argsort(cat, axis=1, kind="stable")
-    np.testing.assert_array_equal(
-        got[1].numpy(),
-        np.take_along_axis(np.concatenate(pay[0], axis=1), order, 1))
+    for g, x in zip(got[1:], pay):
+        np.testing.assert_array_equal(
+            g.numpy(), np.take_along_axis(np.concatenate(x, axis=1), order, 1))
 
 
 def test_merge_rows_argument_checks_match_jax():
