@@ -115,6 +115,9 @@ DEVICE = "cuda"
 #: the aligned step's bench shape and a wide-row shape
 ANGLE_ROWS = (64, 32768, 2048)
 PAIR_ROWS = (4, 1 << 18, 16384)
+#: K3 on one halo at the aligned engine's widest row
+#: (MAX_ALIGNED_CAPACITY), checked and timed on a log line
+PAIR_WIDE = (1, 1 << 19, 16384)
 #: phase 4: (halos, capacity, particle pool per halo, snapshots)
 PARITY = (64, 32768, 40000, 8)
 #: phase 5: config 2 (BASELINE.md): (halos, particle pool per halo,
@@ -293,7 +296,24 @@ def kernel_checks(dev):
             )
     results["compact_angle_rows"]["max_abs_err"] = worst
 
-    h, p, k = PAIR_ROWS
+    results["compact_pair_rows"] = _pair_check(dev, rng, *PAIR_ROWS)
+    wide = _pair_check(dev, rng, *PAIR_WIDE)
+    results["compact_pair_rows"]["max_abs_err"] = max(
+        results["compact_pair_rows"]["max_abs_err"], wide["max_abs_err"])
+    h, p, k = PAIR_WIDE
+    log(f"  compact_pair_rows [{h}, {p}] K={k}: kernel {wide['ms']:.4f} ms, "
+        f"plain torch {wide['plain_ms']:.4f} ms, bound "
+        f"{wide['bound_ms']:.4f} ms ({wide['bound_by']}) (timed as below)")
+    return results
+
+
+def _pair_check(dev, rng, h, p, k):
+    """K3 against its twin on ``[h, p]`` rows with 3 % events and the
+    last position an event; its times and bound."""
+    import torch
+
+    from orbitanalysis_tpu_torch.ops import compact
+
     sel = rng.random((h, p)) < 0.03
     sel[:, p - 1] = True
     posw = np.where(sel, np.arange(p, dtype=np.uint32) + 1, np.uint32(0))
@@ -309,21 +329,20 @@ def kernel_checks(dev):
     log(f"  compact_pair_rows [{h}, {p}] K={k}: events {int(sel.sum())}, "
         f"max |kernel - twin| = {err}")
     check(all(torch.equal(g, w) for g, w in zip(got, want)),
-          "compact_pair_rows differs from its twin")
+          f"compact_pair_rows differs from its twin at [{h}, {p}]")
     check(int(got[0][0, int(sel[0].sum()) - 1]) == p,
           f"the event at position {p - 1} was lost")
     # posw read whole, angw only at the events
     k128 = compact._k128(k, p)
     b_ms, b_by = bound(pw.numel() * 4 + gathered_bytes(pw != 0, k128, 1)
                        + 2 * h * k128 * 4, 4 * pw.numel())
-    results["compact_pair_rows"] = dict(
+    return dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: compact.compact_payload_pair(pw, aw2, k)),
         plain_ms=cuda_ms(
             lambda: compact.compact_payload_pair_torch(pw, aw2, k)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
     )
-    return results
 
 
 def log_timings(results):

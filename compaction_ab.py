@@ -2,8 +2,10 @@
 
 Times K3 (``compact_payload_pair``), K4 (``compact_payload``), K18
 (``compact_events``) and K19 (``compact_rows``) on seeded synthetic
-inputs at ``chip_smoke.py``'s shapes, after checking each against its
-plain version, and prints one JSON line of milliseconds.  Two checkouts
+inputs at ``chip_smoke.py``'s shapes, and K3 once more on one halo at
+the aligned engine's widest row (``K3_wide``, ``[1, 1 << 19]``), after
+checking each against its plain version, and prints one JSON line of
+milliseconds.  Two checkouts
 are compared on one card by running it in each, in the order A, B, B, A:
 
     python3 compaction_ab.py PATH_TO_CHECKOUT_A old
@@ -14,6 +16,10 @@ It needs a CUDA card and builds the checkout's kernels at first use.
 import json
 import os
 import sys
+
+
+#: K3's second shape: one halo at MAX_ALIGNED_CAPACITY, K = 16384.
+WIDE_PAIR = (1, 1 << 19, 16384)
 
 
 def main(root, tag):
@@ -78,6 +84,16 @@ def main(root, tag):
     want = compact.compact_rows_torch(sa, ca, p, sb, cb, k)
     same([*got[0], *got[1]], [*want[0], *want[1]])
     out["K19"] = cs.cuda_ms(lambda: compact.compact_rows(sa, ca, p, sb, cb, k))
+    # K3 at [1, 1 << 19], 3 % events
+    h, p, k = WIDE_PAIR
+    sel = rng.random((h, p)) < 0.03
+    pw = dev(np.where(sel, np.arange(p, dtype=np.uint32) + 1, np.uint32(0)))
+    aw = dev(np.where(sel, rng.integers(0, 0x7BFF, (h, p)).astype(np.uint32),
+                      np.uint32(0)))
+    same(compact.compact_payload_pair(pw, aw, k),
+         compact.compact_payload_pair_torch(pw, aw, k))
+    out["K3_wide"] = cs.cuda_ms(
+        lambda: compact.compact_payload_pair(pw, aw, k))
     print(json.dumps(out), flush=True)
 
 

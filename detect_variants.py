@@ -1,9 +1,11 @@
-"""Device time of variants of K1/K2 and K4/K5 (``csrc/compact.cu``
-compact_angle_rows and compact_payload_rows, one tile kernel), K8
+"""Device time of variants of K1/K2, K3 and K4/K5 (``csrc/compact.cu``
+compact_angle_rows, compact_pair_rows and compact_payload_rows, one tile
+kernel), K19 (``csrc/compact.cu`` compact_rows_groups), K8
 (``csrc/label.cu`` detect_label_compact_rows), K15 and K16
 (``csrc/merge.cu`` merge_rows and fused_join_detect) and K17
 (``csrc/static.cu`` static_detect_rows) on ``chip_smoke.py`` phase 3's
-inputs, in one process.
+inputs, in one process (K3 at phase 3's ``[4, 262144]`` and at one halo
+of ``[1, 1 << 19]``; K19 with group a of six channels and of one).
 
 Each variant is the checked-in source with a few text substitutions: a
 tile shape (threads a block, entries a thread) or a phase left out.  A
@@ -12,15 +14,16 @@ to show what that phase costs; the others are checked bit for bit
 against the plain versions.  Every variant is built by its own ``nvcc``
 (all started together) into its own library next to the package's
 git-ignored build directory, so the package's own build is untouched;
-K1, K4, K8 and K15 variants run through the package's own wrappers with
-the variant library in place of the package's (a K1 tile shape is K4's
-too: the two share the kernel).  Prints one line a variant:
+K1, K3, K4, K8, K15 and K19 variants run through the package's own
+wrappers with the variant library in place of the package's (a K1 tile
+shape is K4's too: the two share the kernel).  Prints one line a variant
+and input:
 its name, then the milliseconds of two timings (``chip_smoke.cuda_ms``)
 and, for a variant that leaves a phase out, the count of output lanes
 that differ.  It needs a CUDA card; the argument picks the kernels (all
-six by default):
+eight by default):
 
-    python3 detect_variants.py [K1,K4,K8,K15,K16,K17]
+    python3 detect_variants.py [K1,K3,K4,K8,K15,K16,K17,K19]
 """
 import ctypes
 import os
@@ -48,11 +51,14 @@ def shape(vt_line, vt, threads, threads_line="constexpr int kThreads = 256;"):
 
 
 #: The source of each kernel's variants.
-SOURCES = {"K1": "compact.cu", "K4": "compact.cu", "K8": "label.cu",
-           "K15": "merge.cu", "K16": "merge.cu", "K17": "static.cu"}
+SOURCES = {"K1": "compact.cu", "K3": "compact.cu", "K4": "compact.cu",
+           "K8": "label.cu", "K15": "merge.cu", "K16": "merge.cu",
+           "K17": "static.cu", "K19": "compact.cu"}
 #: The kernel function each variant's ptxas lines are printed for (a
 #: part of its mangled name).
-KERNEL_FUNCTIONS = {"K1": "AngleWords", "K4": "PayloadWords",
+KERNEL_FUNCTIONS = {"K1": "AngleWords", "K3": "PairWords",
+                    "K4": "PayloadWords",
+                    "K19": "compact_groups_kernel",
                     "K8": "detect_label_compact_kernel",
                     "K15": "merge_rows_kernel",
                     "K16": "join_detect_kernel", "K17": "static_detect_kernel"}
@@ -64,6 +70,30 @@ K15_SHAPE = ("constexpr int kMergeVT = 4;",
              "constexpr int kMergeThreads = 256;")
 K8_SHAPE = ("constexpr int kCompactVT = 4;",
             "constexpr int kCompactThreads = 256;")
+K3_VT = "constexpr int kPairVT = 8;"
+K19_VT = ("constexpr int kGroupVT = 8;",
+          "constexpr int kGroupThreads = 256;")
+K19_CAP = "constexpr int kGroupBCap = 8;"
+
+
+def vt(line, n):
+    """The substitution that sets the constant of ``line`` to ``n``."""
+    return (line, line.rsplit("=", 1)[0] + f"= {n};")
+
+
+def k19_blocks(n):
+    """K19 built for at least ``n`` resident blocks an SM (1: no register
+    cap)."""
+    return vt("constexpr int kGroupBlocks = 4;", n)
+
+
+K19_LOOKBACK = [(
+    "const int before = lookback_warp(\n"
+    "        a.scratch + 1 + (static_cast<size_t>(warp) * a.H + row) * "
+    "a.tiles, t,\n        warp == 0 ? total_a : total_b, lane);",
+    "const int before = 0;")]
+
+
 def k15_blocks(n):
     """K15 built for at least ``n`` resident blocks an SM (ptxas caps its
     registers to fit them; 1: no cap)."""
@@ -79,6 +109,25 @@ VARIANTS = [
     ("K1", "256 x 32", shape(K4_SHAPE[0], 32, 256, K4_SHAPE[1]), True),
     ("K1", "512 x 8", shape(K4_SHAPE[0], 8, 512, K4_SHAPE[1]), True),
     ("K1", "no look-back", [ROW_LOOKBACK], False),
+    ("K3", "shipped (256 threads x 16, K1/K4's shape)", [], True),
+    ("K3", "256 x 8", [vt(K4_SHAPE[0], 8)], True),
+    ("K3", "256 x 32", [vt(K4_SHAPE[0], 32)], True),
+    ("K19", "shipped (256 threads x 8, 4 blocks an SM)", [], True),
+    ("K19", "256 x 4, 6 blocks an SM", [vt(K19_VT[0], 4), k19_blocks(6)],
+     True),
+    ("K19", "256 x 8, no register cap", [k19_blocks(1)], True),
+    ("K19", "256 x 16, 2 blocks an SM", [vt(K19_VT[0], 16), k19_blocks(2)],
+     True),
+    ("K19", "group b staging 0 a warp (read after the scan)",
+     [vt(K19_CAP, 0)], True),
+    ("K19", "no channel copies", [(
+        "cp_async16(stage + c * kGroupTile + 4 * q, a.in[0][c] + base + 4 * q);",
+        "{}")], False),
+    ("K19", "no look-back", K19_LOOKBACK, False),
+    ("K19", "no output writes", [(
+        "a.out[0][c][out_a + before_a + j] = plane[src[j]];",
+        "if (plane[src[j]] == 0x9E3779B9u && j < 0) a.out[0][c][out_a] = 0u;")],
+     False),
     ("K15", "shipped (256 threads x 4, 8 blocks an SM)", [], True),
     ("K15", "256 x 4, no register cap", [k15_blocks(1)], True),
     ("K15", "256 x 8, 4 blocks an SM",
@@ -115,7 +164,7 @@ VARIANTS = [
     ("K16", "no look-back", [LOOKBACK], False),
     ("K16", "no tile counter (blockIdx)", [CLAIM], False),
     ("K16", "no diagonal search (d / 2)", [(
-        "const int i = merge_split(pk, ck, P, warp == 0 ? d0 : d1);",
+        "const int i = merge_split<false>(pk, ck, P, warp == 0 ? d0 : d1);",
         "const int i = min(P, (warp == 0 ? d0 : d1) / 2);")], False),
     ("K16", "no detection", [("if (q != 0) {", "if (false) {")], False),
     ("K16", "no merge (so no detection)", [(
@@ -232,7 +281,34 @@ def with_library(lib, fn):
     return run
 
 
-def main(which="K1,K4,K8,K15,K16,K17"):
+def pair_calls(cs, dev):
+    """K3's calls on phase 3's ``[4, 262144]`` rows and on one halo of
+    ``[1, 1 << 19]`` (3 % events, the last position one), each with its
+    plain version's outputs: ``[(label, fn, want)]``."""
+    import numpy as np
+    import torch
+
+    from orbitanalysis_tpu_torch.ops import compact
+
+    rng = np.random.default_rng(1)
+    out = []
+    for h, p, k in (cs.PAIR_ROWS, (1, 1 << 19, 16384)):
+        sel = rng.random((h, p)) < 0.03
+        sel[:, p - 1] = True
+        pw, aw = (torch.from_numpy(np.ascontiguousarray(x).view(
+            np.int32)).to(dev) for x in (
+                np.where(sel, np.arange(p, dtype=np.uint32) + 1,
+                         np.uint32(0)),
+                np.where(sel, rng.integers(0, 0x7BFF, (h, p)).astype(
+                    np.uint32), np.uint32(0))))
+        out.append((f"[{h}, {p}]",
+                    lambda pw=pw, aw=aw, k=k: compact.compact_payload_pair(
+                        pw, aw, k),
+                    compact.compact_payload_pair_torch(pw, aw, k)))
+    return out
+
+
+def main(which="K1,K3,K4,K8,K15,K16,K17,K19"):
     sys.path.insert(0, ROOT)
     import torch
 
@@ -250,6 +326,13 @@ def main(which="K1,K4,K8,K15,K16,K17"):
         x, k1 = kernel_ab.k1_plane(cs, dev)
         calls["K1"] = (lambda: (compact.compact_angle_blocked(x, k1),),
                        (compact.compact_angle_blocked_torch(x, k1),))
+    if "K3" in which:
+        calls["K3"] = pair_calls(cs, dev)
+    if "K19" in which:
+        calls["K19"] = [
+            (tag, lambda a=a: sum(compact.compact_rows(*a), ()),
+             sum(compact.compact_rows_torch(*a), ()))
+            for tag, a in kernel_ab.k19_args(cs, dev).items()]
     if "K15" in which:
         a15 = kernel_ab.k15_args(cs, dev)
         calls["K15"] = (lambda: merge.merge_rows(*a15),
@@ -282,28 +365,35 @@ def main(which="K1,K4,K8,K15,K16,K17"):
     print(f"{torch.cuda.get_device_name(0)}; K1 on phase 3's angle words, "
           "K4 on the payload plane and K8 on the inputs of label step 3, "
           "K15 on unfused sorted churn step 2 (six channels), K16 on sorted "
-          "churn step 2, K17 on aligned churn step 2 (native), [64, 32768]",
+          "churn step 2, K17 on aligned churn step 2 (native), [64, 32768]; "
+          "K3 on 3 % events; K19 on unfused sorted churn step 2",
           flush=True)
     for i, (kernel, name, _, checked) in enumerate(variants):
-        if kernel in ("K1", "K4", "K8", "K15"):
+        if kernel in ("K3", "K19"):
+            runs = [(f" {tag}", with_library(libs[i], fn), want)
+                    for tag, fn, want in calls[kernel]]
+            runs = [(tag, fn, fn, want) for tag, fn, want in runs]
+        elif kernel in ("K1", "K4", "K8", "K15"):
             fn, want = calls[kernel]
             fn = with_library(libs[i], fn)
-            fn_poison = fn
+            runs = [("", fn, fn, want)]
         else:
             entry, planes, k128, flags, want = calls[kernel]
             h, p = planes[0].shape
             fn = launcher(libs[i], entry, planes, h, p, k128, flags)
-            fn_poison = lambda fn=fn: fn(True)  # noqa: E731
-        ne = 0
-        for got in (fn_poison(), fn_poison()):
-            torch.cuda.synchronize()
-            ne = max(ne, cs._bitwise(got, want)[0])
-        cs.check(ne == 0 or not checked,
-                 f"{kernel} {name} differs from its plain version")
-        times = [cs.cuda_ms(fn) for _ in range(2)]
-        note = "" if checked else f" (leaves a phase out: {ne} lanes differ)"
-        print(f"{kernel} {name}: {times[0]:.5f} {times[1]:.5f} ms{note}",
-              flush=True)
+            runs = [("", fn, lambda fn=fn: fn(True), want)]
+        for tag, fn, fn_poison, want in runs:
+            ne = 0
+            for got in (fn_poison(), fn_poison()):
+                torch.cuda.synchronize()
+                ne = max(ne, cs._bitwise(got, want)[0])
+            cs.check(ne == 0 or not checked,
+                     f"{kernel} {name}{tag} differs from its plain version")
+            times = [cs.cuda_ms(fn) for _ in range(2)]
+            note = ("" if checked
+                    else f" (leaves a phase out: {ne} lanes differ)")
+            print(f"{kernel} {name}{tag}: {times[0]:.5f} {times[1]:.5f} "
+                  f"ms{note}", flush=True)
         print("\n".join(ptxas_lines(logs[i], KERNEL_FUNCTIONS[kernel])),
               flush=True)
 

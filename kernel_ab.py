@@ -22,9 +22,11 @@ N = 16384 and 131072, free and periodic (``chip_smoke._k14_check``);
 K16 and K17 on phase 3's inputs (the bench's first three snapshots at
 [64, 32768], K = 2048, recorded at step 2: K16 of the sorted churn step,
 K17 of the aligned churn step, native, and of the legacy aligned static
-step).  K1, K4, K8, K15, K16 and K17 are checked bit for bit against
-their plain versions and against a second call, and their device time is
-split by CUDA kernel (torch.profiler).
+step).  K19 (not in the default set) runs on phase 3's inputs, sorted
+churn step 2 of the unfused routes: group a of six channels (merge by
+sort) and of one (merge by K15).  K1, K4, K8, K15, K16, K17 and K19 are
+checked bit for bit against their plain versions and against a second
+call, and their device time is split by CUDA kernel (torch.profiler).
 ``STEPS`` (not in the default set) runs phases 8 and 10's step timings
 on the bench's churn sequence through the checkout's own
 ``chip_smoke.time_scan``, which prints them: wall, device span and busy
@@ -333,16 +335,49 @@ def sorted_stack(dev, churn):
                                       "slot")})
 
 
+def churn_head(cs, dev):
+    """The bench's first three churn snapshots, staged ID-sorted on the
+    card (the generator makes them as it makes the first three of 48)."""
+    from orbitanalysis_tpu_torch.models.synthetic import churn_workload
+
+    h, p = cs.LABEL[:2]
+    return sorted_stack(dev, churn_workload(h, p, 3, seed=0, churn=0.07))
+
+
 def k15_args(cs, dev):
     """Phase 3's K15 input: the merge's arguments at sorted churn step 2
     of the unfused route (``merge_impl='pallas'``)."""
-    from orbitanalysis_tpu_torch.models.synthetic import churn_workload
     from orbitanalysis_tpu_torch.ops import sorted_step as tss
 
-    h, p = cs.LABEL[:2]
-    stack = sorted_stack(dev, churn_workload(h, p, 3, seed=0, churn=0.07))
-    return cs.staged_call(dev, stack, tss, "merge_rows", merge_impl="pallas",
-                          compact_impl="pallas")
+    return cs.staged_call(dev, churn_head(cs, dev), tss, "merge_rows",
+                          merge_impl="pallas", compact_impl="pallas")
+
+
+def k19_args(cs, dev):
+    """Phase 3's K19 inputs: the compaction's arguments at sorted churn
+    step 2 of the unfused routes, by tag: ``K19`` with group a's six
+    channels (merge by sort, the timed one) and ``K19_1ch`` with one
+    (merge by K15, the route ``STEPS`` times)."""
+    from orbitanalysis_tpu_torch.ops import sorted_step as tss
+
+    stack = churn_head(cs, dev)
+    return {tag: cs.staged_call(dev, stack, tss, "compact_rows",
+                                merge_impl=merge_impl, compact_impl="pallas")
+            for tag, merge_impl in (("K19", "lax_sort"),
+                                    ("K19_1ch", "pallas"))}
+
+
+def k19_times(cs, dev):
+    """K19 on phase 3's inputs, every channel of both groups bit for
+    bit."""
+    from orbitanalysis_tpu_torch.ops import compact
+
+    out = {}
+    for tag, a in k19_args(cs, dev).items():
+        out.update(checked_times(
+            cs, tag, lambda a=a: sum(compact.compact_rows(*a), ()),
+            lambda a=a: sum(compact.compact_rows_torch(*a), ())))
+    return out
 
 
 def k15_times(cs, dev):
@@ -473,6 +508,8 @@ def main(root, tag, which="K1,K4,K8,K10,K13,K14,K15,K16,K17"):
         out.update(k1_times(cs, dev))
     if "K15" in which:
         out.update(k15_times(cs, dev))
+    if "K19" in which:
+        out.update(k19_times(cs, dev))
     if {"K4", "K8", "K10"} & set(which):
         label_args = cs._detect_inputs(dev, label_work(cs, dev), True)
         for name, fn in (("K4", k4_times), ("K8", k8_times),
@@ -520,6 +557,6 @@ def main(root, tag, which="K1,K4,K8,K10,K13,K14,K15,K16,K17"):
 if __name__ == "__main__":
     if len(sys.argv) not in (3, 4):
         raise SystemExit("usage: python3 kernel_ab.py CHECKOUT TAG "
-                         "[K1,K4,K8,K10,K13,K14,K15,K16,K17,STEPS,"
+                         "[K1,K4,K8,K10,K13,K14,K15,K16,K17,K19,STEPS,"
                          "LABEL_STEPS]")
     main(*sys.argv[1:])

@@ -181,41 +181,51 @@ __device__ __forceinline__ int tile_ranks(const bool (&take)[kVT], int (&rank)[k
 }
 
 // Tile t of a row (status: the row's status words) publishes its total,
-// looks back to the nearest inclusive prefix and publishes its own.
-// Returns the selected entries of the row's earlier tiles, the same
-// value in every thread.  Warp 0 works, the others wait at the closing
-// barrier; *slot is free again after the caller's next barrier.
+// looks back to the nearest inclusive prefix and publishes its own; one
+// whole warp calls it, lane being the thread's lane.  Returns the
+// selected entries of the row's earlier tiles, the same value in every
+// lane.
+__device__ __forceinline__ int lookback_warp(unsigned long long* status, int t,
+                                             int total, int lane) {
+  int before = 0;
+  if (t == 0) {
+    if (lane == 0) store_status(status, kStatusPrefix | static_cast<uint32_t>(total));
+  } else {
+    if (lane == 0) {
+      store_status(status + t, kStatusAggregate | static_cast<uint32_t>(total));
+    }
+    for (int end = t;; end -= 32) {
+      // lane l reads tile end - 1 - l; tile 0 always holds a prefix, so
+      // a lane past it is never summed
+      const int j = end - 1 - lane;
+      unsigned long long w = j >= 0 ? load_status(status + j) : kStatusPrefix;
+      while (__any_sync(0xffffffffu, (w >> 32) == 0)) {
+        if ((w >> 32) == 0) w = load_status(status + j);
+      }
+      const uint32_t prefix = __ballot_sync(0xffffffffu, (w >> 32) == 2);
+      const int stop = prefix ? __ffs(prefix) - 1 : 31;
+      int v = lane <= stop ? static_cast<int>(static_cast<uint32_t>(w)) : 0;
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xffffffffu, v, d);
+      before += v;
+      if (prefix) break;
+    }
+    if (lane == 0) {
+      store_status(status + t, kStatusPrefix | static_cast<uint32_t>(before + total));
+    }
+  }
+  return before;
+}
+
+// lookback_warp run by warp 0 for the block: the count of the row's
+// earlier tiles, the same value in every thread.  The other warps wait at
+// the closing barrier; *slot is free again after the caller's next
+// barrier.
 __device__ __forceinline__ int lookback_prefix(unsigned long long* status, int t,
                                                int total, int* slot) {
   if (threadIdx.x < 32) {
     const int lane = threadIdx.x;
-    int before = 0;
-    if (t == 0) {
-      if (lane == 0) store_status(status, kStatusPrefix | static_cast<uint32_t>(total));
-    } else {
-      if (lane == 0) {
-        store_status(status + t, kStatusAggregate | static_cast<uint32_t>(total));
-      }
-      for (int end = t;; end -= 32) {
-        // lane l reads tile end - 1 - l; tile 0 always holds a prefix, so
-        // a lane past it is never summed
-        const int j = end - 1 - lane;
-        unsigned long long w = j >= 0 ? load_status(status + j) : kStatusPrefix;
-        while (__any_sync(0xffffffffu, (w >> 32) == 0)) {
-          if ((w >> 32) == 0) w = load_status(status + j);
-        }
-        const uint32_t prefix = __ballot_sync(0xffffffffu, (w >> 32) == 2);
-        const int stop = prefix ? __ffs(prefix) - 1 : 31;
-        int v = lane <= stop ? static_cast<int>(static_cast<uint32_t>(w)) : 0;
-#pragma unroll
-        for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xffffffffu, v, d);
-        before += v;
-        if (prefix) break;
-      }
-      if (lane == 0) {
-        store_status(status + t, kStatusPrefix | static_cast<uint32_t>(before + total));
-      }
-    }
+    const int before = lookback_warp(status, t, total, lane);
     if (lane == 0) *slot = before;
   }
   __syncthreads();
@@ -247,13 +257,11 @@ inline long long lookback_words(int H, int tiles_per_row) {
   return 1 + static_cast<long long>(H) * tiles_per_row;
 }
 
-// Ordered multi-stream compaction: up to kMaxStreams uint32 streams of
-// an [H, N] row move together, in position order, to the front of an
-// [H, len] row wherever the selection word has a bit of sel_mask set;
-// each output word is ANDed with its stream's mask, and the outputs past
-// the row's count are written as zero.  With count set, the scan reads
-// the whole row and count[row] is the exact number selected (it may
-// exceed len); without it, the scan stops once the len outputs are full.
+// Ordered multi-stream compaction (K18): up to kMaxStreams uint32
+// streams of an [H, N] row move together, unchanged and in position
+// order, to the front of an [H, len] row wherever the selection word has
+// a bit of sel_mask set; the outputs past the row's count are written as
+// zero.  The scan stops once the len outputs are full.
 constexpr int kMaxStreams = 6;
 constexpr int kStreamThreads = 1024;
 constexpr int kStreamWarps = kStreamThreads / 32;
@@ -263,46 +271,35 @@ struct StreamGroup {
   uint32_t sel_mask;
   const uint32_t* in[kMaxStreams];
   uint32_t* out[kMaxStreams];
-  uint32_t out_mask[kMaxStreams];
   int n_streams;
   int len;
-  int32_t* count;  // [H] or nullptr
 };
 
-// One block per row (blockIdx.x) and group (blockIdx.y: a, else b),
-// walking the row in tiles of kStreamThreads entries: ballot + popc ranks
-// inside a warp, one warp scans the warp totals, a running base carries
-// the count across tiles.  The
-// block's group is picked field by field into registers (the stream loops
-// unrolled to fixed indices): binding a reference to one group would make
-// every field read an indirect load on each tile's critical path.  kN
-// (>= either group's n_streams) bounds the unrolled stream loops.
+// One block per row (blockIdx.x), walking the row in tiles of
+// kStreamThreads entries: ballot + popc ranks inside a warp, one warp
+// scans the warp totals, a running base carries the count across tiles.
+// kN (>= n_streams) bounds the unrolled stream loops, so every stream's
+// pointer is a fixed field of the kernel's arguments.
 template <int kN>
 __global__ void __launch_bounds__(kStreamThreads)
-compact_streams_kernel(StreamGroup a, StreamGroup b, int N) {
+compact_streams_kernel(StreamGroup g, int N) {
   __shared__ int warp_off[kStreamWarps];
   __shared__ int tile_total;
-  const bool gb = blockIdx.y != 0;
   const size_t row = blockIdx.x;
-  const uint32_t* sel = (gb ? b.sel : a.sel) + row * N;
-  const uint32_t sel_mask = gb ? b.sel_mask : a.sel_mask;
-  const int n_streams = gb ? b.n_streams : a.n_streams;
-  const int len = gb ? b.len : a.len;
-  int32_t* const count = gb ? b.count : a.count;
+  const uint32_t* sel = g.sel + row * N;
   const int lane = threadIdx.x & 31;
   const uint32_t lanes_below = (1u << lane) - 1u;
   int base = 0;  // selected entries in earlier tiles: uniform in the block
-  for (int start = 0; start < N && (count != nullptr || base < len);
-       start += kStreamThreads) {
+  for (int start = 0; start < N && base < g.len; start += kStreamThreads) {
     const int i = start + threadIdx.x;
-    const bool take = i < N && (__ldg(sel + i) & sel_mask) != 0u;
+    const bool take = i < N && (__ldg(sel + i) & g.sel_mask) != 0u;
     // the payload loads are issued before the scan's barriers, so their
     // latency overlaps the scan instead of following it
     uint32_t v[kN];
     if (take) {
 #pragma unroll
       for (int c = 0; c < kN; ++c) {
-        if (c < n_streams) v[c] = __ldg((gb ? b.in[c] : a.in[c]) + row * N + i);
+        if (c < g.n_streams) v[c] = __ldg(g.in[c] + row * N + i);
       }
     }
     const uint32_t ballot = __ballot_sync(0xffffffffu, take);
@@ -310,44 +307,37 @@ compact_streams_kernel(StreamGroup a, StreamGroup b, int N) {
     tile_offsets<kStreamWarps>(__popc(ballot), warp_off, &tile_total, before, total);
     if (take) {
       const int off = base + before + __popc(ballot & lanes_below);
-      if (off < len) {
+      if (off < g.len) {
 #pragma unroll
         for (int c = 0; c < kN; ++c) {
-          if (c < n_streams) {
-            (gb ? b.out[c] : a.out[c])[row * len + off] =
-                v[c] & (gb ? b.out_mask[c] : a.out_mask[c]);
-          }
+          if (c < g.n_streams) g.out[c][row * g.len + off] = v[c];
         }
       }
     }
     base += total;
     __syncthreads();  // warp_off / tile_total are rewritten next tile
   }
-  for (int j = min(base, len) + threadIdx.x; j < len; j += kStreamThreads) {
+  for (int j = min(base, g.len) + threadIdx.x; j < g.len; j += kStreamThreads) {
 #pragma unroll
     for (int c = 0; c < kN; ++c) {
-      if (c < n_streams) (gb ? b.out[c] : a.out[c])[row * len + j] = 0u;
+      if (c < g.n_streams) g.out[c][row * g.len + j] = 0u;
     }
   }
-  if (count != nullptr && threadIdx.x == 0) count[row] = base;
 }
 
-// Launch compact_streams_kernel over H rows of length N for one group
-// (b == nullptr) or two; returns cudaGetLastError().
-inline int launch_compact_streams(const StreamGroup& a, const StreamGroup* b, int H,
-                                  int N, cudaStream_t stream) {
+// Launch compact_streams_kernel over H rows of length N; returns
+// cudaGetLastError().
+inline int launch_compact_streams(const StreamGroup& g, int H, int N,
+                                  cudaStream_t stream) {
   if (H > 0) {
-    const dim3 grid(H, b == nullptr ? 1 : 2);
-    const StreamGroup& g = b == nullptr ? a : *b;
-    const int n = a.n_streams > g.n_streams ? a.n_streams : g.n_streams;
-    if (n <= 1) {
-      compact_streams_kernel<1><<<grid, kStreamThreads, 0, stream>>>(a, g, N);
-    } else if (n <= 2) {
-      compact_streams_kernel<2><<<grid, kStreamThreads, 0, stream>>>(a, g, N);
-    } else if (n <= 3) {
-      compact_streams_kernel<3><<<grid, kStreamThreads, 0, stream>>>(a, g, N);
+    if (g.n_streams <= 1) {
+      compact_streams_kernel<1><<<H, kStreamThreads, 0, stream>>>(g, N);
+    } else if (g.n_streams <= 2) {
+      compact_streams_kernel<2><<<H, kStreamThreads, 0, stream>>>(g, N);
+    } else if (g.n_streams <= 3) {
+      compact_streams_kernel<3><<<H, kStreamThreads, 0, stream>>>(g, N);
     } else {
-      compact_streams_kernel<kMaxStreams><<<grid, kStreamThreads, 0, stream>>>(a, g, N);
+      compact_streams_kernel<kMaxStreams><<<H, kStreamThreads, 0, stream>>>(g, N);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -199,7 +199,8 @@ def bind(lib):
     signatures = {
         "compact_angle_rows_scratch": [i, i],
         "compact_angle_rows": [p, p, p, ll, i, i, i, p],
-        "compact_pair_rows": [p, p, p, p, i, i, i, p],
+        "compact_pair_rows_scratch": [i, i],
+        "compact_pair_rows": [p, p, p, p, p, ll, i, i, i, p],
         "compact_payload_rows_scratch": [i, i],
         "compact_payload_rows": [p, p, p, ll, i, i, i, p],
         "frame_rows": [p, p, p, i, i, ll, p],
@@ -217,8 +218,9 @@ def bind(lib):
         "static_detect_rows_scratch": [i, i],
         "static_detect_rows": [p] * 16 + [ll] + [i] * 6 + [p],
         "compact_events_rows": [p] * 6 + [i] * 3 + [p],
-        "compact_rows_groups": [p, pp, pp, i, i, p, pp, pp, i, i, i, i,
-                                p],
+        "compact_rows_groups_scratch": [i, i],
+        "compact_rows_groups": [p, pp, pp, i, i, p, pp, pp, i, i, p, ll, i,
+                                i, p],
         "deposit_sorted": [p, p, p, p, i, ll, i, i, p],
         "direct_forces": [p, p, p, p, i, i, i, f, f, i, f, f, p],
     }
@@ -272,21 +274,6 @@ def _launch(name, fn, *args, device):
     KERNELS[name].launches += 1
 
 
-def compact_pair_rows(posw: torch.Tensor, angw: torch.Tensor, k128: int):
-    """Launch the two-stream compaction: ``posw``/``angw [H, P]`` ->
-    two ``[H, k128]`` int32 planes, zero past each row's count."""
-    h, p = posw.shape
-    if angw.shape != posw.shape:
-        raise ValueError("compact_pair_rows: posw and angw shapes differ")
-    out_pos = torch.empty((h, k128), dtype=torch.int32, device=posw.device)
-    out_ang = torch.empty_like(out_pos)
-    _check("compact_pair_rows", posw, angw, out_pos, out_ang)
-    _launch("compact_pair_rows", _library().compact_pair_rows,
-            posw.data_ptr(), angw.data_ptr(), out_pos.data_ptr(),
-            out_ang.data_ptr(), h, p, k128, device=posw.device)
-    return out_pos, out_ang
-
-
 def _lookback_scratch(name, h, p, device):
     """The decoupled look-back's scratch for one launch of ``name`` over
     ``h`` rows of ``p`` (a tile counter and an 8-byte status word a tile:
@@ -297,17 +284,23 @@ def _lookback_scratch(name, h, p, device):
     return torch.empty(words, dtype=torch.int64, device=device), words
 
 
-def _compact_tiles(name, x, k128):
-    """Launch one of the two tile compactions of ``csrc/compact.cu`` on
-    ``x [H, P]`` int32 (uint32 words) with its own look-back scratch:
-    the ``[H, k128]`` int32 output, zero past each row's count."""
+def _compact_tiles(name, k128, *planes):
+    """Launch one of the tile compactions of ``csrc/compact.cu`` on its
+    ``[H, P]`` int32 (uint32 words) input ``planes`` with its own
+    look-back scratch: one ``[H, k128]`` int32 output a plane, zero past
+    each row's count."""
+    x = planes[0]
     h, p = x.shape
-    out = torch.empty((h, k128), dtype=torch.int32, device=x.device)
-    _check(name, x, out)
+    if any(t.shape != x.shape for t in planes):
+        raise ValueError(f"{name}: input shapes differ")
+    outs = [torch.empty((h, k128), dtype=torch.int32, device=x.device)
+            for _ in planes]
+    _check(name, *planes, *outs)
     scratch, words = _lookback_scratch(name, h, p, x.device)
-    _launch(name, getattr(_library(), name), x.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), words, h, p, k128, device=x.device)
-    return out
+    _launch(name, getattr(_library(), name), *(t.data_ptr() for t in planes),
+            *(o.data_ptr() for o in outs), scratch.data_ptr(), words, h, p,
+            k128, device=x.device)
+    return outs
 
 
 def compact_angle_rows(aw: torch.Tensor, k128: int) -> torch.Tensor:
@@ -315,7 +308,14 @@ def compact_angle_rows(aw: torch.Tensor, k128: int) -> torch.Tensor:
     (uint32 words ``f32_bits(angle) | apsis << 31``) -> ``[H, k128]``
     int32 payload words ``((pos + 1) << 15) | f16(angle)``, events
     front-packed in position order, zero past each row's count."""
-    return _compact_tiles("compact_angle_rows", aw, k128)
+    return _compact_tiles("compact_angle_rows", k128, aw)[0]
+
+
+def compact_pair_rows(posw: torch.Tensor, angw: torch.Tensor, k128: int):
+    """Launch the two-stream compaction (K3): ``posw [H, P]`` (an event
+    where the word is not 0) and ``angw [H, P]`` (read at the events) ->
+    two ``[H, k128]`` int32 planes, zero past each row's count."""
+    return tuple(_compact_tiles("compact_pair_rows", k128, posw, angw))
 
 
 def compact_payload_rows(payload: torch.Tensor, k128: int) -> torch.Tensor:
@@ -323,7 +323,7 @@ def compact_payload_rows(payload: torch.Tensor, k128: int) -> torch.Tensor:
     int32 (uint32 words, an event where the word is >= 2**15) -> ``[H,
     k128]`` int32, events front-packed in position order, zero past each
     row's count."""
-    return _compact_tiles("compact_payload_rows", payload, k128)
+    return _compact_tiles("compact_payload_rows", k128, payload)[0]
 
 
 def frame_rows(table: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -596,10 +596,11 @@ def compact_events_rows(packed, key, sv, k128: int):
 
 def compact_rows_groups(sel_a, ops_a, len_a: int, sel_b, ops_b,
                         len_b: int):
-    """Launch the stable two-group compaction (K19): ``sel_*`` ``[H, N]``
-    int32 0/1 masks, ``ops_*`` tuples of 1 to 6 ``[H, N]`` 32-bit planes
-    -> ``(tuple_a [H, len_a], tuple_b [H, len_b])``, the selected
-    entries front-packed in order, zero past each row's count."""
+    """Launch the stable two-group compaction (K19) with its own
+    look-back scratch: ``sel_*`` ``[H, N]`` int32 0/1 masks, ``ops_*``
+    tuples of 1 to 6 ``[H, N]`` 32-bit planes -> ``(tuple_a [H, len_a],
+    tuple_b [H, len_b])``, the selected entries front-packed in order,
+    zero past each row's count."""
     name = "compact_rows_groups"
     h, n = sel_a.shape
     _check(name, sel_a, sel_b)
@@ -616,10 +617,16 @@ def compact_rows_groups(sel_a, ops_a, len_a: int, sel_b, ops_b,
                                       device=t.device) for t in ops))
     if len({t.device for t in (sel_a, sel_b, *ops_a, *ops_b)}) > 1:
         raise ValueError(f"{name}: tensors on different devices")
+    # the kernel copies group a's channels 16 bytes a copy
+    if n % 4 or any(t.data_ptr() % 16 for t in ops_a):
+        raise ValueError(f"{name}: rows must be a multiple of 4 entries and "
+                         "group a's planes 16-byte aligned")
+    scratch, words = _lookback_scratch(name, h, n, sel_a.device)
     _launch(name, _library().compact_rows_groups, sel_a.data_ptr(),
             _pointers(ops_a), _pointers(outs[0]), len(ops_a), len_a,
             sel_b.data_ptr(), _pointers(ops_b), _pointers(outs[1]),
-            len(ops_b), len_b, h, n, device=sel_a.device)
+            len(ops_b), len_b, scratch.data_ptr(), words, h, n,
+            device=sel_a.device)
     return outs[0], outs[1]
 
 

@@ -218,6 +218,7 @@ def make_label_orbit_step(
     mode: str = "pericentric",
     box_size=None,
     n_halos: Optional[int] = None,
+    chunk=None,
     row_width: int = 1 << 15,
     frames: str = "auto",
     rhat_packed: bool = False,
@@ -231,9 +232,9 @@ def make_label_orbit_step(
     halo's region; a label change restarts its state).
 
     ``event_capacity`` is per compaction row of ``row_width`` entries;
-    ``frames`` picks the route (module docstring).  The JAX signature's
-    ``chunk`` (the one-hot chunking of its matmul forms) has no
-    counterpart here.
+    ``frames`` picks the route (module docstring).  ``chunk`` (in the
+    JAX signature, the one-hot chunking of its matmul forms) is accepted
+    in its place and changes nothing.
     """
     if frames not in _FRAMES:
         raise ValueError(f"unknown frames impl {frames!r}")

@@ -262,31 +262,45 @@ def _acos_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(ax > 0.5, acos_big, acos_small)
 
 
-def _aligned_keys(valid_cur, slot, frame):
+def _invalid_key(invalid) -> int:
+    """The padding key ``(uint32(invalid) << 1) | 1``, modulo 2**32 and
+    read as int32 bits: -1 for the int32 sentinel."""
+    k = (((int(invalid) & 0xFFFFFFFF) << 1) | 1) & 0xFFFFFFFF
+    return k - (1 << 32) if k >= 1 << 31 else k
+
+
+def _aligned_keys(valid_cur, slot, frame, invalid):
     """The aligned step's staged key and sv planes: ``(position << 1) |
-    1`` at valid entries (-1, the padding key, elsewhere) and ``slot |
-    vrb << 24``.  Returns ``(cur_key, cur_sv, cur_vrb, pos_iota)``."""
+    1`` at valid entries (:func:`_invalid_key` of ``invalid``, the
+    padding key, elsewhere) and ``slot | vrb << 24``.  Returns
+    ``(cur_key, cur_sv, cur_vrb, pos_iota)``."""
     h, p = valid_cur.shape
     cur_vrb = _vr_bits(frame.vrad)
     pos_iota = torch.arange(p, dtype=torch.int32,
                             device=valid_cur.device).expand(h, p)
     cur_key = torch.where(valid_cur, (pos_iota << 1) | 1,
-                          torch.full_like(pos_iota, -1))
+                          torch.full_like(pos_iota, _invalid_key(invalid)))
     return cur_key, slot | (cur_vrb << 24), cur_vrb, pos_iota
 
 
 def aligned_detect_math(carry: AlignedCarry, valid_cur, slot, frame,
-                        pericentric: bool, rhat_packed: bool = False):
+                        pericentric: bool, invalid,
+                        rhat_packed: bool = False,
+                        share_angles: bool = False):
     """The aligned engine's elementwise detect chain: positional keys,
     FRESH gating, sign-flip detection, angle accumulation, packed-carry
-    encode and the f16 angle bits.  ``rhat_packed``: the carry holds
-    octahedral r-hat words.
+    encode and the f16 angle bits.  ``invalid``: the padding ID, whose
+    key ``(uint32(invalid) << 1) | 1`` marks the entries that are not
+    valid.  ``rhat_packed``: the carry holds octahedral r-hat words.
+    ``share_angles`` is accepted for the JAX signature and changes
+    nothing: there it is an XLA fusion barrier, and eager torch
+    computes the angles once anyway.
 
     Returns ``(cur_key, cur_sv, apsis, angle_acc, packed, ang16, count,
     pos_iota)``; ``ang16`` holds :func:`f16_bits_rne` of the angles.
     """
     cur_key, cur_sv, cur_vrb, pos_iota = _aligned_keys(valid_cur, slot,
-                                                       frame)
+                                                       frame, invalid)
     fresh = (slot & (1 << 27)) != 0
     vrb_p = (carry.sv >> 24) & 0xF  # sign bits 0-1 (bit 3: stale FRESH)
     pang = (carry.packed & 0x7FFFFFFF).view(torch.float32)
@@ -409,7 +423,8 @@ def make_aligned_native_step(
         )
         k_eff = min(K, p)
         if detect_impl == "pallas":
-            cur_key, cur_sv, _, _ = _aligned_keys(valid_cur, snap.slot, frame)
+            cur_key, cur_sv, _, _ = _aligned_keys(valid_cur, snap.slot, frame,
+                                                  invalid)
             rh = frame.rhat
             packed, evk, evsv, evang, count = fused_static_detect(
                 (carry.key, carry.sv, carry.rhat[0], carry.rhat[1],
@@ -425,7 +440,7 @@ def make_aligned_native_step(
                 bulk_vel=frame.bulk_vel, slots=ev_slots)
         (cur_key, cur_sv, apsis, angle_acc, packed, ang16, count,
          pos_iota) = aligned_detect_math(
-            carry, valid_cur, snap.slot, frame, pericentric,
+            carry, valid_cur, snap.slot, frame, pericentric, invalid,
             rhat_packed=rhat_packed)
         if p <= PAYLOAD_MAX_ROW:
             aw = angle_acc.view(torch.int32) | torch.where(

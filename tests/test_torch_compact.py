@@ -79,6 +79,35 @@ def test_pair_twin_matches_jax(h, p, k, density):
     _assert_front_packed(_u32(got_a), np.asarray(want_a), sel.sum(axis=1))
 
 
+#: Rows of one halo past PAYLOAD_MAX_ROW, as the aligned step sends them
+#: to the pair compaction (K3): one tile of lanes past it, and 1 << 18.
+WIDE_PAIR_ROWS = [131200, 1 << 18]
+
+
+@pytest.mark.parametrize("density", [0.0, 0.03, 0.5])
+@pytest.mark.parametrize("p", WIDE_PAIR_ROWS)
+def test_pair_twin_wide_rows_match_jax(p, density):
+    """K3's plain version against JAX at H = 1 on wide rows: bursts of
+    events across 4096-word boundaries (the first, the third and the
+    middle of the row), an event at the last position, and at densities
+    0.03 and 0.5 more events than the capacity keeps."""
+    rng = np.random.default_rng(p + int(density * 100))
+    sel = rng.random((1, p)) < density
+    for edge in (4096, 3 * 4096, p // 2 // 4096 * 4096):
+        sel[0, edge - 150:edge + 100] = True
+    sel[0, p - 1] = True
+    posw = np.where(sel, np.arange(p, dtype=np.uint32) + 1, np.uint32(0))
+    angw = np.where(sel, rng.integers(0, 0x7BFF, (1, p)).astype(np.uint32),
+                    np.uint32(0))
+    want_p, want_a = jc.compact_payload_pair(
+        jnp.asarray(posw), jnp.asarray(angw), 4096)
+    got_p, got_a = tc.compact_payload_pair(_i32(posw), _i32(angw), 4096)
+    counts = sel.sum(axis=1)
+    assert (counts > 4096) == (density > 0)
+    _assert_front_packed(_u32(got_p), np.asarray(want_p), counts)
+    _assert_front_packed(_u32(got_a), np.asarray(want_a), counts)
+
+
 def test_angle_twin_clustered_block_matches_jax():
     """More than BLOCK_CAP (16) events in one 128-entry block: the JAX
     entry reroutes to its exact single-stage kernel (K2) here; the twin

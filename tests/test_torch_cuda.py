@@ -87,19 +87,52 @@ def test_angle_kernel_matches_twin(dev, h, p, k, density):
     assert torch.equal(got.cpu(), want)
 
 
-@pytest.mark.parametrize("p,k", [(1 << 17, 128), (1 << 18, 16384)])
-def test_pair_kernel_matches_twin(dev, p, k):
-    rng = np.random.default_rng(p)
-    sel = rng.random((4, p)) < 0.03
+#: Words of one tile of K3 (``csrc/compact.cu`` kTileThreads * kPairVT).
+K3_TILE = 2048
+
+
+def _pair_planes(rng, h, p, density):
+    """K3's ``posw``/``angw`` ``[h, p]`` planes at ``density``, with
+    bursts of events across tile edges of K3 and K4 (row 0 around
+    ``3 * K3_TILE``, the last row around ``4096 * 5``), an event at every
+    row's last position and the f16 clamp word among the angles."""
+    sel = rng.random((h, p)) < density
+    sel[0, 3 * K3_TILE - 300:3 * K3_TILE + 200] = True
+    sel[-1, 4096 * 5 - 150:4096 * 5 + 100] = True
     sel[:, p - 1] = True
     posw = np.where(sel, np.arange(p, dtype=np.uint32) + 1, np.uint32(0))
-    angw = np.where(sel, rng.integers(0, 0x7BFF, (4, p)).astype(np.uint32),
+    angw = np.where(sel, rng.integers(0, 0x7BFF, (h, p)).astype(np.uint32),
                     np.uint32(0))
-    got = tc.compact_payload_pair(_i32(posw).to(dev), _i32(angw).to(dev), k)
-    want = tc.compact_payload_pair_torch(_i32(posw), _i32(angw), k)
+    angw[:, p - 1] = 0x7BFF
+    return _i32(posw), _i32(angw), sel
+
+
+@pytest.mark.parametrize("p,k", [(131200, 2048), (1 << 17, 128),
+                                 (1 << 18, 16384), (1 << 19, 4096)])
+@pytest.mark.parametrize("h", [1, 2, 4])
+@pytest.mark.parametrize("density", [0.0, 0.03, 0.5, 1.0])
+def test_pair_kernel_matches_twin(dev, p, k, h, density):
+    """K3 on the aligned step's wide rows (one to four halos past
+    PAYLOAD_MAX_ROW, up to MAX_ALIGNED_CAPACITY): bit-equal to the plain
+    version on the same CUDA tensors and on the CPU, outputs poisoned
+    first, with bursts across tile edges, the last position kept, and
+    counts past k128 at densities 0.5 and 1."""
+    rng = np.random.default_rng(p + h + int(density * 100))
+    posw, angw, sel = _pair_planes(rng, h, p, density)
+    k128 = tc._k128(k, p)
+    _poison((h, k128), (h, k128))
+    xp, xa = posw.to(dev), angw.to(dev)
+    got = tc.compact_payload_pair(xp, xa, k)
+    plain_cuda = tc.compact_payload_pair_torch(xp, xa, k)
+    want = tc.compact_payload_pair_torch(posw, angw, k)
     torch.cuda.synchronize()
-    for g, w in zip(got, want):
+    if density >= 0.5:
+        assert int(sel.sum(1).min()) > k128
+    for g, c, w in zip(got, plain_cuda, want):
+        assert torch.equal(g, c)
         assert torch.equal(g.cpu(), w)
+    if sel.sum(1).max() <= k128:
+        assert int(got[0][0, int(sel[0].sum()) - 1]) == p
 
 
 def test_launch_counts_and_input_checks(dev):
@@ -744,13 +777,52 @@ def test_compact_events_kernel_matches_plain(dev, h, p, k, density):
         assert torch.equal(g.cpu(), w)
 
 
-@pytest.mark.parametrize("h,n,len_b", [(64, 65536, 2048), (3, 256, 128)])
-@pytest.mark.parametrize("n_a", [1, 6])
+#: Entries of one tile of K19 (``csrc/compact.cu`` kGroupTile).
+K19_TILE = 2048
+
+
+def _half_rows(rng, h, n):
+    """``[h, n]`` 0/1 rows with exactly ``n // 2`` ones each, as the
+    unfused sorted route's group a (the cur half of a merged row), with
+    a run of ones across the second tile edge where the row has one."""
+    sel = np.zeros((h, n), np.int32)
+    for r in range(h):
+        if n > 2 * K19_TILE:
+            sel[r, 2 * K19_TILE - 100:2 * K19_TILE + 100] = 1
+        free = np.flatnonzero(sel[r] == 0)
+        sel[r, rng.choice(free, n // 2 - int(sel[r].sum()),
+                          replace=False)] = 1
+    return sel
+
+
+@pytest.mark.parametrize("h,n,len_b", [
+    (64, 65536, 2048), (3, 256, 128),
+    # rows of 1/4, 1 and 2 tiles, two tiles and two rows of lanes more
+    # (so that half a row is a multiple of 128), and many short rows
+    (3, K19_TILE // 4, 128), (3, K19_TILE, 128), (3, 2 * K19_TILE, 256),
+    (3, 2 * K19_TILE + 256, 256), (4096, 128, 128)])
+@pytest.mark.parametrize("n_a", [1, 2, 3, 4, 5, 6])
 @pytest.mark.parametrize("density", [0.0, 0.03, 0.5, 1.0])
-def test_compact_rows_kernel_matches_plain(dev, h, n, len_b, n_a, density):
+@pytest.mark.parametrize("group_a", ["random", "half", "short"])
+def test_compact_rows_kernel_matches_plain(dev, h, n, len_b, n_a, density,
+                                           group_a):
+    """K19 bit-equal to the plain version on the same CUDA tensors and on
+    the CPU, outputs poisoned first, float and int channels.  Group a
+    selects about half of a row ('random', output n / 2), exactly half
+    ('half': the unfused route's full output) or about half into an
+    output of n / 4 ('short': its length below the count), outputs at
+    least 128 long; group b at
+    ``density``, with a burst across a tile edge and, at density 1, more
+    entries than its output holds."""
     rng = np.random.default_rng(n + n_a + int(density * 100))
-    sel_a = torch.from_numpy((rng.random((h, n)) < 0.5).astype(np.int32))
+    if group_a == "half":
+        sel_a = torch.from_numpy(_half_rows(rng, h, n))
+    else:
+        sel_a = torch.from_numpy((rng.random((h, n)) < 0.5).astype(np.int32))
+    len_a = max(128, (n // 4 if group_a == "short" else n // 2) // 128 * 128)
     sel_b = torch.from_numpy((rng.random((h, n)) < density).astype(np.int32))
+    if group_a != "random" and n > K19_TILE:
+        sel_b[0, K19_TILE - 40:K19_TILE + 40] = 1
     ops_a = tuple(torch.from_numpy(rng.normal(size=(h, n)).astype(np.float32))
                   if c % 2 else torch.from_numpy(
                       rng.integers(0, 2**31, (h, n)).astype(np.int32))
@@ -758,14 +830,22 @@ def test_compact_rows_kernel_matches_plain(dev, h, n, len_b, n_a, density):
     ops_b = (torch.from_numpy(rng.integers(0, 2**31, (h, n)).astype(np.int32)),
              torch.from_numpy(rng.integers(0, 2**24, (h, n)).astype(np.int32)),
              torch.from_numpy(rng.uniform(0, 7, (h, n)).astype(np.float32)))
-    got = tc.compact_rows(sel_a.to(dev), tuple(t.to(dev) for t in ops_a),
-                          n // 2, sel_b.to(dev),
-                          tuple(t.to(dev) for t in ops_b), len_b)
-    want = tc.compact_rows_torch(sel_a, ops_a, n // 2, sel_b, ops_b, len_b)
+    if group_a != "random":
+        _poison(*[(h, len_a)] * n_a, *[(h, len_b)] * 3)
+    args = (sel_a.to(dev), tuple(t.to(dev) for t in ops_a), len_a,
+            sel_b.to(dev), tuple(t.to(dev) for t in ops_b), len_b)
+    got = tc.compact_rows(*args)
+    plain_cuda = tc.compact_rows_torch(*args)
+    want = tc.compact_rows_torch(sel_a, ops_a, len_a, sel_b, ops_b, len_b)
     torch.cuda.synchronize()
-    for gs, ws in zip(got, want):
-        for g, w in zip(gs, ws):
+    if group_a == "half" and n >= 256:
+        assert bool((sel_a.sum(1) == len_a).all())
+    if group_a == "short" and n >= K19_TILE:
+        assert int(sel_a.sum(1).min()) > len_a
+    for gs, cs_, ws in zip(got, plain_cuda, want):
+        for g, c, w in zip(gs, cs_, ws):
             assert g.dtype == w.dtype
+            assert torch.equal(g.view(torch.int32), c.view(torch.int32))
             assert torch.equal(g.cpu().view(torch.int32), w.view(torch.int32))
 
 
@@ -954,6 +1034,27 @@ def _stream_calls(dev, rng, which):
             calls.append(lambda x=x: (tc.compact_angle_blocked(x, k),))
         return calls, "compact_angle_rows", k, lambda out: bool(
             (out[0][0] != 0).all())
+    if which == "K3":
+        for density in (0.5, 0.03):
+            posw, angw, _ = _pair_planes(rng, 2, 1 << 18, density)
+            x = (posw.to(dev), angw.to(dev))
+            calls.append(lambda x=x: tc.compact_payload_pair(*x, k))
+        return calls, "compact_pair_rows", k, lambda out: bool(
+            (out[0][0] != 0).all())
+    if which == "K19":
+        for n_a in (6, 1):
+            n = 8 * K19_TILE
+            sel_a = torch.from_numpy(_half_rows(rng, h, n)).to(dev)
+            sel_b = torch.from_numpy(
+                (rng.random((h, n)) < 0.02).astype(np.int32)).to(dev)
+            sel_b[0, :2 * k] = 1
+            ops = tuple(torch.from_numpy(rng.integers(
+                0, 2**31, (h, n)).astype(np.int32)).to(dev)
+                for _ in range(n_a + 3))
+            x = (sel_a, ops[:n_a], n // 2, sel_b, ops[n_a:], k)
+            calls.append(lambda x=x: sum(tc.compact_rows(*x), ()))
+        return calls, "compact_rows_groups", k, lambda out: bool(
+            (out[-1][0] != 0).all())
     if which == "K15":
         for seed in (1, 2):
             prev, cur = _merge_planes(np.random.default_rng(seed), h,
@@ -998,11 +1099,12 @@ def _stream_calls(dev, rng, which):
     return calls, name, k, lambda out: int(out[4].max()) > k
 
 
-@pytest.mark.parametrize("which", ["K16", "K17", "K4", "K8", "K1", "K15"])
+@pytest.mark.parametrize("which", ["K16", "K17", "K4", "K8", "K1", "K15",
+                                   "K3", "K19"])
 def test_detect_kernels_streams_and_repeats(dev, which):
-    """K16, K17, K4, K8, K1 and K15 issued at once on two CUDA streams
-    give what they give one after the other, two calls give the same
-    bits, and each call is one counted launch (each call's look-back
+    """K16, K17, K4, K8, K1, K15, K3 and K19 issued at once on two CUDA
+    streams give what they give one after the other, two calls give the
+    same bits, and each call is one counted launch (each call's look-back
     scratch is its own; K15 has none)."""
     rng = np.random.default_rng(8)
     calls, name, k, overflows = _stream_calls(dev, rng, which)

@@ -515,6 +515,46 @@ def test_label_carry_crosses_from_jax(packed):
     assert total > 0
 
 
+def test_label_step_positional_chunk_matches_keyword_and_jax():
+    """``make_label_orbit_step`` takes JAX's ``chunk`` in its fifth place
+    (accepted, no effect), so a positional call through ``chunk`` and
+    ``row_width`` builds the keyword call's step, and JAX's."""
+    import inspect
+
+    assert list(inspect.signature(tls.make_label_orbit_step).parameters) \
+        == list(inspect.signature(jls.make_label_orbit_step).parameters)
+    pos, vel, lab, cen = _pool(19, burst=True)
+    args = (128, "apocentric", 100.0, None, 4, W, "split", True)
+    jstep = jax.jit(jls.make_label_orbit_step(*args))
+    steps = (tls.make_label_orbit_step(*args),
+             tls.make_label_orbit_step(128, mode="apocentric",
+                                       box_size=100.0, row_width=W,
+                                       frames="split", rhat_packed=True))
+    jc = jls.init_label_carry(N, row_width=W, rhat_packed=True)
+    carries = [tls.init_label_carry(N, row_width=W, rhat_packed=True,
+                                    device="cpu") for _ in steps]
+    total = 0
+    for s in range(S):
+        jc, je = jstep(jc, (jnp.asarray(pos[s]), jnp.asarray(vel[s]),
+                            jnp.asarray(lab[s]), jnp.asarray(cen[s]), None,
+                            None, jnp.float32(0.0)))
+        je = jax.tree.map(np.asarray, je)
+        evs = []
+        for i, step in enumerate(steps):
+            carries[i], te = step(carries[i], (
+                _t(pos[s]), _t(vel[s]), _t(lab[s]), _t(cen[s]), None, None,
+                0.0))
+            evs.append(te)
+            _check_carry(carries[i], jc, True)
+        total += _check_events(evs[0], je)
+        for a, b in zip(evs[0], evs[1]):
+            assert torch.equal(a, b)
+        for a, b in zip(tls.label_carry_to_numpy(carries[0]),
+                        tls.label_carry_to_numpy(carries[1])):
+            np.testing.assert_array_equal(a, b)
+    assert total > 0
+
+
 @pytest.mark.parametrize("box", [None, 50.0])
 def test_assign_regions_matches_jax(box):
     rng = np.random.default_rng(8)

@@ -285,6 +285,194 @@ def test_compact_rows_matches_jax(n_a):
                               _t(sel_b), tuple(map(_t, ops_b)), 128)
 
 
+def _half_selected(rng, h, n, bursts):
+    """``[h, n]`` int32 0/1 rows with exactly ``n // 2`` ones each (the
+    unfused route's group a: the cur half of a merged row), runs of ones
+    across each of ``bursts`` and the rest drawn at random."""
+    sel = np.zeros((h, n), np.int32)
+    for r in range(h):
+        for edge in bursts:
+            sel[r, edge - 60:edge + 70] = 1
+        free = np.flatnonzero(sel[r] == 0)
+        sel[r, rng.choice(free, n // 2 - int(sel[r].sum()),
+                          replace=False)] = 1
+    return sel
+
+
+@pytest.mark.parametrize("n_a", [1, 6])
+def test_compact_rows_route_structure_matches_jax(n_a):
+    """K19's plain version against JAX with the unfused route's traffic:
+    group a selects exactly half of each merged row of 2N (its output of
+    N is full), group b about 1 %, with runs across the 1024- and
+    2048-entry tile edges and, in one row, more than its output holds."""
+    rng = np.random.default_rng(40 + n_a)
+    h, n = 2, 2 * (4096 + 128)
+    edges = (1024, 2048, 4096, 3 * 2048)
+    sel_a = _half_selected(rng, h, n, edges)
+    sel_b = (rng.random((h, n)) < 0.01).astype(np.int32)
+    sel_b[:, 2048 - 20:2048 + 20] = 1
+    sel_b[1, 3000:3400] = 1
+    ops_a = tuple(rng.normal(size=(h, n)).astype(np.float32) if c % 2
+                  else rng.integers(0, 2**31, (h, n)).astype(np.int32)
+                  for c in range(n_a))
+    ops_b = (rng.integers(0, 2**31, (h, n)).astype(np.int32),
+             rng.integers(0, 2**24, (h, n)).astype(np.int32),
+             rng.uniform(0, 7, (h, n)).astype(np.float32))
+    len_a, len_b = n // 2, 256
+    want = jcompact.compact_rows(jnp.asarray(sel_a),
+                                 tuple(map(jnp.asarray, ops_a)), len_a,
+                                 jnp.asarray(sel_b),
+                                 tuple(map(jnp.asarray, ops_b)), len_b)
+    got = tcompact.compact_rows(_t(sel_a), tuple(map(_t, ops_a)), len_a,
+                                _t(sel_b), tuple(map(_t, ops_b)), len_b)
+    assert (sel_a.sum(axis=1) == len_a).all()
+    assert sel_b[1].sum() > len_b > sel_b[0].sum()
+    for sel, gs, ws, ln in ((sel_a, got[0], want[0], len_a),
+                            (sel_b, got[1], want[1], len_b)):
+        for g, w in zip(gs, ws):
+            assert g.dtype == torch_dtype(np.asarray(w).dtype)
+            for r in range(h):
+                c = min(int(sel[r].sum()), ln)
+                np.testing.assert_array_equal(g.numpy()[r, :c],
+                                              np.asarray(w)[r, :c])
+                assert not g.view(torch.int32).numpy()[r, c:].any()
+
+
+# ----------------------------------------------------------------------
+# the aligned detect chain in the JAX signature
+# ----------------------------------------------------------------------
+
+def _detect_math_inputs(rhat_packed, seed=31):
+    """A seeded aligned carry and frame at [3, 384], as the same bits for
+    both packages: valid and padding lanes, FRESH lanes, stale FRESH bits
+    in the carry's sv, every sign of the radial velocity (signed zeros
+    too), and f32 or octahedral prev r-hat."""
+    from orbitanalysis_tpu.utils.numerics import oct_encode as j_oct
+
+    rng = np.random.default_rng(seed + rhat_packed)
+    h, p = 3, 384
+
+    def unit():
+        v = rng.normal(size=(3, h, p))
+        return (v / np.linalg.norm(v, axis=0)).astype(np.float32)
+
+    valid = rng.random((h, p)) < 0.85
+    fresh = np.where(rng.random((h, p)) < 0.1, 1 << 27, 0)
+    slot = (rng.integers(0, 1 << 24, (h, p)) | fresh).astype(np.int32)
+    vrad = rng.normal(size=(h, p)).astype(np.float32)
+    vrad[0, :4] = [0.0, -0.0, 1e-30, -1e-30]
+    key = np.broadcast_to((np.arange(p, dtype=np.uint32) << np.uint32(1))
+                          | np.uint32(1), (h, p)).copy()
+    sv = (rng.integers(0, 1 << 24, (h, p))
+          | (rng.integers(0, 16, (h, p)) << 24)).astype(np.int32)
+    ang = rng.uniform(0.0, 7.0, (h, p)).astype(np.float32)
+    packed = ang.view(np.uint32) | (
+        (rng.random((h, p)) < 0.7).astype(np.uint32) << np.uint32(31))
+    prev = unit()
+    rhat = np.array(j_oct(jnp.asarray(prev))) if rhat_packed else prev
+    return valid, slot, vrad, unit(), (key, sv, rhat, packed)
+
+
+def _detect_math_pair(rhat_packed):
+    """The inputs of :func:`_detect_math_inputs` as ``(jax_args,
+    torch_args)``: ``(carry, valid_cur, slot, frame)`` of each package."""
+    from orbitanalysis_tpu.ops.geometry import RegionFrame as JFrame
+    from orbitanalysis_tpu_torch.ops.geometry import RegionFrame as TFrame
+
+    valid, slot, vrad, rhat, carry = _detect_math_inputs(rhat_packed)
+    key, sv, prev_rhat, packed = carry
+    radius = np.ones_like(vrad)
+    bulk = np.zeros((valid.shape[0], 3), np.float32)
+    jargs = (jss.AlignedCarry(key=_j(key), sv=_j(sv), rhat=_j(prev_rhat),
+                              packed=_j(packed)),
+             _j(valid), _j(slot),
+             JFrame(radius=_j(radius), rhat=_j(rhat), vrad=_j(vrad),
+                    bulk_vel=_j(bulk)))
+    targs = (tss.AlignedCarry(key=_bits(key), sv=_t(sv),
+                              rhat=_bits(prev_rhat) if rhat_packed
+                              else _t(prev_rhat), packed=_bits(packed)),
+             _t(valid), _t(slot),
+             TFrame(radius=_t(radius), rhat=_t(rhat), vrad=_t(vrad),
+                    bulk_vel=_t(bulk)))
+    return jargs, targs
+
+
+def _f16_as_f32(bits):
+    return (np.asarray(bits).astype(np.uint16).view(np.float16)
+            .astype(np.float32))
+
+
+def _assert_detect_math_equal(got, want):
+    """The eight outputs: keys, sv, apsis flags, counts, positions and
+    the packed words' match bits exact; the accumulated angles (in
+    ``angle_acc``, in the packed words and as f16 bits) to the
+    tolerance of the aligned step's parity tests."""
+    (cur_key, cur_sv, apsis, angle_acc, packed, ang16, count,
+     pos_iota) = got
+    want = [np.asarray(w) for w in want]
+    np.testing.assert_array_equal(_u32(cur_key), want[0])
+    np.testing.assert_array_equal(cur_sv.numpy(), want[1])
+    np.testing.assert_array_equal(apsis.numpy(), want[2])
+    _assert_angles_close(angle_acc.numpy(), want[3])
+    np.testing.assert_array_equal(_u32(packed) >> 31, want[4] >> 31)
+    _assert_angles_close(
+        (_u32(packed) & np.uint32(0x7FFFFFFF)).view(np.float32),
+        (want[4] & np.uint32(0x7FFFFFFF)).view(np.float32))
+    _assert_angles_close(_f16_as_f32(ang16.numpy()), _f16_as_f32(want[5]),
+                         f16=True)
+    np.testing.assert_array_equal(count.numpy(), want[6])
+    assert int(count.sum()) > 0
+    np.testing.assert_array_equal(pos_iota.numpy(), want[7])
+
+
+@pytest.mark.parametrize("rhat_packed", [False, True])
+@pytest.mark.parametrize("form", ["positional", "keyword", "share_angles"])
+def test_aligned_detect_math_matches_jax(form, rhat_packed):
+    """The port's aligned detect chain takes JAX's arguments in JAX's
+    places: ``invalid`` sixth (JAX's own call form,
+    benchmarks/aligned_ablation.py, with the int32 sentinel), by keyword,
+    and with ``share_angles`` (an XLA fusion barrier, accepted and
+    ignored); every output equals JAX's."""
+    jargs, targs = _detect_math_pair(rhat_packed)
+    peri = form != "keyword"
+    if form == "positional":
+        got = tss.aligned_detect_math(*targs, peri, INVALID, rhat_packed)
+        want = jss.aligned_detect_math(*jargs, peri, INVALID, rhat_packed)
+    elif form == "keyword":
+        got = tss.aligned_detect_math(*targs, pericentric=peri,
+                                      invalid=INVALID,
+                                      rhat_packed=rhat_packed)
+        want = jss.aligned_detect_math(*jargs, pericentric=peri,
+                                       invalid=INVALID,
+                                       rhat_packed=rhat_packed)
+    else:
+        got = tss.aligned_detect_math(*targs, peri, INVALID,
+                                      rhat_packed=rhat_packed,
+                                      share_angles=True)
+        want = jss.aligned_detect_math(*jargs, peri, INVALID,
+                                       rhat_packed=rhat_packed,
+                                       share_angles=True)
+    _assert_detect_math_equal(got, want)
+
+
+@pytest.mark.parametrize("invalid", [INVALID, 1000, (1 << 30) + 5])
+def test_aligned_detect_math_invalid_key_matches_jax(invalid):
+    """The padding key is JAX's ``(uint32(invalid) << 1) | 1`` modulo
+    2**32 for any sentinel (-1 for the int32 one), and the two packages
+    name the parameters alike, in the same order."""
+    import inspect
+
+    jargs, targs = _detect_math_pair(False)
+    got = tss.aligned_detect_math(*targs, True, invalid)
+    want = jss.aligned_detect_math(*jargs, True, invalid)
+    _assert_detect_math_equal(got, want)
+    valid = targs[1].numpy()
+    key = np.uint32(((invalid << 1) | 1) & 0xFFFFFFFF)
+    assert (_u32(got[0])[~valid] == key).all()
+    assert list(inspect.signature(tss.aligned_detect_math).parameters) == \
+        list(inspect.signature(jss.aligned_detect_math).parameters)
+
+
 # ----------------------------------------------------------------------
 # the step
 # ----------------------------------------------------------------------
