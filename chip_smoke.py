@@ -12,8 +12,9 @@ repository checkout; it imports nothing of JAX.  Phases:
    JAX package's benchmark workloads (64 halos x 32768 slots x 48
    snapshots from one orbit pool: the label-native churn sequence, the
    same churn in the ID form, and the fixed-membership sequence) are
-   generated on the host, the ID forms staged ID-sorted and, one
-   ``pack_snapshot_aligned`` a snapshot, in the stable layout;
+   generated on the host, the ID forms staged ID-sorted and, by
+   ``stage_batch_aligned(soa=True)`` as the benchmark stages them, the
+   static form and phase 3's churn snapshots in the stable layout;
 3. each CUDA kernel against its plain-torch version on the same CUDA
    tensors, at the shapes its main path gives it (the sorted engine's
    kernels and the aligned detect kernel on the inputs of real steps,
@@ -59,18 +60,27 @@ repository checkout; it imports nothing of JAX.  Phases:
    unfused route's (merge kernel + two-group compaction); the static
    sequence launches the join-and-detect kernel on its first step and
    the event compaction on every later one, and the legacy aligned step
-   (the aligned detect kernel once a step) finds the same events; then
+   (the aligned detect kernel once a step) finds the same events;
+   ``scan_counts(angle_cut=0)`` over the load-order churn sequence (the
+   general step) counts every one of the sorted engine's events; then
    step timings;
 9. ``track_orbits(join_impl='sorted')`` at config-2 scale: catalogs
    equal the general engine's run on the card and the oracle, and every
    step launches the join-and-detect kernel or the event compaction;
-10. the aligned engine on the benchmark's churn sequence in the stable
-   layout (SoA planes): ``make_aligned_native_step`` with
-   ``detect_impl='xla'`` (the compaction kernel once a step) and
-   ``'pallas'`` (the aligned detect kernel once a step) and the legacy
-   ``make_aligned_orbit_step`` (the same kernel) must give the same
-   events, exactly the 1,741,643, and the two native steps the same
-   carry bits; then step timings;
+10. the aligned engine on the benchmark's churn sequence, staged whole
+   in the stable layout (SoA planes) by ``stage_batch_aligned(soa=True)``
+   as the benchmark stages it (the host's seconds logged; its first
+   snapshots equal the tracker's ``pack_snapshot_aligned``): the drivers
+   ``scan_events_aligned`` per step (the default step,
+   ``detect_impl='xla'``: the angle compaction once a step) and
+   ``batched=True`` (the payload compaction once, over all 3072 rows),
+   ``make_aligned_native_step(detect_impl='pallas')`` and the legacy
+   ``make_aligned_orbit_step`` (the aligned detect kernel once a step)
+   must give the same events, exactly the 1,741,643, the batched
+   driver's angles bit-equal to the per-step driver's, and the two
+   native steps the same carry bits; the payload compaction against its
+   plain version on the batched driver's own [3072, 32768] plane; then
+   step and driver timings;
 11. config 4's oracle (benchmarks/config4_onthefly_e2e.py): a 16,384
    particle Kepler ensemble under point-mass forces, detection every 8
    and every 32 steps: at 4x the snapshot cadence at least 99 % of the
@@ -654,44 +664,34 @@ def end_to_end(dev):
 
 def stage_aligned(dev, form, n_snap):
     """The first ``n_snap`` snapshots of an ID-form sequence ``(ids, pos,
-    vel, centers, _)`` staged in the stable layout, one
-    ``pack_snapshot_aligned`` a snapshot (each row's members in load
-    order are the loader's region blocks), with SoA position and
-    velocity planes: a SnapshotBatch of ``[S, ...]`` tensors on the
-    card."""
+    vel, centers, _)`` (each row's members in load order, then padding)
+    staged in the stable layout as the JAX benchmark stages them
+    (``bench.py``: ``stage_batch_aligned(soa=True)``, one allocation for
+    the sequence, the native sequence pass where it built), then moved
+    to the card: a SnapshotBatch of ``[S, ...]`` tensors with SoA
+    position and velocity planes.  Logs the host's staging seconds."""
     import torch
 
-    from orbitanalysis_tpu_torch.engine.packing import (
-        StableLayout,
-        pack_snapshot_aligned,
-    )
+    from orbitanalysis_tpu_torch import native
+    from orbitanalysis_tpu_torch.engine.packing import stage_batch_aligned
     from orbitanalysis_tpu_torch.ops.apsis import SnapshotBatch
 
     ids, pos, vel, cen, _ = form
     h, c = ids.shape[1:]
-    rows = np.arange(h)
-    lay = StableLayout(h, c)
-
-    def plane(*shape, dtype=torch.float32):
-        return torch.empty((n_snap, *shape), dtype=dtype, device=dev)
-
-    out = SnapshotBatch(
-        ids=plane(h, c, dtype=torch.int32), pos=plane(3, h, c),
-        vel=plane(3, h, c),
-        center=torch.from_numpy(np.ascontiguousarray(cen[:n_snap])).to(dev),
-        slot=plane(h, c, dtype=torch.int32))
-    for s in range(n_snap):
-        valid = ids[s] != np.iinfo(np.int32).max
-        n_valid = valid.sum(axis=1)
-        pk = pack_snapshot_aligned(dict(
-            ids=ids[s][valid], coordinates=pos[s][valid],
-            velocities=vel[s][valid],
-            region_offsets=np.concatenate(([0], np.cumsum(n_valid)[:-1]))),
-            rows, h, lay, cen[s])
-        out.ids[s].copy_(torch.from_numpy(pk.ids))
-        out.pos[s].copy_(torch.from_numpy(pk.pos).permute(2, 0, 1))
-        out.vel[s].copy_(torch.from_numpy(pk.vel).permute(2, 0, 1))
-        out.slot[s].copy_(torch.from_numpy(pk.slot))
+    t0 = time.perf_counter()
+    staged = stage_batch_aligned(SnapshotBatch(
+        ids=ids[:n_snap], pos=pos[:n_snap], vel=vel[:n_snap],
+        center=cen[:n_snap]), soa=True)
+    t_stage = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = SnapshotBatch(**{f: torch.from_numpy(np.ascontiguousarray(
+        getattr(staged, f))).to(dev) for f in (
+            "ids", "pos", "vel", "center", "slot")})
+    torch.cuda.synchronize()
+    log(f"  stage_batch_aligned(soa=True), {n_snap} snapshots of [{h}, {c}]: "
+        f"{t_stage:.3f} s on the host ({native.tier()} tier, "
+        f"{t_stage / n_snap * 1e3:.1f} ms a snapshot), "
+        f"{time.perf_counter() - t0:.3f} s to move to the card")
     return out
 
 
@@ -734,26 +734,24 @@ def bench_workloads(dev):
     load_order = tuple(
         torch.from_numpy(np.ascontiguousarray(x[:SORTED_CHECK])).to(dev)
         for x in (ids, pos, vel, cen))
-    del ids, pos, vel
     t_sorted = time.perf_counter() - t1
-    t1 = time.perf_counter()
-    aligned = stage_aligned(dev, w["churn"], LABEL[2])
-    aligned_static = stage_aligned(dev, w["static"], SORTED_CHECK)
-    del w
-    torch.cuda.synchronize()
-    t_aligned = time.perf_counter() - t1
     log(f"  bench workloads {LABEL[0]} halos x {LABEL[1]} slots x "
         f"{LABEL[2]} snapshots: label N = {work['label'].shape[1]}, "
         f"{n_valid} tracked at snapshot 0; churn ID form "
         f"{staged['churn'][1]} members a row; {t_gen:.1f} s to generate "
         f"on the host, {t_sorted:.1f} s to stage ID-sorted and move to the "
-        f"card, {t_aligned:.1f} s to stage {LABEL[2]} + {SORTED_CHECK} "
-        "snapshots in the stable layout (pack_snapshot_aligned) and move "
-        "them to the card")
+        "card; in the stable layout, phase 3's three churn snapshots and "
+        f"the {SORTED_CHECK} static ones (phase 10 stages the churn "
+        "sequence whole):")
+    aligned_head = stage_aligned(dev, w["churn"], 3)
+    aligned_static = stage_aligned(dev, w["static"], SORTED_CHECK)
+    churn_host = w["churn"]
+    del w
     return work, dict(churn=staged["churn"][0], n_valid=staged["churn"][1],
                       static=staged["static"][0],
                       n_static=staged["static"][1], load_order=load_order,
-                      aligned=aligned, aligned_static=aligned_static)
+                      churn_host=churn_host, aligned_head=aligned_head,
+                      aligned_static=aligned_static)
 
 
 def _detect_inputs(dev, work, packed):
@@ -1375,7 +1373,7 @@ def sorted_kernel_checks(dev, seq):
     # K17 on step 2 of the aligned churn sequence (native, detect_impl=
     # 'pallas') and of the aligned static sequence (the legacy step)
     for what, stack, make, init in (
-            ("native, aligned churn step 2", seq["aligned"],
+            ("native, aligned churn step 2", seq["aligned_head"],
              lambda: tss.make_aligned_native_step(
                  LABEL_K, box_size=LABEL_BOX, soa_batch=True,
                  detect_impl="pallas"),
@@ -1458,7 +1456,11 @@ def sorted_full_width(dev, seq):
     the counted runs."""
     import torch
 
-    from orbitanalysis_tpu_torch.engine.scan import scan_events_sorted
+    from orbitanalysis_tpu_torch.engine.scan import (
+        CountingCarry,
+        scan_counts,
+        scan_events_sorted,
+    )
     from orbitanalysis_tpu_torch.ops import _cuda
     from orbitanalysis_tpu_torch.ops import apsis as tapsis
     from orbitanalysis_tpu_torch.ops import sorted_step as tss
@@ -1500,6 +1502,19 @@ def sorted_full_width(dev, seq):
         carry, ev = legacy(carry, _batch(seq["aligned_static"], s))
         leg.append(ev)
     torch.cuda.synchronize()
+    c_legacy = _cuda.launch_counts()
+    # the general step's count accumulator over the load-order churn
+    # sequence (host arrays, moved to the card once by the driver)
+    ids_h, pos_h, vel_h, cen_h, _ = seq["churn_host"]
+    t0 = time.perf_counter()
+    ccarry, per_step = scan_counts(
+        CountingCarry(track=tapsis.init_carry(h, p, device=dev),
+                      counts=torch.zeros((h, p), dtype=torch.int32,
+                                         device=dev)),
+        tapsis.SnapshotBatch(ids=ids_h, pos=pos_h, vel=vel_h, center=cen_h),
+        box_size=LABEL_BOX, angle_cut=0.0)
+    torch.cuda.synchronize()
+    counts_s = time.perf_counter() - t0
     launches = _cuda.launch_counts()
     # ---- end of the counted main path
 
@@ -1528,8 +1543,8 @@ def sorted_full_width(dev, seq):
           f"{STATIC_EVENTS}")
     # the legacy aligned step: the same event ID sets a row
     cnt_l = torch.stack([e.count for e in leg])
-    check(diff(launches, c_static) == {"static_detect_rows": n_chk},
-          f"the legacy aligned step launched {diff(launches, c_static)}, "
+    check(diff(c_legacy, c_static) == {"static_detect_rows": n_chk},
+          f"the legacy aligned step launched {diff(c_legacy, c_static)}, "
           f"not K17 {n_chk} times")
     check(torch.equal(cnt_l, cnt_s), "legacy aligned step: counts differ "
           "from the sorted engine's")
@@ -1542,7 +1557,19 @@ def sorted_full_width(dev, seq):
               f"{s}: event IDs differ from the sorted engine's")
     log(f"  static, legacy aligned step (K17, native=False), {n_chk} "
         f"snapshots: the same {int(cnt_l.sum())} events and ID sets a row; "
-        f"launches {diff(launches, c_static)}")
+        f"launches {diff(c_legacy, c_static)}")
+    # the count accumulator: every apsis of the general step counted once
+    counted = int(per_step.sum())
+    log(f"  scan_counts(angle_cut=0), general step over the {s_n} load-order "
+        f"churn snapshots: {counted} apsides counted (per step "
+        f"{int(per_step.min())}-{int(per_step.max())}), the most a particle "
+        f"holds {int(ccarry.counts.max())}; launches "
+        f"{diff(launches, c_legacy)}; {counts_s:.3f} s incl. warm-up")
+    check(per_step.shape == (s_n,) and counted == total,
+          f"scan_counts counted {counted} apsides, the sorted engine "
+          f"{total}")
+    check(diff(launches, c_legacy) == {},
+          "the general step launched a kernel")
 
     # the unfused route: the same events on the first snapshots
     check(torch.equal(cnt_u, cnt[:n_chk]), "unfused route: counts differ")
@@ -1657,17 +1684,27 @@ def sorted_end_to_end(dev, ctx):
 
 def aligned_full_width(dev, seq):
     """Phase 10: the aligned engine over the benchmark's churn sequence in
-    the stable layout (counted): the default step, detect_impl='pallas'
-    and the legacy step must give the same events, the JAX benchmark's
-    total, and the two native steps the same carries; then timings.
-    Returns the kernel launches of the counted runs."""
+    the stable layout, staged whole as the JAX benchmark stages it
+    (``stage_batch_aligned(soa=True)``, checked against the tracker's
+    ``pack_snapshot_aligned`` on its first snapshots), then (counted) the
+    drivers ``scan_events_aligned`` per step (the default step,
+    ``detect_impl='xla'``) and batched, and the steps
+    detect_impl='pallas' and legacy: the same events, the JAX
+    benchmark's total, and the native steps the same carries; then K5 at
+    the batched driver's shape, and timings.  Returns the kernel
+    launches of the counted runs and K5's largest difference from its
+    plain version there."""
     import torch
 
+    from orbitanalysis_tpu_torch.engine.scan import scan_events_aligned
     from orbitanalysis_tpu_torch.ops import _cuda
     from orbitanalysis_tpu_torch.ops import sorted_step as tss
 
     h, p = LABEL[0], LABEL[1]
-    stack = seq["aligned"]
+    form = seq.pop("churn_host")
+    stack = stage_aligned(dev, form, LABEL[2])
+    staging_matches_tracker(dev, form, stack, 3)
+    del form
     s_n = stack.ids.shape[0]
     kw = dict(box_size=LABEL_BOX, soa_batch=True)
     steps = dict(
@@ -1681,8 +1718,24 @@ def aligned_full_width(dev, seq):
 
     # ---- the main path, counted
     _cuda.reset_launch_counts()
-    events, carries, counts = {}, {}, {}
-    for name, (step, init) in steps.items():
+    events, carries, counts, slots = {}, {}, {}, {}
+    for name, batched in (("xla", False), ("batched", True)):
+        before = _cuda.launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        carries[name], events[name] = scan_events_aligned(
+            tss.init_aligned_carry(h, p, device=dev), stack, LABEL_K,
+            batched=batched, **kw)
+        torch.cuda.synchronize()
+        counts[name] = launch_diff(_cuda.launch_counts(), before)
+        log(f"  scan_events_aligned(batched={batched}): "
+            f"{int(events[name][0].sum())} events over {s_n} snapshots of "
+            f"[{h}, {p}]; launches {counts[name]}; "
+            f"{time.perf_counter() - t0:.3f} s incl. warm-up, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated")
+    for name in ("pallas", "legacy"):
+        step, init = steps[name]
         before = _cuda.launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1691,61 +1744,165 @@ def aligned_full_width(dev, seq):
             carry, ev = step(carry, _batch(stack, s))
             evs.append(ev)
         torch.cuda.synchronize()
-        events[name], carries[name] = evs, carry
+        carries[name] = carry
+        events[name] = tuple(torch.stack(x) for x in zip(
+            *((e.count, e.ids, e.angles) for e in evs)))
+        slots[name] = torch.stack([e.slots for e in evs])
         counts[name] = launch_diff(_cuda.launch_counts(), before)
-        log(f"  {name}: {sum(int(e.count.sum()) for e in evs)} events over "
-            f"{s_n} snapshots of [{h}, {p}]; launches {counts[name]}; scan "
+        log(f"  {name} step: {int(events[name][0].sum())} events; "
+            f"launches {counts[name]}; scan "
             f"{time.perf_counter() - t0:.3f} s incl. warm-up")
     launches = _cuda.launch_counts()
     # ---- end of the counted main path
 
     check(counts["xla"] == {"compact_angle_rows": s_n},
-          "the default step did not launch the compaction once a step")
+          f"scan_events_aligned launched {counts['xla']}, not K1 once a "
+          "step")
+    check(counts["batched"] == {"compact_payload_rows": 1},
+          f"scan_events_aligned(batched=True) launched {counts['batched']}, "
+          "not K5 once")
     for name in ("pallas", "legacy"):
         check(counts[name] == {"static_detect_rows": s_n},
               f"{name}: K17 did not launch once a step (and nothing else)")
-    total = sum(int(e.count.sum()) for e in events["xla"])
+    x_cnt, x_ids, x_ang = events["xla"]
+    total = int(x_cnt.sum())
     check(total == LABEL_EVENTS,
           f"the aligned engine found {total} events, not {LABEL_EVENTS}")
-    beyond, worst, exact = 0, 0.0, True
-    kio = torch.arange(LABEL_K, device=dev)[None, :]
-    for s in range(s_n):
-        x = events["xla"][s]
-        ok = kio < x.count[:, None]
-        pos_ids = torch.gather(stack.ids[s], 1,
-                               torch.where(ok, x.ids, 0).long())
-        for name in ("pallas", "legacy"):
-            e = events[name][s]
-            check(torch.equal(e.count, x.count),
-                  f"{name}, snapshot {s}: counts differ from 'xla'")
-            want = pos_ids if name == "legacy" else x.ids
-            check(torch.equal(e.ids[ok], want[ok]),
-                  f"{name}, snapshot {s}: event "
-                  f"{'IDs' if name == 'legacy' else 'positions'} differ")
-            ulps, dif = f16_ulps(e.angles[ok].cpu().numpy(),
-                                 x.angles[ok].cpu().numpy())
-            check(np.all(ulps <= 1), f"{name}, snapshot {s}: angles differ "
-                  f"by {int(ulps.max(initial=0))} f16 ulps")
-            beyond += int((ulps > 0).sum())
-            worst = max(worst, float(dif.max(initial=0)))
-        p_ev, l_ev = events["pallas"][s], events["legacy"][s]
-        exact &= bool(torch.equal(p_ev.angles[ok], l_ev.angles[ok])
-                      and torch.equal(p_ev.slots[ok], l_ev.slots[ok]))
-    check(exact, "'pallas' and legacy events differ in f32 angles or slots")
-    for a, b in zip(carries["xla"], carries["pallas"]):
-        check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
-              "the 'xla' and 'pallas' carries differ")
-    log(f"  the three steps give the same {total} events (the JAX "
-        f"benchmark's total: {LABEL_EVENTS}); 'pallas' and legacy f32 "
-        f"angles and prev slots bit-equal; {beyond} f32 angles not on the "
-        f"'xla' step's f16 value (max |diff| {worst:.3g} rad, within one "
-        "f16 ulp); final 'xla' and 'pallas' carries bit-equal")
+    ok = torch.arange(LABEL_K, device=dev) < x_cnt[..., None]
+    pos_ids = torch.gather(stack.ids, 2, torch.where(ok, x_ids, 0).long())
+    beyond, worst = {}, 0.0
+    for name in ("batched", "pallas", "legacy"):
+        cnt, ids, ang = events[name]
+        check(torch.equal(cnt, x_cnt),
+              f"{name}: counts differ from the per-step driver's")
+        want = pos_ids if name == "legacy" else x_ids
+        check(torch.equal(ids[ok], want[ok]),
+              f"{name}: event {'IDs' if name == 'legacy' else 'positions'} "
+              "differ from the per-step driver's")
+        ulps, dif = f16_ulps(ang[ok].cpu().numpy(), x_ang[ok].cpu().numpy())
+        # the batched driver quantizes as the step does: bit-equal
+        limit = 0 if name == "batched" else 1
+        check(np.all(ulps <= limit), f"{name}: angles differ by "
+              f"{int(ulps.max(initial=0))} f16 ulps (limit {limit})")
+        beyond[name] = int((ulps > 0).sum())
+        worst = max(worst, float(dif.max(initial=0)))
+    p_ang, l_ang = events["pallas"][2], events["legacy"][2]
+    check(torch.equal(p_ang[ok], l_ang[ok])
+          and torch.equal(slots["pallas"][ok], slots["legacy"][ok]),
+          "'pallas' and legacy events differ in f32 angles or slots")
+    x_carry = carries["xla"]
+    for name, fields in (("pallas", ("key", "sv", "rhat", "packed")),
+                         ("batched", ("key", "sv"))):
+        for f in fields:
+            check(torch.equal(getattr(carries[name], f).view(torch.int32),
+                              getattr(x_carry, f).view(torch.int32)),
+                  f"{name}: final carry {f} differs from the per-step "
+                  "driver's")
+    check(torch.equal(carries["batched"].packed < 0, x_carry.packed < 0),
+          "batched: final match bits differ from the per-step driver's")
+    log(f"  the drivers and steps give the same {total} events (the JAX "
+        f"benchmark's total: {LABEL_EVENTS}); the batched driver's "
+        f"angles bit-equal to the per-step driver's, its carry keys, slots "
+        f"and match bits equal; 'pallas' and legacy f32 angles and prev "
+        f"slots bit-equal, "
+        f"{beyond['pallas']} of them not on the per-step driver's f16 value "
+        f"(max |diff| {worst:.3g} rad, within one f16 ulp); final 'xla' "
+        "and 'pallas' carries bit-equal")
+    del events, carries, slots, pos_ids, ok
 
+    k5_err = batched_payload_check(dev, stack, kw)
     for name, what in (("xla", "aligned step, 'xla' (torch chain + K1)"),
                        ("pallas", "aligned step, 'pallas' (K17)"),
                        ("legacy", "legacy aligned step (K17)")):
         time_scan(dev, stack, s_n, seq["n_valid"], what, *steps[name])
-    return launches
+    walls = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        scan_events_aligned(tss.init_aligned_carry(h, p, device=dev), stack,
+                            LABEL_K, batched=True, **kw)
+        b.record()
+        b.synchronize()
+        walls.append(a.elapsed_time(b))
+    log(f"  scan_events_aligned(batched=True): wall "
+        f"{statistics.median(walls):.3f} ms a scan of {s_n} snapshots "
+        f"(median of 3, {min(walls):.3f}-{max(walls):.3f}; CUDA events)")
+    return launches, k5_err
+
+
+def batched_payload_check(dev, stack, kw):
+    """K5 at the batched driver's shape: the driver's own payload plane,
+    ``[S*H, P]`` (3072 rows of 32768), through the kernel and through its
+    plain version on the same CUDA tensor, bit for bit (every row's
+    zero tail included); logs its times and bound.  Returns the largest
+    difference."""
+    import torch
+
+    from orbitanalysis_tpu_torch.engine.scan import _aligned_batch_words
+    from orbitanalysis_tpu_torch.ops import compact
+    from orbitanalysis_tpu_torch.ops import sorted_step as tss
+
+    s_n, h, p = stack.ids.shape
+    _, count, words = _aligned_batch_words(
+        tss.init_aligned_carry(h, p, device=dev), stack, **kw)
+    rows, k = s_n * h, LABEL_K
+    k128 = compact._k128(k, p)
+    got = compact.compact_payload_blocked(words, k)
+    want = compact.compact_payload_torch(words, k)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    check(torch.equal(got, want),
+          f"compact_payload_rows differs from its plain version on the "
+          f"batched driver's [{rows}, {p}] payload plane (max |diff| {err})")
+    tail = torch.arange(k128, device=dev) >= count.reshape(rows, 1)
+    check(not bool(got[tail].any()),
+          "compact_payload_rows left a non-zero word past a row's count")
+    b_ms, b_by = bound(words.numel() * 4 + rows * k128 * 4, 4 * words.numel())
+    ms = cuda_ms(lambda: compact.compact_payload_blocked(words, k))
+    plain_ms = cuda_ms(lambda: compact.compact_payload_torch(words, k),
+                       runs=3, reps=2, warmup=1)
+    log(f"  compact_payload_rows [{rows}, {p}] K={k} (the batched driver's "
+        f"payload plane, {int(count.sum())} events): max |kernel - plain| "
+        f"= {err}, zero past every count; kernel {ms:.4f} ms, plain torch "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) (kernel timed as "
+        "in phase 3; plain: medians of 3 timings of 2 calls)")
+    return err
+
+
+def staging_matches_tracker(dev, form, stack, n_snap):
+    """The first ``n_snap`` snapshots of ``stack`` (staged by
+    ``stage_batch_aligned``) equal the tracker's staging of the same
+    loader blocks, one ``pack_snapshot_aligned`` a snapshot, bit for
+    bit."""
+    import torch
+
+    from orbitanalysis_tpu_torch.engine.packing import (
+        StableLayout,
+        pack_snapshot_aligned,
+    )
+
+    ids, pos, vel, cen, _ = form
+    h, c = ids.shape[1:]
+    rows, lay = np.arange(h), StableLayout(h, c)
+    for s in range(n_snap):
+        valid = ids[s] != np.iinfo(np.int32).max
+        n_valid = valid.sum(axis=1)
+        pk = pack_snapshot_aligned(dict(
+            ids=ids[s][valid], coordinates=pos[s][valid],
+            velocities=vel[s][valid],
+            region_offsets=np.concatenate(([0], np.cumsum(n_valid)[:-1]))),
+            rows, h, lay, cen[s])
+        for got, want in ((stack.ids[s], pk.ids), (stack.slot[s], pk.slot),
+                          (stack.pos[s], np.moveaxis(pk.pos, -1, 0)),
+                          (stack.vel[s], np.moveaxis(pk.vel, -1, 0))):
+            check(torch.equal(got.cpu(), torch.from_numpy(
+                np.ascontiguousarray(want))),
+                  f"stage_batch_aligned differs from pack_snapshot_aligned "
+                  f"at snapshot {s}")
+    log(f"  the staged stack equals pack_snapshot_aligned's (the tracker's "
+        f"staging) on snapshots 0-{n_snap - 1}, bit for bit")
 
 
 # ------------------------------------------- native integrator phases
@@ -2345,8 +2502,11 @@ def main():
     log("== phase 9: track_orbits(join_impl='sorted') at config-2 scale")
     e2e_sorted = sorted_end_to_end(dev, ctx)
     log("== phase 10: the aligned engine on the benchmark's churn sequence "
-        "(default step, detect_impl='pallas', legacy step)")
-    aligned_launches = aligned_full_width(dev, seq)
+        "(scan_events_aligned per step and batched, detect_impl='pallas', "
+        "legacy step)")
+    aligned_launches, k5_err = aligned_full_width(dev, seq)
+    timings["compact_payload_rows"]["max_abs_err"] = max(
+        timings["compact_payload_rows"]["max_abs_err"], k5_err)
     # the earlier phases' workloads go before the 33.5M run
     del seq, ctx
     torch.cuda.empty_cache()

@@ -1,11 +1,13 @@
 """Device time of the ordered-compaction kernels of one checkout.
 
-Times K3 (``compact_payload_pair``), K4 (``compact_payload``), K18
-(``compact_events``) and K19 (``compact_rows``) on seeded synthetic
-inputs at ``chip_smoke.py``'s shapes, and K3 once more on one halo at
-the aligned engine's widest row (``K3_wide``, ``[1, 1 << 19]``), after
-checking each against its plain version, and prints one JSON line of
-milliseconds.  Two checkouts
+Times K1 (``compact_angle_blocked``), K3 (``compact_payload_pair``), K4
+(``compact_payload``), K18 (``compact_events``) and K19
+(``compact_rows``) on seeded synthetic inputs at ``chip_smoke.py``'s
+shapes, K18 once more with every lane an event (``K18_full``: every
+row's k128 outputs full), and K3 once more on one halo at the aligned
+engine's widest row (``K3_wide``, ``[1, 1 << 19]``), after checking each
+against its plain version, and prints one JSON line of milliseconds.
+Two checkouts
 are compared on one card by running it in each, in the order A, B, B, A:
 
     python3 compaction_ab.py PATH_TO_CHECKOUT_A old
@@ -94,6 +96,27 @@ def main(root, tag):
          compact.compact_payload_pair_torch(pw, aw, k))
     out["K3_wide"] = cs.cuda_ms(
         lambda: compact.compact_payload_pair(pw, aw, k))
+    # drawn last, from their own generator, so the inputs above stay
+    # those of the earlier versions of this script
+    rng = np.random.default_rng(2)
+    h, p, k = cs.ANGLE_ROWS
+    # K1 at [64, 32768], 1.7 % events, the f16 clamp lanes in row 0
+    ang = rng.uniform(0, 7, (h, p)).astype(np.float32)
+    sel = rng.random((h, p)) < 0.017
+    ang[0, :4] = [65504.0, 65519.0, 65520.0, 1e30]
+    sel[0, :4] = True
+    x = dev(ang.view(np.uint32) | (sel.astype(np.uint32) << np.uint32(31)))
+    same([compact.compact_angle_blocked(x, k)],
+         [compact.compact_angle_blocked_torch(x, k)])
+    out["K1"] = cs.cuda_ms(lambda: compact.compact_angle_blocked(x, k))
+    # K18 with every lane an event: each row's k128 outputs full
+    key, sv = words((h, p)), words((h, p))
+    full = dev(rng.integers(0, 1 << 31, (h, p)).astype(np.uint32)
+               | np.uint32(1 << 31))
+    same(compact.compact_events(full, key, sv, k),
+         compact.compact_events_torch(full, key, sv, k))
+    out["K18_full"] = cs.cuda_ms(
+        lambda: compact.compact_events(full, key, sv, k))
     print(json.dumps(out), flush=True)
 
 

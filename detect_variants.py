@@ -1,11 +1,14 @@
-"""Device time of variants of K1/K2, K3 and K4/K5 (``csrc/compact.cu``
-compact_angle_rows, compact_pair_rows and compact_payload_rows, one tile
-kernel), K19 (``csrc/compact.cu`` compact_rows_groups), K8
+"""Device time of variants of K1/K2, K3, K4/K5 and K18
+(``csrc/compact.cu`` compact_angle_rows, compact_pair_rows,
+compact_payload_rows and compact_events_rows, one tile kernel), K19
+(``csrc/compact.cu`` compact_rows_groups), K8
 (``csrc/label.cu`` detect_label_compact_rows), K15 and K16
 (``csrc/merge.cu`` merge_rows and fused_join_detect) and K17
 (``csrc/static.cu`` static_detect_rows) on ``chip_smoke.py`` phase 3's
 inputs, in one process (K3 at phase 3's ``[4, 262144]`` and at one halo
-of ``[1, 1 << 19]``; K19 with group a of six channels and of one).
+of ``[1, 1 << 19]``; K18 on phase 3's static step, on 2 % events and on
+every lane an event at ``[64, 32768]``; K19 with group a of six channels
+and of one).
 
 Each variant is the checked-in source with a few text substitutions: a
 tile shape (threads a block, entries a thread) or a phase left out.  A
@@ -14,16 +17,16 @@ to show what that phase costs; the others are checked bit for bit
 against the plain versions.  Every variant is built by its own ``nvcc``
 (all started together) into its own library next to the package's
 git-ignored build directory, so the package's own build is untouched;
-K1, K3, K4, K8, K15 and K19 variants run through the package's own
+K1, K3, K4, K8, K15, K18 and K19 variants run through the package's own
 wrappers with the variant library in place of the package's (a K1 tile
 shape is K4's too: the two share the kernel).  Prints one line a variant
 and input:
 its name, then the milliseconds of two timings (``chip_smoke.cuda_ms``)
 and, for a variant that leaves a phase out, the count of output lanes
 that differ.  It needs a CUDA card; the argument picks the kernels (all
-eight by default):
+nine by default):
 
-    python3 detect_variants.py [K1,K3,K4,K8,K15,K16,K17,K19]
+    python3 detect_variants.py [K1,K3,K4,K8,K15,K16,K17,K18,K19]
 """
 import ctypes
 import os
@@ -52,12 +55,13 @@ def shape(vt_line, vt, threads, threads_line="constexpr int kThreads = 256;"):
 
 #: The source of each kernel's variants.
 SOURCES = {"K1": "compact.cu", "K3": "compact.cu", "K4": "compact.cu",
+           "K18": "compact.cu",
            "K8": "label.cu", "K15": "merge.cu", "K16": "merge.cu",
            "K17": "static.cu", "K19": "compact.cu"}
 #: The kernel function each variant's ptxas lines are printed for (a
 #: part of its mangled name).
 KERNEL_FUNCTIONS = {"K1": "AngleWords", "K3": "PairWords",
-                    "K4": "PayloadWords",
+                    "K4": "PayloadWords", "K18": "EventWords",
                     "K19": "compact_groups_kernel",
                     "K8": "detect_label_compact_kernel",
                     "K15": "merge_rows_kernel",
@@ -70,7 +74,7 @@ K15_SHAPE = ("constexpr int kMergeVT = 4;",
              "constexpr int kMergeThreads = 256;")
 K8_SHAPE = ("constexpr int kCompactVT = 4;",
             "constexpr int kCompactThreads = 256;")
-K3_VT = "constexpr int kPairVT = 8;"
+K18_VT = "constexpr int kEventVT = 8;"
 K19_VT = ("constexpr int kGroupVT = 8;",
           "constexpr int kGroupThreads = 256;")
 K19_CAP = "constexpr int kGroupBCap = 8;"
@@ -112,6 +116,11 @@ VARIANTS = [
     ("K3", "shipped (256 threads x 16, K1/K4's shape)", [], True),
     ("K3", "256 x 8", [vt(K4_SHAPE[0], 8)], True),
     ("K3", "256 x 32", [vt(K4_SHAPE[0], 32)], True),
+    ("K18", "shipped (256 threads x 8)", [], True),
+    ("K18", "256 x 4", [vt(K18_VT, 4)], True),
+    ("K18", "256 x 16", [vt(K18_VT, 16)], True),
+    ("K18", "256 x 32", [vt(K18_VT, 32)], True),
+    ("K18", "no look-back", [ROW_LOOKBACK], False),
     ("K19", "shipped (256 threads x 8, 4 blocks an SM)", [], True),
     ("K19", "256 x 4, 6 blocks an SM", [vt(K19_VT[0], 4), k19_blocks(6)],
      True),
@@ -308,7 +317,34 @@ def pair_calls(cs, dev):
     return out
 
 
-def main(which="K1,K3,K4,K8,K15,K16,K17,K19"):
+def event_calls(cs, dev):
+    """K18's calls on phase 3's input (static step 2), on ``[64, 32768]``
+    rows with 2 % events and with every lane an event (each row's k128
+    outputs full), each with its plain version's outputs: ``[(label, fn,
+    want)]``."""
+    import numpy as np
+    import torch
+
+    import kernel_ab
+    from orbitanalysis_tpu_torch.ops import compact
+
+    rng = np.random.default_rng(1)
+    h, p, k = cs.ANGLE_ROWS
+    out = [(" phase 3", kernel_ab.k18_args(cs, dev))]
+    for tag, density in ((" 2 %", 0.02), (" every lane", 1.0)):
+        sel = rng.random((h, p)) < density
+        planes = [rng.integers(0, 1 << 31, (h, p)).astype(np.uint32)
+                  | (sel.astype(np.uint32) << np.uint32(31)),
+                  rng.integers(0, 1 << 32, (h, p), dtype=np.uint64).astype(
+                      np.uint32),
+                  rng.integers(0, 1 << 31, (h, p)).astype(np.uint32)]
+        out.append((tag, [torch.from_numpy(x.view(np.int32)).to(dev)
+                          for x in planes] + [k]))
+    return [(tag, lambda a=a: compact.compact_events(*a),
+             compact.compact_events_torch(*a)) for tag, a in out]
+
+
+def main(which="K1,K3,K4,K8,K15,K16,K17,K18,K19"):
     sys.path.insert(0, ROOT)
     import torch
 
@@ -328,6 +364,8 @@ def main(which="K1,K3,K4,K8,K15,K16,K17,K19"):
                        (compact.compact_angle_blocked_torch(x, k1),))
     if "K3" in which:
         calls["K3"] = pair_calls(cs, dev)
+    if "K18" in which:
+        calls["K18"] = event_calls(cs, dev)
     if "K19" in which:
         calls["K19"] = [
             (tag, lambda a=a: sum(compact.compact_rows(*a), ()),
@@ -366,10 +404,11 @@ def main(which="K1,K3,K4,K8,K15,K16,K17,K19"):
           "K4 on the payload plane and K8 on the inputs of label step 3, "
           "K15 on unfused sorted churn step 2 (six channels), K16 on sorted "
           "churn step 2, K17 on aligned churn step 2 (native), [64, 32768]; "
-          "K3 on 3 % events; K19 on unfused sorted churn step 2",
+          "K3 on 3 % events; K18 on sorted static step 2 and synthetic "
+          "rows; K19 on unfused sorted churn step 2",
           flush=True)
     for i, (kernel, name, _, checked) in enumerate(variants):
-        if kernel in ("K3", "K19"):
+        if kernel in ("K3", "K18", "K19"):
             runs = [(f" {tag}", with_library(libs[i], fn), want)
                     for tag, fn, want in calls[kernel]]
             runs = [(tag, fn, fn, want) for tag, fn, want in runs]

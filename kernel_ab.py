@@ -24,14 +24,18 @@ K16 and K17 on phase 3's inputs (the bench's first three snapshots at
 K17 of the aligned churn step, native, and of the legacy aligned static
 step).  K19 (not in the default set) runs on phase 3's inputs, sorted
 churn step 2 of the unfused routes: group a of six channels (merge by
-sort) and of one (merge by K15).  K1, K4, K8, K15, K16, K17 and K19 are
-checked bit for bit against their plain versions and against a second
-call, and their device time is split by CUDA kernel (torch.profiler).
+sort) and of one (merge by K15).  K18 (not in the default set either)
+runs on phase 3's input, the event compaction's arguments at step 2 of
+the bench's static sequence staged ID-sorted.  K1, K4, K8, K15, K16, K17,
+K18 and K19 are checked bit for bit against their plain versions and
+against a second call, and their device time is split by CUDA kernel
+(torch.profiler).
 ``STEPS`` (not in the default set) runs phases 8 and 10's step timings
 on the bench's churn sequence through the checkout's own
 ``chip_smoke.time_scan``, which prints them: wall, device span and busy
 ms a step, the host's ms to issue one, kernels a step, idle share; the
-unfused sorted route (K15 + K19) on phase 8's first 12 snapshots too.
+unfused sorted route (K15 + K19) on phase 8's first 12 snapshots and
+the sorted step on the 12 static snapshots (K16, then K18) too.
 ``LABEL_STEPS`` (not in the default set either) runs phase 7's label
 step timings (``'split'``, ``'fused'``, ``'pallas'``) on the bench's
 label sequence through the checkout's own
@@ -380,6 +384,30 @@ def k19_times(cs, dev):
     return out
 
 
+def k18_args(cs, dev):
+    """Phase 3's K18 input: the event compaction's arguments at step 2 of
+    the bench's static sequence (its first three snapshots, which the
+    generator makes as it makes the first three of 12), staged
+    ID-sorted."""
+    from orbitanalysis_tpu_torch.models.synthetic import static_workload
+    from orbitanalysis_tpu_torch.ops import sorted_step as tss
+
+    h, p = cs.LABEL[:2]
+    stack = sorted_stack(dev, static_workload(h, p, 3, seed=0))
+    return cs.staged_call(dev, stack, tss, "compact_events", fused=True)
+
+
+def k18_times(cs, dev):
+    """K18 on phase 3's input, its three outputs bit for bit."""
+    from orbitanalysis_tpu_torch.ops import compact
+
+    a = k18_args(cs, dev)
+    out = checked_times(cs, "K18", lambda: compact.compact_events(*a),
+                        lambda: compact.compact_events_torch(*a))
+    out["K18_events"] = int((a[0] < 0).sum())
+    return out
+
+
 def k15_times(cs, dev):
     """K15 on phase 3's input, every channel bit for bit."""
     from orbitanalysis_tpu_torch.ops import merge
@@ -450,9 +478,13 @@ def step_times(cs, dev):
     snapshots of [64, 32768]), through the checkout's own
     ``chip_smoke.time_scan``, which prints them: the fused sorted step
     (K16), the unfused sorted route (K15 + K19) on phase 8's first
-    ``SORTED_CHECK`` snapshots, and the aligned ``'xla'``, ``'pallas'``
-    (K17) and legacy (K17) steps."""
-    from orbitanalysis_tpu_torch.models.synthetic import churn_workload
+    ``SORTED_CHECK`` snapshots, the fused sorted step on the static
+    sequence's ``SORTED_CHECK`` snapshots (K16, then K18), and the
+    aligned ``'xla'``, ``'pallas'`` (K17) and legacy (K17) steps."""
+    from orbitanalysis_tpu_torch.models.synthetic import (
+        churn_workload,
+        static_workload,
+    )
     from orbitanalysis_tpu_torch.ops import sorted_step as tss
 
     h, p, s_n = cs.LABEL
@@ -473,6 +505,13 @@ def step_times(cs, dev):
                                             compact_impl="pallas", **kw),
                  init)
     del stack, head
+    static = static_workload(h, p, n_chk, seed=0)
+    stack = sorted_stack(dev, static)
+    cs.time_scan(dev, stack, n_chk, static[4],
+                 "sorted step, static (K18 after the first step)",
+                 tss.make_sorted_orbit_step(cs.LABEL_K, fused=True, **kw),
+                 init)
+    del stack, static
     aligned = cs.stage_aligned(dev, churn, s_n)
     kw = dict(box_size=cs.LABEL_BOX, soa_batch=True)
     for what, step, init in (
@@ -508,6 +547,8 @@ def main(root, tag, which="K1,K4,K8,K10,K13,K14,K15,K16,K17"):
         out.update(k1_times(cs, dev))
     if "K15" in which:
         out.update(k15_times(cs, dev))
+    if "K18" in which:
+        out.update(k18_times(cs, dev))
     if "K19" in which:
         out.update(k19_times(cs, dev))
     if {"K4", "K8", "K10"} & set(which):
@@ -557,6 +598,6 @@ def main(root, tag, which="K1,K4,K8,K10,K13,K14,K15,K16,K17"):
 if __name__ == "__main__":
     if len(sys.argv) not in (3, 4):
         raise SystemExit("usage: python3 kernel_ab.py CHECKOUT TAG "
-                         "[K1,K4,K8,K10,K13,K14,K15,K16,K17,K19,STEPS,"
+                         "[K1,K4,K8,K10,K13,K14,K15,K16,K17,K18,K19,STEPS,"
                          "LABEL_STEPS]")
     main(*sys.argv[1:])

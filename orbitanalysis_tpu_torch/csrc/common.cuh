@@ -53,35 +53,6 @@ __device__ __forceinline__ float acos_f32(float x) {
   return ax > 0.5f ? acos_big : acos_small;
 }
 
-// Exclusive offset of this warp's selected entries within a tile of
-// kWarps * 32 entries, and the tile's total, from each warp's count.
-// Ends with a barrier, so the caller may read both results; the caller
-// must pass a barrier before the next call rewrites the shared arrays.
-template <int kWarps>
-__device__ __forceinline__ void tile_offsets(int warp_count, int* warp_off,
-                                             int* tile_total, int& before,
-                                             int& total) {
-  static_assert(kWarps <= 32, "one warp scans the warp totals");
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) warp_off[warp] = warp_count;
-  __syncthreads();
-  if (warp == 0) {
-    const int t = lane < kWarps ? warp_off[lane] : 0;
-    int incl = t;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int n = __shfl_up_sync(0xffffffffu, incl, d);
-      if (lane >= d) incl += n;
-    }
-    if (lane < kWarps) warp_off[lane] = incl - t;
-    if (lane == kWarps - 1) *tile_total = incl;
-  }
-  __syncthreads();
-  before = warp_off[warp];
-  total = *tile_total;
-}
-
 // ---------------------------------------------------------------------
 // Ordered multi-block compaction by decoupled look-back.
 //
@@ -257,90 +228,7 @@ inline long long lookback_words(int H, int tiles_per_row) {
   return 1 + static_cast<long long>(H) * tiles_per_row;
 }
 
-// Ordered multi-stream compaction (K18): up to kMaxStreams uint32
-// streams of an [H, N] row move together, unchanged and in position
-// order, to the front of an [H, len] row wherever the selection word has
-// a bit of sel_mask set; the outputs past the row's count are written as
-// zero.  The scan stops once the len outputs are full.
+// Channels a merge (K15) or a compaction group (K19) moves together.
 constexpr int kMaxStreams = 6;
-constexpr int kStreamThreads = 1024;
-constexpr int kStreamWarps = kStreamThreads / 32;
-
-struct StreamGroup {
-  const uint32_t* sel;
-  uint32_t sel_mask;
-  const uint32_t* in[kMaxStreams];
-  uint32_t* out[kMaxStreams];
-  int n_streams;
-  int len;
-};
-
-// One block per row (blockIdx.x), walking the row in tiles of
-// kStreamThreads entries: ballot + popc ranks inside a warp, one warp
-// scans the warp totals, a running base carries the count across tiles.
-// kN (>= n_streams) bounds the unrolled stream loops, so every stream's
-// pointer is a fixed field of the kernel's arguments.
-template <int kN>
-__global__ void __launch_bounds__(kStreamThreads)
-compact_streams_kernel(StreamGroup g, int N) {
-  __shared__ int warp_off[kStreamWarps];
-  __shared__ int tile_total;
-  const size_t row = blockIdx.x;
-  const uint32_t* sel = g.sel + row * N;
-  const int lane = threadIdx.x & 31;
-  const uint32_t lanes_below = (1u << lane) - 1u;
-  int base = 0;  // selected entries in earlier tiles: uniform in the block
-  for (int start = 0; start < N && base < g.len; start += kStreamThreads) {
-    const int i = start + threadIdx.x;
-    const bool take = i < N && (__ldg(sel + i) & g.sel_mask) != 0u;
-    // the payload loads are issued before the scan's barriers, so their
-    // latency overlaps the scan instead of following it
-    uint32_t v[kN];
-    if (take) {
-#pragma unroll
-      for (int c = 0; c < kN; ++c) {
-        if (c < g.n_streams) v[c] = __ldg(g.in[c] + row * N + i);
-      }
-    }
-    const uint32_t ballot = __ballot_sync(0xffffffffu, take);
-    int before, total;
-    tile_offsets<kStreamWarps>(__popc(ballot), warp_off, &tile_total, before, total);
-    if (take) {
-      const int off = base + before + __popc(ballot & lanes_below);
-      if (off < g.len) {
-#pragma unroll
-        for (int c = 0; c < kN; ++c) {
-          if (c < g.n_streams) g.out[c][row * g.len + off] = v[c];
-        }
-      }
-    }
-    base += total;
-    __syncthreads();  // warp_off / tile_total are rewritten next tile
-  }
-  for (int j = min(base, g.len) + threadIdx.x; j < g.len; j += kStreamThreads) {
-#pragma unroll
-    for (int c = 0; c < kN; ++c) {
-      if (c < g.n_streams) g.out[c][row * g.len + j] = 0u;
-    }
-  }
-}
-
-// Launch compact_streams_kernel over H rows of length N; returns
-// cudaGetLastError().
-inline int launch_compact_streams(const StreamGroup& g, int H, int N,
-                                  cudaStream_t stream) {
-  if (H > 0) {
-    if (g.n_streams <= 1) {
-      compact_streams_kernel<1><<<H, kStreamThreads, 0, stream>>>(g, N);
-    } else if (g.n_streams <= 2) {
-      compact_streams_kernel<2><<<H, kStreamThreads, 0, stream>>>(g, N);
-    } else if (g.n_streams <= 3) {
-      compact_streams_kernel<3><<<H, kStreamThreads, 0, stream>>>(g, N);
-    } else {
-      compact_streams_kernel<kMaxStreams><<<H, kStreamThreads, 0, stream>>>(g, N);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
-}
 
 }  // namespace

@@ -30,8 +30,9 @@
 //     ((pos + 1) << 15) | f16(angle); an entry is an event where the
 //     word is >= 2^15 (a non-event is 0), and it moves unchanged.
 //   compact_events_rows (K18, the sorted engine's static-membership
-//     branch): packed = f32_bits(angle) | apsis << 31 selects, and the
-//     three streams (key, sv, packed) move together.
+//     branch): packed = f32_bits(angle) | apsis << 31 selects where bit
+//     31 is set, and the three words (key, sv, packed) of each event's
+//     lane move together unchanged.
 //   compact_rows_groups (K19, the sorted engine's compact_impl='pallas'):
 //     two independent groups over [H, N] rows, each with its own int32
 //     0/1 mask, its channel count (1 to 6) and its output length; the
@@ -39,30 +40,27 @@
 //
 // The TPU splits K1/K2 and K4/K5 exist for VMEM and the 16-entry block
 // fronts of the blocked network; here each compaction is exact with no
-// occupancy limit, so nothing reroutes.  Three designs:
-//   one block a row (K18 through common.cuh's compact_streams_kernel,
-//     three streams moving together unchanged): 1024 threads walk the
-//     row in tiles of 1024 entries.  In a tile, __ballot_sync + __popc
-//     give each event its rank inside its warp, warp 0 scans the 32 warp
-//     totals in shared memory, and a running base carries the count
-//     across tiles.
+// occupancy limit, so nothing reroutes.  Two designs:
 //   (row, tile) tiles in arrival order (K1/K2, compact_angle_rows, K3,
-//     compact_pair_rows, and K4/K5, compact_payload_rows: one kernel,
-//     compact_tiles_kernel, whose Words parameter picks the events,
-//     builds each output word at its write and, for K3, carries the
-//     angle word of each event's lane, read only there and before the
-//     scan's barriers): a block takes a tile of kTileThreads x kTileVT
-//     words of one row through common.cuh's claim_tile, loads them
-//     coalesced (word v * kTileThreads + threadIdx.x of the tile is the
-//     thread's v-th), keeps them in registers, ranks the events
-//     (tile_ranks), gets the count of the row's earlier tiles by the
-//     decoupled look-back (lookback_prefix) and writes each event to
-//     prefix + rank where that is below k128; the row's last tile (its
-//     highest index, which may finish before others of the row: they
-//     write below the row's total, it writes at or above) zero-fills
-//     [min(n, k128), k128).  Every tile reads its whole tile, also in a
-//     row whose k128 outputs are full: it cannot know its prefix before
-//     it publishes its own count.
+//     compact_pair_rows, K4/K5, compact_payload_rows, and K18,
+//     compact_events_rows: one kernel, compact_tiles_kernel, whose Words
+//     parameter picks the events, builds each output word at its write,
+//     sets the tile's words a thread and names the side planes (none
+//     for K1 and K4; K3's angle word; K18's key and sv) whose word at
+//     each event's lane moves with it, read only there and before the
+//     scan's barriers): a block takes a tile of kTileThreads x
+//     Words::kVT words of one row through common.cuh's claim_tile,
+//     loads them coalesced (word v * kTileThreads + threadIdx.x of the
+//     tile is the thread's v-th), keeps them in registers, ranks the
+//     events (tile_ranks), gets the count of the row's earlier tiles by
+//     the decoupled look-back (lookback_prefix) and writes each event
+//     to prefix + rank where that is below k128; the row's last tile
+//     (its highest index, which may finish before others of the row:
+//     they write below the row's total, it writes at or above)
+//     zero-fills [min(n, k128), k128) of every output plane.  Every
+//     tile reads its whole tile, also in a row whose k128 outputs are
+//     full: it cannot know its prefix before it publishes its own
+//     count.
 //   (row, tile) tiles in arrival order covering both groups (K19,
 //     compact_rows_groups): as above, with a status array a group and
 //     the two look-backs run at once by two warps.  A tile's channels
@@ -109,8 +107,15 @@
 // K3 takes the same tiles (of 256 x 8, 16 and 32 words, 16 was the
 // fastest at [4, 262144] and at one halo of [1, 1 << 19]): the aligned
 // engine's wide rows come one to four a step, and one block a row kept
-// one to four SMs busy.  What is left above the floor is the launch,
-// the scratch memset and the look-back.
+// one to four SMs busy.  K18 takes them too, at 256 x 8 words: one block
+// a row left 64 of 132 SMs busy at [64, 32768], each tile waiting for
+// its load and two barriers.  Its key and sv words are a second round
+// of loads, issued at the events before the scan's barriers; at 16 words
+// they hold 99 registers a thread (two blocks an SM), at 8 words 60
+// (four), and 256 x 8 was the fastest of 256 x 8, 16 and 32 on phase 3's
+// static step (detect_variants.py).  What is left above the floor is
+// the launch, the scratch memset, the look-back and, for K18, the
+// second round of loads.
 //
 // The only float work is one multiply by the exact power of two 2^24,
 // so FMA contraction cannot change a result; the build still passes
@@ -120,18 +125,27 @@
 
 namespace {
 
-// K1/K2, K3 and K4/K5: tiles of kTileWords words in arrival order.
-// Words picks the events and builds each one's output word from the
-// input word and its position in the row; with Words::kSide, the word of
-// a second plane at each event's lane (read only there) moves with it.
+// K1/K2, K3, K4/K5 and K18: tiles of kTileThreads x Words::kVT words in
+// arrival order.  Words picks the events and builds each one's output
+// word from the input word and its position in the row; the words of
+// Words::kSides side planes at each event's lane (read only there) move
+// with it.
 constexpr int kTileThreads = 256;
-constexpr int kTileVT = 16;  // words a thread
-constexpr int kTileWords = kTileThreads * kTileVT;
+constexpr int kTileVT = 16;  // words a thread (K1/K2, K3, K4/K5)
+constexpr int kEventVT = 8;   // words a thread (K18)
+constexpr int kMaxSides = 2;
+
+// The side planes of a launch: [H, P] inputs, [H, k128] outputs.
+struct SidePlanes {
+  const uint32_t* in[kMaxSides];
+  uint32_t* out[kMaxSides];
+};
 
 // K1/K2: an event is a word with bit 31 set; its output word is the
 // positional payload ((x + 1) << 15) | f16_rne(angle).
 struct AngleWords {
-  static constexpr bool kSide = false;
+  static constexpr int kSides = 0;
+  static constexpr int kVT = kTileVT;
   static __device__ __forceinline__ bool take(uint32_t w) { return (w >> 31) != 0u; }
   static __device__ __forceinline__ uint32_t word(uint32_t w, int x) {
     const float ang = __int_as_float(static_cast<int32_t>(w & 0x7FFFFFFFu));
@@ -141,7 +155,8 @@ struct AngleWords {
 
 // K4/K5: an event is a word >= 2^15, moved unchanged.
 struct PayloadWords {
-  static constexpr bool kSide = false;
+  static constexpr int kSides = 0;
+  static constexpr int kVT = kTileVT;
   static __device__ __forceinline__ bool take(uint32_t w) {
     return (w & 0xFFFF8000u) != 0u;
   }
@@ -151,80 +166,113 @@ struct PayloadWords {
 // K3: an event is a nonzero position word, moved unchanged; the angle
 // word of its lane moves with it.
 struct PairWords {
-  static constexpr bool kSide = true;
+  static constexpr int kSides = 1;
+  static constexpr int kVT = kTileVT;
   static __device__ __forceinline__ bool take(uint32_t w) { return w != 0u; }
+  static __device__ __forceinline__ uint32_t word(uint32_t w, int) { return w; }
+};
+
+// K18: an event is a packed word with bit 31 set, moved unchanged; the
+// key and sv words of its lane move with it.
+struct EventWords {
+  static constexpr int kSides = 2;
+  static constexpr int kVT = kEventVT;
+  static __device__ __forceinline__ bool take(uint32_t w) { return (w >> 31) != 0u; }
   static __device__ __forceinline__ uint32_t word(uint32_t w, int) { return w; }
 };
 
 template <typename Words>
 __global__ void __launch_bounds__(kTileThreads)
-compact_tiles_kernel(const uint32_t* __restrict__ in_rows,
-                     const uint32_t* __restrict__ side_rows, uint32_t* __restrict__ out,
-                     uint32_t* __restrict__ side_out, unsigned long long* scratch, int P,
-                     int tiles, int k128) {
+compact_tiles_kernel(const uint32_t* __restrict__ in_rows, uint32_t* __restrict__ out,
+                     SidePlanes sides, unsigned long long* scratch, int P, int tiles,
+                     int k128) {
+  constexpr int kVT = Words::kVT;
+  constexpr int kWords = kTileThreads * kVT;
+  constexpr int kSides = Words::kSides;
+  static_assert(kSides <= kMaxSides, "too many side planes");
   __shared__ int slot;
-  __shared__ int counts[kTileVT * (kTileThreads / 32) + 1];
+  __shared__ int counts[kVT * (kTileThreads / 32) + 1];
   const int tile = claim_tile(scratch, &slot);
   const int row = tile / tiles;
   const int t = tile - row * tiles;
   const size_t base = static_cast<size_t>(row) * P;
-  uint32_t w[kTileVT];
-  bool take[kTileVT];
+  uint32_t w[kVT];
+  bool take[kVT];
 #pragma unroll
-  for (int v = 0; v < kTileVT; ++v) {
-    const int x = t * kTileWords + v * kTileThreads + threadIdx.x;
+  for (int v = 0; v < kVT; ++v) {
+    const int x = t * kWords + v * kTileThreads + threadIdx.x;
     w[v] = x < P ? __ldg(in_rows + base + x) : 0u;
     take[v] = Words::take(w[v]);
   }
   // the side words at the events, loaded before the scan's barriers
-  uint32_t side[kTileVT];
-  if constexpr (Words::kSide) {
+  uint32_t side[kSides > 0 ? kSides : 1][kVT];
 #pragma unroll
-    for (int v = 0; v < kTileVT; ++v) {
-      const int x = t * kTileWords + v * kTileThreads + threadIdx.x;
-      side[v] = take[v] ? __ldg(side_rows + base + x) : 0u;
+  for (int c = 0; c < kSides; ++c) {
+#pragma unroll
+    for (int v = 0; v < kVT; ++v) {
+      const int x = t * kWords + v * kTileThreads + threadIdx.x;
+      side[c][v] = take[v] ? __ldg(sides.in[c] + base + x) : 0u;
     }
   }
-  int rank[kTileVT];
-  const int total = tile_ranks<kTileThreads, kTileVT>(take, rank, counts);
+  int rank[kVT];
+  const int total = tile_ranks<kTileThreads, kVT>(take, rank, counts);
   const int before =
       lookback_prefix(scratch + 1 + static_cast<size_t>(row) * tiles, t, total, &slot);
-  uint32_t* o = out + static_cast<size_t>(row) * k128;
-  uint32_t* so = Words::kSide ? side_out + static_cast<size_t>(row) * k128 : nullptr;
+  const size_t out_row = static_cast<size_t>(row) * k128;
+  uint32_t* o = out + out_row;
 #pragma unroll
-  for (int v = 0; v < kTileVT; ++v) {
+  for (int v = 0; v < kVT; ++v) {
     const int dst = before + rank[v];
     if (take[v] && dst < k128) {
-      o[dst] = Words::word(w[v], t * kTileWords + v * kTileThreads + threadIdx.x);
-      if constexpr (Words::kSide) so[dst] = side[v];
+      o[dst] = Words::word(w[v], t * kWords + v * kTileThreads + threadIdx.x);
+#pragma unroll
+      for (int c = 0; c < kSides; ++c) sides.out[c][out_row + dst] = side[c][v];
     }
   }
   if (t == tiles - 1) {
     finish_row(o, k128, before + total, nullptr);
-    if constexpr (Words::kSide) finish_row(so, k128, before + total, nullptr);
+#pragma unroll
+    for (int c = 0; c < kSides; ++c) {
+      finish_row(sides.out[c] + out_row, k128, before + total, nullptr);
+    }
   }
 }
 
-int row_tiles(int P) { return (P + kTileWords - 1) / kTileWords; }
+template <typename Words>
+int row_tiles(int P) {
+  constexpr int kWords = kTileThreads * Words::kVT;
+  return (P + kWords - 1) / kWords;
+}
+
+// Scratch words (int64) a launch of compact_tiles_kernel<Words> over H
+// rows of P needs.
+template <typename Words>
+long long tiles_scratch(int H, int P) {
+  return lookback_words(H, row_tiles<Words>(P));
+}
 
 // Zeroes the look-back scratch (scratch_words int64 words, at least
-// lookback_words(H, row_tiles(P))) on the stream, then launches
-// compact_tiles_kernel<Words> (side / side_out: K3's angle planes, else
-// nullptr).
+// tiles_scratch<Words>(H, P)) on the stream, then launches
+// compact_tiles_kernel<Words> (side_in / side_out: the Words::kSides
+// side planes).
 template <typename Words>
-int launch_tiles(const void* in, const void* side, void* out, void* side_out,
-                 void* scratch, long long scratch_words, int H, int P, int k128,
-                 void* stream) {
+int launch_tiles(const void* in, void* out, const void* const* side_in,
+                 void* const* side_out, void* scratch, long long scratch_words, int H,
+                 int P, int k128, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (H <= 0 || P <= 0) return static_cast<int>(cudaGetLastError());
-  const int tiles = row_tiles(P);
+  const int tiles = row_tiles<Words>(P);
   const long long words = lookback_words(H, tiles);
   if (scratch_words < words) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t rc = cudaMemsetAsync(scratch, 0, words * sizeof(unsigned long long), s);
   if (rc != cudaSuccess) return static_cast<int>(rc);
+  SidePlanes sides{};
+  for (int c = 0; c < Words::kSides; ++c) {
+    sides.in[c] = static_cast<const uint32_t*>(side_in[c]);
+    sides.out[c] = static_cast<uint32_t*>(side_out[c]);
+  }
   compact_tiles_kernel<Words><<<static_cast<unsigned>(words - 1), kTileThreads, 0, s>>>(
-      static_cast<const uint32_t*>(in), static_cast<const uint32_t*>(side),
-      static_cast<uint32_t*>(out), static_cast<uint32_t*>(side_out),
+      static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), sides,
       static_cast<unsigned long long*>(scratch), P, tiles, k128);
   return static_cast<int>(cudaGetLastError());
 }
@@ -422,24 +470,6 @@ cudaError_t allow_group_smem() {
   return rc;
 }
 
-// One group of common.cuh's multi-stream scan: n uint32 streams of [H, P]
-// rows selected where sel & sel_mask != 0, each moved unchanged into the
-// front of [H, k128] rows.
-int launch_one_group(const void* sel, uint32_t sel_mask, const void* const* in,
-                     void* const* out, int n, int H, int P, int k128,
-                     void* stream) {
-  StreamGroup g{};
-  g.sel = static_cast<const uint32_t*>(sel);
-  g.sel_mask = sel_mask;
-  for (int c = 0; c < n; ++c) {
-    g.in[c] = static_cast<const uint32_t*>(in[c]);
-    g.out[c] = static_cast<uint32_t*>(out[c]);
-  }
-  g.n_streams = n;
-  g.len = k128;
-  return launch_compact_streams(g, H, P, static_cast<cudaStream_t>(stream));
-}
-
 }  // namespace
 
 // Each entry point launches on the caller's stream and returns
@@ -448,7 +478,7 @@ int launch_one_group(const void* sel, uint32_t sel_mask, const void* const* in,
 
 // Scratch words (int64) compact_angle_rows needs for H rows of P.
 extern "C" long long compact_angle_rows_scratch(int H, int P) {
-  return lookback_words(H, row_tiles(P));
+  return tiles_scratch<AngleWords>(H, P);
 }
 
 // K1/K2: zeroes the look-back scratch (scratch_words int64 words, at
@@ -456,13 +486,13 @@ extern "C" long long compact_angle_rows_scratch(int H, int P) {
 extern "C" int compact_angle_rows(const void* aw, void* out, void* scratch,
                                   long long scratch_words, int H, int P,
                                   int k128, void* stream) {
-  return launch_tiles<AngleWords>(aw, nullptr, out, nullptr, scratch, scratch_words, H,
+  return launch_tiles<AngleWords>(aw, out, nullptr, nullptr, scratch, scratch_words, H,
                                   P, k128, stream);
 }
 
 // Scratch words (int64) compact_pair_rows needs for H rows of P.
 extern "C" long long compact_pair_rows_scratch(int H, int P) {
-  return lookback_words(H, row_tiles(P));
+  return tiles_scratch<PairWords>(H, P);
 }
 
 // K3: zeroes the look-back scratch (scratch_words int64 words, at least
@@ -471,17 +501,28 @@ extern "C" int compact_pair_rows(const void* posw, const void* angw,
                                  void* out_pos, void* out_ang, void* scratch,
                                  long long scratch_words, int H, int P,
                                  int k128, void* stream) {
-  return launch_tiles<PairWords>(posw, angw, out_pos, out_ang, scratch, scratch_words,
-                                 H, P, k128, stream);
+  const void* side_in[1] = {angw};
+  void* side_out[1] = {out_ang};
+  return launch_tiles<PairWords>(posw, out_pos, side_in, side_out, scratch,
+                                 scratch_words, H, P, k128, stream);
 }
 
+// Scratch words (int64) compact_events_rows needs for H rows of P.
+extern "C" long long compact_events_rows_scratch(int H, int P) {
+  return tiles_scratch<EventWords>(H, P);
+}
+
+// K18: zeroes the look-back scratch (scratch_words int64 words, at least
+// compact_events_rows_scratch(H, P)) on the stream, then launches.
 extern "C" int compact_events_rows(const void* packed, const void* key,
-                                   const void* sv, void* out_key, void* out_sv,
-                                   void* out_packed, int H, int P, int k128,
+                                   const void* sv, void* out_packed, void* out_key,
+                                   void* out_sv, void* scratch,
+                                   long long scratch_words, int H, int P, int k128,
                                    void* stream) {
-  const void* in[3] = {key, sv, packed};
-  void* out[3] = {out_key, out_sv, out_packed};
-  return launch_one_group(packed, 0x80000000u, in, out, 3, H, P, k128, stream);
+  const void* side_in[2] = {key, sv};
+  void* side_out[2] = {out_key, out_sv};
+  return launch_tiles<EventWords>(packed, out_packed, side_in, side_out, scratch,
+                                  scratch_words, H, P, k128, stream);
 }
 
 // Scratch words (int64) compact_rows_groups needs for H rows of N.
@@ -536,7 +577,7 @@ extern "C" int compact_rows_groups(const void* sel_a, const void* const* in_a,
 
 // Scratch words (int64) compact_payload_rows needs for H rows of P.
 extern "C" long long compact_payload_rows_scratch(int H, int P) {
-  return lookback_words(H, row_tiles(P));
+  return tiles_scratch<PayloadWords>(H, P);
 }
 
 // K4/K5: zeroes the look-back scratch (scratch_words int64 words, at
@@ -544,6 +585,6 @@ extern "C" long long compact_payload_rows_scratch(int H, int P) {
 extern "C" int compact_payload_rows(const void* pay, void* out, void* scratch,
                                     long long scratch_words, int H, int P,
                                     int k128, void* stream) {
-  return launch_tiles<PayloadWords>(pay, nullptr, out, nullptr, scratch, scratch_words,
+  return launch_tiles<PayloadWords>(pay, out, nullptr, nullptr, scratch, scratch_words,
                                     H, P, k128, stream);
 }

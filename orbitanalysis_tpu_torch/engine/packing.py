@@ -159,7 +159,8 @@ class StableLayout:
         return dest, valid
 
 
-def align_packed(layout: StableLayout, ids, pos, vel, mass=None):
+def align_packed(layout: StableLayout, ids, pos, vel, mass=None, out=None,
+                 soa: bool = False):
     """Re-stage front-packed ``[H, P]`` load-order rows into ``layout``'s
     persistent positions (updates the layout).
 
@@ -167,15 +168,17 @@ def align_packed(layout: StableLayout, ids, pos, vel, mass=None):
     is a permutation of ``[0, P)`` per row: the load-order index at
     occupied positions, with the unused slot numbers over the holes in
     position order.  ``FRESH_BIT`` flags positions whose tenant changed
-    since the previous snapshot.  The i32/f32 and i64/f32 cases run
-    through the native pass when it is available; the NumPy path below
-    computes the same result.
+    since the previous snapshot.  ``soa=True`` returns ``pos``/``vel``
+    as ``[3, H, P]`` planes; ``out=(ids, pos, vel, mass, slot)`` writes
+    into the caller's C-contiguous buffers and returns them.  The
+    i32/f32 and i64/f32 cases run through the native pass when it is
+    available; the NumPy path below computes the same result.
     """
     from orbitanalysis_tpu_torch import native
 
     res = native.stable_align_native(
-        layout.layout, ids, pos, vel, mass, layout.invalid
-    )
+        layout.layout, ids, pos, vel, mass, layout.invalid, out=out,
+        soa=soa)
     if res is not None:
         return res
     # .assign replaces layout.layout, so this stays the pre-alignment
@@ -187,9 +190,9 @@ def align_packed(layout: StableLayout, ids, pos, vel, mass=None):
     rv, dv = r_idx[valid], dest[valid]
 
     def scatter(v, fill):
-        out = np.full(v.shape, fill, v.dtype)
-        out[rv, dv] = v[valid]
-        return out
+        o = np.full(v.shape, fill, v.dtype)
+        o[rv, dv] = v[valid]
+        return o
 
     ids_o = scatter(ids, layout.invalid)
     pos_o = np.zeros_like(pos)
@@ -206,7 +209,20 @@ def align_packed(layout: StableLayout, ids, pos, vel, mass=None):
     hole_rank = (np.cumsum(hole, axis=-1) - 1).astype(np.int32)
     slot = np.where(hole, n_valid[:, None] + hole_rank, slot)
     fresh = (ids_o != layout.invalid) & (ids_o != old_layout)
-    return ids_o, pos_o, vel_o, mass_o, slot | (fresh * FRESH_BIT)
+    slot_o = slot | (fresh * FRESH_BIT)
+    if soa:
+        pos_o = np.ascontiguousarray(np.moveaxis(pos_o, -1, 0))
+        vel_o = np.ascontiguousarray(np.moveaxis(vel_o, -1, 0))
+    if out is None:
+        return ids_o, pos_o, vel_o, mass_o, slot_o
+    o_ids, o_pos, o_vel, o_mass, o_slot = out
+    o_ids[...] = ids_o
+    o_pos[...] = pos_o
+    o_vel[...] = vel_o
+    if o_mass is not None:
+        o_mass[...] = mass_o
+    o_slot[...] = slot_o
+    return o_ids, o_pos, o_vel, o_mass, o_slot
 
 
 def pack_snapshot_aligned(
@@ -236,6 +252,68 @@ def pack_snapshot_aligned(
         layout, load.ids, load.pos, load.vel, load.mass
     )
     return load._replace(ids=ids, pos=pos, vel=vel, mass=mass, slot=slot)
+
+
+def stage_batch_aligned(batch, layout: Optional[StableLayout] = None,
+                        soa: bool = False):
+    """Stage a :class:`~orbitanalysis_tpu_torch.ops.apsis.SnapshotBatch`
+    of NumPy arrays (one snapshot, or ``[S, ...]``-stacked) in the
+    stable layout: the aligned engine's staging, as
+    :func:`~orbitanalysis_tpu_torch.ops.sorted_step.presort_snapshot` is
+    the sorted engine's.
+
+    Rows must be front-packed in load order (invalid-padded tails).  The
+    snapshots are aligned in sequence order against one persistent
+    ``layout`` (a new one if not given), so consecutive staged snapshots
+    are element-wise aligned for the aligned steps.  ``soa=True`` also
+    stages ``pos``/``vel`` as ``[3, H, P]`` (stacked ``[S, 3, H, P]``).
+    Returns the batch with ``ids``, ``pos``, ``vel``, ``mass`` and
+    ``slot`` replaced by host arrays.
+    """
+    from orbitanalysis_tpu_torch import native
+
+    ids = np.asarray(batch.ids)
+    stacked = ids.ndim == 3
+    seq = ids if stacked else ids[None]
+    S, H, P = seq.shape
+    if layout is None:
+        layout = StableLayout(H, P, id_dtype=ids.dtype)
+    pos = np.asarray(batch.pos).reshape(S, H, P, 3)
+    vel = np.asarray(batch.vel).reshape(S, H, P, 3)
+    mass = None if batch.mass is None else (
+        np.asarray(batch.mass).reshape(S, H, P))
+    # one allocation for the whole sequence, each snapshot aligned
+    # straight into its slice (out=); np.zeros (calloc), not np.empty:
+    # first touch of a large malloc'd block may enter transparent-huge-
+    # page compaction, and the alignment writes every byte anyway
+    vshape = (S, 3, H, P) if soa else (S, H, P, 3)
+    o_ids = np.zeros(seq.shape, seq.dtype)
+    o_pos = np.zeros(vshape, pos.dtype)
+    o_vel = np.zeros(vshape, vel.dtype)
+    o_mass = None if mass is None else np.zeros(mass.shape, mass.dtype)
+    o_slot = np.zeros((S, H, P), np.int32)
+    # the native sequence pass keeps each row's hash table across the
+    # snapshots; else one alignment a snapshot
+    res = native.stable_align_seq_native(
+        layout.layout, np.ascontiguousarray(seq),
+        np.ascontiguousarray(pos, dtype=np.float32),
+        np.ascontiguousarray(vel, dtype=np.float32),
+        None if mass is None else np.ascontiguousarray(
+            mass, dtype=np.float32),
+        layout.invalid, out=(o_ids, o_pos, o_vel, o_mass, o_slot), soa=soa)
+    if res is None:
+        for s in range(S):
+            align_packed(
+                layout, seq[s], pos[s], vel[s],
+                None if mass is None else mass[s],
+                out=(o_ids[s], o_pos[s], o_vel[s],
+                     None if o_mass is None else o_mass[s], o_slot[s]),
+                soa=soa)
+    if not stacked:
+        o_ids, o_pos, o_vel, o_slot = o_ids[0], o_pos[0], o_vel[0], o_slot[0]
+        o_mass = None if o_mass is None else o_mass[0]
+    return batch._replace(ids=o_ids, pos=o_pos, vel=o_vel, mass=o_mass,
+                          slot=o_slot)
 
 
 def pack_snapshot(

@@ -68,6 +68,9 @@ def _declare(lib):
     lib.stable_align3_i64.argtypes = [
         p, p, p, p, p, i64, i64, i64, p, p, p, p, p, i32]
     lib.stable_align3_i64.restype = i64
+    lib.stable_align_seq1.argtypes = [
+        p, p, p, p, p, i64, i64, i64, i32, p, p, p, p, p, i32]
+    lib.stable_align_seq1.restype = i64
 
 
 def ensure():
@@ -117,14 +120,40 @@ def pack_ragged_native(values, offsets, n_rows, capacity, rows, fill):
     return out
 
 
-def stable_align_native(layout, ids, pos, vel, mass, invalid):
+def _check_out(what, out, mass, plane, vshape, id_dt):
+    """``out = (ids_o, pos_o, vel_o, mass_o, slot)`` must be C-contiguous
+    buffers of exactly the shapes and dtypes the pass writes (``plane``
+    for the IDs, masses and slots, ``vshape`` for positions and
+    velocities), ``mass_o`` None exactly when ``mass`` is."""
+    ids_o, pos_o, vel_o, mass_o, slot = out
+    if (mass is None) != (mass_o is None):
+        raise ValueError(f"{what}: mass_o must be provided iff mass is")
+    for a, shape, dt in ((ids_o, plane, id_dt), (pos_o, vshape, np.float32),
+                         (vel_o, vshape, np.float32),
+                         (mass_o, plane, np.float32),
+                         (slot, plane, np.int32)):
+        if a is not None and (a.shape != shape or a.dtype != dt
+                              or not a.flags.c_contiguous):
+            raise ValueError(
+                f"{what} out buffer: want C-contiguous {shape} "
+                f"{np.dtype(dt)}, got {a.shape} {a.dtype}")
+
+
+def stable_align_native(layout, ids, pos, vel, mass, invalid, out=None,
+                        soa=False):
     """Native counterpart of the stable-layout alignment in
     :func:`orbitanalysis_tpu_torch.engine.packing.align_packed`: match,
     entrant placement and scatter in one multithreaded pass, updating
     ``layout`` in place.  Returns ``(ids_o, pos_o, vel_o, mass_o,
     slot)``, or None when the library is unavailable or the dtypes are
     not the i32/f32 (or i64-ID/f32) fast path.  Raises ValueError on
-    layout overflow."""
+    layout overflow.
+
+    ``soa=True`` writes ``pos_o``/``vel_o`` as ``[3, H, P]`` planes
+    instead of ``[H, P, 3]``.  ``out=(ids_o, pos_o, vel_o, mass_o,
+    slot)`` scatters into the caller's C-contiguous buffers of exactly
+    those shapes and dtypes (``mass_o`` None exactly when ``mass`` is)
+    and returns them."""
     lib = ensure()
     if lib is None:
         return None
@@ -148,18 +177,78 @@ def stable_align_native(layout, ids, pos, vel, mass, invalid):
     pos = np.ascontiguousarray(pos)
     vel = np.ascontiguousarray(vel)
     mass = None if mass is None else np.ascontiguousarray(mass)
-    ids_o = np.zeros((H, P), id_dt)
-    pos_o = np.zeros((H, P, 3), np.float32)
-    vel_o = np.zeros((H, P, 3), np.float32)
-    mass_o = None if mass is None else np.zeros((H, P), np.float32)
-    slot = np.zeros((H, P), np.int32)
+    vshape = (3, H, P) if soa else (H, P, 3)
+    if out is not None:
+        _check_out("stable_align_native", out, mass, (H, P), vshape, id_dt)
+        ids_o, pos_o, vel_o, mass_o, slot = out
+    else:
+        # np.zeros (calloc) rather than np.empty: first touch of a large
+        # malloc'd block may enter transparent-huge-page compaction; the
+        # pass writes every byte anyway
+        ids_o = np.zeros((H, P), id_dt)
+        pos_o = np.zeros(vshape, np.float32)
+        vel_o = np.zeros(vshape, np.float32)
+        mass_o = None if mass is None else np.zeros((H, P), np.float32)
+        slot = np.zeros((H, P), np.int32)
     overflowed = align(
         layout.ctypes.data, ids.ctypes.data, pos.ctypes.data,
         vel.ctypes.data, None if mass is None else mass.ctypes.data,
         H, P, inv, ids_o.ctypes.data, pos_o.ctypes.data, vel_o.ctypes.data,
         None if mass_o is None else mass_o.ctypes.data,
-        slot.ctypes.data, ctypes.c_int32(0),
+        slot.ctypes.data, ctypes.c_int32(1 if soa else 0),
     )
     if overflowed:
         raise ValueError("stable layout overflow: grow capacity first")
     return ids_o, pos_o, vel_o, mass_o, slot
+
+
+def stable_align_seq_native(layout, ids, pos, vel, mass, invalid, out,
+                            soa=False):
+    """Whole-sequence stable-layout alignment: ``ids [S, H, P]`` and
+    ``pos``/``vel`` ``[S, H, P, 3]`` in load order, written into the
+    caller's stacked ``out=(ids_o, pos_o, vel_o, mass_o, slot)``
+    buffers (``pos_o``/``vel_o`` ``[S, 3, H, P]`` when ``soa``).  Rows
+    run halo-major in C++, so each row's hash table lives across the S
+    snapshots and is updated by the churn alone; the same per-snapshot
+    result as :func:`stable_align_native` called in sequence, and
+    ``layout`` ends as after the last snapshot.  Returns ``out``, or
+    None when the library is unavailable or the dtypes are not i32/f32
+    (the caller then aligns one snapshot at a time).  Raises ValueError
+    on layout overflow."""
+    lib = ensure()
+    if lib is None:
+        return None
+    if (
+        np.dtype(ids.dtype) != np.dtype(np.int32)
+        or layout.dtype != np.int32
+        or pos.dtype != np.float32
+        or vel.dtype != np.float32
+        or (mass is not None and mass.dtype != np.float32)
+    ):
+        return None
+    S, H, P = ids.shape
+    if not (
+        layout.flags.c_contiguous
+        and layout.shape == (H, P)
+        and pos.shape == (S, H, P, 3)
+        and vel.shape == (S, H, P, 3)
+    ):
+        return None
+    ids = np.ascontiguousarray(ids)
+    pos = np.ascontiguousarray(pos)
+    vel = np.ascontiguousarray(vel)
+    mass = None if mass is None else np.ascontiguousarray(mass)
+    _check_out("stable_align_seq_native", out, mass, (S, H, P),
+               (S, 3, H, P) if soa else (S, H, P, 3), np.dtype(np.int32))
+    ids_o, pos_o, vel_o, mass_o, slot = out
+    overflowed = lib.stable_align_seq1(
+        layout.ctypes.data, ids.ctypes.data, pos.ctypes.data,
+        vel.ctypes.data, None if mass is None else mass.ctypes.data,
+        S, H, P, ctypes.c_int32(int(invalid)), ids_o.ctypes.data,
+        pos_o.ctypes.data, vel_o.ctypes.data,
+        None if mass_o is None else mass_o.ctypes.data,
+        slot.ctypes.data, ctypes.c_int32(1 if soa else 0),
+    )
+    if overflowed:
+        raise ValueError("stable layout overflow: grow capacity first")
+    return out

@@ -1,5 +1,5 @@
 from orbitanalysis_tpu_torch.ops.geometry import RegionFrame, region_frame
-from orbitanalysis_tpu_torch.ops.join import MergeJoin, merge_join
+from orbitanalysis_tpu_torch.ops.join import MergeJoin, gather_rows, merge_join
 from orbitanalysis_tpu_torch.ops.apsis import (
     Carry,
     SnapshotBatch,
@@ -15,6 +15,7 @@ __all__ = [
     "RegionFrame",
     "region_frame",
     "MergeJoin",
+    "gather_rows",
     "merge_join",
     "Carry",
     "SnapshotBatch",

@@ -217,7 +217,8 @@ def bind(lib):
         "fused_join_detect": [p] * 17 + [ll] + [i] * 5 + [p],
         "static_detect_rows_scratch": [i, i],
         "static_detect_rows": [p] * 16 + [ll] + [i] * 6 + [p],
-        "compact_events_rows": [p] * 6 + [i] * 3 + [p],
+        "compact_events_rows_scratch": [i, i],
+        "compact_events_rows": [p] * 7 + [ll, i, i, i, p],
         "compact_rows_groups_scratch": [i, i],
         "compact_rows_groups": [p, pp, pp, i, i, p, pp, pp, i, i, p, ll, i,
                                 i, p],
@@ -577,21 +578,13 @@ def static_detect_rows(prev, cur, pericentric: bool, invalid: int,
 
 
 def compact_events_rows(packed, key, sv, k128: int):
-    """Launch the three-stream event compaction (K18): where bit 31 of
+    """Launch the three-word event compaction (K18): where bit 31 of
     ``packed [H, P]`` is set, ``(key, sv, packed)`` move together to the
-    front of ``[H, k128]`` rows, zero past each row's count."""
-    name = "compact_events_rows"
-    h, p = packed.shape
-    _check(name, packed, key, sv)
-    if key.shape != (h, p) or sv.shape != (h, p):
-        raise ValueError(f"{name}: packed, key and sv shapes differ")
-    out = [torch.empty((h, k128), dtype=torch.int32, device=packed.device)
-           for _ in range(3)]
-    _launch(name, _library().compact_events_rows, packed.data_ptr(),
-            key.data_ptr(), sv.data_ptr(), out[0].data_ptr(),
-            out[1].data_ptr(), out[2].data_ptr(), h, p, k128,
-            device=packed.device)
-    return tuple(out)
+    front of ``[H, k128]`` int32 rows, zero past each row's count
+    (``key`` and ``sv`` are read only at the events)."""
+    out_packed, out_key, out_sv = _compact_tiles(
+        "compact_events_rows", k128, packed, key, sv)
+    return out_key, out_sv, out_packed
 
 
 def compact_rows_groups(sel_a, ops_a, len_a: int, sel_b, ops_b,

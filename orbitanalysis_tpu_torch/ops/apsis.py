@@ -71,7 +71,7 @@ class StepEvents(NamedTuple):
     entered: torch.Tensor       # [H, P] bool, cur layout
     radius: torch.Tensor        # [H, P], cur layout
     bulk_vel: torch.Tensor      # [H, 3]
-    prev_slot: torch.Tensor | None  # [H, P] int32 (static step), -1 = none
+    prev_slot: torch.Tensor | None  # [H, P] int32 cur->prev slot map, -1 = none
     # event compaction (None unless event_capacity was set): events at
     # the front of each row in slot order
     ev_count: torch.Tensor | None = None   # [H] int32 apsides per halo
@@ -145,17 +145,27 @@ def make_orbit_step(
     box_size=None,
     id_dtype=np.int32,
     angle_dtype=np.float32,
+    with_prev_slot: bool = False,
+    with_dtheta: bool = False,
     event_capacity: int | None = None,
 ):
     """The general step for a fixed configuration:
     ``step(carry, snap) -> (carry, StepEvents)``.
 
+    ``with_prev_slot=True`` also returns the cur->prev slot map in
+    ``StepEvents.prev_slot`` (-1 for entrants and padding), which the
+    count accumulator of :func:`~orbitanalysis_tpu_torch.engine.scan.
+    scan_counts` re-indexes its counts through; otherwise it is None.
     ``event_capacity=K`` compacts the events to the front of each row
     (slot order kept) so hosts fetch ``[H, K]`` lists plus counts;
     ``ev_count > K`` flags a row whose list was cut.  The JAX twin's
-    ``with_prev_slot``/``with_dtheta`` outputs serve its scan and
-    on-the-fly drivers, which are not ported; here they are None.
+    ``with_dtheta`` output serves its on-the-fly file writer (M6), which
+    is not ported: passing it true raises NotImplementedError.
     """
+    if with_dtheta:
+        raise NotImplementedError(
+            "with_dtheta serves the on-the-fly file writer (M6), which the "
+            "port does not have yet")
     pericentric = _check_mode(mode)
     invalid = invalid_id_for(id_dtype)
     adt = torch_dtype(angle_dtype)
@@ -199,6 +209,7 @@ def make_orbit_step(
                 (carry.angles, None),
             ),
             compute=compute,
+            with_prev_slot=with_prev_slot,
         )
         apsis = mj.to_prev[0]
         apsis_angle, angles_new = mj.to_prev[1], mj.to_cur[1]
@@ -215,7 +226,7 @@ def make_orbit_step(
             entered=valid_cur & ~mj.matched_cur,
             radius=frame.radius,
             bulk_vel=frame.bulk_vel,
-            prev_slot=None,
+            prev_slot=mj.prev_slot_of_cur,
             ev_count=ev_count,
             ev_ids=ev_ids,
             ev_angles=ev_angles,

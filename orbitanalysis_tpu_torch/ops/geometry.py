@@ -44,7 +44,7 @@ def region_frame(
     mass: Optional[torch.Tensor] = None,      # [H, P] or None (equal-mass)
     bulk_vel: Optional[torch.Tensor] = None,  # [H, 3] catalog values
     box_size=None,                # scalar / (3,) / None (non-periodic)
-    hubble_drag: float = 0.0,     # H(z)/(1+z); 0 disables the Hubble term
+    hubble_drag=0.0,              # H(z)/(1+z), scalar or [H, 1]; 0 = off
     soa: bool = False,            # inputs already [3, H, P]
 ) -> RegionFrame:
     """Transform particles into halo rest frames and compute v_r.
@@ -54,7 +54,9 @@ def region_frame(
     - the bulk velocity is the catalog value if supplied, else the
       mass-weighted mean when ``mass`` is given, else the plain mean,
       as masked reductions over the padded particle axis;
-    - physical velocity adds the Hubble-flow term ``hubble_drag * r``;
+    - physical velocity adds the Hubble-flow term ``hubble_drag * r``
+      (``hubble_drag`` a scalar, or an ``[H, 1]`` tensor of one value a
+      row, as the batched aligned driver passes it);
     - radii are clamped away from zero before the division, so a
       particle exactly at the center gets ``rhat = 0`` instead of NaN.
     """
@@ -88,7 +90,10 @@ def region_frame(
         bulk3 = bulk_vel.T
     bulk3 = bulk3.to(vel.dtype)
 
-    hd = float(np.float32(hubble_drag))
+    if isinstance(hubble_drag, torch.Tensor):
+        hd = hubble_drag.to(rel.dtype)  # a value a row, [H, 1]
+    else:
+        hd = float(np.float32(hubble_drag))
     vrel = vel3 - bulk3[:, :, None] + hd * rel
 
     r2 = rel[0] * rel[0] + rel[1] * rel[1] + rel[2] * rel[2]

@@ -1,5 +1,6 @@
 """Sort-merge particle-ID matching between consecutive snapshots (twin of
-``orbitanalysis_tpu/ops/join.py:123`` ``merge_join``).
+``orbitanalysis_tpu/ops/join.py:129`` ``merge_join`` and ``:282``
+``gather_rows``).
 
 Concatenate the previous and current ID rows, sort by ``(id, side)``
 with a stable ``torch.sort`` (prev entries come first in the concat, so
@@ -26,6 +27,7 @@ class MergeJoin(NamedTuple):
 
     matched_prev: torch.Tensor  # [H, P] bool, prev layout
     matched_cur: torch.Tensor   # [H, P] bool, cur layout
+    prev_slot_of_cur: torch.Tensor | None  # [H, P] int32, cur layout, -1 = none
     to_prev: tuple              # computed channels, prev layout
     to_cur: tuple               # computed channels, cur layout
 
@@ -46,6 +48,7 @@ def merge_join(
     invalid_id,
     values: tuple = (),       # ((prev_arr|None, cur_arr|None), ...) pairs
     compute=None,
+    with_prev_slot: bool = True,
 ) -> MergeJoin:
     """Match IDs between two rows, exchanging/transforming payloads.
 
@@ -60,6 +63,8 @@ def merge_join(
     ``to_prev`` lands at the prev partner's slot, ``to_cur`` stays at
     the current entry's slot, unmatched slots get zeros.  With
     ``compute=None`` the raw payloads are exchanged.
+    ``with_prev_slot`` also returns ``prev_slot_of_cur``: each matched
+    cur slot's prev partner slot, -1 elsewhere (None when off).
     """
     h, p = prev_ids.shape
     cat_ids = torch.cat([prev_ids, cur_ids], dim=1)
@@ -113,11 +118,35 @@ def merge_join(
 
     out_r = tuple(restore(fold(tp, tc)) for tp, tc in outputs)
     matched_r = restore(match_cur_m | match_prev_m)
+    prev_slot = None
+    if with_prev_slot:
+        # a matched cur entry's left neighbour is its prev partner, whose
+        # concat position is its prev slot
+        prev_slot = restore(torch.where(
+            match_cur_m, _shift_right(sp_s, 0),
+            torch.full_like(sp_s, -1)))[:, p:].to(torch.int32)
     return MergeJoin(
         matched_prev=matched_r[:, :p],
         matched_cur=matched_r[:, p:],
+        prev_slot_of_cur=prev_slot,
         to_prev=tuple(c[:, :p] if tp is not None else None
                       for c, (tp, _) in zip(out_r, outputs)),
         to_cur=tuple(c[:, p:] if tc is not None else None
                      for c, (_, tc) in zip(out_r, outputs)),
     )
+
+
+def gather_rows(values: torch.Tensor, slots: torch.Tensor, fill=0):
+    """``values[h, slots[h, i]]``, with ``fill`` where a slot is -1.
+
+    ``values`` is ``[H, P]`` or ``[H, P, d]``; ``slots`` is ``[H, P]``.
+    """
+    ok = slots >= 0
+    idx = torch.clamp(slots, min=0).long()
+    if values.dim() == slots.dim() + 1:
+        out = torch.gather(values, 1,
+                           idx[..., None].expand(-1, -1, values.shape[-1]))
+        return torch.where(ok[..., None], out,
+                           torch.full_like(out, fill))
+    out = torch.gather(values, 1, idx)
+    return torch.where(ok, out, torch.full_like(out, fill))

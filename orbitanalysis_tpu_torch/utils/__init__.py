@@ -2,6 +2,7 @@ from orbitanalysis_tpu_torch.utils.padding import (
     INVALID_ID,
     invalid_id_for,
     pack_ragged,
+    pack_ragged_to,
     round_up,
     round_up_pow2,
     unpack_mask,
@@ -21,6 +22,7 @@ __all__ = [
     "INVALID_ID",
     "invalid_id_for",
     "pack_ragged",
+    "pack_ragged_to",
     "round_up",
     "round_up_pow2",
     "unpack_mask",

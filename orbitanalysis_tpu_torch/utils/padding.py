@@ -97,6 +97,26 @@ def pack_ragged(
     return out
 
 
+def pack_ragged_to(
+    out: np.ndarray,
+    values: np.ndarray,
+    offsets: np.ndarray,
+    rows: np.ndarray | None = None,
+    fill=0,
+) -> np.ndarray:
+    """Like :func:`pack_ragged` but writes into the preallocated ``out``
+    (every entry: ``fill`` where no block lands) and returns it."""
+    values = np.asarray(values)
+    offsets = np.asarray(offsets, dtype=np.int64)
+    lengths = np.diff(np.concatenate((offsets, [len(values)])))
+    if rows is None:
+        rows = np.arange(len(lengths), dtype=np.int64)
+    out[...] = fill
+    reprow, col = _row_col(lengths, np.asarray(rows, dtype=np.int64))
+    out[reprow, col] = values
+    return out
+
+
 def unpack_mask(mask: np.ndarray, *arrays: np.ndarray,
                 rows: np.ndarray | None = None):
     """Compact padded per-row data selected by a boolean ``[R, C]`` mask.

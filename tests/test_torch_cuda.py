@@ -758,22 +758,57 @@ def test_join_detect_kernel_matches_plain(dev, h, p, k, kind, pericentric):
                                w.cpu().view(torch.int32))
 
 
-@pytest.mark.parametrize("h,p,k", [(64, 32768, 2048), (3, 256, 256)])
-@pytest.mark.parametrize("density", [0.0, 0.017, 0.07, 0.5, 1.0])
-def test_compact_events_kernel_matches_plain(dev, h, p, k, density):
-    rng = np.random.default_rng(int(density * 100) + p)
+#: Words of one tile of K18 (``csrc/compact.cu`` kTileThreads * kEventVT).
+K18_TILE = 2048
+
+
+def _event_planes(rng, h, p, density):
+    """K18's ``packed`` (bit 31 set at the events, f32 angle bits below),
+    ``key`` (any uint32 word) and ``sv`` ``[h, p]`` planes at
+    ``density``, with a run of events in row 0 and one across the first
+    tile edge of the last row where the row has one."""
     sel = rng.random((h, p)) < density
     sel[0, 10:200] = True
+    if p > K18_TILE:
+        sel[-1, K18_TILE - 300:K18_TILE + 200] = True
     ang = rng.uniform(0, 7, (h, p)).astype(np.float32)
     packed = _i32(np.where(sel, ang.view(np.uint32) | np.uint32(1 << 31),
                            np.uint32(0)))
     key = _i32(rng.integers(0, 2**32, (h, p), dtype=np.uint64).astype(
         np.uint32))
     sv = torch.from_numpy(rng.integers(0, 2**31, (h, p)).astype(np.int32))
-    got = tc.compact_events(packed.to(dev), key.to(dev), sv.to(dev), k)
+    return packed, key, sv, sel
+
+
+@pytest.mark.parametrize("h,p,k", [
+    (64, 32768, 2048), (3, 256, 256),
+    # rows of 1/8 of a tile, one tile, one tile and a row of lanes (k128
+    # equal to P), several tiles, and 4096 rows of one row of lanes
+    (3, K18_TILE // 8, 128), (3, K18_TILE, 256),
+    (3, K18_TILE + 128, K18_TILE + 128), (2, 5 * K18_TILE + 128, 1024),
+    (4096, 128, 128)])
+@pytest.mark.parametrize("density", [0.0, 0.017, 0.07, 0.5, 1.0])
+def test_compact_events_kernel_matches_plain(dev, h, p, k, density):
+    """K18 bit-equal to its plain version on the same CUDA tensors and on
+    the CPU, outputs poisoned first (int32 outputs, as before); at
+    density 1 the counts pass k128 on rows longer than k128, and where
+    k128 is P every event is kept."""
+    rng = np.random.default_rng(int(density * 100) + p + h)
+    packed, key, sv, sel = _event_planes(rng, h, p, density)
+    k128 = tc._k128(k, p)
+    _poison((h, k128), (h, k128), (h, k128))
+    x = (packed.to(dev), key.to(dev), sv.to(dev))
+    got = tc.compact_events(*x, k)
+    plain_cuda = tc.compact_events_torch(*x, k)
     want = tc.compact_events_torch(packed, key, sv, k)
     torch.cuda.synchronize()
-    for g, w in zip(got, want):
+    if density == 1.0 and p > k128:
+        assert int(sel.sum(1).min()) > k128
+    if k128 == p:
+        assert int((got[2] != 0).sum()) == int(sel.sum())
+    for g, c, w in zip(got, plain_cuda, want):
+        assert g.dtype == torch.int32 and g.shape == (h, k128)
+        assert torch.equal(g, c)
         assert torch.equal(g.cpu(), w)
 
 
@@ -1041,6 +1076,13 @@ def _stream_calls(dev, rng, which):
             calls.append(lambda x=x: tc.compact_payload_pair(*x, k))
         return calls, "compact_pair_rows", k, lambda out: bool(
             (out[0][0] != 0).all())
+    if which == "K18":
+        for density in (0.5, 0.03):
+            packed, key, sv, _ = _event_planes(rng, h, 8 * K18_TILE, density)
+            x = (packed.to(dev), key.to(dev), sv.to(dev))
+            calls.append(lambda x=x: tc.compact_events(*x, k))
+        return calls, "compact_events_rows", k, lambda out: bool(
+            (out[2][0] != 0).all())
     if which == "K19":
         for n_a in (6, 1):
             n = 8 * K19_TILE
@@ -1100,9 +1142,9 @@ def _stream_calls(dev, rng, which):
 
 
 @pytest.mark.parametrize("which", ["K16", "K17", "K4", "K8", "K1", "K15",
-                                   "K3", "K19"])
+                                   "K3", "K18", "K19"])
 def test_detect_kernels_streams_and_repeats(dev, which):
-    """K16, K17, K4, K8, K1, K15, K3 and K19 issued at once on two CUDA
+    """K16, K17, K4, K8, K1, K15, K3, K18 and K19 issued at once on two CUDA
     streams give what they give one after the other, two calls give the
     same bits, and each call is one counted launch (each call's look-back
     scratch is its own; K15 has none)."""
@@ -1207,6 +1249,54 @@ def test_aligned_steps_on_cuda_match_cpu(dev, static):
             assert bool(((ulp.abs() <= 1) | ((a - x.angles[sel]).abs()
                                              <= 2e-3)).all())
     assert total > 0
+
+
+@pytest.mark.parametrize("p,soa", [(4096, True), (4096, False),
+                                   (1 << 17, True)])
+def test_aligned_scan_batched_on_cuda(dev, p, soa):
+    """``scan_events_aligned(batched=True)`` on the card (one payload
+    compaction over all S*H rows; the pair compaction for rows past
+    PAYLOAD_MAX_ROW) against ``batched=False`` on the card (the
+    angle-word compaction, or the pair compaction, once a step) and the
+    batched driver on the CPU: counts and positions exact, angles within
+    one f16 ulp, the final carries' keys and slots equal."""
+    from orbitanalysis_tpu_torch.engine.packing import stage_batch_aligned
+    from orbitanalysis_tpu_torch.engine.scan import scan_events_aligned
+    from orbitanalysis_tpu_torch.models.synthetic import churn_workload
+    from orbitanalysis_tpu_torch.ops.apsis import SnapshotBatch
+
+    h, s_n, k = (4, 6, 512) if p == 4096 else (1, 3, 4096)
+    ids, pos, vel, cen, _ = churn_workload(h, p, s_n, seed=3)
+    staged = stage_batch_aligned(SnapshotBatch(
+        ids=ids, pos=pos, vel=vel, center=cen), soa=soa)
+    kw = dict(box_size=100.0, soa_batch=soa)
+    runs = {}
+    for d, batched in ((dev, True), (dev, False), ("cpu", True)):
+        _cuda.reset_launch_counts()
+        runs[str(d), batched] = scan_events_aligned(
+            tss.init_aligned_carry(h, p, device=d), staged, k,
+            batched=batched, **kw)
+        torch.cuda.synchronize()
+        if d == dev:
+            name = ("compact_payload_rows" if p <= tc.PAYLOAD_MAX_ROW
+                    else "compact_pair_rows")
+            if batched or p > tc.PAYLOAD_MAX_ROW:
+                want = {name: 1 if batched else s_n}
+            else:
+                want = {"compact_angle_rows": s_n}
+            assert {n: c for n, c in _cuda.launch_counts().items()
+                    if c} == want
+    carry, (cnt, ids_b, ang) = runs[str(dev), True]
+    assert int(cnt.sum()) > 0
+    for key in ((str(dev), False), ("cpu", True)):
+        c2, (cnt2, ids2, ang2) = runs[key]
+        assert torch.equal(cnt2.cpu(), cnt.cpu())
+        assert torch.equal(ids2.cpu(), ids_b.cpu())
+        ulp = (ang2.cpu().to(torch.float16).view(torch.int16).int()
+               - ang.cpu().to(torch.float16).view(torch.int16).int())
+        assert int(ulp.abs().max()) <= 1
+        for f in ("key", "sv"):
+            assert torch.equal(getattr(c2, f).cpu(), getattr(carry, f).cpu())
 
 
 # ---------------------------------------------------------------- K13, K14

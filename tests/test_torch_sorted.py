@@ -227,9 +227,11 @@ def test_fused_join_detect_matches_jax(pericentric, k):
 
 
 @pytest.mark.parametrize("density", [0.0, 0.05, 1.0])
-def test_compact_events_matches_jax(density):
+@pytest.mark.parametrize("h,p,k", [(3, 512, 200),
+                                   # a row of six CUDA tiles and more
+                                   (2, 3 * 4096 + 256, 1000)])
+def test_compact_events_matches_jax(density, h, p, k):
     rng = np.random.default_rng(int(density * 100))
-    h, p, k = 3, 512, 200
     sel = rng.random((h, p)) < density
     ang = rng.uniform(0, 7, (h, p)).astype(np.float32)
     packed = np.where(sel, ang.view(np.uint32) | np.uint32(1 << 31),
@@ -240,11 +242,12 @@ def test_compact_events_matches_jax(density):
                                    jnp.asarray(sv), k)
     got = tcompact.compact_events(_bits(packed), _bits(key), _t(sv), k)
     count = sel.sum(axis=1)
+    k128 = tcompact._k128(k, p)
     for g, w in zip(got, want):
-        assert g.shape == w.shape == (h, 256)
+        assert g.shape == w.shape == (h, k128)
         g = np.ascontiguousarray(g.numpy()).view(np.asarray(w).dtype)
         for r in range(h):
-            n = min(count[r], 256)
+            n = min(count[r], k128)
             np.testing.assert_array_equal(g[r, :n], np.asarray(w)[r, :n])
             assert not np.any(g[r, n:])
 
