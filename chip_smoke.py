@@ -67,6 +67,18 @@ repository checkout; it imports nothing of JAX.  Phases:
 9. ``track_orbits(join_impl='sorted')`` at config-2 scale: catalogs
    equal the general engine's run on the card and the oracle, and every
    step launches the join-and-detect kernel or the event compaction;
+9b. the rest of the reference workflow on phase 5's data:
+   ``track_orbits(mode='both')`` under ``join_impl='auto'`` (the
+   pericentric catalog equal to phase 5's, the angle compaction twice a
+   snapshot); ``Apsides`` on both catalogs, the collation on the host
+   and on the card bit-equal, with the final counts, the first halos'
+   counts against the oracle; one halo's ``OrbitDecomposition`` equal to
+   its collated counts (no plot: the CPU tests draw them); the central
+   particles and the progenitor vote on the last snapshot pair, card
+   equal to host and every halo its own progenitor; the on-the-fly
+   driver on that pair with one halo unlinked, card against CPU; and
+   ``RegionExtractor`` through the native grid index against a
+   brute-force radius cut;
 10. the aligned engine on the benchmark's churn sequence, staged whole
    in the stable layout (SoA planes) by ``stage_batch_aligned(soa=True)``
    as the benchmark stages it (the host's seconds logged; its first
@@ -656,6 +668,7 @@ def end_to_end(dev):
     return launches, dict(
         snaps=snaps, regions=regions, load=load, snap_nums=snap_nums,
         branches=branches, general=w_gen.files["general.h5"],
+        aligned=w_auto.files["auto.h5"],
         members=members, hubble_drag=hubble_drag, box=box,
         wall_aligned=wall, wall_general=wall_gen)
 
@@ -1682,6 +1695,328 @@ def sorted_end_to_end(dev, ctx):
     return launches
 
 
+# -------------------------------------------------------------- phase 9b
+
+#: phase 9b: the angle cut of the collation, the halos whose collated
+#: counts are held against the oracle, the central particles a halo of
+#: the progenitor vote, the halo without a progenitor in the on-the-fly
+#: pair, and the radius of the region queries
+COLLATE_CUT = 0.1
+COLLATE_HALOS = 4
+CENTRAL_N = 100
+NO_PROGENITOR = 7
+REGION_RADIUS = 3.0
+
+
+def _sync(dev):
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _exact(a, b, what):
+    """Two in-memory files equal dataset for dataset, dtypes included."""
+    check(sorted(a) == sorted(b), f"{what}: groups differ")
+    for g in a:
+        if g == "attrs":
+            check(a[g] == b[g], f"{what}: root attributes differ")
+            continue
+        check(sorted(a[g]) == sorted(b[g]), f"{what}/{g}: datasets differ")
+        for ds in a[g]:
+            x, y = a[g][ds], b[g][ds]
+            check(x.dtype == y.dtype and x.shape == y.shape
+                  and np.array_equal(x, y), f"{what}/{g}/{ds} differs")
+
+
+def collated_oracle_check(snaps, final, hubble_drag, box, n_check, cut):
+    """The collated final counts of the first ``n_check`` halos against
+    the NumPy oracle's events with the angle cut applied to their f16
+    storage.  A particle whose float64 radial velocity lies within 1e-5
+    of zero at some snapshot, or with an event angle within 1e-3 rad of
+    the cut, is left out (float32 cannot settle it) and counted."""
+    from collections import Counter
+
+    from oracle import OracleTracker
+
+    oracle = OracleTracker(mode="pericentric", box_size=box)
+    want = [Counter() for _ in range(n_check)]
+    unsure = [set() for _ in range(n_check)]
+    for s, snap in enumerate(snaps):
+        ev = oracle.step({h: dict(snap[h], hubble_drag=hubble_drag)
+                          for h in range(n_check)})
+        for h in range(n_check):
+            unsure[h].update(pid for pid, st in oracle.state[h].items()
+                             if abs(st[0]) < 1e-5)
+            if s == 0:
+                continue
+            ids, ang, _ = ev[h]
+            unsure[h].update(ids[np.abs(ang - cut) < 1e-3].tolist())
+            want[h].update(ids[ang.astype(np.float16)
+                               > np.float16(cut)].tolist())
+    offs = np.concatenate((final["halo_offsets"],
+                           [len(final["particle_IDs"])]))
+    compared = left_out = 0
+    for h in range(n_check):
+        sl = slice(offs[h], offs[h + 1])
+        got = dict(zip(final["particle_IDs"][sl].tolist(),
+                       final["pericenter_counts"][sl].tolist()))
+        for pid in set(got) | set(want[h]):
+            if pid in unsure[h]:
+                left_out += 1
+                continue
+            check(got.get(pid, 0) == want[h].get(pid, 0),
+                  f"halo {h}: particle {pid} collated {got.get(pid, 0)} "
+                  f"times, the oracle {want[h].get(pid, 0)}")
+            compared += 1
+    return compared, left_out
+
+
+def _subset_callbacks(snaps, n_halos, box):
+    """Callbacks that honour the request (the on-the-fly driver asks for
+    the halos that have a progenitor only): ``regions`` records the
+    requested halos, the loader returns exactly their blocks."""
+    centers = np.stack([snaps[0][h]["center"] for h in range(n_halos)])
+    asked = {}
+
+    def regions(snapshot_number, halo_ids):
+        asked[snapshot_number] = np.asarray(halo_ids)
+        return centers[halo_ids], np.full(len(halo_ids), 50.0)
+
+    def load(snapshot_number, positions, rr):
+        s, rows = snaps[snapshot_number], asked[snapshot_number]
+        return dict(
+            ids=np.concatenate([s[h]["ids"] for h in rows]),
+            coordinates=np.concatenate([s[h]["pos"] for h in rows]),
+            velocities=np.concatenate([s[h]["vel"] for h in rows]),
+            masses=np.concatenate([s[h]["mass"] for h in rows]),
+            region_offsets=np.concatenate(
+                ([0], np.cumsum([len(s[h]["ids"]) for h in rows])[:-1])),
+            box_size=box)
+
+    return regions, load
+
+
+def postprocess_phase(dev, ctx):
+    """Phase 9b: the rest of the reference workflow at config-2 scale on
+    phase 5's data: ``track_orbits(mode='both')`` (counted), both
+    catalogs collated on the host and on the card, the final counts, one
+    halo's decomposition, the progenitor tools on the last snapshot
+    pair, the on-the-fly driver on the card against the CPU, and region
+    queries through the native grid index.  Returns the kernel
+    launches."""
+    import importlib.util
+
+    import torch
+
+    from orbitanalysis_tpu_torch import (
+        Apsides,
+        OrbitDecomposition,
+        find_main_progenitors,
+        get_central_particle_ids,
+        get_central_particle_ids_device,
+        native,
+        track_orbits,
+        track_orbits_onthefly,
+    )
+    from orbitanalysis_tpu_torch.engine import RegionExtractor
+    from orbitanalysis_tpu_torch.engine.io_hdf5 import MemoryWriter
+    from orbitanalysis_tpu_torch.ops import _cuda
+    from orbitanalysis_tpu_torch.progenitors import (
+        find_main_progenitors_device,
+    )
+    from orbitanalysis_tpu_torch.utils.metrics import Metrics
+
+    t_phase = time.perf_counter()
+    snaps, regions, load = ctx["snaps"], ctx["regions"], ctx["load"]
+    n_snap, box = len(ctx["snap_nums"]), ctx["box"]
+    n_halos = ctx["branches"].shape[1]
+    files = ("peri.h5", "apo.h5")
+    w, m = MemoryWriter(), Metrics()
+    # ---- the main path, counted
+    _cuda.reset_launch_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    track_orbits(ctx["snap_nums"], ctx["branches"], regions, load, files,
+                 mode="both", verbose=False, metrics=m, writer=w,
+                 device=dev)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = _cuda.launch_counts()
+    # ---- end of the counted main path
+    joins = {r["join"] for r in m.records}
+    k1 = launches["compact_angle_rows"]
+    log(f"  track_orbits(mode='both'): engine {sorted(joins)}, wall "
+        f"{wall:.3f} s, compact_angle_rows launches {k1} ({n_snap} "
+        "snapshots x 2 modes)")
+    check(joins == {"aligned"}, f"join_impl='auto' ran {joins} on CUDA")
+    check(k1 == 2 * n_snap, "compaction launches != 2 modes x snapshots")
+    _exact(w.files["peri.h5"], ctx["aligned"], "pericentric catalog of "
+           "mode='both' against phase 5's")
+    log("  the pericentric catalog equals phase 5's aligned catalog")
+
+    # ---- collation, host against the card
+    walls = {}
+    for f in files:
+        ap = Apsides(f, writer=w)
+        for where, device in (("host", False), ("card", dev)):
+            _sync(dev)
+            t0 = time.perf_counter()
+            ap.collate_apsides(savefile=f"{f}.{where}", angle_cut=COLLATE_CUT,
+                               save_final_counts=True, verbose=False,
+                               device=device)
+            _sync(dev)
+            walls[f, where] = time.perf_counter() - t0
+        _exact(w.files[f"{f}.host"], w.files[f"{f}.card"],
+               f"collated {f}, host against the card")
+        groups = w.list_groups(f"{f}.host")
+        fin = w.read_group(f"{f}.host", groups[-1])
+        check(len(groups) == n_snap - 1 and all(
+            ap._tag + "_counts_final" in w.files[f"{f}.host"][g]
+            for g in groups[:-1]), f"{f}: final counts missing")
+        log(f"  collated {f}: host {walls[f, 'host']:.3f} s, card "
+            f"{walls[f, 'card']:.3f} s (both with the final counts), "
+            f"catalogs equal bit for bit; {len(fin['particle_IDs'])} "
+            f"particles with counts at snapshot {groups[-1][-3:]}, "
+            f"{int(fin[ap._tag + '_counts'].sum())} passages past the "
+            f"cut {COLLATE_CUT}")
+    final = w.read_group("peri.h5.host", "snapshot_%03d" % (n_snap - 1))
+    t0 = time.perf_counter()
+    compared, left_out = collated_oracle_check(
+        snaps, final, ctx["hubble_drag"], box, COLLATE_HALOS, COLLATE_CUT)
+    log(f"  oracle: final counts of the first {COLLATE_HALOS} halos, "
+        f"{compared} particles equal, {left_out} left out (sign or cut "
+        f"unsettled in float32; {time.perf_counter() - t0:.1f} s)")
+    check(compared > 0, "no collated counts compared with the oracle")
+
+    # ---- one halo's decomposition
+    last = snaps[n_snap - 1][0]
+    od = OrbitDecomposition("peri.h5", writer=w)
+    od.get_halo_decomposition_at_snapshot(
+        0, snapshot_data=dict(ids=last["ids"], coordinates=last["pos"],
+                              velocities=last["vel"]),
+        angle_cut=COLLATE_CUT)
+    sl = slice(final["halo_offsets"][0], final["halo_offsets"][1])
+    coll = dict(zip(final["particle_IDs"][sl].tolist(),
+                    final["pericenter_counts"][sl].tolist()))
+    check(len(od.counts) == len(last["ids"]) and np.all(
+        np.isfinite(od.radii)) and all(
+        c == coll.get(pid, 0)
+        for pid, c in zip(od.particle_ids.tolist(), od.counts.tolist())),
+        "halo 0's decomposition disagrees with its collated counts")
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    log(f"  decomposition of halo 0 at snapshot {n_snap - 1}: "
+        f"{len(od.counts)} particles, {int((od.counts > 0).sum())} with "
+        "passages, equal to the collated counts; no plot drawn here "
+        f"(matplotlib {'present' if have_mpl else 'absent'} on this "
+        "machine; the CPU tests draw both plots)")
+
+    # ---- progenitors on the last snapshot pair
+    rows = np.arange(n_halos)
+    s1, s0 = n_snap - 1, n_snap - 2
+    centers = regions(s1, rows)[0]
+    snap1, snap0 = load(s1, *regions(s1, rows)), load(s0, *regions(s0, rows))
+    t0 = time.perf_counter()
+    host = get_central_particle_ids(snap1, centers, n=CENTRAL_N)
+    t_host = time.perf_counter() - t0
+    get_central_particle_ids_device(snap1, centers, n=CENTRAL_N, device=dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    card = get_central_particle_ids_device(snap1, centers, n=CENTRAL_N,
+                                           device=dev)
+    t_card = time.perf_counter() - t0
+    check(all(np.array_equal(a, b) for a, b in zip(host, card)),
+          "central particle IDs differ between the host and the card")
+    vote_args = (snap0["ids"], snap0["region_offsets"]) + host
+    t0 = time.perf_counter()
+    links_host = find_main_progenitors(*vote_args)
+    v_host = time.perf_counter() - t0
+    find_main_progenitors_device(*vote_args, device=dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    links_card = find_main_progenitors_device(*vote_args, device=dev)
+    v_card = time.perf_counter() - t0
+    check(list(links_host) == links_card == list(range(n_halos)),
+          "progenitor links differ from the host form or from arange")
+    log(f"  progenitors ({s0}, {s1}): central IDs ({CENTRAL_N} a halo) "
+        f"host {t_host * 1e3:.1f} ms, card {t_card * 1e3:.1f} ms, equal; "
+        f"vote host {v_host * 1e3:.1f} ms, card {v_card * 1e3:.1f} ms, "
+        f"links equal and each halo its own progenitor")
+
+    # ---- the on-the-fly pair, card against CPU
+    links = np.stack([rows, rows])
+    links[1, NO_PROGENITOR] = -1
+    out = {}
+    for where, device in (("card", dev), ("cpu", "cpu")):
+        wo = MemoryWriter()
+        reg, ld = _subset_callbacks(snaps, n_halos, box)
+        _sync(dev)
+        t0 = time.perf_counter()
+        track_orbits_onthefly(s1, links, reg, ld, ("otfp_{}", "otfa_{}"),
+                              mode="both", verbose=False, device=device,
+                              writer=wo)
+        _sync(dev)
+        walls[where] = time.perf_counter() - t0
+        out[where] = wo
+    n_apsis = 0
+    for name in ("otfp_%03d" % s1, "otfa_%03d" % s1):
+        a = out["card"].read_group(name)
+        b = out["cpu"].read_group(name)
+        check(sorted(a) == sorted(b), f"{name}: datasets differ")
+        for k in a:
+            if k == "angles":
+                ok = a[k].shape == b[k].shape and np.allclose(
+                    a[k], b[k], rtol=0, atol=1e-4)
+            elif k == "bulk_velocities":
+                ok = np.array_equal(np.isnan(a[k]), np.isnan(b[k])) and (
+                    np.allclose(a[k], b[k], rtol=2e-6, atol=1e-6,
+                                equal_nan=True))
+            else:
+                ok = a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
+            check(ok, f"{name}/{k} differs between the card and the CPU")
+        tag = "pericenter" if name.startswith("otfp") else "apocenter"
+        offs = a[tag + "_offsets"]
+        check(offs[NO_PROGENITOR + 1] == offs[NO_PROGENITOR] and np.isnan(
+            a["bulk_velocities"][1, NO_PROGENITOR]).all(),
+            f"{name}: the halo without a progenitor has events or a bulk "
+            "velocity")
+        n_apsis += len(a[tag + "_IDs"])
+    log(f"  on-the-fly pair ({s0}, {s1}), mode='both', halo "
+        f"{NO_PROGENITOR} without a progenitor: card {walls['card']:.3f} s, "
+        f"CPU {walls['cpu']:.3f} s; {n_apsis} apsides, "
+        f"{len(a['entered_IDs'])} entered, {len(a['departed_IDs'])} "
+        "departed: ID sets equal, angle changes within 1e-4 rad, bulk "
+        "velocities within rtol 2e-6, NaN rows alike")
+
+    # ---- region queries through the native grid index
+    check(native.available(), "the native host library is not available")
+    s = snaps[s1]
+    ids = np.concatenate([s[h]["ids"] for h in rows])
+    pos = np.concatenate([s[h]["pos"] for h in rows])
+    vel = np.concatenate([s[h]["vel"] for h in rows])
+    t0 = time.perf_counter()
+    ex = RegionExtractor(ids, pos, vel, box_size=box)
+    t_index = time.perf_counter() - t0
+    radii = np.full(n_halos, REGION_RADIUS)
+    t0 = time.perf_counter()
+    got = ex.extract(centers, radii)
+    t_extract = time.perf_counter() - t0
+    offs = np.concatenate((got["region_offsets"], [len(got["ids"])]))
+    for h, (c, r) in enumerate(zip(centers.astype(np.float64), radii)):
+        d = pos - c
+        d -= box * np.round(d / box)
+        want = np.sort(ids[(d * d).sum(1) < r * r])
+        check(np.array_equal(np.sort(got["ids"][offs[h]:offs[h + 1]]), want),
+              f"region of halo {h} differs from the brute-force cut")
+    tier = "native" if len(ids) >= 1 << 18 else "NumPy"
+    log(f"  RegionExtractor over snapshot {s1} ({len(ids)} particles, "
+        f"{tier} index, grid {ex.dims.tolist()}): index {t_index:.3f} s, "
+        f"{n_halos} regions of radius {REGION_RADIUS} in {t_extract:.3f} s, "
+        f"{len(got['ids'])} members, equal to the brute-force cut")
+    log(f"  phase 9b: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def aligned_full_width(dev, seq):
     """Phase 10: the aligned engine over the benchmark's churn sequence in
     the stable layout, staged whole as the JAX benchmark stages it
@@ -2501,6 +2836,10 @@ def main():
     sorted_launches = sorted_full_width(dev, seq)
     log("== phase 9: track_orbits(join_impl='sorted') at config-2 scale")
     e2e_sorted = sorted_end_to_end(dev, ctx)
+    log("== phase 9b: the rest of the reference workflow at config-2 scale "
+        "(mode='both', Apsides, OrbitDecomposition, progenitors, "
+        "on-the-fly pair, RegionExtractor)")
+    post_launches = postprocess_phase(dev, ctx)
     log("== phase 10: the aligned engine on the benchmark's churn sequence "
         "(scan_events_aligned per step and batched, detect_impl='pallas', "
         "legacy step)")
@@ -2521,7 +2860,8 @@ def main():
     kernels = []
     for name, k in _cuda.KERNELS.items():
         n = (launches[name] + label_launches[name] + sorted_launches[name]
-             + e2e_sorted[name] + aligned_launches[name]
+             + e2e_sorted[name] + post_launches[name]
+             + aligned_launches[name]
              + oracle_launches[name] + scale_launches[name]
              + direct_launches[name])
         r = timings[name]

@@ -9,9 +9,22 @@ device (CUDA by default).  The JAX package's Pallas kernels are
 hand-written CUDA kernels (``csrc/*.cu``) built with nvcc at first use;
 on CPU tensors every kernel's plain-torch version runs instead.
 
-Public API (the ported part of the JAX package's surface):
+Public API (the JAX package's surface):
 
 - :func:`track_orbits` — offline multi-snapshot orbit tracking;
+- :func:`track_orbits_onthefly` — one snapshot pair a call, for a
+  running simulation;
+- :class:`Apsides` — collation of the apsis catalogs (on the host, or
+  ``collate_apsides(device=...)`` on a torch device);
+- :class:`OrbitDecomposition` — one halo's orbit decomposition and its
+  plots;
+- :func:`get_central_particle_ids`, :func:`get_central_particle_ids_
+  device`, :func:`find_main_progenitors` — progenitor linking
+  (``progenitors.find_main_progenitors_device`` is the vote's device
+  form, not exported here, as in the JAX package);
+- :mod:`orbitanalysis_tpu_torch.engine` — the region and Gadget
+  callbacks (``RegionExtractor``, ``make_region_callbacks``,
+  ``make_gadget_callbacks``) and the sequence drivers;
 - :mod:`orbitanalysis_tpu_torch.models` — the N-body integrator with
   on-the-fly detection (``simulate_with_tracking``,
   ``run_tracked_simulation``) and its forces: direct summation (the
@@ -22,14 +35,25 @@ Public API (the ported part of the JAX package's surface):
 - the numerics helpers :func:`hubble_parameter`, :func:`myin1d`,
   :func:`recenter_coordinates`, :func:`vector_norm`.
 
-``Apsides``/``OrbitDecomposition``, the file-pair on-the-fly driver, the
-distributed engines and the progenitor tools are not ported yet
-(ROADMAP.md).
+Every entry point runs on CUDA unless ``device='cpu'`` is passed.  The
+card machine has no ``h5py``: pass ``writer=MemoryWriter()``
+(``engine/io_hdf5.py``) to the trackers and to ``Apsides`` there.  Not
+ported yet: the distributed engines (``parallel/``, ``track_orbits(
+mesh=...)``; ROADMAP.md).
 """
 
 __version__ = "0.1.0"
 
 from orbitanalysis_tpu_torch.engine.tracker import track_orbits
+from orbitanalysis_tpu_torch.engine.onthefly import (
+    track_orbits as track_orbits_onthefly,
+)
+from orbitanalysis_tpu_torch.postprocessing import Apsides, OrbitDecomposition
+from orbitanalysis_tpu_torch.progenitors import (
+    find_main_progenitors,
+    get_central_particle_ids,
+    get_central_particle_ids_device,
+)
 from orbitanalysis_tpu_torch.utils.numerics import (
     hubble_parameter,
     myin1d,
@@ -39,6 +63,12 @@ from orbitanalysis_tpu_torch.utils.numerics import (
 
 __all__ = [
     "track_orbits",
+    "track_orbits_onthefly",
+    "Apsides",
+    "OrbitDecomposition",
+    "get_central_particle_ids",
+    "get_central_particle_ids_device",
+    "find_main_progenitors",
     "myin1d",
     "vector_norm",
     "recenter_coordinates",

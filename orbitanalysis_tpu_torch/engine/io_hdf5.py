@@ -18,7 +18,16 @@ Every read and write goes through one writer object.  :class:`H5Writer`
 writes the HDF5 files and imports ``h5py`` only when it touches a file,
 so the package imports without h5py; :class:`MemoryWriter` has the
 same methods and keeps the datasets in memory, for machines without
-h5py.
+h5py.  Besides the tracking savefile's own methods, both read files
+back (``list_groups``, ``read_group``, ``read_attrs``) and write the
+other schemas: a flat file of root datasets (``write_flat``, the
+on-the-fly catalog), a group added to a file that may not exist yet
+(``add_group``, the collated catalog) and a dataset added to an existing
+group (``add_dataset``, the final counts).  The module functions
+:func:`initialize_savefile`, :func:`append_snapshot`,
+:func:`write_checkpoint`, :func:`read_checkpoint` and
+:func:`last_snapshot_number` are the JAX package's, over
+:class:`H5Writer`.
 """
 
 from __future__ import annotations
@@ -151,6 +160,59 @@ class H5Writer:
         with h5py.File(savefile, "r") as hf:
             return _snapshot_numbers(list(hf.keys()), savefile)
 
+    def list_groups(self, savefile) -> list:
+        """Names of the file's root groups."""
+        import h5py
+
+        with h5py.File(savefile, "r") as hf:
+            return [k for k in hf.keys() if isinstance(hf[k], h5py.Group)]
+
+    def read_group(self, savefile, group=None) -> dict:
+        """``{name: array}`` of a group's datasets (the root's when
+        ``group`` is None)."""
+        import h5py
+
+        with h5py.File(savefile, "r") as hf:
+            g = hf if group is None else hf[group]
+            return {k: v[()] for k, v in g.items()
+                    if isinstance(v, h5py.Dataset)}
+
+    def read_attrs(self, savefile) -> dict:
+        """The root attributes, bytes decoded to str."""
+        import h5py
+
+        with h5py.File(savefile, "r") as hf:
+            return {k: v.decode() if isinstance(v, bytes) else v
+                    for k, v in hf.attrs.items()}
+
+    def write_flat(self, savefile, datasets, attrs=None):
+        """A new file (replacing any) of root datasets and attributes."""
+        import h5py
+
+        with h5py.File(savefile, "w") as hf:
+            for name, data in datasets.items():
+                hf.create_dataset(name, data=data)
+            for name, value in (attrs or {}).items():
+                hf.attrs[name] = value
+
+    def add_group(self, savefile, group, datasets):
+        """A new group in ``savefile``, creating the file if absent;
+        raises ValueError when the group exists."""
+        import h5py
+
+        with h5py.File(savefile, "a") as hf:
+            g = hf.create_group(group)
+            for name, data in datasets.items():
+                g.create_dataset(name, data=data)
+
+    def add_dataset(self, savefile, group, name, data):
+        """A new dataset in an existing group; raises ValueError when it
+        exists."""
+        import h5py
+
+        with h5py.File(savefile, "r+") as hf:
+            hf[group].create_dataset(name, data=data)
+
 
 class MemoryWriter:
     """The :class:`H5Writer` interface over in-memory dictionaries.
@@ -172,11 +234,9 @@ class MemoryWriter:
 
     def append_snapshot(self, savefile, snapshot_number, datasets,
                         verbose=True):
-        f = self.files[savefile]
-        name = "snapshot_%03d" % snapshot_number
-        if name in f:
-            raise ValueError(f"group {name} already exists in {savefile}")
-        f[name] = {k: np.array(v) for k, v in datasets.items()}
+        if savefile not in self.files:
+            raise KeyError(f"{savefile} was not initialized")
+        self.add_group(savefile, "snapshot_%03d" % snapshot_number, datasets)
 
     def write_checkpoint(self, savefile, angles, snapshot_number,
                          layout_positions=None):
@@ -198,4 +258,73 @@ class MemoryWriter:
         return ck["angles"], ck["snapshot_number"], ck["layout_positions"]
 
     def last_snapshot_number(self, savefile) -> int:
-        return _snapshot_numbers(list(self.files[savefile]), savefile)
+        return _snapshot_numbers(self.list_groups(savefile), savefile)
+
+    def list_groups(self, savefile) -> list:
+        return [k for k, v in self.files[savefile].items()
+                if k != "attrs" and isinstance(v, dict)]
+
+    def read_group(self, savefile, group=None) -> dict:
+        f = self.files[savefile]
+        if group is not None:
+            return dict(f[group])
+        return {k: v for k, v in f.items()
+                if k != "attrs" and not isinstance(v, dict)}
+
+    def read_attrs(self, savefile) -> dict:
+        return dict(self.files[savefile]["attrs"])
+
+    def write_flat(self, savefile, datasets, attrs=None):
+        f = {"attrs": dict(attrs or {})}
+        f.update((k, np.array(v)) for k, v in datasets.items())
+        self.files[savefile] = f
+
+    def add_group(self, savefile, group, datasets):
+        f = self.files.setdefault(savefile, {"attrs": {}})
+        if group in f:
+            raise ValueError(f"group {group} already exists in {savefile}")
+        f[group] = {k: np.array(v) for k, v in datasets.items()}
+
+    def add_dataset(self, savefile, group, name, data):
+        g = self.files[savefile][group]
+        if name in g:
+            raise ValueError(f"dataset {group}/{name} already exists in "
+                             f"{savefile}")
+        g[name] = np.array(data)
+
+
+def initialize_savefile(savefile, mode, box_size, verbose=True):
+    """A new tracking savefile with its root attributes."""
+    H5Writer().initialize(savefile, mode, box_size, verbose)
+
+
+def append_snapshot(savefile, snapshot_number, mode, apsis_ids,
+                    apsis_offsets, apsis_angles, halo_ids,
+                    final_descendant_ids, region_radii, region_positions,
+                    bulk_velocities, verbose=True,
+                    angle_store_dtype=np.float16):
+    """One ``snapshot_%03d`` group of the tracking savefile."""
+    ds = snapshot_datasets(mode, apsis_ids, apsis_offsets, apsis_angles,
+                           halo_ids, final_descendant_ids, region_radii,
+                           region_positions, bulk_velocities)
+    ds["angles"] = np.asarray(apsis_angles, dtype=angle_store_dtype)
+    H5Writer().append_snapshot(savefile, snapshot_number, ds, verbose)
+
+
+def write_checkpoint(savefile, angles, snapshot_number,
+                     angle_store_dtype=np.float16, layout_positions=None):
+    """The angle sidecar, angles stored as ``angle_store_dtype``, with
+    the aligned engine's stable positions when given."""
+    H5Writer().write_checkpoint(
+        savefile, np.asarray(angles, dtype=angle_store_dtype),
+        snapshot_number, layout_positions=layout_positions)
+
+
+def read_checkpoint(savefile, with_layout=False):
+    """``(angles, snapshot_number[, layout_positions or None])``."""
+    return H5Writer().read_checkpoint(savefile, with_layout=with_layout)
+
+
+def last_snapshot_number(savefile) -> int:
+    """Resume anchor: number of the last written snapshot group."""
+    return H5Writer().last_snapshot_number(savefile)

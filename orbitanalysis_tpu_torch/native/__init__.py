@@ -5,10 +5,16 @@ The port keeps its own copy of the JAX package's
 ``orbitanalysis_tpu/native/packing.cpp`` beside this module and builds
 it with g++ into the port's own git-ignored build directory, keyed by a
 hash of the source.  It holds the multithreaded ragged-block packer and the
-stable-layout aligner that feed the device engine.  Everything here is
-optional: the NumPy fallbacks in :mod:`orbitanalysis_tpu_torch.utils.
-padding` and :mod:`orbitanalysis_tpu_torch.engine.packing` compute the
-same results, so the port runs without a compiler.
+stable-layout aligner that feed the device engine, and the grid
+counting sort of :class:`~orbitanalysis_tpu_torch.engine.regions.
+RegionExtractor`.  Everything here is optional: the NumPy fallbacks in
+:mod:`orbitanalysis_tpu_torch.utils.padding`,
+:mod:`orbitanalysis_tpu_torch.engine.packing` and the extractor compute
+the same results, so the port runs without a compiler.
+
+:func:`build` compiles the library, :func:`load` loads a built one,
+:func:`ensure` does both on first use and :func:`available` says whether
+it is loaded.
 """
 
 from __future__ import annotations
@@ -58,6 +64,8 @@ def _compile(so: str) -> bool:
 
 def _declare(lib):
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
+    lib.grid_count_sort.argtypes = [p, i64, i64, p, p]
+    lib.grid_count_sort.restype = None
     lib.pack_ragged_bytes.argtypes = [p, p, i64, i64, p, p, i64, i64]
     lib.pack_ragged_bytes.restype = None
     lib.fill_i32.argtypes = [p, i64, i32]
@@ -73,22 +81,51 @@ def _declare(lib):
     lib.stable_align_seq1.restype = i64
 
 
+def build(force: bool = False) -> bool:
+    """Compile the library with g++ unless a build of this source
+    exists (always with ``force``).  Returns success."""
+    with _lock:
+        so = _library_path()
+        if so is None:
+            return False
+        if os.path.exists(so) and not force:
+            return True
+        return _compile(so)
+
+
+def load():
+    """The ctypes library of a built source, or None when it is not
+    built (nothing is compiled)."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    so = _library_path()
+    if so is None or not os.path.exists(so):
+        return None
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(so)
+            _declare(lib)
+            _lib = lib
+    return _lib
+
+
 def ensure():
     """The ctypes library, building it on first use; None when the
     source or the compiler is unavailable (the caller then takes the
     NumPy path)."""
-    global _lib, _tried
-    if _lib is not None or _tried:
-        return _lib
-    with _lock:
-        if _lib is None and not _tried:
-            _tried = True
-            so = _library_path()
-            if so is not None and (os.path.exists(so) or _compile(so)):
-                lib = ctypes.CDLL(so)
-                _declare(lib)
-                _lib = lib
-    return _lib
+    global _tried
+    lib = load()
+    if lib is not None or _tried:
+        return lib
+    _tried = True
+    build()
+    return load()
+
+
+def available() -> bool:
+    """Whether the library is loaded (or built and loadable)."""
+    return load() is not None
 
 
 def tier() -> str:
@@ -252,3 +289,19 @@ def stable_align_seq_native(layout, ids, pos, vel, mass, invalid, out,
     if overflowed:
         raise ValueError("stable layout overflow: grow capacity first")
     return out
+
+
+def grid_count_sort_native(flat: np.ndarray, n_cells: int):
+    """Stable counting sort of cell keys in ``[0, n_cells)``:
+    ``(cell_starts, order)``, as ``np.searchsorted(sorted, arange)`` and
+    ``np.argsort(kind='stable')`` give them, or None when the library is
+    unavailable."""
+    lib = ensure()
+    if lib is None:
+        return None
+    flat = np.ascontiguousarray(flat, dtype=np.int64)
+    starts = np.empty(n_cells + 1, dtype=np.int64)
+    order = np.empty(len(flat), dtype=np.int64)
+    lib.grid_count_sort(flat.ctypes.data, len(flat), int(n_cells),
+                        starts.ctypes.data, order.ctypes.data)
+    return starts, order

@@ -65,7 +65,8 @@ class StepEvents(NamedTuple):
 
     apsis: torch.Tensor         # [H, P] bool, prev layout
     apsis_angle: torch.Tensor   # [H, P], prev layout: angle at the apsis
-    dtheta: torch.Tensor | None  # [H, P], prev layout (static step)
+    dtheta: torch.Tensor | None  # [H, P], prev layout (static step,
+    #                              general step with with_dtheta)
     matched_prev: torch.Tensor  # [H, P] bool, prev layout
     departed: torch.Tensor      # [H, P] bool, prev layout
     entered: torch.Tensor       # [H, P] bool, cur layout
@@ -158,14 +159,11 @@ def make_orbit_step(
     scan_counts` re-indexes its counts through; otherwise it is None.
     ``event_capacity=K`` compacts the events to the front of each row
     (slot order kept) so hosts fetch ``[H, K]`` lists plus counts;
-    ``ev_count > K`` flags a row whose list was cut.  The JAX twin's
-    ``with_dtheta`` output serves its on-the-fly file writer (M6), which
-    is not ported: passing it true raises NotImplementedError.
+    ``ev_count > K`` flags a row whose list was cut.
+    ``with_dtheta=True`` also returns each matched pair's angle change in
+    prev layout (``StepEvents.dtheta``, zero elsewhere), which the
+    on-the-fly file writer stores; otherwise it is None.
     """
-    if with_dtheta:
-        raise NotImplementedError(
-            "with_dtheta serves the on-the-fly file writer (M6), which the "
-            "port does not have yet")
     pericentric = _check_mode(mode)
     invalid = invalid_id_for(id_dtype)
     adt = torch_dtype(angle_dtype)
@@ -193,11 +191,12 @@ def make_orbit_step(
             apsis = matched & flip
             angle_acc = ang0 + dtheta.to(adt)
             zero = torch.zeros_like(angle_acc)
-            return (
+            out = (
                 (apsis, None),
                 (torch.where(apsis, angle_acc, zero),
                  torch.where(apsis, zero, angle_acc)),
             )
+            return out + ((dtheta, None),) if with_dtheta else out
 
         mj = merge_join(
             carry.ids, snap.ids, invalid,
@@ -220,7 +219,7 @@ def make_orbit_step(
         return new_carry, StepEvents(
             apsis=apsis,
             apsis_angle=apsis_angle,
-            dtheta=None,
+            dtheta=mj.to_prev[2] if with_dtheta else None,
             matched_prev=mj.matched_prev,
             departed=valid_prev & ~mj.matched_prev,
             entered=valid_cur & ~mj.matched_cur,
@@ -293,3 +292,10 @@ def make_static_orbit_step(
         )
 
     return step
+
+
+def orbit_step(carry: Carry, snap: SnapshotBatch, mode: str = "pericentric",
+               box_size=None):
+    """One general step for ``(mode, box_size)``: ``(carry, StepEvents)``.
+    ``box_size`` is a scalar or a length-3 array_like."""
+    return make_orbit_step(mode=mode, box_size=box_size)(carry, snap)

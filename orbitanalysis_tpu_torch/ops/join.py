@@ -1,6 +1,7 @@
 """Sort-merge particle-ID matching between consecutive snapshots (twin of
-``orbitanalysis_tpu/ops/join.py:129`` ``merge_join`` and ``:282``
-``gather_rows``).
+``orbitanalysis_tpu/ops/join.py``: ``merge_join``, and the
+searchsorted forms ``sort_rows``, ``match_ids``, ``two_way_match`` and
+``gather_rows`` kept for small and host-side uses).
 
 Concatenate the previous and current ID rows, sort by ``(id, side)``
 with a stable ``torch.sort`` (prev entries come first in the concat, so
@@ -19,6 +20,44 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+
+class SortedRows(NamedTuple):
+    ids: torch.Tensor     # [H, P] sorted ascending (padding last)
+    order: torch.Tensor   # [H, P] int32: original slot of each sorted entry
+
+
+def sort_rows(ids: torch.Tensor) -> SortedRows:
+    """Each row's IDs sorted ascending (stably), with the permutation."""
+    vals, order = torch.sort(ids, dim=-1, stable=True)
+    return SortedRows(ids=vals, order=order.to(torch.int32))
+
+
+def match_ids(query: torch.Tensor, ref: SortedRows,
+              invalid_id) -> torch.Tensor:
+    """For each query slot, the slot of the reference row (original,
+    unsorted layout) holding the same ID: ``[H, P]`` int32, -1 where the
+    ID is absent or the slot is padding."""
+    cap = ref.ids.shape[-1]
+    pos = torch.searchsorted(ref.ids.contiguous(), query.contiguous(),
+                             side="left").clamp_(max=cap - 1)
+    hit = (torch.gather(ref.ids, 1, pos) == query) & (query != invalid_id)
+    slot = torch.gather(ref.order, 1, pos)
+    return torch.where(hit, slot, torch.full_like(slot, -1))
+
+
+class TwoWayMatch(NamedTuple):
+    prev_slot_of_cur: torch.Tensor  # [H, P] int32, -1 = entered/padding
+    cur_slot_of_prev: torch.Tensor  # [H, P] int32, -1 = departed/padding
+
+
+def two_way_match(cur_ids, cur_sorted: SortedRows, prev_ids,
+                  prev_sorted: SortedRows, invalid_id) -> TwoWayMatch:
+    """Slot maps both ways between consecutive snapshots' rows."""
+    return TwoWayMatch(
+        prev_slot_of_cur=match_ids(cur_ids, prev_sorted, invalid_id),
+        cur_slot_of_prev=match_ids(prev_ids, cur_sorted, invalid_id),
+    )
 
 
 class MergeJoin(NamedTuple):

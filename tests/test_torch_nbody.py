@@ -457,7 +457,9 @@ def test_pm_tracking_matches_jax():
 def test_integrator_runs_without_jax(tmp_path):
     """With jax and the JAX package blocked, the port's integrator runs:
     direct (Gram and the K14 path), PM with both deposits, P3M, and a
-    checkpointed, resumed run."""
+    checkpointed, resumed run; and the postprocessing, progenitor,
+    on-the-fly, region and Gadget modules import and run on the CPU
+    through a MemoryWriter."""
     script = textwrap.dedent(f"""
         import sys
         for name in ("jax", "jaxlib", "orbitanalysis_tpu"):
@@ -493,7 +495,43 @@ def test_integrator_runs_without_jax(tmp_path):
             checkpoint_every=2, resume=True)
         _, tr2, ev2 = m.simulate_with_tracking(st, members, cfg, forces[2])
         assert torch.equal(tr.counts, tr2.counts) and torch.equal(ev, ev2)
+
+        import orbitanalysis_tpu_torch as otp
+        from orbitanalysis_tpu_torch import postprocessing, progenitors
+        from orbitanalysis_tpu_torch.engine import gadget, onthefly, regions
+        from orbitanalysis_tpu_torch.engine.io_hdf5 import MemoryWriter
+        from orbitanalysis_tpu_torch.models.synthetic import churn_snapshots
+        rng = np.random.default_rng(1)
+        snaps, _ = churn_snapshots(2, 100, 4, box_size=30.0, seed=3)
+        full = {{s: dict(ids=np.concatenate([d["ids"] for d in sn.values()]),
+                         coordinates=np.concatenate(
+                             [d["pos"] for d in sn.values()]),
+                         velocities=np.concatenate(
+                             [d["vel"] for d in sn.values()]))
+                 for s, sn in enumerate(snaps)}}
+        cat = {{s: (np.arange(2), np.stack([sn[h]["center"] for h in sn]),
+                    np.full(2, 6.0)) for s, sn in enumerate(snaps)}}
+        reg, load = regions.make_region_callbacks(full, cat, box_size=30.0)
+        w = MemoryWriter()
+        otp.track_orbits(np.arange(4), np.tile(np.arange(2), (4, 1)), reg,
+                         load, "t", device="cpu", writer=w, verbose=False)
+        otp.track_orbits_onthefly(3, np.tile(np.arange(2), (2, 1)), reg,
+                                  load, "o_{{}}", device="cpu", writer=w,
+                                  verbose=False)
+        ap = postprocessing.Apsides("t", writer=w)
+        ap.collate_apsides(savefile="c", angle_cut=0.0, device="cpu",
+                           save_final_counts=True, verbose=False)
+        od = postprocessing.OrbitDecomposition("t", writer=w)
+        od.get_halo_decomposition_at_snapshot(1, angle_cut=0.0)
+        ids, offs = progenitors.get_central_particle_ids_device(
+            load(3, *reg(3, np.arange(2))), cat[3][1], n=10, device="cpu")
+        assert progenitors.find_main_progenitors_device(
+            full[2]["ids"], [0], ids, offs, device="cpu") == [0, 0]
+        assert "o_003" in w.files and callable(
+            gadget.make_gadget_callbacks) and callable(onthefly.track_orbits)
         assert sys.modules["jax"] is None
+        for name in sys.modules:
+            assert not name.startswith("orbitanalysis_tpu."), name
         print("ok")
     """)
     out = subprocess.run([sys.executable, "-c", script], capture_output=True,

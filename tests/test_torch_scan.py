@@ -162,8 +162,8 @@ def _load_batches(ids, pos, vel, cen, hubble=0.0):
 def test_orbit_step_prev_slot_matches_jax():
     """``make_orbit_step(with_prev_slot=True)``: the cur->prev slot map of
     every churn step equals JAX's (-1 for entrants and padding); without
-    it the field is None, and ``with_dtheta`` names the module that
-    needs it."""
+    it the field is None; ``with_dtheta=True`` (the on-the-fly writer's
+    channel) gives JAX's angle changes to 1e-4 rad."""
     ids, pos, vel, cen, _ = _churn(seed=4)
     jstep = jax.jit(japsis.make_orbit_step(box_size=BOX,
                                            with_prev_slot=True))
@@ -184,9 +184,20 @@ def test_orbit_step_prev_slot_matches_jax():
     _, ev = plain(tapsis.init_carry(3, 256, device="cpu"),
                   tapsis.SnapshotBatch(ids=_t(ids[0]), pos=_t(pos[0]),
                                        vel=_t(vel[0]), center=_t(cen[0])))
-    assert ev.prev_slot is None
-    with pytest.raises(NotImplementedError, match="M6"):
-        tapsis.make_orbit_step(with_dtheta=True)
+    assert ev.prev_slot is None and ev.dtheta is None
+    jstep = jax.jit(japsis.make_orbit_step(box_size=BOX, with_dtheta=True))
+    tstep = tapsis.make_orbit_step(box_size=BOX, with_dtheta=True)
+    jc = japsis.init_carry(3, 256)
+    tc = tapsis.init_carry(3, 256, device="cpu")
+    for s in range(ids.shape[0]):
+        jc, je = jstep(jc, japsis.SnapshotBatch(
+            ids=ids[s], pos=pos[s], vel=vel[s], center=cen[s]))
+        tc, te = tstep(tc, tapsis.SnapshotBatch(
+            ids=_t(ids[s]), pos=_t(pos[s]), vel=_t(vel[s]),
+            center=_t(cen[s])))
+        np.testing.assert_allclose(te.dtheta.numpy(), np.asarray(je.dtheta),
+                                   rtol=0, atol=1e-4)
+        assert not te.dtheta[~te.matched_prev].any()
 
 
 # ----------------------------------------------------------------------
