@@ -111,7 +111,27 @@ repository checkout; it imports nothing of JAX.  Phases:
 13. direct summation through the blocked force kernel at N = 131,072
    (16 steps, detection every 4), against the same run with the plain
    blocked version on the card; one P3M force evaluation at 262,144
-   particles on 64^3 (finite, net force near zero).
+   particles on 64^3 (finite, net force near zero);
+14. the distributed engines (``parallel/``, ``track_orbits(mesh=)``):
+   (a) an NCCL world of one rank in this process: config 2 through a
+   ``{'halos': 1}`` mesh under ``join_impl='auto'`` (the aligned engine,
+   the angle compaction once a step) and a ``{'shards': 1}`` mesh, both
+   catalogs equal to phase 5's general engine's, and the four
+   collectives once each on CUDA tensors through NCCL; (b) a gloo world
+   of two spawned ranks sharing the card (NCCL refuses two ranks on one
+   GPU), reading the workloads phase 2 wrote: which collectives gloo
+   takes natively on CUDA tensors; the halo-sharded sorted step (the
+   join-and-detect kernel once a step a rank) and aligned step (the
+   angle compaction once a step a rank), the hash-sharded scan with its
+   all-to-all router (nothing dropped) and the particle-sharded label
+   step (moments, frame rows and detect-and-compact once a snapshot a
+   rank) on the benchmark's 48 churn snapshots, each finding exactly
+   the 1,741,643 events of phases 7 and 8, equal as sets; config 2
+   through ``track_orbits(mesh=)`` on ``{'halos': 2}`` (auto: aligned,
+   and sorted) and ``{'shards': 2}`` with ``mode='both'``, rank 0
+   writing, catalogs equal to phase 5's; each rank's wall and
+   collective bytes a step (two ranks on one card over the host: not a
+   multi-GPU node's speed).  The ranks' launches join the counts.
 
 Any failed check exits non-zero without printing the result lines.  The
 last three lines are the card's name and power limit, the kernels' JSON
@@ -147,6 +167,7 @@ PARITY = (64, 32768, 40000, 8)
 #: so ~1e6 particles are tracked.  WIDE_POOL puts one halo past
 #: PAYLOAD_MAX_ROW members.  ORACLE_HALOS are checked against the oracle.
 E2E = (100, 12500, 20, 25.0)
+E2E_COSMO = dict(redshift=0.5, H0=0.1, Omega_m=0.3, Omega_L=0.7)
 WIDE_POOL = 175000
 ORACLE_HALOS = 8
 #: phases 6-7: the JAX benchmark's label-native workload (bench.py
@@ -223,6 +244,36 @@ def launch_diff(after, before=None):
     before = before or {}
     return {n: c - before.get(n, 0) for n, c in after.items()
             if c != before.get(n, 0)}
+
+
+def row_event_keys(count, ids, row0=0):
+    """The events of ``[S, H]`` counts and ``[S, H, K]`` event IDs (each
+    row's first ``count`` entries) as one sorted host array of
+    ``(snapshot << 40) | ((row0 + row) << 32) | id`` keys: a set to hold
+    engines against each other."""
+    import torch
+
+    s, h, k = ids.shape
+    dev = ids.device
+    ok = torch.arange(k, device=dev)[None, None, :] < count[..., None]
+    snap = torch.arange(s, device=dev, dtype=torch.int64)[:, None, None]
+    row = torch.arange(row0, row0 + h, device=dev,
+                       dtype=torch.int64)[None, :, None]
+    keys = (snap << 40) | (row << 32) | ids.long()
+    return np.sort(keys.expand(s, h, k)[ok].cpu().numpy())
+
+
+def label_event_keys(count, index):
+    """The label path's events (``[S, R]`` counts, ``[S, R, K]`` global
+    pool indices, -1 past each count) as sorted ``(snapshot << 32) |
+    index`` keys."""
+    import torch
+
+    s = index.shape[0]
+    snap = torch.arange(s, device=index.device,
+                        dtype=torch.int64)[:, None, None]
+    keys = (snap << 32) | index.long()
+    return np.sort(keys.expand_as(index)[index >= 0].cpu().numpy())
 
 
 class SmokeFailure(Exception):
@@ -558,7 +609,7 @@ def end_to_end(dev):
     from orbitanalysis_tpu_torch.utils.numerics import hubble_parameter
 
     n_halos, pool, n_snap, box = E2E
-    cosmo = dict(redshift=0.5, H0=0.1, Omega_m=0.3, Omega_L=0.7)
+    cosmo = E2E_COSMO
     hubble_drag = float(hubble_parameter(0.5, 0.1, 0.3, 0.7) / 1.5)
     t0 = time.perf_counter()
     snaps, _ = churn_snapshots(n_halos, pool, n_snap, box_size=box,
@@ -708,13 +759,15 @@ def stage_aligned(dev, form, n_snap):
     return out
 
 
-def bench_workloads(dev):
+def bench_workloads(dev, rank_dir):
     """The JAX benchmark's workloads from one orbit pool, made on the host
     from its seed: the label-native churn sequence (moved to the card),
     the same churn in the ID form (load order on the host for the
     general engine's check, staged ID-sorted with SoA planes on the card,
     and staged in the stable layout) and the first SORTED_CHECK snapshots
-    of the fixed-membership sequence (staged both ways)."""
+    of the fixed-membership sequence (staged both ways).  The label form
+    and the ID form in load order are also written to ``rank_dir`` for
+    phase 14's ranks, which read their blocks and generate nothing."""
     import torch
 
     from orbitanalysis_tpu_torch.models.synthetic import bench_workloads
@@ -724,6 +777,12 @@ def bench_workloads(dev):
     t0 = time.perf_counter()
     w = bench_workloads(*LABEL, seed=0, churn=0.07)
     t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for form in ("label", "churn"):
+        for name, a in zip(("", "_pos", "_vel", "_centers"), w[form][:4]):
+            np.save(os.path.join(rank_dir, f"{form}{name}.npy"), a)
+    log(f"  the label form and the ID form written for phase 14's ranks: "
+        f"{time.perf_counter() - t0:.1f} s")
     lab, pos, vel, cen, n_valid = w["label"]
     work = dict(label=torch.from_numpy(lab).to(dev),
                 pos=torch.from_numpy(pos).to(dev),
@@ -1162,11 +1221,13 @@ def label_full_width(dev, work):
               and torch.equal(other.index, ev.index),
               f"frames={what}: events differ from frames='auto'")
 
+    keys = label_event_keys(ev.count, ev.index)
+
     # ---- timing: wall and device ms per step over whole scans, the
     # host's time to queue a step, and where the device time goes
     for frames, what in LABEL_TIMED:
         time_label_step(dev, work, frames, what)
-    return launches
+    return launches, keys
 
 
 def time_label_step(dev, work, frames, what):
@@ -1645,7 +1706,7 @@ def sorted_full_width(dev, seq):
               step, init)
     time_scan(dev, static, n_chk, seq["n_static"],
               "sorted step, static (K18 after the first step)", step, init)
-    return launches
+    return launches, row_event_keys(cnt, ids)
 
 
 def sorted_end_to_end(dev, ctx):
@@ -2780,6 +2841,489 @@ def direct_phase(dev):
     return launches
 
 
+# ------------------------------------------------------------- phase 14
+
+#: phase 14(b): ranks of the gloo world that share the card, and the
+#: seconds the phase waits for them before it fails
+RANKS = 2
+RANK_TIMEOUT = 480
+#: the collectives of ``parallel/collectives.py`` by the torch.distributed
+#: call each makes (process_allgather is an all_gather on the host's
+#: side), probed on gloo with CUDA tensors
+GLOO_PROBES = ("all_reduce", "all_gather_into_tensor", "all_to_all_single",
+               "broadcast")
+#: phase 14's config-2 tracker runs: (name, mesh axes, track_orbits kw)
+MESH_RUNS = (("halos_auto", {"halos": RANKS}, {}),
+             ("halos_sorted", {"halos": RANKS}, dict(join_impl="sorted")),
+             ("shards_both", {"shards": RANKS}, dict(mode="both")))
+
+
+def _save_config2(ctx, path):
+    """Phase 5's config-2 snapshots in one ``.npz`` for the ranks."""
+    arrays = {}
+    for s, snap in enumerate(ctx["snaps"]):
+        for h, d in snap.items():
+            for k in ("ids", "pos", "vel", "mass", "center"):
+                arrays[f"{k}_{s}_{h}"] = d[k]
+    np.savez(path, n_snaps=len(ctx["snaps"]), n_halos=len(ctx["snaps"][0]),
+             **arrays)
+
+
+def _load_config2(path):
+    with np.load(path) as z:
+        n_s, n_h = int(z["n_snaps"]), int(z["n_halos"])
+        return [{h: {k: z[f"{k}_{s}_{h}"] for k in (
+            "ids", "pos", "vel", "mass", "center")} for h in range(n_h)}
+            for s in range(n_s)]
+
+
+def _tracker_runs(dev, snaps, runs):
+    """Config 2 through ``track_orbits(mesh=...)`` for each of ``runs``,
+    every catalog into a MemoryWriter: per run (catalog files, steps,
+    wall ms a step, the collectives' bytes a step)."""
+    import torch
+
+    from orbitanalysis_tpu_torch import track_orbits
+    from orbitanalysis_tpu_torch.engine.io_hdf5 import MemoryWriter
+    from orbitanalysis_tpu_torch.parallel import make_mesh
+    from orbitanalysis_tpu_torch.parallel.collectives import (
+        reset_sent_bytes,
+        sent_bytes,
+    )
+    from orbitanalysis_tpu_torch.utils.metrics import Metrics
+
+    n_halos, _, n_snap, box = E2E
+    regions, load = _churn_loader(snaps, n_halos, box, E2E_COSMO)
+    out = {}
+    for name, axes, kw in runs:
+        mesh = make_mesh(axes, device=dev)
+        w, m = MemoryWriter(), Metrics()
+        save = ((f"{name}_peri.h5", f"{name}_apo.h5")
+                if kw.get("mode") == "both" else f"{name}.h5")
+        reset_sent_bytes()
+        _sync(dev)
+        t0 = time.perf_counter()
+        track_orbits(np.arange(n_snap), np.tile(np.arange(n_halos),
+                                                (n_snap, 1)),
+                     regions, load, save, verbose=False, writer=w,
+                     metrics=m, device=dev, mesh=mesh, **kw)
+        _sync(dev)
+        steps = len(m.records) + 1
+        out[name] = dict(
+            files=w.files, steps=steps, joins=sorted(
+                {r["join"] for r in m.records}),
+            ms=(time.perf_counter() - t0) * 1e3 / steps,
+            bytes=sum(sent_bytes().values()) / steps,
+            capacity=m.records[0]["capacity"])
+    return out
+
+
+def phase14_rank(rank, world, store, work, device="cuda"):
+    """One rank of phase 14(b) (spawned by :func:`sharded_phase`): a gloo
+    world of ``world`` ranks sharing the card.  Probes which collectives
+    gloo takes natively on CUDA tensors, then drives the sharded steps on
+    the benchmark's workloads (read from ``work``, this rank's block) and
+    the config-2 tracker runs; writes its results, launches and log to
+    ``work/rank<rank>.pkl``.  Any failure ends the process non-zero."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from orbitanalysis_tpu_torch.parallel import multihost
+
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(
+        device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    multihost.initialize(f"file://{store}", world, rank, backend="gloo")
+    try:
+        out = _rank_work(rank, world, work, dist, dev)
+    finally:
+        multihost.shutdown()
+    with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def _rank_work(rank, world, work, dist, dev):
+    import torch
+
+    from orbitanalysis_tpu_torch.engine.packing import stage_batch_aligned
+    from orbitanalysis_tpu_torch.ops import _cuda
+    from orbitanalysis_tpu_torch.ops.apsis import SnapshotBatch
+    from orbitanalysis_tpu_torch.ops.label_step import init_label_carry
+    from orbitanalysis_tpu_torch.ops.sorted_step import (
+        init_aligned_carry,
+        init_sorted_carry,
+        presort_snapshot,
+    )
+    from orbitanalysis_tpu_torch.parallel import (
+        make_mesh,
+        make_sharded_aligned_step,
+        make_sharded_sorted_step,
+    )
+    from orbitanalysis_tpu_torch.parallel import hash_sharded as hs
+    from orbitanalysis_tpu_torch.parallel.collectives import (
+        reset_sent_bytes,
+        sent_bytes,
+    )
+    from orbitanalysis_tpu_torch.parallel.label_sharded import (
+        make_sharded_label_step,
+        shard_label_tree,
+    )
+
+    out = dict(rank=rank, walls={}, bytes={}, steps={}, keys={})
+
+    # ---- what gloo takes on CUDA tensors (the port hands them to it as
+    # they are)
+    x = torch.ones(4 * world, device=dev)
+    calls = dict(
+        all_reduce=lambda: dist.all_reduce(x.clone()),
+        all_gather_into_tensor=lambda: dist.all_gather_into_tensor(
+            torch.empty(4 * world * world, device=dev), x),
+        all_to_all_single=lambda: dist.all_to_all_single(
+            torch.empty_like(x), x),
+        broadcast=lambda: dist.broadcast(x.clone(), 0))
+    out["probe"] = {}
+    for name in GLOO_PROBES:
+        try:
+            calls[name]()
+            _sync(dev)
+            out["probe"][name] = "accepted"
+        except (RuntimeError, ValueError) as exc:
+            out["probe"][name] = ("refused: "
+                                  + str(exc).strip().splitlines()[0][:100])
+        dist.barrier()
+
+    def load(name):
+        return np.load(os.path.join(work, f"{name}.npy"), mmap_mode="r")
+
+    h, p, s_n = LABEL
+    hl = h // world
+    rows = slice(rank * hl, (rank + 1) * hl)
+    ids, pos, vel, cen = (load(f"churn{n}") for n in (
+        "", "_pos", "_vel", "_centers"))
+    block = SnapshotBatch(
+        ids=np.ascontiguousarray(ids[:, rows]),
+        pos=np.ascontiguousarray(pos[:, rows]),
+        vel=np.ascontiguousarray(vel[:, rows]),
+        center=np.ascontiguousarray(cen[:, rows]))
+    hmesh = make_mesh({"halos": world}, device=dev)
+
+    def to_dev(b):
+        return SnapshotBatch(**{f: torch.from_numpy(np.ascontiguousarray(
+            getattr(b, f))).to(dev) for f in (
+                "ids", "pos", "vel", "center", "slot")})
+
+    def timed_scan(name, step, carry, staged, ev_ids):
+        """The counted, timed scan of one sharded step over the staged
+        sequence; returns the event keys, after one warm-up step."""
+        step(carry, _batch(staged, 0))
+        keys = []
+        c0 = _cuda.launch_counts()
+        reset_sent_bytes()
+        _sync(dev)
+        t0 = time.perf_counter()
+        for s in range(s_n):
+            carry, ev = step(carry, _batch(staged, s))
+            keys.append((ev.count, ev_ids(ev, s)))
+        _sync(dev)
+        out["walls"][name] = (time.perf_counter() - t0) * 1e3 / s_n
+        out["bytes"][name] = sum(sent_bytes().values()) / s_n
+        out["steps"][name] = launch_diff(_cuda.launch_counts(), c0)
+        cnt = torch.stack([k[0] for k in keys])
+        out["keys"][name] = row_event_keys(
+            cnt, torch.stack([k[1] for k in keys]), row0=rank * hl)
+
+    # ---- the counted main path: the four sharded steps, then config 2
+    _cuda.reset_launch_counts()
+    staged = to_dev(presort_snapshot(block, soa=True))
+    step = make_sharded_sorted_step(
+        hmesh, LABEL_K, box_size=LABEL_BOX, fused=True, cur_presorted=True,
+        soa_batch=True)
+    timed_scan("sorted", step, init_sorted_carry(hl, p, device=dev), staged,
+               lambda ev, s: ev.ids)
+    del staged
+    staged = to_dev(stage_batch_aligned(block, soa=True))
+    step = make_sharded_aligned_step(hmesh, LABEL_K, box_size=LABEL_BOX,
+                                     soa_batch=True)
+    # positional events: the IDs from the current snapshot's staged table
+    timed_scan("aligned", step, init_aligned_carry(hl, p, device=dev),
+               staged, lambda ev, s: torch.gather(
+                   staged.ids[s], 1, ev.ids.clamp(0, p - 1).long()))
+    del staged, block
+
+    # the hash scan: each snapshot's load-order records, cut by position
+    # (every rank cuts the same records; each keeps its chunk)
+    invalid = np.iinfo(np.int32).max
+    n_max = max(int((ids[s] != invalid).sum()) for s in range(s_n))
+    L = -(-n_max // world)
+    cap = -(-int(L * 1.05) // 128) * 128
+    chunks = []
+    for s in range(s_n):
+        v = ids[s] != invalid
+        fr = hs.flat_to_position_shards(dict(
+            halo=np.broadcast_to(np.arange(h, dtype=np.int32)[:, None],
+                                 v.shape)[v],
+            ids=ids[s][v], pos=pos[s][v], vel=vel[s][v]), world, pad_to=L)
+        chunks.append([None if x is None else x[rank:rank + 1].copy()
+                       for x in fr])
+    flat_seq = hs.FlatRecords(*(
+        None if parts[0] is None else torch.from_numpy(
+            np.stack(parts)).to(dev)
+        for parts in zip(*chunks)))
+    del chunks
+    smesh = make_mesh({"shards": world}, device=dev)
+    scan = hs.make_hash_scan(smesh, h, cap, cap, box_size=LABEL_BOX)
+    carry = hs.init_hash_carry(1, cap, h, device=dev)
+    centers = torch.from_numpy(np.array(cen)).to(dev)
+    c0 = _cuda.launch_counts()
+    reset_sent_bytes()
+    _sync(dev)
+    t0 = time.perf_counter()
+    carry, evs, dropped = scan(carry, flat_seq, centers)
+    _sync(dev)
+    out["walls"]["hash"] = (time.perf_counter() - t0) * 1e3 / s_n
+    out["bytes"]["hash"] = sum(sent_bytes().values()) / s_n
+    out["steps"]["hash"] = launch_diff(_cuda.launch_counts(), c0)
+    out["hash_dropped"] = int(dropped.sum())
+    out["hash_shape"] = dict(L=L, cap=cap, block=hs.default_block(
+        L, world, cap), words=hs.router_words(False))
+    k = evs.ids.shape[-1]
+    ok = torch.arange(k, device=dev)[None, None, :] < evs.count[..., None]
+    snap = torch.arange(s_n, device=dev, dtype=torch.int64)[:, None, None]
+    keys = (snap << 40) | (evs.halo.long() << 32) | evs.ids.long()
+    out["keys"]["hash"] = np.sort(keys.expand_as(evs.ids)[ok].cpu().numpy())
+    del flat_seq, evs, carry, keys, ok
+
+    # the label pool: this rank's block of each snapshot's pool
+    lab = load("label")
+    n = lab.shape[1]
+    lo, hi = rank * n // world, (rank + 1) * n // world
+    lab_d = torch.from_numpy(np.ascontiguousarray(lab[:, lo:hi])).to(dev)
+    lpos = torch.from_numpy(np.ascontiguousarray(
+        load("label_pos")[:, :, lo:hi])).to(dev)
+    lvel = torch.from_numpy(np.ascontiguousarray(
+        load("label_vel")[:, :, lo:hi])).to(dev)
+    lcen = torch.from_numpy(np.array(load("label_centers"))).to(dev)
+    pmesh = make_mesh({"particles": world}, device=dev)
+    lstep, _ = make_sharded_label_step(pmesh, LABEL_K, h, box_size=LABEL_BOX,
+                                       row_width=LABEL_ROW)
+    carry = shard_label_tree(pmesh, init_label_carry(
+        n, row_width=LABEL_ROW, device="cpu"))
+    c0 = _cuda.launch_counts()
+    reset_sent_bytes()
+    _sync(dev)
+    t0 = time.perf_counter()
+    counts, index = [], []
+    for s in range(s_n):
+        carry, ev = lstep(carry, (lpos[s], lvel[s], lab_d[s], lcen[s], None,
+                                  0.0))
+        counts.append(ev.count)
+        index.append(ev.index)
+    _sync(dev)
+    out["walls"]["label"] = (time.perf_counter() - t0) * 1e3 / s_n
+    out["bytes"]["label"] = sum(sent_bytes().values()) / s_n
+    out["steps"]["label"] = launch_diff(_cuda.launch_counts(), c0)
+    out["keys"]["label"] = label_event_keys(torch.stack(counts),
+                                            torch.stack(index))
+    del lab_d, lpos, lvel, carry, index
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # config 2 through track_orbits(mesh=...)
+    c0 = _cuda.launch_counts()
+    runs = _tracker_runs(dev, _load_config2(os.path.join(work,
+                                                         "config2.npz")),
+                         MESH_RUNS)
+    out["tracker_launches"] = launch_diff(_cuda.launch_counts(), c0)
+    out["launches"] = _cuda.launch_counts()
+    # ---- end of the counted main path
+    for name, r in runs.items():
+        out["walls"][name] = r["ms"]
+        out["bytes"][name] = r["bytes"]
+        out["steps"][name] = dict(steps=r["steps"], joins=r["joins"],
+                                  capacity=r["capacity"])
+    if rank == 0:
+        out["catalogs"] = {name: r["files"] for name, r in runs.items()}
+    return out
+
+
+def world_of_one(dev, ctx, work):
+    """Phase 14(a): an NCCL world of one rank in this process, config 2
+    through the halo-sharded (aligned) and hash-sharded engines, and the
+    four collectives once each on CUDA tensors.  Returns the counted
+    launches."""
+    import torch
+    import torch.distributed as dist
+
+    from orbitanalysis_tpu_torch.ops import _cuda
+    from orbitanalysis_tpu_torch.parallel import make_mesh, multihost
+    from orbitanalysis_tpu_torch.parallel import collectives as col
+
+    multihost.initialize(f"file://{os.path.join(work, 'nccl_store')}", 1, 0,
+                         backend="nccl")
+    try:
+        check(col.backend_of() == "nccl", "the world of one is not NCCL")
+        # ---- the main path, counted
+        _cuda.reset_launch_counts()
+        runs = _tracker_runs(dev, ctx["snaps"], (
+            ("halos_auto", {"halos": 1}, {}),
+            ("shards", {"shards": 1}, {})))
+        launches = _cuda.launch_counts()
+        # ---- end of the counted main path
+        mesh = make_mesh({"halos": 1}, device=dev)
+        g = mesh.group("halos")
+        x = torch.arange(8, dtype=torch.float32, device=dev).reshape(2, 4)
+        col.reset_sent_bytes()
+        got = (col.psum(x, g), col.all_gather(x, g, axis=1),
+               col.all_to_all(x, g), col.process_allgather(x, g))
+        _sync(dev)
+        check(all(torch.equal(torch.as_tensor(y).to(dev).reshape(2, 4), x)
+                  for y in got), "a collective of the world of one is not "
+              "the identity")
+        check(col.sent_bytes() == {"psum": 32, "all_gather": 64,
+                                   "all_to_all": 32},
+              f"collective bytes {col.sent_bytes()}")
+    finally:
+        multihost.shutdown()
+    check(not dist.is_initialized(), "the NCCL world did not end")
+    halos, shards = runs["halos_auto"], runs["shards"]
+    check(halos["joins"] == ["aligned"],
+          f"join_impl='auto' on a 'halos' mesh ran {halos['joins']}")
+    check(launches["compact_angle_rows"] == halos["steps"],
+          f"K1 launched {launches['compact_angle_rows']} times, not once "
+          f"in each of {halos['steps']} steps")
+    check(shards["joins"] == ["hash"], f"the shards run ran {shards['joins']}")
+    for name, r in runs.items():
+        catalogs_equal(ctx["general"], r["files"][f"{name}.h5"])
+    log(f"  {{'halos': 1}} (aligned, K1 {halos['steps']} times) and "
+        f"{{'shards': 1}} over NCCL at config 2: catalogs equal phase 5's "
+        "general engine's; psum, all_gather, all_to_all and "
+        "process_allgather through NCCL on CUDA tensors, the identity")
+    log(f"  walls: halos {halos['ms']:.2f} ms a step, shards "
+        f"{shards['ms']:.2f} ms a step; collective bytes a step: halos "
+        f"{halos['bytes']:.0f}, shards {shards['bytes']:.0f}")
+    return launches
+
+
+def sharded_phase(dev, ctx, work, keys, smi):
+    """Phase 14: the distributed engines on the card.  (a) an NCCL world
+    of one in this process; (b) a gloo world of RANKS spawned ranks
+    sharing the card (NCCL refuses two ranks on one GPU): the sharded
+    sorted, aligned, hash and label steps at full width on the JAX
+    benchmark's workloads, each finding exactly its 1,741,643 events as
+    phases 7 and 8 found them, and config 2 through track_orbits(mesh=)
+    with catalogs equal to phase 5's.  Returns the launches of both."""
+    import multiprocessing
+    import pickle
+
+    import torch
+
+    t_phase = time.perf_counter()
+    launches = world_of_one(dev, ctx, work)
+    _save_config2(ctx, os.path.join(work, "config2.npz"))
+    torch.cuda.empty_cache()
+    ctx_mp = multiprocessing.get_context("spawn")
+    store = os.path.join(work, "gloo_store")
+    procs = [ctx_mp.Process(target=phase14_rank,
+                            args=(r, RANKS, store, work))
+             for r in range(RANKS)]
+    t0 = time.perf_counter()
+    for pr in procs:
+        pr.start()
+    try:
+        for pr in procs:
+            pr.join(timeout=max(1.0, RANK_TIMEOUT
+                                - (time.perf_counter() - t0)))
+    finally:
+        hung = [pr for pr in procs if pr.is_alive()]
+        for pr in procs:
+            if pr.is_alive():
+                pr.kill()
+                pr.join()
+    check(not hung, f"{len(hung)} rank(s) still running after "
+          f"{RANK_TIMEOUT} s")
+    for r, pr in enumerate(procs):
+        check(pr.exitcode == 0, f"rank {r} failed (exit {pr.exitcode})")
+    outs = []
+    for r in range(RANKS):
+        with open(os.path.join(work, f"rank{r}.pkl"), "rb") as f:
+            outs.append(pickle.load(f))  # written by this run's ranks
+    log(f"  gloo world of {RANKS} ranks on one card: "
+        f"{time.perf_counter() - t0:.1f} s from spawn to exit")
+    log(f"  gloo on CUDA tensors: {outs[0]['probe']} (the port hands CUDA "
+        "tensors to a gloo group as they are)")
+
+    s_n = LABEL[2]
+    for name, want, what in (("sorted", keys["sorted"], "phase 8"),
+                             ("aligned", keys["sorted"], "phase 8"),
+                             ("hash", keys["sorted"], "phase 8"),
+                             ("label", keys["label"], "phase 7")):
+        got = np.sort(np.concatenate([o["keys"][name] for o in outs]))
+        check(len(got) == LABEL_EVENTS,
+              f"sharded {name}: {len(got)} events, not {LABEL_EVENTS}")
+        check(np.array_equal(got, want),
+              f"sharded {name}: the events differ from {what}'s as a set")
+        log(f"  sharded {name}: {len(got)} events, the set {what} found; "
+            f"launches a rank "
+            f"{[o['steps'][name] for o in outs]}")
+    for o in outs:
+        st = o["steps"]
+        check(st["sorted"] == {"fused_join_detect": s_n},
+              f"rank {o['rank']}: sharded sorted launched {st['sorted']}")
+        check(st["aligned"] == {"compact_angle_rows": s_n},
+              f"rank {o['rank']}: sharded aligned launched {st['aligned']}")
+        check(st["label"] == {"segment_moments": s_n, "frame_rows": s_n,
+                              "detect_label_compact_rows": s_n},
+              f"rank {o['rank']}: sharded label launched {st['label']}")
+        check(o["hash_dropped"] == 0,
+              f"rank {o['rank']}: the router dropped {o['hash_dropped']}")
+    general = ctx["general"]
+    cats = outs[0]["catalogs"]
+    for name in ("halos_auto", "halos_sorted"):
+        catalogs_equal(general, cats[name][f"{name}.h5"])
+    catalogs_equal(general, cats["shards_both"]["shards_both_peri.h5"])
+    apo = cats["shards_both"]["shards_both_apo.h5"]
+    check(sorted(apo) == sorted(general) and sum(
+        len(g.get("apocenter_IDs", ())) for k, g in apo.items()
+        if k != "attrs") > 0, "the apocentric catalog is empty")
+    for o in outs:
+        st = o["steps"]
+        check(st["halos_auto"]["joins"] == ["aligned"]
+              and st["halos_sorted"]["joins"] == ["sorted"]
+              and st["shards_both"]["joins"] == ["hash"],
+              f"rank {o['rank']}: the mesh runs took "
+              f"{[st[n]['joins'] for n, _, _ in MESH_RUNS]}")
+    log("  track_orbits(mesh=) at config 2, rank 0 writing: {'halos': 2} "
+        "(auto: aligned), {'halos': 2} sorted, {'shards': 2} mode='both': "
+        "catalogs equal phase 5's general engine's")
+
+    hs_shape = outs[0]["hash_shape"]
+    log(f"  {smi}: walls and collective bytes a step, a rank (two ranks "
+        "share this one card and exchange through the host over gloo: "
+        "not the speed of a multi-GPU node)")
+    for name in ("sorted", "aligned", "hash", "label", "halos_auto",
+                 "halos_sorted", "shards_both"):
+        log(f"    {name}: " + "; ".join(
+            f"rank {o['rank']} {o['walls'][name]:.3f} ms, "
+            f"{o['bytes'][name]:.0f} B" for o in outs))
+    log(f"    reckoned from the shapes: label psum [{LABEL[0]}, 4] f32 = "
+        f"{LABEL[0] * 16} B; router {RANKS} x block {hs_shape['block']} x "
+        f"{hs_shape['words']} words x 4 B = "
+        f"{RANKS * hs_shape['block'] * hs_shape['words'] * 4} B "
+        f"(L = {hs_shape['L']}, cap = {hs_shape['cap']}) plus the hash "
+        f"psum [{LABEL[0]}, 4] f32; halo-sharded steps none; the tracker's "
+        "event gathers count-bounded")
+    log(f"  launches: world of one {launch_diff(launches)}; a rank "
+        f"{[launch_diff(o['launches']) for o in outs]}")
+    for o in outs:
+        for name, n in o["launches"].items():
+            launches[name] += n
+    log(f"  phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     import torch
 
@@ -2814,7 +3358,22 @@ def main():
     t0 = time.perf_counter()
     tier = native.tier()
     log(f"  host packing tier: {tier} ({time.perf_counter() - t0:.2f} s)")
-    work, seq = bench_workloads(dev)
+    import shutil
+    import tempfile
+
+    rank_dir = tempfile.mkdtemp(prefix="orbit_smoke_ranks_")
+    try:
+        return _phases(dev, rank_dir, smi)
+    finally:
+        shutil.rmtree(rank_dir, ignore_errors=True)
+
+
+def _phases(dev, rank_dir, smi):
+    import torch
+
+    from orbitanalysis_tpu_torch.ops import _cuda
+
+    work, seq = bench_workloads(dev, rank_dir)
     log("== phase 3: kernels against their plain-torch versions")
     timings = kernel_checks(dev)
     timings.update(label_kernel_checks(dev, work))
@@ -2829,11 +3388,11 @@ def main():
         f"[{LABEL_PARITY[0]}, {LABEL_ROW}] x {LABEL_PARITY[1]} snapshots")
     label_parity(dev, work)
     log("== phase 7: the label-native main path at full width")
-    label_launches = label_full_width(dev, work)
+    label_launches, label_keys = label_full_width(dev, work)
     del work
     log("== phase 8: the sorted engine at full width (the benchmark's "
         "merge-join and static cells)")
-    sorted_launches = sorted_full_width(dev, seq)
+    sorted_launches, sorted_keys = sorted_full_width(dev, seq)
     log("== phase 9: track_orbits(join_impl='sorted') at config-2 scale")
     e2e_sorted = sorted_end_to_end(dev, ctx)
     log("== phase 9b: the rest of the reference workflow at config-2 scale "
@@ -2846,8 +3405,9 @@ def main():
     aligned_launches, k5_err = aligned_full_width(dev, seq)
     timings["compact_payload_rows"]["max_abs_err"] = max(
         timings["compact_payload_rows"]["max_abs_err"], k5_err)
-    # the earlier phases' workloads go before the 33.5M run
-    del seq, ctx
+    # the earlier phases' workloads go before the 33.5M run (phase 14
+    # reads phase 5's host snapshots and catalogs)
+    del seq
     torch.cuda.empty_cache()
     log("== phase 11: config-4 oracle, Kepler ensemble under point-mass "
         "forces, on the card and on the CPU")
@@ -2857,13 +3417,17 @@ def main():
     scale_launches = c4_scale(dev)
     log("== phase 13: direct summation through K14 at N = 131072, and P3M")
     direct_launches = direct_phase(dev)
+    log("== phase 14: the distributed engines on the card: an NCCL world of "
+        f"one, then a gloo world of {RANKS} ranks sharing it")
+    sharded_launches = sharded_phase(
+        dev, ctx, rank_dir, dict(label=label_keys, sorted=sorted_keys), smi)
     kernels = []
     for name, k in _cuda.KERNELS.items():
         n = (launches[name] + label_launches[name] + sorted_launches[name]
              + e2e_sorted[name] + post_launches[name]
              + aligned_launches[name]
              + oracle_launches[name] + scale_launches[name]
-             + direct_launches[name])
+             + direct_launches[name] + sharded_launches[name])
         r = timings[name]
         kernels.append(dict(
             name=name, route=k.route, source=k.source, replaces=k.replaces,

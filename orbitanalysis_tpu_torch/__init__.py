@@ -32,14 +32,20 @@ Public API (the JAX package's surface):
   (``models.pm.make_pm_force_fn``, the sorted deposit kernel on CUDA
   tensors) and P3M.  On the CPU pass ``device='cpu'`` to the state
   constructors; on the card ``chip_smoke.py`` phases 11-13 drive it;
+- :mod:`orbitanalysis_tpu_torch.parallel` — the distributed engines,
+  one rank of a ``torch.distributed`` world a device: meshes over the
+  ranks, ``track_orbits(mesh=...)`` on the halo-sharded engines and
+  the hash-sharded particle-pool engine, the sharded sorted, aligned,
+  label and hash steps, the sharded direct forces and the multi-process
+  helpers (``parallel.multihost``);
 - the numerics helpers :func:`hubble_parameter`, :func:`myin1d`,
   :func:`recenter_coordinates`, :func:`vector_norm`.
 
 Every entry point runs on CUDA unless ``device='cpu'`` is passed.  The
 card machine has no ``h5py``: pass ``writer=MemoryWriter()``
 (``engine/io_hdf5.py``) to the trackers and to ``Apsides`` there.  Not
-ported yet: the distributed engines (``parallel/``, ``track_orbits(
-mesh=...)``; ROADMAP.md).
+ported yet: the slab-resident distributed PM (the JAX package's
+``models/pm_sharded.py``; ROADMAP.md).
 """
 
 __version__ = "0.1.0"

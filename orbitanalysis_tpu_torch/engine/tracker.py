@@ -19,12 +19,19 @@ what ``join_impl='auto'`` picks on a CUDA device; ``'general'`` (the
 sort-merge join step) elsewhere, and after ``auto`` capacity growth;
 ``'sorted'`` (rows staged ID-sorted on the host, an ID-sorted carry, the
 join-and-detect kernel on the card) when asked for.
+
+With ``mesh=`` the run spans the ranks of a ``torch.distributed`` world,
+one rank a device (:mod:`orbitanalysis_tpu_torch.parallel`): a
+``'halos'`` mesh runs those engines on each rank's block of halo rows,
+a ``'shards'`` mesh the hash-sharded particle-pool engine.  Every rank
+loads, packs and decides alike from the same host data; the event lists
+are gathered to every rank and rank 0 writes.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -59,6 +66,7 @@ from orbitanalysis_tpu_torch.ops.sorted_step import (
     make_sorted_orbit_step,
     sorted_carry_to_numpy,
 )
+from orbitanalysis_tpu_torch.parallel import multihost
 from orbitanalysis_tpu_torch.utils.device import resolve_device
 from orbitanalysis_tpu_torch.utils.metrics import Metrics, phase_timer, trace
 from orbitanalysis_tpu_torch.utils.numerics import hubble_parameter
@@ -225,10 +233,86 @@ class _Fetch:
         return self._host[name].numpy()
 
 
-def _stage(packed: PackedSnapshot, hubble_drag: float, device):
-    """One packed snapshot as a device :class:`SnapshotBatch`.  On CUDA
-    the host arrays go through pinned buffers with asynchronous copies,
-    so staging does not wait for the step still running."""
+class _MeshFetch:
+    """A sharded step's small outputs, gathered from every rank to the
+    host of every rank at their first read (the counterpart of the JAX
+    package's ``_fetch_host``, ``engine/tracker.py:90-106``).
+
+    Each read is a collective: every rank reads the same names in the
+    same order, which the writer's control flow, decided on replicated
+    host data and gathered counts, guarantees.  ``gather(tensor)`` joins
+    the ranks' blocks.  The ``[rows, K]`` event lists cross count-bounded:
+    only their first columns up to the largest gathered count (rounded
+    up to 256), zero-padded back to K on the host.  Names in
+    ``replicated`` hold the same value on every rank and are copied,
+    not gathered."""
+
+    _LISTS = ("ids", "angles", "slots", "halo")
+
+    def __init__(self, tensors: dict, gather, replicated=()):
+        self._tensors = tensors
+        self._gather = gather
+        self._replicated = replicated
+        self._host = {}
+
+    def __getitem__(self, name) -> np.ndarray:
+        if name not in self._host:
+            x = self._tensors[name]
+            if name in self._replicated:
+                out = _host(x)
+            elif name in self._LISTS:
+                k = x.shape[1]
+                most = int(self["count"].max(initial=0))
+                kf = min(round_up(max(most, 1), 256), k)
+                out = self._gather(x[:, :kf].contiguous())
+                if kf < k:
+                    out = np.pad(out, ((0, 0), (0, k - kf)))
+            else:
+                out = self._gather(x)
+            self._host[name] = out
+        return self._host[name]
+
+
+class _MeshEvents:
+    """A sharded step's events whose full planes (the general engine's
+    masks, the aligned engine's payload) are gathered on first read, as
+    CPU tensors; every rank reads them at the same point (the overflow
+    branches are decided on gathered counts)."""
+
+    def __init__(self, events, gather):
+        self._events = events
+        self._gather = gather
+
+    def __getattr__(self, name):
+        x = getattr(self._events, name)
+        if isinstance(x, tuple):
+            return tuple(torch.from_numpy(self._gather(v)) for v in x)
+        return torch.from_numpy(self._gather(x))
+
+
+def _on_primary(fn):
+    """``fn()`` run by the primary process alone (the savefile's single
+    reader and writer); its result, or the exception it raised, reaches
+    every process."""
+    if multihost.process_count() == 1:
+        return fn()
+    out = None
+    if multihost.is_primary():
+        try:
+            out = (None, fn())
+        except Exception as exc:  # re-raised on every process below
+            out = (exc, None)
+    exc, value = multihost.broadcast_from_primary(out)
+    if exc is not None:
+        raise exc
+    return value
+
+
+def _stage(packed: PackedSnapshot, hubble_drag: float, device, mesh=None):
+    """One packed snapshot as a device :class:`SnapshotBatch` (with a
+    mesh: this rank's block of it).  On CUDA the host arrays go through
+    pinned buffers with asynchronous copies, so staging does not wait
+    for the step still running."""
     cuda = torch.device(device).type == "cuda"
 
     def t(a):
@@ -239,12 +323,45 @@ def _stage(packed: PackedSnapshot, hubble_drag: float, device):
             return x.pin_memory().to(device, non_blocking=True)
         return x.to(device)
 
-    return SnapshotBatch(
-        ids=t(packed.ids), pos=t(packed.pos), vel=t(packed.vel),
-        center=t(packed.center), mass=t(packed.mass),
-        bulk_vel=t(packed.bulk_vel), hubble_drag=float(hubble_drag),
-        slot=t(packed.slot),
+    batch = SnapshotBatch(
+        ids=packed.ids, pos=packed.pos, vel=packed.vel,
+        center=packed.center, mass=packed.mass,
+        bulk_vel=packed.bulk_vel, hubble_drag=float(hubble_drag),
+        slot=packed.slot,
     )
+    if mesh is not None:
+        from orbitanalysis_tpu_torch.parallel.sharding import shard_tree
+
+        return shard_tree(batch, mesh, put=t)
+    return SnapshotBatch(*(
+        t(x) if isinstance(x, np.ndarray) else x for x in batch))
+
+
+def _particles_step(step, mesh):
+    """The general step on a ``('halos', 'particles')`` mesh: gather each
+    of this rank's rows from the ``'particles'`` group, run the
+    single-device step on whole rows, and keep this rank's particle
+    block of the new carry (the events stay whole rows, the same on
+    every rank of the group).  XLA inserts the same all-gathers for the
+    JAX package's mesh (``parallel/mesh.py:9-11``)."""
+    from orbitanalysis_tpu_torch.parallel.sharding import (
+        gather_tree,
+        shard_tree,
+        tree_sharding_specs,
+        tree_map,
+    )
+
+    def sharded(carry, batch):
+        specs = tree_sharding_specs(carry, mesh)
+        carry = gather_tree(carry, mesh, axes=("particles",))
+        batch = gather_tree(batch, mesh, axes=("particles",))
+        carry, events = step(carry, batch)
+        # the new carry's particle block: the halo axis is already local
+        keep = tree_map(lambda _, s: tuple(
+            a if a == "particles" else None for a in s), carry, specs)
+        return shard_tree(carry, mesh, keep), events
+
+    return sharded
 
 
 class _DeviceEngine:
@@ -252,7 +369,8 @@ class _DeviceEngine:
     mode."""
 
     def __init__(self, n_halos, capacity, mode, box_size, id_dtype,
-                 angle_dtype, device, event_capacity=None, join="general"):
+                 angle_dtype, device, event_capacity=None, join="general",
+                 mesh=None):
         self.n_halos = n_halos
         self.capacity = capacity
         # hosts fetch [H, K] event lists instead of [H, P] masks; K is
@@ -279,16 +397,56 @@ class _DeviceEngine:
         self._dev_id_dtype = np.int32 if self.surrogate else id_dtype
         self._dev_invalid = invalid_id_for(self._dev_id_dtype)
         self.join = join
+        # a 'halos' mesh: this rank holds a block of rows (and, on a
+        # 'particles' axis, a block of each row's slots); the carry is
+        # made on the host and cut into the blocks
+        self.mesh = mesh
+        if (join in ("sorted", "aligned") and mesh is not None
+                and "particles" in mesh.axis_names):
+            raise ValueError(
+                f"join_impl={join!r} shards the halo axis only (its "
+                "kernels need whole particle rows on one device); use a "
+                "mesh without a 'particles' axis or join_impl='general'"
+            )
         self._steps = {}
+        home = device if mesh is None else "cpu"
         if join == "aligned":
-            self.carry = init_aligned_carry(n_halos, capacity, device=device)
+            carry = init_aligned_carry(n_halos, capacity, device=home)
         elif join == "sorted":
-            self.carry = init_sorted_carry(
+            carry = init_sorted_carry(
                 n_halos, capacity, id_dtype=id_dtype,
-                angle_dtype=angle_dtype, device=device)
+                angle_dtype=angle_dtype, device=home)
         else:
-            self.carry = init_carry(n_halos, capacity, id_dtype=id_dtype,
-                                    angle_dtype=angle_dtype, device=device)
+            carry = init_carry(n_halos, capacity, id_dtype=id_dtype,
+                               angle_dtype=angle_dtype, device=home)
+        self.carry = self._place(carry)
+
+    def _place(self, tree):
+        """A full tree as this rank's blocks (itself without a mesh)."""
+        if self.mesh is None:
+            return tree
+        from orbitanalysis_tpu_torch.parallel.sharding import shard_tree
+
+        return shard_tree(tree, self.mesh)
+
+    def _full(self, tree):
+        """The full tensors of a tree of this engine's blocks, on every
+        rank (collective; itself without a mesh)."""
+        if self.mesh is None:
+            return tree
+        from orbitanalysis_tpu_torch.parallel.sharding import gather_tree
+
+        return gather_tree(tree, self.mesh)
+
+    def _gather_rows(self, x) -> np.ndarray:
+        """Every rank's rows of an event output, on the host (the
+        ``'halos'`` group's all-gather; the ranks of a ``'particles'``
+        group hold the same whole rows)."""
+        from orbitanalysis_tpu_torch.parallel.collectives import (
+            process_allgather,
+        )
+
+        return process_allgather(x, self.mesh.group("halos"), tiled=True)
 
     def _step_fn(self, static=False):
         key = (self.capacity, self.event_capacity, static)
@@ -317,6 +475,11 @@ class _DeviceEngine:
                     id_dtype=self.id_dtype, angle_dtype=self.angle_dtype,
                     event_capacity=self.event_capacity,
                 )
+            # a 'halos' mesh runs the single-device step on each rank's
+            # rows (no collective); a 'particles' axis gathers rows first
+            if self.mesh is not None and "particles" in self.mesh.axis_names:
+                self._steps[key] = _particles_step(self._steps[key],
+                                                   self.mesh)
         return self._steps[key]
 
     def grow(self, new_capacity):
@@ -339,7 +502,7 @@ class _DeviceEngine:
         pad = new_capacity - self.capacity
         if pad <= 0:
             return
-        c = self.carry
+        c = self._full(self.carry)
 
         def padded(x, value):
             tail = torch.full(x.shape[:-1] + (pad,), value, dtype=x.dtype,
@@ -347,11 +510,11 @@ class _DeviceEngine:
             return torch.cat([x, tail], dim=-1)
 
         slots = torch.arange(self.capacity, new_capacity, dtype=torch.int32,
-                             device=self.device).expand(self.n_halos, pad)
+                             device=c.rhat.device).expand(self.n_halos, pad)
         if self.join == "aligned":
             # sentinel keys, appended slot numbers (keeps each row a
             # slot permutation), zero rhat/angle planes
-            self.carry = type(c)(
+            grown = type(c)(
                 key=padded(c.key, -1),
                 sv=torch.cat([c.sv, slots], dim=-1),
                 rhat=padded(c.rhat, 0.0),
@@ -360,7 +523,7 @@ class _DeviceEngine:
         elif self.join == "sorted":
             # sentinel IDs sort last, so each row stays ID-sorted and a
             # slot permutation
-            self.carry = SortedCarry(
+            grown = SortedCarry(
                 ids=padded(c.ids, self.invalid),
                 slot=torch.cat([c.slot, slots], dim=-1),
                 vrb=padded(c.vrb, 0),
@@ -368,12 +531,13 @@ class _DeviceEngine:
                 angles=padded(c.angles, 0.0),
             )
         else:
-            self.carry = Carry(
+            grown = Carry(
                 ids=padded(c.ids, self.invalid),
                 rhat=padded(c.rhat, 0.0),
                 vrad=padded(c.vrad, 0.0),
                 angles=padded(c.angles, 0.0),
             )
+        self.carry = self._place(grown)
         self.capacity = new_capacity
         self._steps.clear()
 
@@ -399,11 +563,12 @@ class _DeviceEngine:
         carry_ids_in_load_order)``.
         """
         new_capacity = round_up(new_capacity, 128)
+        full = self._full(self.carry)
         if self.join == "sorted":
-            c = sorted_carry_to_numpy(self.carry)
+            c = sorted_carry_to_numpy(full)
             ids_s = c.ids
         else:
-            c = decode_aligned_carry(self.carry)
+            c = decode_aligned_carry(full)
             ids_s = np.asarray(layout_ids)
         slot = c.slot
         h, p = ids_s.shape
@@ -424,10 +589,17 @@ class _DeviceEngine:
             self.n_halos, new_capacity, self.mode, self.box_size,
             self.id_dtype, self.angle_dtype, self.device,
             event_capacity=self.event_capacity, join="general",
+            mesh=self.mesh,
         )
-        out.carry = carry_from_numpy(ids_l, rhat_l, vr_l, ang_l,
-                                     device=self.device)
+        out.carry = out._place(carry_from_numpy(
+            ids_l, rhat_l, vr_l, ang_l,
+            device=self.device if self.mesh is None else "cpu"))
         return out, ids_l
+
+    def stage(self, packed: PackedSnapshot, hubble_drag: float):
+        """The step's input: this rank's block of ``packed`` on the
+        device."""
+        return _stage(packed, hubble_drag, self.device, self.mesh)
 
     def step(self, batch: SnapshotBatch, static: bool = False):
         fn = self._step_fn(
@@ -443,33 +615,217 @@ class _DeviceEngine:
         else:
             small = dict(count=events.ev_count, ids=events.ev_ids,
                          angles=events.ev_angles, bulk_vel=events.bulk_vel)
+        if self.mesh is not None:
+            return (_MeshEvents(events, self._gather_rows),
+                    _MeshFetch(small, self._gather_rows))
         return events, _Fetch(small)
 
-    def set_angles(self, angles_padded: np.ndarray, order=None):
-        """Replace the carry's angle state (resume).  ``order`` maps the
-        device layout to load slots (the aligned engine's staged slot
-        channel, flag bits masked)."""
-        if order is not None:
+    def restore_angles(self, ck_angles: np.ndarray, offsets, rows, order):
+        """Replace the carry's angle state from the (load-order) sidecar
+        (resume).  ``order``: the staged slot channel (flag bits masked),
+        which maps a sorted or aligned carry's device layout to load
+        slots."""
+        angles_padded = pack_ragged(ck_angles, offsets, self.n_halos,
+                                    self.capacity, rows=rows, fill=0.0)
+        if self.join in ("sorted", "aligned"):
             angles_padded = np.take_along_axis(
-                np.asarray(angles_padded), np.asarray(order), axis=-1)
+                angles_padded, np.asarray(order), axis=-1)
         if self.join == "aligned":
-            ang = torch.from_numpy(np.ascontiguousarray(
-                angles_padded, dtype=np.float32).view(np.int32))
+            ang = np.ascontiguousarray(angles_padded,
+                                       dtype=np.float32).view(np.int32)
             match = self.carry.packed & -(1 << 31)
             self.carry = self.carry._replace(
-                packed=ang.to(self.device) | match)
+                packed=self._place(torch.from_numpy(ang)).to(self.device)
+                | match)
             return
         self.carry = self.carry._replace(
-            angles=torch.from_numpy(np.ascontiguousarray(
-                angles_padded, dtype=self.angle_dtype)).to(self.device))
+            angles=self._place(torch.from_numpy(np.ascontiguousarray(
+                angles_padded, dtype=self.angle_dtype))).to(self.device))
 
-    def angles_host(self) -> np.ndarray:
+    def checkpoint_angles(self) -> np.ndarray:
         """Per-particle angle accumulators on the host, in the carry's
-        device layout (checkpointing)."""
+        device layout (checkpointing; collective with a mesh)."""
         if self.join == "aligned":
-            packed = _host(self.carry.packed & 0x7FFFFFFF)
+            packed = _host(self._full(self.carry.packed) & 0x7FFFFFFF)
             return packed.view(np.float32)
-        return _host(self.carry.angles)
+        return _host(self._full(self.carry.angles))
+
+    def load_order_angles(self, angles_dev, p):
+        """:meth:`checkpoint_angles` of the pending snapshot ``p`` ->
+        ``(angles, layout_positions)`` flat in reference (load-order)
+        layout; the aligned engine adds each particle's stable position
+        so resume can rebuild its layout exactly (else None)."""
+        valid = p["packed_ids"] != self.invalid
+        layout_flat = None
+        if self.join in ("sorted", "aligned"):
+            # the carry follows the staged layout (ID-sorted or stable
+            # positions): scatter back to load order
+            slot = np.asarray(p["packed_slot"])
+            v_load = np.zeros(valid.shape, dtype=bool)
+            np.put_along_axis(v_load, slot, valid, axis=-1)
+            a_load = np.zeros_like(angles_dev)
+            np.put_along_axis(a_load, slot, angles_dev, axis=-1)
+            angles_dev, valid = a_load, v_load
+        if self.join == "aligned":
+            pos_of = np.zeros(slot.shape, dtype=np.int32)
+            np.put_along_axis(
+                pos_of, slot,
+                np.broadcast_to(np.arange(slot.shape[-1], dtype=np.int32),
+                                slot.shape),
+                axis=-1,
+            )
+            _, layout_flat = unpack_mask(valid, pos_of, rows=p["rows"])
+        _, angles_flat = unpack_mask(valid, angles_dev, rows=p["rows"])
+        return angles_flat, layout_flat
+
+
+class _HashEngine:
+    """Hash-sharded particle-pool engine (the full-box scale path): flat
+    (halo, id) records sharded by ``id % n_shards`` over the mesh's
+    ``'shards'`` axis, one shard a rank (:mod:`~orbitanalysis_tpu_torch.
+    parallel.hash_sharded`).  The churn join is shard-local; the
+    collective of a step is the sum of the bulk-velocity moments.  Every
+    rank routes the same snapshot on the host and keeps its row.  It
+    offers :class:`_DeviceEngine`'s ``stage``, ``step``,
+    ``checkpoint_angles``, ``load_order_angles`` and ``restore_angles``,
+    so the tracker's loop, checkpoint writer and resume are one path."""
+
+    join = "hash"
+    surrogate = False  # wide IDs ride the ID map's handles instead
+
+    def __init__(self, mesh, n_halos, mode, box_size, cap, angle_dtype,
+                 id_map=None):
+        from orbitanalysis_tpu_torch.parallel.hash_sharded import (
+            init_hash_carry,
+            make_hash_sharded_step,
+        )
+
+        self.mesh = mesh
+        self.n_shards = int(mesh.shape["shards"])
+        self.n_halos = n_halos
+        self.mode = mode
+        self.box_size = box_size
+        self.angle_dtype = angle_dtype
+        self.capacity = cap
+        self.event_capacity = cap  # event lists span the shard: no overflow
+        self.invalid = invalid_id_for(np.int32)
+        # wide (64-bit) IDs ride dense int32 handles on the device
+        # (a WideIdMap; None for 32-bit IDs); events unmap to real IDs at
+        # write time.  Every rank maps the same stream, so every rank
+        # holds the same handles, and the engines of a mode='both' pair
+        # share the one map the pair routes through.
+        self.id_map = id_map
+        self._make = make_hash_sharded_step
+        self._build()
+        self.carry = init_hash_carry(1, cap, n_halos, device=mesh.device)
+
+    def _build(self):
+        self._step = self._make(
+            self.mesh, self.n_halos, self.capacity, mode=self.mode,
+            box_size=self.box_size, angle_dtype=self.angle_dtype,
+        )
+
+    def _gather(self, x) -> np.ndarray:
+        from orbitanalysis_tpu_torch.parallel.collectives import (
+            process_allgather,
+        )
+
+        return process_allgather(x, self.mesh.group("shards"), tiled=True)
+
+    def route(self, flat):
+        """This rank's row of the snapshot's routed ``[D, cap]`` blocks
+        (the shard capacity grows first where a bucket outgrows it: a
+        decision every rank takes alike, from the same host data)."""
+        from orbitanalysis_tpu_torch.parallel.hash_sharded import route_flat
+        from orbitanalysis_tpu_torch.parallel.sharding import shard_rows
+
+        if self.id_map is not None:
+            # map once here (persistent handles) so the bucket-size
+            # check below sees the same keys route_flat shards on
+            flat = dict(flat, ids=self.id_map.map(flat["ids"]))
+        ids = np.asarray(flat["ids"], dtype=np.int64)
+        if ids.size:
+            largest = int(np.bincount(
+                (ids % self.n_shards).astype(np.int64),
+                minlength=self.n_shards,
+            ).max())
+            if largest > self.capacity:
+                self.grow(largest)
+        return shard_rows(route_flat(flat, self.n_shards, self.capacity),
+                          self.mesh, "shards")
+
+    def grow(self, needed):
+        self.grow_to(round_up(int(np.ceil(needed * 1.2)), 128))
+
+    def grow_to(self, new_cap):
+        """Re-pad the per-shard record capacity to exactly ``new_cap``
+        (lockstep growth across mode='both' engine pairs)."""
+        pad = new_cap - self.capacity
+        if pad <= 0:
+            return
+        c = self.carry
+
+        def padded(x, value):
+            tail = torch.full((1, pad) + x.shape[2:], value, dtype=x.dtype,
+                              device=x.device)
+            return torch.cat([x, tail], dim=1)
+
+        self.carry = type(c)(
+            halo=padded(c.halo, self.n_halos),
+            ids=padded(c.ids, self.invalid),
+            slot=padded(c.slot, 0),
+            vrad=padded(c.vrad, 0.0),
+            rhat=padded(c.rhat, 0.0),
+            angles=padded(c.angles, 0.0),
+        )
+        self.capacity = new_cap
+        self.event_capacity = new_cap
+        self._build()
+
+    def stage(self, packed, hubble_drag):
+        """The step's input: the routed batch row with the full centre
+        and bulk-velocity tables (:func:`_hash_batch`)."""
+        return packed.batch, packed.center, packed.bulk_vel, hubble_drag
+
+    def step(self, staged, static=False):  # noqa: ARG002 — no static path
+        self.carry, events = self._step(self.carry, *staged)
+        small = dict(count=events.count, halo=events.halo, ids=events.ids,
+                     slots=events.slots, angles=events.angles,
+                     bulk_vel=events.bulk_vel)
+        return events, _MeshFetch(small, self._gather,
+                                  replicated=("bulk_vel",))
+
+    def checkpoint_angles(self):
+        """(slot, valid, angles) of every shard on the host, for the
+        checkpoint (collective)."""
+        c = self.carry
+        return (
+            self._gather(c.slot),
+            self._gather(c.ids) != self.invalid,
+            self._gather(c.angles),
+        )
+
+    def load_order_angles(self, captured, p):
+        """:meth:`checkpoint_angles` -> ``(angles, None)``, the angles
+        flat in load order (the records carry their load slots)."""
+        slot, valid, angles = captured
+        flat = np.zeros(p["n_particles"], dtype=angles.dtype)
+        flat[slot[valid]] = angles[valid]
+        return flat, None
+
+    def restore_angles(self, ck_angles, offsets, rows, order):  # noqa: ARG002
+        """Resume: replace this shard's carry angles from the
+        (load-order) sidecar, through the records' load slots."""
+        ck = np.asarray(ck_angles, dtype=np.float32)
+        if ck.size == 0:
+            return  # empty resume snapshot: carry angles stay zero
+        slot = _host(self.carry.slot)
+        valid = _host(self.carry.ids) != self.invalid
+        new = np.where(
+            valid, ck[np.minimum(slot, len(ck) - 1)], 0.0
+        ).astype(np.float32)
+        self.carry = self.carry._replace(
+            angles=torch.from_numpy(new).to(self.mesh.device))
 
 
 def track_orbits(
@@ -537,16 +893,22 @@ def track_orbits(
         engine.io_hdf5.H5Writer`); :class:`~orbitanalysis_tpu_torch.
         engine.io_hdf5.MemoryWriter` keeps the catalogs in memory.
 
-    Not ported yet: ``mesh=`` (the halo- and hash-sharded engines)
-    raises NotImplementedError.
+    mesh : :class:`~orbitanalysis_tpu_torch.parallel.mesh.Mesh`, one rank
+        of a ``torch.distributed`` world a device, every rank calling
+        ``track_orbits`` with the same arguments.  A ``'halos'`` axis
+        splits the halo rows over the ranks (padded to a multiple of the
+        axis size) and runs the general, sorted or aligned engine on each
+        rank's rows; a ``('halos', 'particles')`` mesh also splits the
+        general engine's rows, gathered whole for each step.  A
+        ``'shards'`` axis runs the hash-sharded particle-pool engine
+        (:mod:`~orbitanalysis_tpu_torch.parallel.hash_sharded`).  Every
+        rank loads and packs each snapshot and takes part in every
+        gather of events; rank 0 alone reads and writes the savefile and
+        its checkpoint.  The steps run on the mesh's device, which must
+        be of ``device``'s type.
     """
     device = resolve_device(device, "track_orbits")
     writer = io_hdf5.H5Writer() if writer is None else writer
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the halo-sharded and hash-sharded engines) is not "
-            "ported yet; see ROADMAP.md M11"
-        )
     if join_impl not in ("auto", "general", "sorted", "aligned"):
         raise ValueError(f"unknown join_impl: {join_impl!r}")
     if grow_impl not in ("auto", "keep", "general"):
@@ -560,10 +922,36 @@ def track_orbits(
     final_branch = main_branches[-1]
     final_snapshot = snapshot_numbers[-1]
 
+    # single-writer savefile across the ranks of a mesh; every rank
+    # takes part in every gather of device results
+    primary = multihost.is_primary()
+    if mesh is not None:
+        from orbitanalysis_tpu_torch.parallel.mesh import Mesh
+
+        if not isinstance(mesh, Mesh):
+            raise TypeError(
+                "mesh must be an orbitanalysis_tpu_torch.parallel.Mesh "
+                f"(parallel.make_mesh), got {type(mesh).__name__}")
+    hash_mesh = mesh is not None and "shards" in mesh.axis_names
+    if mesh is not None:
+        if mesh.device.type != device.type:
+            raise ValueError(
+                f"the mesh's device {mesh.device} is not of device="
+                f"{str(device)!r}'s type")
+        device = mesh.device
+        if not hash_mesh:
+            if "halos" not in mesh.axis_names:
+                raise ValueError(
+                    "mesh needs a 'halos' or a 'shards' axis, got "
+                    f"{mesh.axis_names}")
+            # pad the halo axis so it divides evenly over the mesh
+            n_rows = round_up(n_rows, int(mesh.shape["halos"]))
+
     if resume:
         if verbose:
             print("Resuming from file...\n")
-        resume_snaps = [writer.last_snapshot_number(f) for f in savefiles]
+        resume_snaps = _on_primary(
+            lambda: [writer.last_snapshot_number(f) for f in savefiles])
         resume_snap = resume_snaps[0]
         if any(s != resume_snap for s in resume_snaps):
             raise ValueError(
@@ -577,12 +965,21 @@ def track_orbits(
         main_branches = main_branches[sind:]
 
     join_was_auto = join_impl == "auto"
-    if join_was_auto:
+    if hash_mesh:
+        # a 'shards' axis selects the hash-sharded particle-pool engine
+        if join_impl in ("sorted", "aligned"):
+            raise ValueError(
+                "a 'shards' mesh runs the hash-sharded engine; "
+                f"join_impl={join_impl!r} does not apply — use 'auto'"
+            )
+        join_impl = "hash"
+    elif join_was_auto:
         idt = np.dtype(id_dtype)
         join_impl = (
             "aligned"
             if (
                 device.type == "cuda"
+                and (mesh is None or "particles" not in mesh.axis_names)
                 and idt.itemsize in (4, 8)
                 and np.issubdtype(idt, np.signedinteger)
                 and np.dtype(angle_dtype) == np.float32
@@ -604,8 +1001,8 @@ def track_orbits(
         # sidecar so the resumed run reproduces the crashed run's
         # positions bit for bit
         try:
-            _, _, resume_layout_flat = writer.read_checkpoint(
-                savefile, with_layout=True)
+            _, _, resume_layout_flat = _on_primary(
+                lambda: writer.read_checkpoint(savefile, with_layout=True))
         except OSError:
             resume_layout_flat = None  # the seed branch raises the error
     started = False
@@ -638,8 +1035,13 @@ def track_orbits(
                             time.time() - p["t0"],
                         )
                     )
-                counts = ev_count[saved_rows]
-                if engine.join == "aligned":
+                # the hash engine's counts are a shard's, not a row's
+                counts = (None if engine.join == "hash"
+                          else ev_count[saved_rows])
+                if engine.join == "hash":
+                    ids_flat, angles_flat, counts = _hash_events(
+                        fetch, ev_engine, saved_rows, n_rows, phases)
+                elif engine.join == "aligned":
                     ids_flat, angles_flat = _aligned_events(
                         p, events, fetch, ev_engine, counts, phases,
                         verbose)
@@ -676,22 +1078,24 @@ def track_orbits(
                            < counts[:, None])
                     ids_flat, angles_flat = ev_ids[sel], ev_angles[sel]
                 with phase_timer(phases, "save"):
-                    writer.append_snapshot(
-                        fname, p["snapshot_number"],
-                        io_hdf5.snapshot_datasets(
-                            mname,
-                            apsis_ids=ids_flat,
-                            apsis_offsets=np.concatenate(
-                                ([0], np.cumsum(counts))),
-                            apsis_angles=angles_flat,
-                            halo_ids=p["halo_ids_saved"],
-                            final_descendant_ids=p["final_desc"],
-                            region_radii=p["region_radii_saved"],
-                            region_positions=p["region_positions_saved"],
-                            bulk_velocities=bulk_vel[saved_rows],
-                        ),
-                        verbose=verbose,
-                    )
+                    if primary:  # single writer
+                        writer.append_snapshot(
+                            fname, p["snapshot_number"],
+                            io_hdf5.snapshot_datasets(
+                                mname,
+                                apsis_ids=ids_flat,
+                                apsis_offsets=np.concatenate(
+                                    ([0], np.cumsum(counts))),
+                                apsis_angles=angles_flat,
+                                halo_ids=p["halo_ids_saved"],
+                                final_descendant_ids=p["final_desc"],
+                                region_radii=p["region_radii_saved"],
+                                region_positions=p[
+                                    "region_positions_saved"],
+                                bulk_velocities=bulk_vel[saved_rows],
+                            ),
+                            verbose=verbose,
+                        )
                 n_events_by_mode[mname] = int(len(ids_flat))
             if metrics is not None:
                 extra = (
@@ -711,7 +1115,7 @@ def track_orbits(
                     **phases,
                 )
         if checkpoint:
-            _write_checkpoint(p, engines, engine, savefiles, writer)
+            _write_checkpoint(p, engines, savefiles, writer, primary)
 
     items = list(zip(main_branches, snapshot_numbers))
     feed = _SnapshotFeed(
@@ -740,6 +1144,28 @@ def track_orbits(
                 lengths = np.diff(np.concatenate(
                     (offsets, [len(snapshot["ids"])])))
 
+                if engine is None and join_impl == "hash":
+                    box_size = snapshot.get("box_size")
+                    n_shards = int(mesh.shape["shards"])
+                    cap = capacity or round_up(int(np.ceil(
+                        len(snapshot["ids"]) / n_shards * headroom)) + 1,
+                        128)
+                    from orbitanalysis_tpu_torch.parallel.hash_sharded import (
+                        WideIdMap,
+                    )
+
+                    # one ID map: the pair routes once, through engines[0]
+                    id_map = (WideIdMap() if np.dtype(id_dtype).itemsize == 8
+                              else None)
+                    engines = [
+                        _HashEngine(mesh, n_rows, m, box_size, cap,
+                                    angle_dtype, id_map=id_map)
+                        for m in modes
+                    ]
+                    engine = engines[0]
+                    if not resume and primary:
+                        for fname, m in zip(savefiles, modes):
+                            writer.initialize(fname, m, box_size, verbose)
                 if engine is None:
                     box_size = snapshot.get("box_size")
                     cap = capacity or required_capacity(lengths, headroom)
@@ -782,7 +1208,7 @@ def track_orbits(
                         _DeviceEngine(
                             n_rows, cap, m, box_size, id_dtype, angle_dtype,
                             device, event_capacity=event_capacity,
-                            join=join_impl,
+                            join=join_impl, mesh=mesh,
                         )
                         for m in modes
                     ]
@@ -790,11 +1216,13 @@ def track_orbits(
                     if join_impl == "aligned":
                         stable_layout = StableLayout(
                             n_rows, engine.capacity, id_dtype=id_dtype)
-                    if not resume:
+                    if not resume and primary:
                         for fname, m in zip(savefiles, modes):
                             writer.initialize(fname, m, box_size, verbose)
 
-                if lengths.size and int(lengths.max()) > engine.capacity:
+                # the hash engine grows its shard capacity in route()
+                if (engine.join != "hash" and lengths.size
+                        and int(lengths.max()) > engine.capacity):
                     # growth re-pads device state: drain the pipeline so
                     # pending overflow fallbacks keep their shapes
                     flush_pending()
@@ -848,7 +1276,11 @@ def track_orbits(
                                                         grow_by)
 
                 with phase_timer(phases, "pack"):
-                    if join_impl == "aligned":
+                    if join_impl == "hash":
+                        packed = _hash_batch(
+                            engines, snapshot, rows, lengths, n_rows,
+                            region_positions, region_bulk_vels, device)
+                    elif join_impl == "aligned":
                         restore = None
                         if not started and resume_layout_flat is not None:
                             restore = pack_ragged(
@@ -870,7 +1302,8 @@ def track_orbits(
                         )
 
                 t0 = time.time()
-                packed_ids_host = packed.ids  # host bookkeeping copies
+                # host bookkeeping copies (none for the hash engine)
+                packed_ids_host = packed.ids
                 packed_slot_host = packed.slot
                 if join_impl == "aligned":
                     # strip the FRESH flags: host bookkeeping uses the
@@ -897,10 +1330,10 @@ def track_orbits(
                     # the pending snapshot's angles, before the next
                     # step replaces the carry
                     pending["angles_host"] = [
-                        e.angles_host() for e in engines]
+                        e.checkpoint_angles() for e in engines]
                 layout_ids = prev_ids_host  # the queued step's prev layout
                 with phase_timer(phases, "step"):
-                    batch = _stage(packed, hubble_drag, device)
+                    batch = engine.stage(packed, hubble_drag)
                     events_list = [e.step(batch, static=static)
                                    for e in engines]
 
@@ -909,9 +1342,8 @@ def track_orbits(
                     # nothing to save
                     if resume:
                         _resume_angles(engines, savefiles, writer, offsets,
-                                       n_rows, rows, angle_dtype,
-                                       snapshot_number, packed_slot_host,
-                                       join_impl)
+                                       rows, angle_dtype, snapshot_number,
+                                       packed_slot_host)
                     started = True
                     new_pending = dict(
                         save=False, phases=phases, rows=rows,
@@ -1061,11 +1493,78 @@ def _aligned_events(p, events, fetch, ev_engine, counts, phases, verbose):
     return ev_ids[sel], ev_angles[sel]
 
 
-def _resume_angles(engines, savefiles, writer, offsets, n_rows, rows,
-                   angle_dtype, snapshot_number, packed_slot_host, join_impl):
-    """Seed each engine's angle state from its checkpoint sidecar."""
+class _HashPacked(NamedTuple):
+    """The hash engine's packed snapshot (:func:`_hash_batch`).  It keeps
+    no ``[H, P]`` host layout: ``ids`` and ``slot`` are None."""
+
+    batch: object
+    center: torch.Tensor
+    bulk_vel: Optional[torch.Tensor]
+    ids: None = None
+    slot: None = None
+
+
+def _hash_batch(engines, snapshot, rows, lengths, n_rows, region_positions,
+                region_bulk_vels, device) -> _HashPacked:
+    """The hash engine's inputs for one snapshot: this rank's routed
+    batch row (routed once for every engine; the shard capacity grows
+    in lockstep across a ``mode='both'`` pair) and the ``[n_rows, 3]``
+    centre and catalog bulk-velocity tables."""
+    engine = engines[0]
+    flat = dict(
+        halo=np.repeat(rows.astype(np.int32), lengths),
+        ids=snapshot["ids"],
+        pos=snapshot["coordinates"],
+        vel=snapshot["velocities"],
+    )
+    m = snapshot.get("masses")
+    if (isinstance(m, np.ndarray) and np.ndim(m) == 1
+            and len(m) == len(snapshot["ids"])):
+        flat["mass"] = m
+    batch = engine.route(flat)  # grows the shard capacity if needed
+    for e in engines[1:]:
+        if e.capacity < engine.capacity:
+            e.grow_to(engine.capacity)
+    centers = np.zeros((n_rows, 3), np.float32)
+    centers[rows] = region_positions
+    centers = torch.from_numpy(centers).to(device)
+    bulk = None
+    if region_bulk_vels is not None:
+        bulk = np.zeros((n_rows, 3), np.float32)
+        bulk[rows] = region_bulk_vels
+        bulk = torch.from_numpy(bulk).to(device)
+    return _HashPacked(batch, centers, bulk)
+
+
+def _hash_events(fetch, ev_engine, saved_rows, n_rows, phases):
+    """The shards' events of one snapshot -> ``(ids, angles, counts)`` of
+    the saved rows, flat in reference order (events ride their halo row
+    and previous load slot; wide IDs unmap from their handles)."""
+    from orbitanalysis_tpu_torch.parallel.hash_sharded import (
+        events_to_reference_order,
+    )
+
+    with phase_timer(phases, "fetch"):
+        offs, ids, ang = events_to_reference_order(
+            fetch["count"], fetch["halo"], fetch["ids"], fetch["slots"],
+            fetch["angles"], n_rows)
+    counts = np.diff(offs)[saved_rows]
+    sel = (np.concatenate([np.arange(offs[r], offs[r + 1])
+                           for r in saved_rows]).astype(np.int64)
+           if len(saved_rows) else np.zeros(0, np.int64))
+    ids = ids[sel]
+    if ev_engine.id_map is not None:
+        ids = ev_engine.id_map.unmap(ids)  # device handles -> real IDs
+    return ids, ang[sel], counts
+
+
+def _resume_angles(engines, savefiles, writer, offsets, rows, angle_dtype,
+                   snapshot_number, packed_slot_host):
+    """Seed each engine's angle state from its checkpoint sidecar (read
+    by the primary process, sent to every rank)."""
     for e, fname in zip(engines, savefiles):
-        ck_angles, ck_snap = writer.read_checkpoint(fname)
+        ck_angles, ck_snap = _on_primary(
+            lambda f=fname: writer.read_checkpoint(f))
         if ck_snap >= 0 and ck_snap != snapshot_number:
             raise ValueError(
                 f"checkpoint sidecar holds angles for snapshot {ck_snap} "
@@ -1074,45 +1573,20 @@ def _resume_angles(engines, savefiles, writer, offsets, n_rows, rows,
                 "the checkpoint write — delete the last savefile group or "
                 "the checkpoint and re-run"
             )
-        angles_padded = pack_ragged(
-            np.asarray(ck_angles, dtype=angle_dtype), offsets, n_rows,
-            e.capacity, rows=rows, fill=0.0,
-        )
-        e.set_angles(angles_padded,
-                     order=packed_slot_host
-                     if join_impl in ("sorted", "aligned") else None)
+        e.restore_angles(np.asarray(ck_angles, dtype=angle_dtype), offsets,
+                         rows, packed_slot_host)
 
 
-def _write_checkpoint(p, engines, engine, savefiles, writer):
+def _write_checkpoint(p, engines, savefiles, writer, primary=True):
     """Angle sidecar of the pending snapshot, per savefile, in reference
-    (load-order) layout; the aligned engine adds each particle's stable
-    position so resume can rebuild its layout exactly."""
+    (load-order) layout (with the aligned engine's stable positions).
+    Every rank gathers the angles; the primary writes."""
     angles_list = p.get("angles_host")
     if angles_list is None:
-        angles_list = [e.angles_host() for e in engines]
-    valid = p["packed_ids"] != engine.invalid
-    slot = layout_flat = v_load = None
-    if engine.join in ("sorted", "aligned"):
-        # the carry follows the staged layout (ID-sorted or stable
-        # positions): scatter back to load order
-        slot = np.asarray(p["packed_slot"])
-        v_load = np.zeros(valid.shape, dtype=bool)
-        np.put_along_axis(v_load, slot, valid, axis=-1)
-    if engine.join == "aligned":
-        pos_of = np.zeros(slot.shape, dtype=np.int32)
-        np.put_along_axis(
-            pos_of, slot,
-            np.broadcast_to(np.arange(slot.shape[-1], dtype=np.int32),
-                            slot.shape),
-            axis=-1,
-        )
-        _, layout_flat = unpack_mask(v_load, pos_of, rows=p["rows"])
-    for fname, angles_dev in zip(savefiles, angles_list):
-        v = valid
-        if slot is not None:
-            a_load = np.zeros_like(angles_dev)
-            np.put_along_axis(a_load, slot, angles_dev, axis=-1)
-            angles_dev, v = a_load, v_load
-        _, angles_flat = unpack_mask(v, angles_dev, rows=p["rows"])
+        angles_list = [e.checkpoint_angles() for e in engines]
+    if not primary:
+        return
+    for e, fname, captured in zip(engines, savefiles, angles_list):
+        angles_flat, layout_flat = e.load_order_angles(captured, p)
         writer.write_checkpoint(fname, angles_flat, p["snapshot_number"],
                                 layout_positions=layout_flat)

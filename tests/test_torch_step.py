@@ -666,8 +666,10 @@ def test_aligned_carry_pos_dtype_matches_jax(churn, pos_dtype):
 def test_port_runs_without_jax(tmp_path):
     """With jax, the JAX package and h5py blocked, the port imports and
     runs its public surface (the three engines, in-memory savefiles, a
-    small label-native scan, a small sorted scan, a 'fused' label step
-    and a legacy aligned step)."""
+    small label-native scan, a small sorted scan, a 'fused' label step,
+    a legacy aligned step, and the distributed engines in a world of
+    one: ``parallel``'s sharded sorted and hash steps and
+    ``track_orbits(mesh=)``)."""
     script = textwrap.dedent(f"""
         import sys
         for name in ("jax", "jaxlib", "orbitanalysis_tpu", "h5py"):
@@ -759,6 +761,45 @@ def test_port_runs_without_jax(tmp_path):
                 slot=torch.from_numpy(a_slot)))
             n_legacy += int(lev.count.sum())
         assert n_legacy == int(sc[0].sum())
+        # the distributed engines: a world of one (no process group)
+        # runs a halo-sharded sorted step, a hash-sharded step and
+        # track_orbits(mesh=) on the halo and the shards axis
+        from orbitanalysis_tpu_torch import parallel
+        from orbitanalysis_tpu_torch.parallel import hash_sharded as hs
+        mesh = parallel.make_mesh({{"halos": 1}}, device="cpu")
+        sstep = parallel.make_sharded_sorted_step(
+            mesh, 128, box_size=100.0, fused=True, cur_presorted=True,
+            soa_batch=True)
+        carry = parallel.shard_tree(ss.init_sorted_carry(2, 256,
+                                                         device="cpu"), mesh)
+        n_sharded = 0
+        for s in range(4):
+            carry, ev = sstep(carry, parallel.shard_tree(SnapshotBatch(
+                ids=staged.ids[s], pos=staged.pos[s], vel=staged.vel[s],
+                center=staged.center[s], slot=staged.slot[s]), mesh))
+            n_sharded += int(ev.count.sum())
+        assert n_sharded == int(sc[0].sum())
+        hmesh = parallel.make_mesh({{"shards": 1}}, device="cpu")
+        hstep = hs.make_hash_sharded_step(hmesh, 2, 256, box_size=30.0)
+        flat = dict(halo=np.zeros(60, np.int32), ids=np.arange(60),
+                    pos=np.random.default_rng(0).normal(size=(60, 3)),
+                    vel=np.random.default_rng(1).normal(size=(60, 3)))
+        hc, hev = hstep(
+            hs.init_hash_carry(1, 256, 2, device="cpu"),
+            parallel.sharding.shard_rows(hs.route_flat(flat, 1, 256), hmesh,
+                                         "shards"),
+            torch.zeros(2, 3))
+        assert int(hev.count[0]) == 0 and hc.ids.shape == (1, 256)
+        for m in (mesh, hmesh):
+            w = MemoryWriter()
+            ot.track_orbits(np.arange(4), np.tile(np.arange(2), (4, 1)),
+                            regions, loader, "mem.h5", verbose=False,
+                            device="cpu", writer=w, mesh=m,
+                            join_impl="general" if m is mesh else "auto")
+            for g in files[1]:
+                if g != "attrs":
+                    assert np.array_equal(w.files["mem.h5"][g]["pericenter_IDs"],
+                                          files[1][g]["pericenter_IDs"])
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "orbitanalysis_tpu", "h5py")
                and sys.modules[m] is not None]

@@ -273,10 +273,19 @@ def test_auto_picks_general_off_cuda(tmp_path, churn_setup):
 
 
 def test_unported_paths_raise(tmp_path, churn_setup):
-    """mesh= is not ported and raises; join_impl='sorted' is ported and
-    runs (tests/test_torch_sorted.py holds it against the JAX package)."""
-    with pytest.raises(NotImplementedError, match="M11"):
+    """mesh= is ported: a world-of-one mesh runs and writes the unsharded
+    savefile, and a mesh that is not the port's raises TypeError
+    (tests/test_torch_tracker_mesh.py runs it across ranks);
+    join_impl='sorted' is ported and runs (tests/test_torch_sorted.py
+    holds it against the JAX package)."""
+    from orbitanalysis_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(TypeError, match="Mesh"):
         _run(churn_setup, str(tmp_path / "a.h5"), mesh=object())
+    _assert_h5_identical(
+        _run(churn_setup, str(tmp_path / "m.h5"), join_impl="general",
+             mesh=make_mesh({"halos": 1}, device="cpu")),
+        _run(churn_setup, str(tmp_path / "u.h5"), join_impl="general"))
     m = Metrics()
     sorted_run = _run(churn_setup, str(tmp_path / "b.h5"),
                       join_impl="sorted", metrics=m)
