@@ -131,7 +131,21 @@ repository checkout; it imports nothing of JAX.  Phases:
    and sorted) and ``{'shards': 2}`` with ``mode='both'``, rank 0
    writing, catalogs equal to phase 5's; each rank's wall and
    collective bytes a step (two ranks on one card over the host: not a
-   multi-GPU node's speed).  The ranks' launches join the counts.
+   multi-GPU node's speed).  The ranks' launches join the counts;
+15. the distributed PM (``models/pm_sharded.py``): (a) an NCCL world of
+   one at 12,582,912 particles on 256^3 (phase 12's state): the grid
+   solve against ``pm_forces_grid`` on the same deposit (1e-4 of max
+   |ref|), the psum path (1e-4) and the slab-resident rows and scalar
+   paths (2e-4) against ``make_pm_force_fn(256)``, 8 steps of the
+   integrator with the slab-resident force against the single-device
+   force (at most 1e-5 of the particles' counts differ), distributed P3M
+   at phase 13's size against ``make_p3m_force_fn`` (1e-4, no NaN), each
+   force's ms, peak memory and collective bytes; (b) a gloo world of two
+   ranks sharing the card: the slab-resident PM at 1,048,576 on 128^3 and
+   P3M equal to the world of one's within those tolerances, the sharded
+   direct integrator (16,384 particles, 8 steps) with the counts of
+   ``direct_forces``, the distributed example at its own size with its
+   world-of-one counts, and ``graft_entry.dryrun_multichip(2)``.
 
 Any failed check exits non-zero without printing the result lines.  The
 last three lines are the card's name and power limit, the kernels' JSON
@@ -3177,13 +3191,14 @@ def world_of_one(dev, ctx, work):
         x = torch.arange(8, dtype=torch.float32, device=dev).reshape(2, 4)
         col.reset_sent_bytes()
         got = (col.psum(x, g), col.all_gather(x, g, axis=1),
-               col.all_to_all(x, g), col.process_allgather(x, g))
+               col.all_to_all(x, g), col.process_allgather(x, g),
+               col.ppermute(x, g, [(0, 0)]))
         _sync(dev)
         check(all(torch.equal(torch.as_tensor(y).to(dev).reshape(2, 4), x)
                   for y in got), "a collective of the world of one is not "
               "the identity")
         check(col.sent_bytes() == {"psum": 32, "all_gather": 64,
-                                   "all_to_all": 32},
+                                   "all_to_all": 32, "ppermute": 32},
               f"collective bytes {col.sent_bytes()}")
     finally:
         multihost.shutdown()
@@ -3199,8 +3214,9 @@ def world_of_one(dev, ctx, work):
         catalogs_equal(ctx["general"], r["files"][f"{name}.h5"])
     log(f"  {{'halos': 1}} (aligned, K1 {halos['steps']} times) and "
         f"{{'shards': 1}} over NCCL at config 2: catalogs equal phase 5's "
-        "general engine's; psum, all_gather, all_to_all and "
-        "process_allgather through NCCL on CUDA tensors, the identity")
+        "general engine's; psum, all_gather, all_to_all, "
+        "process_allgather and a ppermute self-send through NCCL on CUDA "
+        "tensors, the identity")
     log(f"  walls: halos {halos['ms']:.2f} ms a step, shards "
         f"{shards['ms']:.2f} ms a step; collective bytes a step: halos "
         f"{halos['bytes']:.0f}, shards {shards['bytes']:.0f}")
@@ -3324,6 +3340,371 @@ def sharded_phase(dev, ctx, work, keys, smi):
     return launches
 
 
+# ------------------------------------------------------------- phase 15
+
+#: phase 15 (models/pm_sharded.py): the world of one's integrator steps
+#: and detection cadence at config 4's 12.6M / 256^3 (C4_SCALE); the gloo
+#: world's slab-resident PM (particles, grid); the sharded direct
+#: integrator (particles, steps); the distributed example's steps
+PM15_STEPS, PM15_EVERY = 8, 2
+PM15_GLOO_PM = (1 << 20, 128)
+PM15_DIRECT = (16384, 8)
+PM15_EXAMPLE_STEPS = 60
+#: tolerances as a share of max |ref|: the grid solve, the psum path and
+#: P3M; the slab-resident paths; and the share of particles whose counts
+#: may differ from the single-device force's over PM15_STEPS steps
+PM15_TOL, PM15_SLAB_TOL, PM15_COUNT_SHARE = 1e-4, 2e-4, 1e-5
+#: the collectives one distributed force evaluation hands bytes to
+PM15_COLLECTIVES = ("all_to_all", "ppermute", "all_gather", "psum")
+
+
+def _uniform_cloud(n, dev, seed):
+    """``n`` positions uniform in config 4's box and masses in [0.5, 2),
+    drawn with NumPy from ``seed`` (phase 13's P3M draw for seed 31)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    pos = torch.from_numpy(rng.uniform(0, C4_BOX, (n, 3)).astype(
+        np.float32)).to(dev)
+    mass = torch.from_numpy(rng.uniform(0.5, 2.0, n).astype(
+        np.float32)).to(dev)
+    return pos, mass
+
+
+def _direct_state(dev):
+    """The sharded direct integrator's state: phase 13's draw (seed 21)
+    at PM15_DIRECT's size."""
+    from orbitanalysis_tpu_torch.models.nbody import nbody_state_from_numpy
+
+    n = PM15_DIRECT[0]
+    rng = np.random.default_rng(21)
+    return nbody_state_from_numpy(
+        rng.normal(size=(n, 3)).astype(np.float32),
+        rng.normal(scale=0.3, size=(n, 3)).astype(np.float32),
+        np.full(n, 1.0 / n, np.float32), device=dev)
+
+
+def _direct_run(dev, force):
+    """PM15_DIRECT's steps of the direct integrator: the counts."""
+    from orbitanalysis_tpu_torch.models.nbody import (
+        OrbitNBodyConfig,
+        simulate_with_tracking,
+    )
+
+    n, steps = PM15_DIRECT
+    _, _, _, every, soft, dt = DIRECT
+    _, tr, _ = simulate_with_tracking(
+        _direct_state(dev), np.arange(n, dtype=np.int32).reshape(1, n),
+        OrbitNBodyConfig(dt=dt, n_steps=steps, detect_every=every,
+                         softening=soft), force)
+    return tr.counts.cpu().numpy()
+
+
+def _force_call(dev, f, *args, **kw):
+    """One force evaluation after a warm-up: ``(acc, ms on the host
+    clock to the synchronize, peak bytes allocated, collective bytes)``."""
+    import torch
+
+    from orbitanalysis_tpu_torch.parallel.collectives import (
+        reset_sent_bytes,
+        sent_bytes,
+    )
+
+    f(*args, **kw)
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_sent_bytes()
+    t0 = time.perf_counter()
+    acc = f(*args, **kw)
+    _sync(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    return acc, ms, peak, {k: sent_bytes()[k] for k in PM15_COLLECTIVES}
+
+
+def _max_err(got, want):
+    """``(max |got - want|, max |want|)`` in float64."""
+    got, want = got.double(), want.double()
+    return float((got - want).abs().max()), float(want.abs().max())
+
+
+def pm15_world_of_one(dev, work):
+    """Phase 15(a): an NCCL world of one in this process (gloo on the
+    CPU).  At 12.6M / 256^3: the grid solve against ``pm_forces_grid`` on
+    the same deposit, the psum path and the slab-resident rows and
+    scalar paths against ``make_pm_force_fn``, then the main path
+    (counted): PM15_STEPS steps of the integrator with the slab-resident
+    force, whose counts are held against the single-device force's.
+    Distributed P3M at phase 13's size against ``make_p3m_force_fn``.
+    Then the references of the gloo world: the slab-resident PM at
+    PM15_GLOO_PM, P3M, the direct integrator through ``direct_forces``
+    and the distributed example.  Returns ``(launches, references)``."""
+    import torch
+    import torch.distributed as dist
+
+    from orbitanalysis_tpu_torch.examples import distributed_simulation
+    from orbitanalysis_tpu_torch.models import nbody as tnb
+    from orbitanalysis_tpu_torch.models import pm_sharded as ps
+    from orbitanalysis_tpu_torch.models.p3m import make_p3m_force_fn
+    from orbitanalysis_tpu_torch.models.pm import (
+        cic_deposit,
+        make_pm_force_fn,
+        pm_forces_grid,
+    )
+    from orbitanalysis_tpu_torch.ops import _cuda
+    from orbitanalysis_tpu_torch.parallel import make_mesh, multihost
+
+    cuda = torch.device(dev).type == "cuda"
+    multihost.initialize(f"file://{os.path.join(work, 'pm15_store')}", 1, 0,
+                         backend="nccl" if cuda else "gloo")
+    ref = {}
+    try:
+        mesh = make_mesh({"x": 1}, device=dev)
+        rows, grid, _, _ = C4_SCALE
+        n = rows * C4_ROW
+        st = c4_state(n, dev)
+        rho = cic_deposit(st.pos, st.mass, grid, C4_BOX)
+        solve = ps.make_sharded_pm_grid_solver(mesh, grid)
+        err, top = _max_err(solve(rho, C4_BOX),
+                            pm_forces_grid(rho, grid, C4_BOX))
+        log(f"  grid solve, {grid}^3, against pm_forces_grid on the same "
+            f"deposit: max error {err:.3e} = {err / top:.3e} of max |ref| "
+            f"(limit {PM15_TOL})")
+        check(err <= PM15_TOL * top, "the sharded grid solve disagrees")
+        del rho
+        want = make_pm_force_fn(grid)(st.pos, st.mass, box_size=C4_BOX)
+        _, ms1, peak1, _ = _force_call(dev, make_pm_force_fn(grid), st.pos,
+                                       st.mass, box_size=C4_BOX)
+        log(f"  {n} particles on {grid}^3, one force evaluation: "
+            f"single-device make_pm_force_fn {ms1:.1f} ms, peak "
+            f"{peak1 / 1e9:.2f} GB")
+        for name, f, tol in (
+                ("psum path", ps.make_sharded_pm_force_fn(mesh, grid),
+                 PM15_TOL),
+                ("slab-resident rows", ps.make_slab_resident_pm_force_fn(
+                    mesh, grid, assignment="rows"), PM15_SLAB_TOL),
+                ("slab-resident scalar", ps.make_slab_resident_pm_force_fn(
+                    mesh, grid, assignment="scalar"), PM15_SLAB_TOL)):
+            acc, ms, peak, sent = _force_call(dev, f, st.pos, st.mass,
+                                              box_size=C4_BOX)
+            err, top = _max_err(acc, want)
+            log(f"  {name}: {ms:.1f} ms, peak {peak / 1e9:.2f} GB, bytes a "
+                f"call {sent}; max error {err / top:.3e} of max |ref| "
+                f"(limit {tol})")
+            check(err <= tol * top, f"the {name} disagrees with "
+                  "make_pm_force_fn")
+            del acc
+        del want
+
+        # ---- the main path, counted
+        members = np.arange(n, dtype=np.int32).reshape(rows, C4_ROW)
+        cfg = tnb.OrbitNBodyConfig(dt=C4_DT, n_steps=PM15_STEPS,
+                                   detect_every=PM15_EVERY,
+                                   mode="pericentric", box_size=C4_BOX,
+                                   softening=0.0)
+        slab = ps.make_slab_resident_pm_force_fn(mesh, grid)
+        _cuda.reset_launch_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        _, tr, ev = tnb.simulate_with_tracking(st, members, cfg, slab)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        launches = _cuda.launch_counts()
+        # ---- end of the counted main path
+        t0 = time.perf_counter()
+        _, tr1, ev1 = tnb.simulate_with_tracking(st, members, cfg,
+                                                 make_pm_force_fn(grid))
+        _sync(dev)
+        wall1 = time.perf_counter() - t0
+        n_diff = int((tr.counts != tr1.counts).sum())
+        log(f"  {PM15_STEPS} steps (detect_every={PM15_EVERY}) with the "
+            f"slab-resident force: {wall:.2f} s; the single-device force "
+            f"{wall1:.2f} s; events {ev.tolist()} against {ev1.tolist()}; "
+            f"{n_diff} particles' counts differ (limit "
+            f"{PM15_COUNT_SHARE} of {n})")
+        check(int(ev.sum()) > 0, "no apsides in the slab-resident run")
+        check(n_diff <= PM15_COUNT_SHARE * n,
+              f"{n_diff} particles' counts differ")
+        log(f"  launches of the main path: {launch_diff(launches)} (the "
+            "distributed PM is plain torch, as the JAX module is plain jnp)")
+        del st, tr, tr1, slab
+        if cuda:
+            torch.cuda.empty_cache()
+
+        n3, g3 = P3M_CHECK
+        pos, mass = _uniform_cloud(n3, dev, 31)
+        want = make_p3m_force_fn(g3, sigma_cells=1.5)(
+            pos, mass, box_size=C4_BOX, softening=0.05)
+        acc, ms, peak, sent = _force_call(
+            dev, ps.make_slab_resident_pm_force_fn(
+                mesh, g3, deconvolve=True, p3m_sigma_cells=1.5),
+            pos, mass, box_size=C4_BOX, softening=0.05)
+        err, top = _max_err(acc, want)
+        nan = int(torch.isnan(acc).sum())
+        log(f"  distributed P3M, {n3} on {g3}^3: {ms:.1f} ms, peak "
+            f"{peak / 1e9:.2f} GB, bytes a call {sent}; max error "
+            f"{err / top:.3e} of max |ref| (limit {PM15_TOL}), NaN {nan}")
+        check(nan == 0 and err <= PM15_TOL * top,
+              "distributed P3M disagrees with make_p3m_force_fn")
+        ref["p3m"] = acc
+
+        n2, g2 = PM15_GLOO_PM
+        pos, mass = _uniform_cloud(n2, dev, 41)
+        ref["slab"], ms, _, sent = _force_call(
+            dev, ps.make_slab_resident_pm_force_fn(mesh, g2), pos, mass,
+            box_size=C4_BOX)
+        log(f"  slab-resident PM, {n2} on {g2}^3 (the gloo world's size): "
+            f"{ms:.1f} ms, bytes a call {sent}")
+        ref["direct"] = _direct_run(dev, tnb.make_direct_force_fn())
+        ref["example"] = distributed_simulation.simulate(
+            torch.device(dev).type, PM15_EXAMPLE_STEPS)["counts"]
+    finally:
+        multihost.shutdown()
+    check(not dist.is_initialized(), "the world of one did not end")
+    return launches, ref
+
+
+def pm15_rank(rank, world, store, work, device="cuda"):
+    """One rank of phase 15(b) (spawned by :func:`pm_sharded_phase`): a
+    gloo world of ``world`` ranks sharing the card.  Writes its results,
+    launches and bytes to ``work/pm15_rank<rank>.pkl``."""
+    import pickle
+
+    import torch
+
+    from orbitanalysis_tpu_torch import graft_entry
+    from orbitanalysis_tpu_torch.examples import distributed_simulation
+    from orbitanalysis_tpu_torch.models import pm_sharded as ps
+    from orbitanalysis_tpu_torch.ops import _cuda
+    from orbitanalysis_tpu_torch.parallel import (
+        make_mesh,
+        make_sharded_direct_force_fn,
+        multihost,
+    )
+
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(
+        device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    multihost.initialize(f"file://{store}", world, rank, backend="gloo")
+    out = dict(rank=rank, ms={}, bytes={})
+    try:
+        mesh = make_mesh({"x": world}, device=dev.type)
+        n2, g2 = PM15_GLOO_PM
+        pos, mass = _uniform_cloud(n2, dev, 41)
+        acc, out["ms"]["slab"], _, out["bytes"]["slab"] = _force_call(
+            dev, ps.make_slab_resident_pm_force_fn(mesh, g2), pos, mass,
+            box_size=C4_BOX)
+        out["slab"] = acc.cpu()
+        n3, g3 = P3M_CHECK
+        pos, mass = _uniform_cloud(n3, dev, 31)
+        acc, out["ms"]["p3m"], _, out["bytes"]["p3m"] = _force_call(
+            dev, ps.make_slab_resident_pm_force_fn(
+                mesh, g3, deconvolve=True, p3m_sigma_cells=1.5),
+            pos, mass, box_size=C4_BOX, softening=0.05)
+        out["p3m"] = acc.cpu()
+        del pos, mass, acc
+        out["direct"] = _direct_run(dev, make_sharded_direct_force_fn(
+            make_mesh({"particles": world}, device=dev.type)))
+        ex = distributed_simulation.simulate(dev.type, PM15_EXAMPLE_STEPS)
+        out["example"], out["example_finite"] = ex["counts"], ex["finite"]
+        graft_entry.dryrun_multichip(world, device=dev.type)
+        out["launches"] = _cuda.launch_counts()
+    finally:
+        multihost.shutdown()
+    with open(os.path.join(work, f"pm15_rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def pm_sharded_phase(dev, work, smi):
+    """Phase 15: the distributed PM on the card.  (a) an NCCL world of
+    one in this process (:func:`pm15_world_of_one`); (b) a gloo world of
+    RANKS spawned ranks sharing the card: the slab-resident PM and P3M
+    equal to the world of one's, the sharded direct integrator's counts
+    equal to ``direct_forces``'s, the distributed example's counts equal
+    to its world-of-one run, and the dry run.  Returns the launches of
+    both."""
+    import multiprocessing
+    import pickle
+
+    import torch
+
+    t_phase = time.perf_counter()
+    launches, ref = pm15_world_of_one(dev, work)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    ctx_mp = multiprocessing.get_context("spawn")
+    store = os.path.join(work, "pm15_gloo_store")
+    procs = [ctx_mp.Process(target=pm15_rank,
+                            args=(r, RANKS, store, work,
+                                  torch.device(dev).type))
+             for r in range(RANKS)]
+    t0 = time.perf_counter()
+    for pr in procs:
+        pr.start()
+    try:
+        for pr in procs:
+            pr.join(timeout=max(1.0, RANK_TIMEOUT
+                                - (time.perf_counter() - t0)))
+    finally:
+        hung = [pr for pr in procs if pr.is_alive()]
+        for pr in procs:
+            if pr.is_alive():
+                pr.kill()
+                pr.join()
+    check(not hung, f"{len(hung)} rank(s) still running after "
+          f"{RANK_TIMEOUT} s")
+    for r, pr in enumerate(procs):
+        check(pr.exitcode == 0, f"rank {r} failed (exit {pr.exitcode})")
+    outs = []
+    for r in range(RANKS):
+        with open(os.path.join(work, f"pm15_rank{r}.pkl"), "rb") as f:
+            outs.append(pickle.load(f))  # written by this run's ranks
+    log(f"  gloo world of {RANKS} ranks on one card: "
+        f"{time.perf_counter() - t0:.1f} s from spawn to exit")
+    for key, what, tol in (("slab", f"slab-resident PM {PM15_GLOO_PM}",
+                            PM15_SLAB_TOL),
+                           ("p3m", f"distributed P3M {P3M_CHECK}",
+                            PM15_TOL)):
+        want = ref[key].cpu()
+        for o in outs:
+            err, top = _max_err(o[key], want)
+            nan = int(torch.isnan(o[key]).sum())
+            log(f"    rank {o['rank']} {what}: max error {err / top:.3e} of "
+                f"the world of one's max |ref| (limit {tol}), NaN {nan}; "
+                f"{o['ms'][key]:.1f} ms, bytes a call {o['bytes'][key]}")
+            check(nan == 0 and err <= tol * top,
+                  f"rank {o['rank']}: {what} differs from the world of one")
+    n_d = PM15_DIRECT[0]
+    for o in outs:
+        diff = int((o["direct"] != ref["direct"]).sum())
+        log(f"    rank {o['rank']}: the sharded direct integrator, {n_d} "
+            f"particles, {PM15_DIRECT[1]} steps: {int(o['direct'].sum())} "
+            f"apsides, {diff} particles' counts differ from direct_forces'")
+        check(diff == 0 and int(o["direct"].sum()) > 0,
+              f"rank {o['rank']}: the sharded direct counts differ")
+        diff = int((o["example"] != ref["example"]).sum())
+        log(f"    rank {o['rank']}: the distributed example "
+            f"({PM15_EXAMPLE_STEPS} steps): {int(o['example'].sum())} "
+            f"passages, positions finite {bool(o['example_finite'])}, "
+            f"{diff} particles' counts differ from its world-of-one run")
+        check(bool(o["example_finite"]) and diff == 0,
+              f"rank {o['rank']}: the distributed example differs")
+    log(f"  {smi}: bytes a rank a force evaluation by collective are on "
+        "the lines above (two ranks on one card over the host: not the "
+        "speed of a multi-GPU node); graft_entry.dryrun_multichip(2) "
+        "completed on both ranks")
+    log(f"  launches: world of one {launch_diff(launches)}; a rank (the dry "
+        f"run's steps) {[launch_diff(o['launches']) for o in outs]}")
+    for o in outs:
+        for name, k in o["launches"].items():
+            launches[name] += k
+    log(f"  phase 15: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     import torch
 
@@ -3421,13 +3802,17 @@ def _phases(dev, rank_dir, smi):
         f"one, then a gloo world of {RANKS} ranks sharing it")
     sharded_launches = sharded_phase(
         dev, ctx, rank_dir, dict(label=label_keys, sorted=sorted_keys), smi)
+    log("== phase 15: the distributed PM (models/pm_sharded.py): an NCCL "
+        f"world of one at 12.6M / 256^3, then a gloo world of {RANKS} ranks")
+    pm_launches = pm_sharded_phase(dev, rank_dir, smi)
     kernels = []
     for name, k in _cuda.KERNELS.items():
         n = (launches[name] + label_launches[name] + sorted_launches[name]
              + e2e_sorted[name] + post_launches[name]
              + aligned_launches[name]
              + oracle_launches[name] + scale_launches[name]
-             + direct_launches[name] + sharded_launches[name])
+             + direct_launches[name] + sharded_launches[name]
+             + pm_launches[name])
         r = timings[name]
         kernels.append(dict(
             name=name, route=k.route, source=k.source, replaces=k.replaces,

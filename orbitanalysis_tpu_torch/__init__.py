@@ -30,8 +30,10 @@ Public API (the JAX package's surface):
   ``run_tracked_simulation``) and its forces: direct summation (the
   blocked kernel with ``make_direct_force_fn(use_pallas=True)``), PM
   (``models.pm.make_pm_force_fn``, the sorted deposit kernel on CUDA
-  tensors) and P3M.  On the CPU pass ``device='cpu'`` to the state
-  constructors; on the card ``chip_smoke.py`` phases 11-13 drive it;
+  tensors), P3M, and the distributed PM and P3M over the ranks of a
+  mesh axis (``models.pm_sharded``).  On the CPU pass ``device='cpu'``
+  to the state constructors; on the card ``chip_smoke.py`` phases 11-13
+  and 15 drive it;
 - :mod:`orbitanalysis_tpu_torch.parallel` — the distributed engines,
   one rank of a ``torch.distributed`` world a device: meshes over the
   ranks, ``track_orbits(mesh=...)`` on the halo-sharded engines and
@@ -43,9 +45,11 @@ Public API (the JAX package's surface):
 
 Every entry point runs on CUDA unless ``device='cpu'`` is passed.  The
 card machine has no ``h5py``: pass ``writer=MemoryWriter()``
-(``engine/io_hdf5.py``) to the trackers and to ``Apsides`` there.  Not
-ported yet: the slab-resident distributed PM (the JAX package's
-``models/pm_sharded.py``; ROADMAP.md).
+(``engine/io_hdf5.py``) to the trackers and to ``Apsides`` there.  The
+examples are :mod:`orbitanalysis_tpu_torch.examples` (``python -m
+orbitanalysis_tpu_torch.examples.<name> [--cpu]``); the flagship step
+and the multi-device dry run are in
+:mod:`orbitanalysis_tpu_torch.graft_entry`.
 """
 
 __version__ = "0.1.0"

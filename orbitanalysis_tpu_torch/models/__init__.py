@@ -16,16 +16,26 @@ the synthetic data generators.
   (``deposit='auto'``: the sorted-stream CUDA kernel K13 on CUDA
   tensors, ``index_add_`` on CPU ones), :func:`pm_forces`;
 - :mod:`~orbitanalysis_tpu_torch.models.p3m`: :func:`make_p3m_force_fn`;
+- :mod:`~orbitanalysis_tpu_torch.models.pm_sharded`: the distributed PM
+  over one mesh axis of a ``torch.distributed`` world,
+  :func:`make_sharded_pm_grid_solver`, :func:`make_sharded_pm_force_fn`
+  and ``make_slab_resident_pm_force_fn`` (slab-resident PM and P3M);
 - :mod:`~orbitanalysis_tpu_torch.models.synthetic`: Kepler ensembles,
   churn snapshots and the JAX benchmark's workloads.
 
 On the CPU pass ``device='cpu'`` to the state constructors (they default
 to CUDA and raise without it); the CPU tests are
-``tests/test_torch_nbody.py`` and ``tests/test_torch_pm.py``.  The
-distributed PM (``pm_sharded``) is not ported yet.
+``tests/test_torch_nbody.py``, ``tests/test_torch_pm.py`` and
+``tests/test_torch_pm_sharded.py``.
 """
 
-from orbitanalysis_tpu_torch.models import nbody, p3m, pm, synthetic  # noqa: F401
+from orbitanalysis_tpu_torch.models import (  # noqa: F401
+    nbody,
+    p3m,
+    pm,
+    pm_sharded,
+    synthetic,
+)
 from orbitanalysis_tpu_torch.models.nbody import (  # noqa: F401
     NBodyState,
     OrbitNBodyConfig,
@@ -46,11 +56,16 @@ from orbitanalysis_tpu_torch.models.pm import (  # noqa: F401
     make_pm_force_fn,
     pm_forces,
 )
+from orbitanalysis_tpu_torch.models.pm_sharded import (  # noqa: F401
+    make_sharded_pm_force_fn,
+    make_sharded_pm_grid_solver,
+)
 
 __all__ = [
     "nbody",
     "pm",
     "p3m",
+    "pm_sharded",
     "synthetic",
     "NBodyState",
     "OrbitNBodyConfig",
@@ -68,4 +83,6 @@ __all__ = [
     "make_p3m_force_fn",
     "make_pm_force_fn",
     "pm_forces",
+    "make_sharded_pm_grid_solver",
+    "make_sharded_pm_force_fn",
 ]

@@ -309,6 +309,14 @@ def _interp_choice(assignment: str, grid: int) -> str:
     return assignment
 
 
+def _use_rows(assignment: str) -> bool:
+    """The rows-or-scalar form of the policy, for the sharded PM (its
+    slab tables never reach the size the ``'cells'`` form exists for, so
+    ``'cells'`` reads as ``'rows'``)."""
+    return _interp_choice(
+        assignment if assignment != "cells" else "rows", 0) != "scalar"
+
+
 def cic_deposit_auto(pos, mass, grid, box_size):
     """The ``deposit='auto'`` policy at call time: the sorted-stream
     deposit (K13) for CUDA tensors, the scatter :func:`cic_deposit` for

@@ -11,14 +11,19 @@ axis:
 - :func:`all_gather` — ``lax.all_gather`` (``parallel/nbody_sharded.py:
   92-93``): ``all_gather_into_tensor``;
 - :func:`all_to_all` — ``lax.all_to_all`` (``parallel/hash_sharded.py:
-  547-550``): ``all_to_all_single``;
+  547-550``, ``models/pm_sharded.py:68-70``): ``all_to_all_single``;
+- :func:`ppermute` — ``lax.ppermute`` (``models/pm_sharded.py:269-272``):
+  one ``all_to_all_single`` with uneven splits, this rank's block going
+  only to its destination;
 - :func:`process_allgather` — ``multihost_utils.process_allgather``
   (``engine/tracker.py:90-106``): an all-gather whose result comes back
   to the host as a NumPy array on every rank.
 
 Without a process group every collective is the identity, as the JAX
 multi-host helpers are on one host; on a group of one rank the backend
-still runs it (its result is the identity).
+still runs it (its result is the identity).  Complex tensors cross as
+their ``torch.view_as_real`` views (two float32 words an element), so a
+backend sees real tensors only and their bytes count as complex64's.
 
 Each collective adds the bytes this rank hands to it to
 :func:`sent_bytes` (a plain count a name, as the kernels count their
@@ -41,7 +46,7 @@ import torch
 import torch.distributed as dist
 
 
-_SENT = {"psum": 0, "all_gather": 0, "all_to_all": 0}
+_SENT = {"psum": 0, "all_gather": 0, "all_to_all": 0, "ppermute": 0}
 
 
 def sent_bytes() -> dict:
@@ -133,11 +138,60 @@ def all_to_all(x: torch.Tensor, group=None, split_axis: int = 0,
             f"all_to_all: axis {split_axis} of length {x.shape[split_axis]} "
             f"does not split over {n} ranks")
     _SENT["all_to_all"] += x.numel() * x.element_size()
-    src = x.movedim(split_axis, 0).contiguous()
+    src = _real(x.movedim(split_axis, 0).contiguous())
     out = torch.empty_like(src)
     dist.all_to_all_single(out, src, group=group)
+    out = _complex(out, x)
     blocks = out.movedim(0, split_axis).chunk(n, dim=split_axis)
     return torch.cat(blocks, dim=concat_axis)
+
+
+def ppermute(x: torch.Tensor, group=None, perm=()) -> torch.Tensor:
+    """``lax.ppermute``: ``perm`` is a list of ``(src, dst)`` pairs of
+    group ranks; this rank's ``x`` goes to its destination and the result
+    is the ``x`` of its source (zeros where no pair names this rank as a
+    destination, as in JAX).  One ``all_to_all_single`` whose splits are
+    ``x``'s size toward the destination and 0 elsewhere; without a
+    process group the identity (on one device every permutation is a
+    self-send)."""
+    if not _active():
+        return x
+    n = group_size(group)
+    me = group_rank(group)
+    dst = [d for s, d in perm if s == me]
+    src = [s for s, d in perm if d == me]
+    if len(dst) > 1 or len(src) > 1:
+        raise ValueError(f"ppermute: {perm} is not a permutation")
+    src_t = _real(x.contiguous())
+    rows = src_t.shape[0] if src_t.dim() else 1
+    send = [0] * n
+    recv = [0] * n
+    if dst:
+        send[dst[0]] = rows
+        _SENT["ppermute"] += x.numel() * x.element_size()
+    if src:
+        recv[src[0]] = rows
+    out = torch.zeros_like(src_t)
+    flat_in = src_t.reshape(rows, -1)
+    flat_out = out.reshape(rows, -1)
+    if not src:
+        # nothing arrives: the buffer the backend fills is empty
+        flat_out = flat_out[:0]
+    dist.all_to_all_single(flat_out, flat_in if dst else flat_in[:0],
+                           output_split_sizes=recv, input_split_sizes=send,
+                           group=group)
+    return _complex(out, x)
+
+
+def _real(x: torch.Tensor) -> torch.Tensor:
+    """A complex tensor's ``view_as_real`` (the backends move real
+    words); any other tensor as it is."""
+    return torch.view_as_real(x) if x.is_complex() else x
+
+
+def _complex(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`_real` for a result shaped as ``like``."""
+    return torch.view_as_complex(y) if like.is_complex() else y
 
 
 def process_allgather(x, group=None, tiled: bool = False) -> np.ndarray:

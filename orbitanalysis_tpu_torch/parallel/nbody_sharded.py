@@ -4,7 +4,9 @@
 - *targets* are split over a mesh axis: each rank computes the
   accelerations of its own particle block;
 - *sources* are all-gathered once an evaluation (O(N) bytes against the
-  O(N^2 / D) operations each rank then does).
+  O(N^2 / D) operations each rank then does), and so are the blocks'
+  accelerations, so the force function takes and returns the global
+  arrays as the JAX package's does.
 
 The JAX package computes this pair sum in plain ``jnp`` outside any
 Pallas kernel (a Gram matrix product for the free case), so the port's
@@ -17,7 +19,9 @@ from __future__ import annotations
 import torch
 
 from orbitanalysis_tpu_torch.models.nbody import _check_full_f32_matmul
+from orbitanalysis_tpu_torch.ops.deposit import mass_vector
 from orbitanalysis_tpu_torch.parallel.collectives import all_gather
+from orbitanalysis_tpu_torch.parallel.sharding import take_block
 from orbitanalysis_tpu_torch.utils.numerics import periodic_displacement
 
 
@@ -50,20 +54,41 @@ def direct_forces_rect(targets: torch.Tensor, sources: torch.Tensor,
 
 
 def make_sharded_direct_force_fn(mesh, axis: str = "particles"):
-    """A ``force_fn(pos, mass, softening=..., G=..., box_size=...)`` of
-    this rank's block of particles (``pos [N / D, 3]``, ``mass [N /
-    D]``) that returns the block's accelerations against all ``N``
-    sources, gathered over ``mesh``'s ``axis``.
+    """A ``force_fn(pos, mass, softening=..., G=..., box_size=...)`` that
+    runs the pair sum sharded over ``mesh``'s ``axis``, with the JAX
+    package's contract: ``pos [N, 3]`` and ``mass [N]`` are the global
+    arrays (the same on every rank of the axis, as
+    ``simulate_with_tracking`` holds them), this rank computes the
+    accelerations of its block ``[rank * N / D, (rank + 1) * N / D)``
+    against all ``N`` sources, and the blocks are all-gathered back to
+    the global ``[N, 3]``.
 
+    ``force.local(pos_l, mass_l, ...)`` is the block body, for callers
+    that keep the particles sharded: it takes this rank's block and
+    returns the block's accelerations (the JAX ``shard_map`` body).
     ``N`` must divide by the axis size (pad with zero-mass particles
     otherwise, as for the blocked kernel)."""
     group = mesh.group(axis)
+    n_dev = int(mesh.shape[axis])
 
-    def force(pos, mass, softening=0.05, G=1.0, box_size=None, **_):
-        pos_all = all_gather(pos, group, axis=0)
-        mass_all = all_gather(mass, group, axis=0)
-        return direct_forces_rect(pos, pos_all, mass_all,
+    def local(pos_l, mass_l, softening=0.05, G=1.0, box_size=None, **_):
+        pos_all = all_gather(pos_l, group, axis=0)
+        mass_all = all_gather(mass_l, group, axis=0)
+        return direct_forces_rect(pos_l, pos_all, mass_all,
                                   softening=softening, G=G,
                                   box_size=box_size)
 
+    def force(pos, mass, softening=0.05, G=1.0, box_size=None, **_):
+        n = pos.shape[0]
+        if n % n_dev:
+            raise ValueError(
+                f"particle count {n} not divisible by mesh axis {n_dev}; "
+                "pad with zero-mass particles")
+        mass = mass_vector(mass, n, pos)
+        acc = local(take_block(pos, (axis,), mesh),
+                    take_block(mass, (axis,), mesh), softening=softening,
+                    G=G, box_size=box_size)
+        return all_gather(acc, group, axis=0)
+
+    force.local = local
     return force

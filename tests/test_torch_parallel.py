@@ -12,7 +12,8 @@ label step against JAX's ``make_sharded_label_step`` on 2 of the
 conftest's virtual CPU devices (counts, indices and ``lab_sv`` exact;
 bulk velocities and angles as ``tests/test_label.py``'s sharded test
 holds them); the sharded direct forces against JAX's within 1e-5
-relative.
+relative, global arrays in and out, and the integrator through them
+with JAX's counts.
 """
 
 import jax
@@ -70,6 +71,8 @@ from torch_ranks import run_world
 torch.set_num_threads(1)
 
 D = 2
+#: steps of the integrator through the sharded direct forces
+SIM_STEPS = 24
 
 
 def _trees(h, p):
@@ -186,6 +189,15 @@ def parallel_world(tmp_path_factory):
     inp["force_pos_free"] = rng.normal(size=(512, 3)).astype(np.float32)
     inp["force_pos_box"] = rng.uniform(0, 20, (512, 3)).astype(np.float32)
     inp["force_mass"] = rng.uniform(0.5, 2.0, 512).astype(np.float32)
+    # the JAX dry run's integrator inputs (__graft_entry__.py:198-217),
+    # run for more steps so that apsides occur
+    sim_rng = np.random.default_rng(0)
+    n_sim = 64 * D
+    inp["sim_pos"] = sim_rng.normal(size=(n_sim, 3)).astype(np.float32)
+    inp["sim_vel"] = sim_rng.normal(scale=0.3,
+                                    size=(n_sim, 3)).astype(np.float32)
+    inp["sim_mass"] = np.full(n_sim, 1.0 / n_sim, np.float32)
+    inp["sim_steps"] = SIM_STEPS
     np.savez(work / "parallel_in.npz", **inp)
     outs = run_world("parallel", D, str(work), timeout=150)
     return dict(inp=inp, outs=outs, staged=staged)
@@ -307,26 +319,67 @@ def _f64_forces(pos, mass, softening, box=None):
 
 @pytest.mark.timeout(240)
 def test_sharded_direct_forces_match_jax(parallel_world):
-    """Each rank's block of accelerations against JAX's sharded pair sum
-    on two devices, measured in units of the RMS acceleration.  The
-    periodic form (direct differences) agrees within 1e-5.  The free
-    form is the Gram product ``|x|^2 + |y|^2 - 2 x.y`` in float32, whose
-    own error against a float64 sum is ~3e-5 on these inputs in either
-    package (the JAX package holds its sharded form to 1e-4 of its
-    direct form, ``tests/test_distributed.py``): there the two agree
-    within 1e-4 and the port's error is no larger than twice JAX's."""
+    """The sharded pair sum against JAX's on two devices, measured in
+    units of the RMS acceleration: the global arrays in and out on every
+    rank (JAX's contract), and ``force.local`` on each rank's block (the
+    block body) equal to the global result's block.  The periodic form
+    (direct differences) agrees within 1e-5.  The free form is the Gram
+    product ``|x|^2 + |y|^2 - 2 x.y`` in float32, whose own error against
+    a float64 sum is ~3e-5 on these inputs in either package (the JAX
+    package holds its sharded form to 1e-4 of its direct form,
+    ``tests/test_distributed.py``): there the two agree within 1e-4 and
+    the port's error is no larger than twice JAX's.  A particle count
+    that does not divide over the ranks raises."""
     inp, outs = parallel_world["inp"], parallel_world["outs"]
     mesh = jax_mesh({"particles": D}, jax.devices()[:D])
     f = jax_force_fn(mesh)
+    n = inp["force_mass"].shape[0]
     for tag, box, tol in (("free", None, 1e-4),
                           ("box", inp["force_box"], 1e-5)):
         pos = inp[f"force_pos_{tag}"]
         kw = {} if box is None else dict(box_size=box)
         want = np.asarray(jax.jit(lambda p, m: f(p, m, softening=0.1, **kw))(
             jnp.asarray(pos), jnp.asarray(inp["force_mass"])))
-        got = np.concatenate([o[f"force_{tag}"] for o in outs])
         ref = _f64_forces(pos, inp["force_mass"], 0.1, box)
         rms = np.sqrt((ref ** 2).sum(1).mean())
-        assert np.abs(got - want).max() < tol * rms, tag
-        assert (np.abs(got - ref).max()
-                <= 2 * np.abs(want - ref).max() + 1e-6 * rms), tag
+        local = np.concatenate([o[f"force_local_{tag}"] for o in outs])
+        for r, o in enumerate(outs):
+            got = o[f"force_{tag}"]
+            assert got.shape == (n, 3), tag
+            np.testing.assert_array_equal(got, local)
+            assert np.abs(got - want).max() < tol * rms, tag
+            assert (np.abs(got - ref).max()
+                    <= 2 * np.abs(want - ref).max() + 1e-6 * rms), tag
+    assert all(bool(o["force_odd_raises"]) for o in outs)
+
+
+@pytest.mark.timeout(240)
+def test_sharded_direct_integrator_counts_match_jax(parallel_world):
+    """F5: ``simulate_with_tracking`` over the replicated state with
+    ``make_sharded_direct_force_fn`` on 2 ranks gives JAX's counts (the
+    JAX dry run's call, ``__graft_entry__.py:199-220``, on 2 virtual
+    devices, for SIM_STEPS steps) on every rank, and the same positions.
+    A force function that took the global arrays as a block would sum
+    every source twice and double the accelerations."""
+    from orbitanalysis_tpu.models.nbody import (
+        NBodyState,
+        OrbitNBodyConfig,
+        simulate_with_tracking,
+    )
+
+    inp, outs = parallel_world["inp"], parallel_world["outs"]
+    n = inp["sim_mass"].shape[0]
+    mesh = jax_mesh({"particles": D}, jax.devices()[:D])
+    st = NBodyState(jnp.asarray(inp["sim_pos"]), jnp.asarray(inp["sim_vel"]),
+                    jnp.asarray(inp["sim_mass"]))
+    cfg = OrbitNBodyConfig(dt=0.05, n_steps=SIM_STEPS, detect_every=1,
+                           softening=0.2)
+    fin, tr, _ = simulate_with_tracking(
+        st, jnp.arange(n, dtype=jnp.int32).reshape(1, n), cfg,
+        force_fn=jax_force_fn(mesh))
+    want = np.asarray(tr.counts)
+    assert want.sum() > 0
+    for o in outs:
+        np.testing.assert_array_equal(o["sim_counts"], want)
+        np.testing.assert_allclose(o["sim_pos"], np.asarray(fin.pos),
+                                   atol=1e-4)

@@ -84,8 +84,9 @@ def load_snaps(data):
 
 def task_parallel(rank, world, work):
     """multihost helpers, the four collectives, and the halo-sharded
-    sorted and aligned steps, the particle-sharded label step and the
-    sharded direct forces on this rank's block."""
+    sorted and aligned steps, the particle-sharded label step, the
+    sharded direct forces (global and block forms) and the integrator
+    through them."""
     import torch
 
     from orbitanalysis_tpu_torch.ops.apsis import SnapshotBatch
@@ -177,16 +178,43 @@ def task_parallel(rank, world, work):
             out[f"label_{f}_{s}"] = getattr(ev, f).numpy()
     out["label_lab_sv"] = carry.lab_sv.numpy()
 
-    # sharded direct forces, free and periodic
+    # sharded direct forces, free and periodic: the global arrays in
+    # and out (JAX's contract), and the block body on this rank's block
     fmesh = make_mesh({"particles": world}, device="cpu")
     force = make_sharded_direct_force_fn(fmesh)
     n = inp["force_mass"].shape[0]
     lo, hi = rank * n // world, (rank + 1) * n // world
-    mass = torch.from_numpy(inp["force_mass"][lo:hi].copy())
+    mass = torch.from_numpy(inp["force_mass"])
     for tag, box in (("free", None), ("box", float(inp["force_box"]))):
-        pos = torch.from_numpy(inp[f"force_pos_{tag}"][lo:hi].copy())
+        pos = torch.from_numpy(inp[f"force_pos_{tag}"])
         out[f"force_{tag}"] = force(pos, mass, softening=0.1,
                                     box_size=box).numpy()
+        out[f"force_local_{tag}"] = force.local(
+            pos[lo:hi], mass[lo:hi], softening=0.1, box_size=box).numpy()
+    try:
+        force(pos[:n - 1], mass[:n - 1])
+        out["force_odd_raises"] = np.array(False)
+    except ValueError:
+        out["force_odd_raises"] = np.array(True)
+
+    # the integrator over the replicated state with the sharded direct
+    # forces (the JAX dry run's call, __graft_entry__.py:199-220)
+    from orbitanalysis_tpu_torch.models.nbody import (
+        OrbitNBodyConfig,
+        nbody_state_from_numpy,
+        simulate_with_tracking,
+    )
+
+    st = nbody_state_from_numpy(inp["sim_pos"], inp["sim_vel"],
+                                inp["sim_mass"], device="cpu")
+    n_sim = inp["sim_mass"].shape[0]
+    cfg = OrbitNBodyConfig(dt=0.05, n_steps=int(inp["sim_steps"]),
+                           detect_every=1, softening=0.2)
+    fin, tr, _ = simulate_with_tracking(
+        st, np.arange(n_sim, dtype=np.int32).reshape(1, n_sim), cfg,
+        force_fn=force)
+    out["sim_counts"] = tr.counts.numpy()
+    out["sim_pos"] = fin.pos.numpy()
     return out
 
 
@@ -401,8 +429,102 @@ def task_tracker2d(rank, world, work):
     return _tracker_runs(work, TRACKER_RUNS_2D)
 
 
+def task_pm_sharded(rank, world, work):
+    """The distributed PM of ``models/pm_sharded.py`` on a mesh ``{'x':
+    world}``: the grid solve, the psum path, the slab-resident rows and
+    scalar paths, distributed P3M, the overflow NaN mask, the occupancy
+    helper, the contract errors, the integrator through the slab force,
+    and ``ppermute`` / complex ``all_to_all``."""
+    import torch
+    import torch.distributed as dist
+
+    from orbitanalysis_tpu_torch.models import pm_sharded as ps
+    from orbitanalysis_tpu_torch.models.nbody import (
+        OrbitNBodyConfig,
+        nbody_state_from_numpy,
+        simulate_with_tracking,
+    )
+    from orbitanalysis_tpu_torch.parallel import make_mesh
+    from orbitanalysis_tpu_torch.parallel.collectives import (
+        all_to_all,
+        ppermute,
+        reset_sent_bytes,
+        sent_bytes,
+    )
+
+    inp = np.load(os.path.join(work, "pm_sharded_in.npz"))
+    mesh = make_mesh({"x": world}, device="cpu")
+    grid, box = int(inp["grid"]), float(inp["box"])
+    out = {}
+
+    def t(name):
+        return torch.from_numpy(inp[name])
+
+    solve = ps.make_sharded_pm_grid_solver(mesh, grid)
+    out["solve"] = solve(t("rho"), box).numpy()
+    i, loc = rank, solve.slab
+    out["local_solve"] = solve.local_solve(
+        t("rho")[i * loc:(i + 1) * loc], box).numpy()
+    out["psum"] = ps.make_sharded_pm_force_fn(mesh, grid)(
+        t("pos"), t("mass"), box_size=box).numpy()
+    for a in ("rows", "scalar"):
+        f = ps.make_slab_resident_pm_force_fn(mesh, grid, assignment=a)
+        out[f"slab_{a}"] = f(t("pin_pos"), t("mass"), box_size=box).numpy()
+    reset_sent_bytes()
+    f = ps.make_slab_resident_pm_force_fn(mesh, grid, assignment="scalar")
+    out["slab_pos"] = f(t("pos"), t("mass"), box_size=box).numpy()
+    out["slab_bytes"] = np.array([sent_bytes()[k] for k in (
+        "all_to_all", "ppermute", "all_gather")])
+    out["occupancy"] = f.slab_occupancy(inp["pos"], box)
+    p3m = ps.make_slab_resident_pm_force_fn(
+        mesh, int(inp["p3m_grid"]), deconvolve=True, p3m_sigma_cells=1.5)
+    out["p3m"] = p3m(t("p3m_pos"), t("p3m_mass"), box_size=float(
+        inp["p3m_box"]), softening=float(inp["p3m_soft"])).numpy()
+    thin = ps.make_slab_resident_pm_force_fn(mesh, grid, bucket_factor=1.0)
+    out["thin"] = thin(t("thin_pos"), t("thin_mass"), box_size=box).numpy()
+    # the contract errors
+    raised = []
+    try:
+        ps.make_sharded_pm_grid_solver(mesh, int(inp["bad_grid"]))
+    except ValueError:
+        raised.append("grid")
+    for name, fn in (("slab", f), ("psum", ps.make_sharded_pm_force_fn(
+            mesh, grid))):
+        try:
+            fn(t("pos")[:-1], t("mass")[:-1], box_size=box)
+        except ValueError:
+            raised.append(name)
+    out["raised"] = np.array(raised)
+
+    # the integrator through the slab-resident force
+    st = nbody_state_from_numpy(inp["sim_pos"], inp["sim_vel"],
+                                inp["sim_mass"], device="cpu")
+    n = inp["sim_mass"].shape[0]
+    cfg = OrbitNBodyConfig(dt=0.1, n_steps=8, detect_every=2, box_size=box)
+    _, tr, _ = simulate_with_tracking(
+        st, np.arange(n, dtype=np.int32).reshape(1, n), cfg,
+        force_fn=ps.make_slab_resident_pm_force_fn(mesh, grid))
+    out["sim_counts"] = tr.counts.numpy()
+
+    # ppermute on the axis's group and on a gloo group of this rank alone
+    # (a self-send), and all_to_all on complex64
+    g = mesh.group("x")
+    x = torch.arange(6, dtype=torch.float32).reshape(2, 3) + 10 * rank
+    out["ring"] = ppermute(x, g, [(d, (d + 1) % world)
+                                  for d in range(world)]).numpy()
+    out["partial"] = ppermute(x, g, [(0, 1)]).numpy()
+    solo = [dist.new_group([r]) for r in range(world)][rank]
+    out["self"] = ppermute(x, solo, [(0, 0)]).numpy()
+    z = torch.complex(torch.arange(4.0 * world) + rank,
+                      -torch.arange(4.0 * world))
+    reset_sent_bytes()
+    out["a2a_complex"] = all_to_all(z, g).numpy()
+    out["a2a_complex_bytes"] = np.array(sent_bytes()["all_to_all"])
+    return out
+
+
 TASKS = dict(parallel=task_parallel, hash=task_hash, tracker=task_tracker,
-             tracker2d=task_tracker2d)
+             tracker2d=task_tracker2d, pm_sharded=task_pm_sharded)
 
 
 def main(argv):
