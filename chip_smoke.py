@@ -111,7 +111,8 @@ repository checkout; it imports nothing of JAX.  Phases:
 13. direct summation through the blocked force kernel at N = 131,072
    (16 steps, detection every 4), against the same run with the plain
    blocked version on the card; one P3M force evaluation at 262,144
-   particles on 64^3 (finite, net force near zero);
+   particles on 64^3 (finite, net force near zero, and two calls the
+   same bits: its deposit is K13);
 14. the distributed engines (``parallel/``, ``track_orbits(mesh=)``):
    (a) an NCCL world of one rank in this process: config 2 through a
    ``{'halos': 1}`` mesh under ``join_impl='auto'`` (the aligned engine,
@@ -136,11 +137,16 @@ repository checkout; it imports nothing of JAX.  Phases:
    one at 12,582,912 particles on 256^3 (phase 12's state): the grid
    solve against ``pm_forces_grid`` on the same deposit (1e-4 of max
    |ref|), the psum path (1e-4) and the slab-resident rows and scalar
-   paths (2e-4) against ``make_pm_force_fn(256)``, 8 steps of the
-   integrator with the slab-resident force against the single-device
-   force (at most 1e-5 of the particles' counts differ), distributed P3M
-   at phase 13's size against ``make_p3m_force_fn`` (1e-4, no NaN), each
-   force's ms, peak memory and collective bytes; (b) a gloo world of two
+   paths (2e-4) against ``make_pm_force_fn(256)``, each called twice
+   with the same bits (every deposit is K13, in a fixed order); the slab
+   block's K13 time against its bound; 8 steps of the integrator with
+   the slab-resident force against the single-device force (K13 once a
+   force evaluation and segment; at most 1e-5 of the particles' counts
+   differ), run twice with equal counts; distributed P3M at phase 13's
+   size against ``make_p3m_force_fn`` (1e-4, no NaN, twice the same
+   bits), each force's ms, peak memory and collective bytes; at
+   1,048,576 on 128^3 the slab deposit of the same routed lanes on the
+   card and the CPU bit-equal; (b) a gloo world of two
    ranks sharing the card: the slab-resident PM at 1,048,576 on 128^3 and
    P3M equal to the world of one's within those tolerances, the sharded
    direct integrator (16,384 particles, 8 steps) with the counts of
@@ -2838,7 +2844,7 @@ def direct_phase(dev):
     mass = torch.from_numpy(rng.uniform(0.5, 2.0, n).astype(
         np.float32)).to(dev)
     p3m = make_p3m_force_fn(grid)
-    p3m(pos, mass, box_size=C4_BOX, softening=0.05)     # warm-up
+    first = p3m(pos, mass, box_size=C4_BOX, softening=0.05)     # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     acc = p3m(pos, mass, box_size=C4_BOX, softening=0.05)
@@ -2847,11 +2853,14 @@ def direct_phase(dev):
     ma = mass[:, None].double() * acc.double()
     net = ma.sum(0).abs()
     scale = ma.abs().sum(0)
+    same = _same_bits(acc, first)
     log(f"  P3M, {n} particles on {grid}^3: {wall:.3f} s; finite "
         f"{bool(torch.isfinite(acc).all())}; net force / sum |m a| = "
-        f"{(net / scale).max().item():.3g} (limit 1e-3)")
+        f"{(net / scale).max().item():.3g} (limit 1e-3); two calls "
+        f"{'the same bits' if same else 'DIFFER'} (its deposit is K13)")
     check(bool(torch.isfinite(acc).all()), "P3M forces not finite")
     check(bool((net < 1e-3 * scale).all()), "P3M net force not near zero")
+    check(same, "P3M gave other bits on a second call")
     return launches
 
 
@@ -3424,6 +3433,14 @@ def _force_call(dev, f, *args, **kw):
     return acc, ms, peak, {k: sent_bytes()[k] for k in PM15_COLLECTIVES}
 
 
+def _same_bits(a, b):
+    """Two float32 results equal bit for bit, NaN lanes included."""
+    import torch
+
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
 def _max_err(got, want):
     """``(max |got - want|, max |want|)`` in float64."""
     got, want = got.double(), want.double()
@@ -3434,13 +3451,17 @@ def pm15_world_of_one(dev, work):
     """Phase 15(a): an NCCL world of one in this process (gloo on the
     CPU).  At 12.6M / 256^3: the grid solve against ``pm_forces_grid`` on
     the same deposit, the psum path and the slab-resident rows and
-    scalar paths against ``make_pm_force_fn``, then the main path
-    (counted): PM15_STEPS steps of the integrator with the slab-resident
-    force, whose counts are held against the single-device force's.
-    Distributed P3M at phase 13's size against ``make_p3m_force_fn``.
-    Then the references of the gloo world: the slab-resident PM at
-    PM15_GLOO_PM, P3M, the direct integrator through ``direct_forces``
-    and the distributed example.  Returns ``(launches, references)``."""
+    scalar paths against ``make_pm_force_fn``, each twice with the same
+    bits, and the slab block's K13 timed; then the main path (counted,
+    K13 once a force evaluation): PM15_STEPS steps of the integrator
+    with the slab-resident force, whose counts are held against the
+    single-device force's, and the same steps again with the same
+    counts.  Distributed P3M at phase 13's size against
+    ``make_p3m_force_fn``, twice with the same bits.  Then the
+    references of the gloo world: the slab-resident PM at PM15_GLOO_PM
+    (and its slab deposit, card against CPU), P3M, the direct integrator
+    through ``direct_forces`` and the distributed example.  Returns
+    ``(launches, references)``."""
     import torch
     import torch.distributed as dist
 
@@ -3454,6 +3475,7 @@ def pm15_world_of_one(dev, work):
         pm_forces_grid,
     )
     from orbitanalysis_tpu_torch.ops import _cuda
+    from orbitanalysis_tpu_torch.ops import deposit as td
     from orbitanalysis_tpu_torch.parallel import make_mesh, multihost
 
     cuda = torch.device(dev).type == "cuda"
@@ -3490,13 +3512,40 @@ def pm15_world_of_one(dev, work):
             acc, ms, peak, sent = _force_call(dev, f, st.pos, st.mass,
                                               box_size=C4_BOX)
             err, top = _max_err(acc, want)
+            same = _same_bits(acc, f(st.pos, st.mass, box_size=C4_BOX))
             log(f"  {name}: {ms:.1f} ms, peak {peak / 1e9:.2f} GB, bytes a "
                 f"call {sent}; max error {err / top:.3e} of max |ref| "
-                f"(limit {tol})")
+                f"(limit {tol}); a second call "
+                f"{'the same bits' if same else 'DIFFERS'}")
             check(err <= tol * top, f"the {name} disagrees with "
                   "make_pm_force_fn")
+            check(same, f"the {name} gave other bits on a second call")
             del acc
         del want
+
+        # the slab block's deposit alone: the sorted stream of the
+        # routed lanes (a world of one: the particles, then the bucket
+        # padding) and K13 on it, against the bytes it must move
+        slab = ps.make_slab_resident_pm_force_fn(mesh, grid)
+        lanes = ps._route(st.pos, st.mass, grid, C4_BOX, slab.slab, 1,
+                          ps._bucket_cap(4.0, n, 1), mesh.group("x"))[0]
+        i0, fr = td.cic_base(lanes[:, :3], grid, C4_BOX)
+        skeys, fracs, planes, n_seg = ps._slab_stream(
+            i0[:, 0], i0, fr, lanes[:, 3], grid, slab.slab)
+        sx, sy = td.strides(grid)
+        v = planes * sx + sx + sy + 1
+        if cuda and n_seg == 1:
+            k_ms = cuda_ms(lambda: td.deposit_stream(skeys, fracs, grid, v))
+            d_ms = cuda_ms(lambda: ps._slab_deposit(
+                i0[:, 0], i0, fr, lanes[:, 3], grid, slab.slab))
+            live = int((lanes[:, 3] != 0).sum())
+            b_ms, b_by = bound(20 * live + 4 * v, 0)
+            log(f"  the slab block's K13: {skeys.shape[0]} routed lanes "
+                f"({live} live) onto {v} cells ({slab.slab + 1} planes of "
+                f"{grid + 1}^2 and the reach), {n_seg} segment: kernel "
+                f"{k_ms:.4f} ms, bound {b_ms:.4f} ({b_by}); the whole slab "
+                f"deposit (keys, stable sort, K13, fold) {d_ms:.4f} ms")
+        del lanes, i0, fr, skeys, fracs
 
         # ---- the main path, counted
         members = np.arange(n, dtype=np.int32).reshape(rows, C4_ROW)
@@ -3504,7 +3553,6 @@ def pm15_world_of_one(dev, work):
                                    detect_every=PM15_EVERY,
                                    mode="pericentric", box_size=C4_BOX,
                                    softening=0.0)
-        slab = ps.make_slab_resident_pm_force_fn(mesh, grid)
         _cuda.reset_launch_counts()
         _sync(dev)
         t0 = time.perf_counter()
@@ -3513,23 +3561,35 @@ def pm15_world_of_one(dev, work):
         wall = time.perf_counter() - t0
         launches = _cuda.launch_counts()
         # ---- end of the counted main path
+        k13 = launches["deposit_sorted"]
+        log(f"  launches of the main path: {launch_diff(launches)} (K13 "
+            f"once a force evaluation and segment: {PM15_STEPS + 1} "
+            f"evaluations x {n_seg} segment(s))")
+        if cuda:
+            check(k13 == (PM15_STEPS + 1) * n_seg,
+                  f"K13 launched {k13} times on the slab-resident path")
+        # the same steps again: the same counts, bit for bit
+        _, tr2, ev2 = tnb.simulate_with_tracking(st, members, cfg, slab)
         t0 = time.perf_counter()
         _, tr1, ev1 = tnb.simulate_with_tracking(st, members, cfg,
                                                  make_pm_force_fn(grid))
         _sync(dev)
         wall1 = time.perf_counter() - t0
         n_diff = int((tr.counts != tr1.counts).sum())
+        n_diff2 = int((tr2.counts != tr1.counts).sum())
+        repeat = torch.equal(tr.counts, tr2.counts) and torch.equal(ev, ev2)
         log(f"  {PM15_STEPS} steps (detect_every={PM15_EVERY}) with the "
             f"slab-resident force: {wall:.2f} s; the single-device force "
             f"{wall1:.2f} s; events {ev.tolist()} against {ev1.tolist()}; "
             f"{n_diff} particles' counts differ (limit "
-            f"{PM15_COUNT_SHARE} of {n})")
+            f"{PM15_COUNT_SHARE} of {n}); the run repeated: {n_diff2}, "
+            f"counts and events {'equal' if repeat else 'DIFFER'}")
         check(int(ev.sum()) > 0, "no apsides in the slab-resident run")
         check(n_diff <= PM15_COUNT_SHARE * n,
               f"{n_diff} particles' counts differ")
-        log(f"  launches of the main path: {launch_diff(launches)} (the "
-            "distributed PM is plain torch, as the JAX module is plain jnp)")
-        del st, tr, tr1, slab
+        check(repeat and n_diff2 == n_diff,
+              "the slab-resident run gave other counts when repeated")
+        del st, tr, tr1, tr2, slab
         if cuda:
             torch.cuda.empty_cache()
 
@@ -3537,17 +3597,21 @@ def pm15_world_of_one(dev, work):
         pos, mass = _uniform_cloud(n3, dev, 31)
         want = make_p3m_force_fn(g3, sigma_cells=1.5)(
             pos, mass, box_size=C4_BOX, softening=0.05)
+        p3m = ps.make_slab_resident_pm_force_fn(
+            mesh, g3, deconvolve=True, p3m_sigma_cells=1.5)
         acc, ms, peak, sent = _force_call(
-            dev, ps.make_slab_resident_pm_force_fn(
-                mesh, g3, deconvolve=True, p3m_sigma_cells=1.5),
-            pos, mass, box_size=C4_BOX, softening=0.05)
+            dev, p3m, pos, mass, box_size=C4_BOX, softening=0.05)
         err, top = _max_err(acc, want)
         nan = int(torch.isnan(acc).sum())
+        same = _same_bits(acc, p3m(pos, mass, box_size=C4_BOX,
+                                   softening=0.05))
         log(f"  distributed P3M, {n3} on {g3}^3: {ms:.1f} ms, peak "
             f"{peak / 1e9:.2f} GB, bytes a call {sent}; max error "
-            f"{err / top:.3e} of max |ref| (limit {PM15_TOL}), NaN {nan}")
+            f"{err / top:.3e} of max |ref| (limit {PM15_TOL}), NaN {nan}; "
+            f"a second call {'the same bits' if same else 'DIFFERS'}")
         check(nan == 0 and err <= PM15_TOL * top,
               "distributed P3M disagrees with make_p3m_force_fn")
+        check(same, "distributed P3M gave other bits on a second call")
         ref["p3m"] = acc
 
         n2, g2 = PM15_GLOO_PM
@@ -3557,6 +3621,24 @@ def pm15_world_of_one(dev, work):
             box_size=C4_BOX)
         log(f"  slab-resident PM, {n2} on {g2}^3 (the gloo world's size): "
             f"{ms:.1f} ms, bytes a call {sent}")
+        # the slab deposit of the same routed lanes on the card and on the
+        # CPU (K13 against its plain version, IEEE cell indices)
+        lanes = ps._route(pos, mass, g2, C4_BOX, g2, 1,
+                          ps._bucket_cap(4.0, n2, 1), mesh.group("x"))[0]
+        dep = {}
+        for d in (dev, "cpu"):
+            lane = lanes.to(d)
+            i0, fr = td.cic_base(lane[:, :3], g2, C4_BOX)
+            dep[d] = ps._slab_deposit(i0[:, 0], i0, fr, lane[:, 3], g2,
+                                      g2).cpu()
+        same = torch.equal(dep[dev], dep["cpu"])
+        log(f"  the slab deposit of {lanes.shape[0]} routed lanes on "
+            f"{g2 + 1} x {g2}^2, card against CPU: "
+            f"{'bit-equal' if same else 'DIFFER'}; mass "
+            f"{float(dep['cpu'].double().sum()):.1f} of "
+            f"{float(mass.double().sum()):.1f}")
+        check(same, "the slab deposit differs between CUDA and CPU")
+        del lanes, dep
         ref["direct"] = _direct_run(dev, tnb.make_direct_force_fn())
         ref["example"] = distributed_simulation.simulate(
             torch.device(dev).type, PM15_EXAMPLE_STEPS)["counts"]

@@ -14,12 +14,16 @@ the synthetic data generators.
   ``track_state_from_numpy`` and their ``_to_numpy`` inverses);
 - :mod:`~orbitanalysis_tpu_torch.models.pm`: :func:`make_pm_force_fn`
   (``deposit='auto'``: the sorted-stream CUDA kernel K13 on CUDA
-  tensors, ``index_add_`` on CPU ones), :func:`pm_forces`;
-- :mod:`~orbitanalysis_tpu_torch.models.p3m`: :func:`make_p3m_force_fn`;
+  tensors, in a fixed order, ``index_add_`` on CPU ones), :func:`pm_forces`;
+- :mod:`~orbitanalysis_tpu_torch.models.p3m`: :func:`make_p3m_force_fn`
+  (its long range deposits as ``deposit='auto'`` does);
 - :mod:`~orbitanalysis_tpu_torch.models.pm_sharded`: the distributed PM
   over one mesh axis of a ``torch.distributed`` world,
   :func:`make_sharded_pm_grid_solver`, :func:`make_sharded_pm_force_fn`
-  and ``make_slab_resident_pm_force_fn`` (slab-resident PM and P3M);
+  (deposits as ``deposit='auto'`` does) and
+  ``make_slab_resident_pm_force_fn`` (slab-resident PM and P3M; the slab
+  deposit through K13 on CUDA tensors): on the card every default
+  deposit adds in a fixed order, so a call gives the same bits twice;
 - :mod:`~orbitanalysis_tpu_torch.models.synthetic`: Kepler ensembles,
   churn snapshots and the JAX benchmark's workloads.
 

@@ -5,7 +5,9 @@ The potential splits with a Gaussian of scale ``sigma``:
 
   long range   ``exp(-k^2 sigma^2 / 2)`` on the PM Green's function
                (:func:`~orbitanalysis_tpu_torch.models.pm.pm_forces_grid`
-               with ``smoothing=sigma``);
+               with ``smoothing=sigma``), the mass deposited by the
+               single-device PM's ``deposit='auto'`` (the sorted-stream
+               kernel K13 on CUDA tensors, in a fixed order);
   short range  the pairwise erfc-complement force within
                ``r_cut = cutoff_sigmas * sigma``:
                ``|F| = m_i m_j [erfc(u) / r^2 + sqrt(2/pi) e^{-u^2} /
@@ -17,7 +19,8 @@ least ``r_cut``; each cell meets its 27 neighbour cells through
 batches.  The JAX package computes each neighbour offset for all cells
 at once, which XLA fuses; eager torch materialises every intermediate,
 so here each offset runs over cells in chunks of at most
-:data:`_PAIR_ELEMS` pairs.  All plain torch (``torch.special.erfc``).
+:data:`_PAIR_ELEMS` pairs.  Plain torch (``torch.special.erfc``) but for
+the deposit.
 Overflowing cells give their dropped particles NaN forces (fail loud).
 """
 
@@ -28,8 +31,8 @@ import math
 import torch
 
 from orbitanalysis_tpu_torch.models.pm import (
-    cic_deposit,
     pm_forces_grid,
+    select_depositor,
     select_interpolator,
 )
 from orbitanalysis_tpu_torch.ops.deposit import mass_vector
@@ -137,6 +140,7 @@ def make_p3m_force_fn(grid: int, sigma_cells: float = 1.5,
     give their dropped particles NaN forces.  ``deconvolve=True`` divides
     out the assignment windows of the smooth split field."""
     interp = select_interpolator(assignment)
+    depositor = select_depositor("auto", grid)
 
     def force(pos, mass, box_size=None, G=1.0, softening=0.0, **_):
         if box_size is None:
@@ -163,7 +167,7 @@ def make_p3m_force_fn(grid: int, sigma_cells: float = 1.5,
             cap = cell_cap
         mass = mass_vector(mass, n, pos)
 
-        rho = cic_deposit(pos, mass, grid, box_size)
+        rho = depositor(pos, mass, grid, box_size)
         field = pm_forces_grid(rho, grid, box_size, G=G,
                                deconvolve=deconvolve, smoothing=sigma)
         acc = interp(field, pos, grid, box_size)

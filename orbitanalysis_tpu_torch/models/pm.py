@@ -83,7 +83,11 @@ def cic_deposit(pos, mass, grid, box_size):
     """Cloud-in-cell mass deposit onto a periodic ``[grid]^3`` mesh, one
     ``index_add_`` of the 8N weights.  ``mass`` a scalar (equal-mass
     species) or ``[N]``.  On the card ``index_add_`` adds with atomics,
-    in no fixed order."""
+    in no fixed order, so two calls may differ in their last bits there.
+    ``deposit='scatter'`` selects it on any device; the default deposits
+    (``deposit='auto'`` of :func:`make_pm_force_fn`, P3M and the
+    distributed psum path, through :func:`cic_deposit_auto`) reach it
+    only on CPU tensors or where the grid's flat keys pass int32."""
     pos = pos.to(torch.float32)
     flat, w = _cic_neighbors(pos, grid, box_size)
     m = mass_vector(mass, pos.shape[0], pos)

@@ -18,10 +18,16 @@ block:
     -> local irFFT over (Y, Z)
 
 The JAX package computes all of this in plain ``jnp`` (scatter-adds,
-FFTs, collectives) outside any Pallas kernel, so the port is plain
-torch: ``torch.fft``, ``index_add_`` and the collectives of
+FFTs, collectives) outside any Pallas kernel.  The port's solve is plain
+torch, ``torch.fft`` and the collectives of
 :mod:`~orbitanalysis_tpu_torch.parallel.collectives`, the halo planes
-through :func:`~orbitanalysis_tpu_torch.parallel.collectives.ppermute`.
+through :func:`~orbitanalysis_tpu_torch.parallel.collectives.ppermute`;
+its deposits add in a fixed order on the card, so two calls on the same
+inputs on the same world give the same bits: the slab-resident path (and
+distributed P3M) deposits through the sorted-stream kernel K13
+(:func:`_slab_deposit`), the psum path through
+:func:`~orbitanalysis_tpu_torch.models.pm.cic_deposit_auto` (K13 on CUDA
+tensors), as the single-device PM does.
 
 Contract.  Every force function takes and returns the global arrays
 (``pos [N, 3]``, ``mass [N]`` the same on every rank, as
@@ -37,9 +43,10 @@ Where the port differs from the JAX code, with the same results:
 - a ``mode='drop'`` scatter writes to one dump element past the end
   (sliced off) and a ``mode='fill'`` gather is masked, since an index out
   of range is a device-side assert on CUDA;
-- the slab deposit adds only the lanes that carry mass (the bucket
-  padding adds zeros at one cell, and on the card those would be atomics
-  on a handful of addresses);
+- the slab deposit is the sorted stream of the routed lanes, summed in
+  routed-lane order by K13 (the JAX scatter-add's order is XLA's); the
+  lanes without mass (bucket padding) or outside the slab take a key
+  past the block and deposit nothing, where JAX adds their zeros;
 - the P3M cell layout is ``min(cap_sr, most particles in any cell of any
   rank)`` wide, not ``cap_sr``: the overflow mask is JAX's (ranks past
   ``cap_sr``), and the padding slots JAX also computes add exact zeros;
@@ -61,11 +68,19 @@ from orbitanalysis_tpu_torch.models.pm import (
     _CORNERS,
     _corner_weights,
     _use_rows,
-    cic_deposit,
     folded_row_interpolate,
+    select_depositor,
     select_interpolator,
 )
-from orbitanalysis_tpu_torch.ops.deposit import cic_base, mass_vector
+from orbitanalysis_tpu_torch.ops.deposit import (
+    _deposit_x_segments,
+    cic_base,
+    fold_yz,
+    mass_vector,
+    past_key,
+    strides,
+    x_segments,
+)
 from orbitanalysis_tpu_torch.parallel.collectives import (
     all_gather,
     all_to_all,
@@ -209,6 +224,77 @@ def _ring(n_dev: int, step: int):
     return [(d, (d + step) % n_dev) for d in range(n_dev)]
 
 
+def _bucket_cap(bucket_factor: float, n_l: int, n_dev: int) -> int:
+    """Lanes a rank sends each slab owner: ``bucket_factor * n_l /
+    n_dev`` rounded up to 128, at least 128."""
+    return max(128, int(np.ceil(bucket_factor * n_l / n_dev / 128)) * 128)
+
+
+def _route(pos_l, mass_l, grid, box, loc, n_dev, cap, group):
+    """Step 1 of the slab-resident force: each particle to its slab
+    owner through one fixed-capacity ``all_to_all`` (stable sort by
+    owner, scatter into ``[n_dev, cap]`` buckets, zero-mass padding).
+    Returns ``(lanes [n_dev * cap, 4]`` (x, y, z, mass) received, ``ok``
+    (the particle fit its bucket), ``slot``, ``idx_s)`` in owner order."""
+    dev = pos_l.device
+    n_l = pos_l.shape[0]
+    nr = n_dev * cap
+    owner = cic_base(pos_l, grid, box)[0][:, 0] // loc            # [n_l]
+    owner_s, idx_s = torch.sort(owner, stable=True)
+    counts = torch.bincount(owner_s, minlength=n_dev)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(n_l, device=dev) - starts[owner_s]
+    ok = rank < cap                                               # overflow
+    slot = torch.where(ok, owner_s * cap + rank, nr)
+    payload = torch.cat([pos_l[idx_s], mass_l[idx_s, None]], dim=1)
+    # exchange: segment j of the local buffer -> rank j (one collective
+    # for the four planes JAX moves one by one)
+    lanes = all_to_all(_scatter_drop(nr, slot, payload).reshape(
+        n_dev, cap, 4), group).reshape(nr, 4)
+    return lanes, ok, slot, idx_s
+
+
+def _slab_stream(lx0, i0, f, bm, grid, loc):
+    """The routed lanes' deposit stream on this rank's slab: ``(skeys
+    [nr] int64, fracs [4, nr]`` (fx, fy, fz, m), ``planes, n_seg)``, the
+    stream sorted by key and cut into ``n_seg`` x-segments of ``planes``
+    planes (:func:`~orbitanalysis_tpu_torch.ops.deposit.x_segments`).
+
+    A live lane (mass, local base plane ``lx0`` in ``[0, loc)``) takes
+    the key ``lx0 * sx + by * sy + bz`` on the full grid's virtual
+    strides ``(sx, sy) = strides(G)``; a dead one (bucket padding, a
+    particle of another slab) a key past the block
+    (:func:`~orbitanalysis_tpu_torch.ops.deposit.past_key`), so it sorts
+    last, deposits nothing and is never read by K13.  The stable sort
+    leaves each cell's lanes in routed-lane order (the all-to-all's
+    rank-major segments, each in its source rank's stable owner order),
+    fixed for a given world."""
+    sx, sy = strides(grid)
+    planes, n_seg = x_segments(grid, loc)
+    dead = past_key(grid, planes, n_seg)
+    live = (bm != 0) & (lx0 >= 0) & (lx0 < loc)
+    key = torch.where(live, lx0 * sx + i0[:, 1] * sy + i0[:, 2], dead)
+    skeys, order = torch.sort(key, stable=True)
+    fracs = torch.stack([f[:, 0], f[:, 1], f[:, 2], bm])[:, order]
+    return skeys, fracs, planes, n_seg
+
+
+def _slab_deposit(lx0, i0, f, bm, grid, loc):
+    """Step 2's deposit, in a fixed order: the routed lanes' CIC mass on
+    this rank's X-slab and one halo plane, ``[loc + 1, G, G]`` (plane
+    ``loc`` is the halo plane the ``+1`` neighbour adds), from each
+    lane's base cell ``i0``, local base plane ``lx0``, fractions ``f``
+    and mass ``bm``: K13 (CUDA tensors; its plain version on CPU tensors)
+    sums the sorted stream (:func:`_slab_stream`) onto the flat ``[loc +
+    1, G + 1, G + 1]`` block in x-segments whose keys fit int32, and the
+    y and z ``== G`` faces are folded."""
+    skeys, fracs, planes, n_seg = _slab_stream(lx0, i0, f, bm, grid, loc)
+    flat = _deposit_x_segments(skeys, fracs, grid, planes, n_seg)[0]
+    sx = strides(grid)[0]
+    return fold_yz(flat[:(loc + 1) * sx].reshape(loc + 1, grid + 1,
+                                                 grid + 1))
+
+
 def make_slab_resident_pm_force_fn(
     mesh,
     grid: int,
@@ -231,7 +317,8 @@ def make_slab_resident_pm_force_fn(
          with one fixed-capacity ``all_to_all`` (stable sort by owner,
          scatter into ``[n_dev, cap]`` buckets, zero-mass padding);
       2. CIC deposit onto the local X-slab ``[loc+1, G, G]`` (one halo
-         plane), the halo summed into the +1 neighbour by ``ppermute``;
+         plane) in a fixed order (:func:`_slab_deposit`, K13 on the
+         card), the halo summed into the +1 neighbour by ``ppermute``;
       3. the pencil FFT solve on the slab (``local_solve``);
       4. the neighbour's first force plane is fetched by ``ppermute``
          (reverse direction) so interpolation sees ``[3, loc+1, G, G]``;
@@ -271,38 +358,21 @@ def make_slab_resident_pm_force_fn(
         i = mesh.index(axis)
         dev = pos_l.device
         n_l = pos_l.shape[0]
-        cap = max(128, int(np.ceil(bucket_factor * n_l / n_dev / 128)) * 128)
+        cap = _bucket_cap(bucket_factor, n_l, n_dev)
         nr = n_dev * cap
         box = float(box_size)
         h = _cell_size(box, pos_l, grid)
 
         # ---- 1. route particles to their slab owner ----
-        owner = cic_base(pos_l, grid, box)[0][:, 0] // loc       # [n_l]
-        owner_s, idx_s = torch.sort(owner, stable=True)
-        counts = torch.bincount(owner_s, minlength=n_dev)
-        starts = torch.cumsum(counts, 0) - counts
-        rank = torch.arange(n_l, device=dev) - starts[owner_s]
-        ok = rank < cap                                          # overflow
-        slot = torch.where(ok, owner_s * cap + rank, nr)
-        payload = torch.cat([pos_l[idx_s], mass_l[idx_s, None]], dim=1)
-        # exchange: segment j of the local buffer -> rank j (one
-        # collective for the four planes JAX moves one by one)
-        b = all_to_all(_scatter_drop(nr, slot, payload).reshape(
-            n_dev, cap, 4), group).reshape(nr, 4)
+        b, ok, slot, idx_s = _route(pos_l, mass_l, grid, box, loc, n_dev,
+                                    cap, group)
         pos_r, bm = b[:, :3], b[:, 3]
 
-        # ---- 2. slab deposit with one halo plane ----
+        # ---- 2. slab deposit with one halo plane (fixed order) ----
         i0, f = cic_base(pos_r, grid, box)
         lx0 = i0[:, 0] - i * loc                  # [0, loc) for routed
         w8 = _corner_weights(f)                   # [nr, 8]
-        g2 = grid * grid
-        live = torch.nonzero((bm != 0) & (lx0 >= 0) & (lx0 < loc))[:, 0]
-        lx0_l, i0_l, m_l = lx0[live], i0[live], bm[live]
-        rho_ext = torch.zeros((loc + 1) * g2, dtype=_F32, device=dev)
-        for c, corner in enumerate(_CORNERS):
-            rho_ext.index_add_(0, _corner_flat(lx0_l, i0_l, grid, corner),
-                               w8[live, c] * m_l)
-        rho_ext = rho_ext.reshape(loc + 1, grid, grid)
+        rho_ext = _slab_deposit(lx0, i0, f, bm, grid, loc)
         halo = ppermute(rho_ext[loc], group, fwd)
         rho_slab = rho_ext[:loc].clone()
         rho_slab[0] += halo
@@ -313,7 +383,7 @@ def make_slab_resident_pm_force_fn(
         # ---- 4. extend with the neighbour's first plane, interpolate ----
         nxt = ppermute(force_slab[:, 0].contiguous(), group, bwd)
         field_ext = torch.cat([force_slab, nxt[:, None]], dim=1)
-        n_loc_cells = loc * g2
+        n_loc_cells = loc * grid * grid
         if rows_interp:
             # folded corner-table row gather over the local slab: corner
             # (dx, dy, dz)'s value at local cell (lx, y, z) lives at
@@ -517,18 +587,20 @@ def make_sharded_pm_force_fn(
     """Fully distributed PM forces: particles and the FFT sharded over
     one mesh axis.
 
-    Each rank CIC-deposits its own block onto a full local mesh, a
-    ``psum`` combines the meshes, each rank solves its X-slab through the
-    pencil FFT, the force slabs are all-gathered, and each rank
-    interpolates its own block.  Per-rank memory is O(grid^3) (the mesh)
-    while the particle work is split, the configuration for 1e8+
-    particles on moderate grids.
+    Each rank CIC-deposits its own block onto a full local mesh (the
+    single-device PM's ``deposit='auto'``: K13 on CUDA tensors, in a
+    fixed order), a ``psum`` combines the meshes, each rank solves its
+    X-slab through the pencil FFT, the force slabs are all-gathered, and
+    each rank interpolates its own block.  Per-rank memory is O(grid^3)
+    (the mesh) while the particle work is split, the configuration for
+    1e8+ particles on moderate grids.
 
     Returns ``force(pos, mass, box_size=..., G=...)`` on the global
     arrays (see the module's contract; ``force.local`` takes this rank's
     block); the particle count must divide by the axis size.
     """
     cic_interpolate = select_interpolator(assignment)
+    depositor = select_depositor("auto", grid)
 
     solver = make_sharded_pm_grid_solver(
         mesh, grid, axis=axis, deconvolve=deconvolve
@@ -541,7 +613,7 @@ def make_sharded_pm_force_fn(
             raise ValueError("PM forces require a periodic box_size")
         pos_l = _to_f32(pos_l, mesh.device)
         box = float(box_size)
-        rho = cic_deposit(pos_l, mass_l, grid, box)
+        rho = depositor(pos_l, mass_l, grid, box)
         rho = psum(rho, group)                      # full mesh, all ranks
         force_slab = solver.local_solve(take_block(rho, (axis,), mesh), box)
         field = all_gather(force_slab, group, axis=1)         # [3, G, G, G]

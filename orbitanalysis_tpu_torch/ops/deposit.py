@@ -20,7 +20,8 @@ The deposit runs in three parts, as in the JAX package:
    :func:`deposit_stream_torch`, which adds in the same orders: the two
    equal bit for bit.  Nothing falls back;
 3. :func:`fold_virtual` (plain torch): the three ``== G`` faces folded
-   onto plane 0, the real ``[G, G, G]`` density.
+   onto plane 0, the real ``[G, G, G]`` density (:func:`fold_yz` folds
+   the y and z faces alone, for a slab whose x face is a halo plane).
 
 The cell index divides by the cell size through
 :func:`~orbitanalysis_tpu_torch.utils.numerics.div_rn`, the IEEE float32
@@ -36,7 +37,11 @@ call at every grid whose flat keys fit int32 (``(G+1)^3 < 2^31``, G <=
 :func:`cic_deposit_sorted_slabs` keeps the JAX slab form's results and
 overflow contract (NaN when a slab's population exceeds ``headroom * N /
 n_slabs``, counted as the JAX package counts it, its chunk padding
-included) and runs the same kernel on each slab's segment.
+included) and runs the same kernel on each slab's segment.  The segment
+loop (:func:`_deposit_x_segments`) also serves the distributed PM's slab
+deposit (``models/pm_sharded.py``), whose block of ``(loc + 1) * (G +
+1)^2`` cells passes int32 at large grids: :func:`x_segments` cuts it
+into x-segments whose keys fit.
 """
 
 from __future__ import annotations
@@ -50,6 +55,10 @@ from orbitanalysis_tpu_torch.utils.numerics import div_rn
 #: The JAX kernel's stream chunk: its padding enters the slab overflow
 #: count (``pallas_deposit.py:_CHUNK``).
 _CHUNK = 2048
+
+#: The most cells one K13 call's block may span: its keys are int32
+#: (:func:`x_segments` cuts a larger block into x-segments).
+_SEGMENT_CELLS = 2**31 - 1
 
 
 def strides(grid: int) -> tuple[int, int]:
@@ -152,7 +161,9 @@ def deposit_stream_torch(skeys: torch.Tensor, fracs: torch.Tensor,
         head[1:] = keys[1:] != keys[:-1]
         rank = idx - torch.cummax(torch.where(head, idx, 0), dim=0).values
         ok = (keys >= 0) & (keys < n_cells)
-        for r in range(int(rank.max()) + 1):
+        # ranks of the keys in range only: a caller's dead lanes share
+        # one key past the grid, one long run that deposits nothing
+        for r in range(int(torch.where(ok, rank, 0).max()) + 1):
             sel = torch.nonzero((rank == r) & ok).reshape(-1)
             k = keys[sel]
             r8[:, k] = r8[:, k] + w8[:, sel]
@@ -178,6 +189,17 @@ def deposit_stream(skeys: torch.Tensor, fracs: torch.Tensor, grid: int,
         fracs.to(torch.float32).contiguous(), int(n_cells), sx, sy)
 
 
+def fold_yz(v: torch.Tensor) -> torch.Tensor:
+    """Fold the y and z ``== G`` faces of ``[P, G+1, G+1]`` virtual
+    planes onto row and column 0: ``[P, G, G]`` (y, then z; 0 plus G)."""
+    grid = v.shape[1] - 1
+    y = v[:, :grid].clone()
+    y[:, 0] = y[:, 0] + v[:, grid]
+    z = y[:, :, :grid].clone()
+    z[:, :, 0] = z[:, :, 0] + y[:, :, grid]
+    return z
+
+
 def fold_virtual(flat: torch.Tensor, grid: int) -> torch.Tensor:
     """Fold the three ``== G`` faces of the virtual mesh onto plane 0 and
     return the real ``[G, G, G]`` density (x, then y, then z; plane 0
@@ -186,11 +208,65 @@ def fold_virtual(flat: torch.Tensor, grid: int) -> torch.Tensor:
     v = flat[: gv * gv * gv].reshape(gv, gv, gv)
     x = v[:grid].clone()
     x[0] = x[0] + v[grid]
-    y = x[:, :grid].clone()
-    y[:, 0] = y[:, 0] + x[:, grid]
-    z = y[:, :, :grid].clone()
-    z[:, :, 0] = z[:, :, 0] + y[:, :, grid]
-    return z
+    return fold_yz(x)
+
+
+def x_segments(grid: int, n_planes: int) -> tuple[int, int]:
+    """``(planes, segments)``: the fewest x-segments of ``planes`` base
+    planes each that cover ``n_planes`` planes of the virtual grid with
+    each segment's keys, its block (its planes and the corner reach
+    ``sx + sy + 1``) and :func:`past_key`, within
+    :data:`_SEGMENT_CELLS`."""
+    sx, sy = strides(grid)
+    most = (_SEGMENT_CELLS - sx - 2 * sy) // sx
+    if most < 1:
+        raise ValueError(f"grid {grid}: one x-plane of the virtual grid "
+                         "exceeds the kernel's int32 keys")
+    n_seg = -(-n_planes // most)
+    return -(-n_planes // n_seg), n_seg
+
+
+def past_key(grid: int, planes: int, n_seg: int) -> int:
+    """The key of a dead entry of :func:`_deposit_x_segments`' stream: it
+    sorts last and deposits nothing.  It lies past every key row K13
+    reads in the last segment's block (rows of ``sy`` cells, key row
+    ``j`` holding the keys ``[j * sy - 1, (j + 1) * sy)``): a key within
+    them would be read, 256 entries at a time, by the one thread block
+    that writes the block's last row."""
+    sx, sy = strides(grid)
+    v = planes * sx + sx + sy + 1
+    return (n_seg - 1) * planes * sx + -(-v // sy) * sy
+
+
+def _deposit_x_segments(skeys: torch.Tensor, fracs: torch.Tensor,
+                        grid: int, planes: int, n_seg: int):
+    """The sorted stream on a flat block of ``(n_seg - 1) * planes * sx
+    + v`` cells, ``v = planes * sx + sx + sy + 1``, one K13 call a
+    segment of ``planes`` base x-planes: the stream is cut where each
+    segment's keys begin (``searchsorted``, a host sync, only with more
+    than one segment), each segment's keys are rebased to it and
+    deposited onto a block of ``v`` cells, and the blocks are added into
+    the flat block in segment order (neighbours overlap only in the
+    reach).  Keys lie in ``[0, n_seg * planes * sx)``, or equal
+    :func:`past_key`, which deposits nothing.  Returns ``(flat, cuts)``,
+    the stream offsets where the segments begin and the end."""
+    sx, sy = strides(grid)
+    span = planes * sx
+    v = span + sx + sy + 1
+    n = skeys.shape[0]
+    cuts = [0, n]
+    if n_seg > 1:
+        bounds = torch.arange(1, n_seg, device=skeys.device) * span
+        cuts[1:1] = torch.searchsorted(skeys.to(torch.int64),
+                                       bounds).tolist()
+    flat = torch.zeros((n_seg - 1) * span + v, dtype=torch.float32,
+                       device=skeys.device)
+    for k in range(n_seg):
+        lo = k * span
+        seg = slice(cuts[k], cuts[k + 1])
+        block = deposit_stream(skeys[seg] - lo, fracs[:, seg], grid, v)
+        flat[lo:lo + v] = flat[lo:lo + v] + block
+    return flat, cuts
 
 
 def _unsupported(grid: int) -> ValueError:
@@ -250,29 +326,15 @@ def cic_deposit_sorted_slabs(pos: torch.Tensor, mass, grid: int, box_size,
         raise _unsupported(grid)
     if n_slabs is None:
         n_slabs = DEFAULT_SLABS
-    sx, sy = strides(grid)
-    gv3 = (grid + 1) ** 3
-    slab_x = -(-grid // n_slabs)
-    reach = sx + sy + 1
     skeys, fracs = sorted_stream(pos, mass, grid, box_size)
     n = skeys.shape[0]
     npad = -(-n // _CHUNK) * _CHUNK
     seg_cap = min(npad, -(-int(npad * headroom) // (n_slabs * _CHUNK))
                   * _CHUNK)
-    bounds = torch.arange(1, n_slabs, device=skeys.device) * (slab_x * sx)
-    cuts = [0, *torch.searchsorted(skeys.to(torch.int64), bounds).tolist(),
-            n]
+    rho, cuts = _deposit_x_segments(skeys, fracs, grid, -(-grid // n_slabs),
+                                    n_slabs)
     pop = [b - a for a, b in zip(cuts[:-1], cuts[1:])]
     pop[-1] += npad - n
-    last = (n_slabs - 1) * slab_x * sx
-    rho = torch.zeros(max(gv3, last + slab_x * sx + reach),
-                      dtype=torch.float32, device=skeys.device)
-    for k in range(n_slabs):
-        lo = k * slab_x * sx
-        v_slab = slab_x * sx + reach
-        seg = slice(cuts[k], cuts[k + 1])
-        block = deposit_stream(skeys[seg] - lo, fracs[:, seg], grid, v_slab)
-        rho[lo:lo + v_slab] = rho[lo:lo + v_slab] + block
     v3 = fold_virtual(rho, grid)
     if max(pop) > seg_cap:
         return torch.full_like(v3, float("nan"))

@@ -1547,6 +1547,47 @@ def test_sorted_deposit_cuda_equals_cpu(dev):
         torch.testing.assert_close(s, got, rtol=2e-5, atol=2e-5)
 
 
+def test_slab_deposit_cuda_equals_cpu_and_forces_repeat(dev, monkeypatch):
+    """The distributed PM's slab deposit (K13 on the slab block, in one
+    and in three x-segments) equals the CPU's bit for bit, and the
+    slab-resident and psum forces of a world of one and P3M give the
+    same bits twice."""
+    from orbitanalysis_tpu_torch.models import pm_sharded as ps
+    from orbitanalysis_tpu_torch.models.p3m import make_p3m_force_fn
+    from orbitanalysis_tpu_torch.ops import deposit as td
+    from orbitanalysis_tpu_torch.parallel import make_mesh
+
+    rng = np.random.default_rng(6)
+    n, grid, box = 100000, 32, 10.0
+    pos = torch.from_numpy(rng.uniform(0, box, (n, 3)).astype(np.float32))
+    mass = torch.from_numpy(rng.uniform(0.5, 2.0, n).astype(np.float32))
+    # a world of one's routed lanes: the particles, then zero padding
+    lanes = torch.cat([torch.cat([pos, mass[:, None]], dim=1),
+                       torch.zeros(3 * n, 4)])
+
+    def block(d):
+        lane = lanes.to(d)
+        i0, f = td.cic_base(lane[:, :3], grid, box)
+        return ps._slab_deposit(i0[:, 0], i0, f, lane[:, 3], grid, grid)
+
+    one = block(dev)
+    assert torch.equal(one.cpu(), block("cpu"))
+    sx, sy = td.strides(grid)
+    monkeypatch.setattr(td, "_SEGMENT_CELLS", 11 * sx + sx + 2 * sy)
+    assert td.x_segments(grid, grid) == (11, 3)
+    seg = block(dev)
+    assert torch.equal(seg.cpu(), block("cpu"))
+    torch.testing.assert_close(seg, one, rtol=2e-5, atol=2e-5)
+    monkeypatch.undo()
+    mesh = make_mesh({"x": 1}, device="cuda")
+    p, m = pos.to(dev), mass.to(dev)
+    for f in (ps.make_slab_resident_pm_force_fn(mesh, grid),
+              ps.make_sharded_pm_force_fn(mesh, grid),
+              make_p3m_force_fn(grid)):
+        a, b = (f(p, m, box_size=box, softening=0.05) for _ in range(2))
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def test_deposit_kernel_refuses_bad_inputs_and_counts(dev):
     from orbitanalysis_tpu_torch.models import pm as tpm
 

@@ -125,6 +125,36 @@ def test_deposit_stream_twin_against_float64(rng):
     np.testing.assert_array_equal(short, flat[:50])
 
 
+def test_deposit_stream_dead_run_and_x_segments(rng, monkeypatch):
+    """Dead entries (one long run of a key past the block) deposit
+    nothing and cost no loop of their own in the plain version; the
+    x-segment loop with the limit lowered gives the one-call deposit
+    within the deposit tolerance."""
+    grid, box = 8, 4.0
+    pos = rng.uniform(0, box, size=(600, 3)).astype(np.float32)
+    keys, fracs = tdep.sorted_stream(_t(pos), 0.9, grid, box)
+    flat = tdep.deposit_stream(keys, fracs, grid)
+    n_dead = 200000
+    sx, sy = tdep.strides(grid)
+    # past every key row K13 reads: row j holds [j * sy - 1, (j + 1) * sy)
+    past = tdep.past_key(grid, grid, 1)
+    v = grid * sx + sx + sy + 1
+    assert past >= -(-v // sy) * sy > v
+    dead = torch.full((n_dead,), past, dtype=torch.int32)
+    padded = tdep.deposit_stream(
+        torch.cat([keys, dead]),
+        torch.cat([fracs, torch.ones(4, n_dead)], dim=1), grid)
+    assert torch.equal(padded, flat)
+    assert tdep.x_segments(grid, grid) == (grid, 1)
+    monkeypatch.setattr(tdep, "_SEGMENT_CELLS", 3 * sx + sx + 2 * sy)
+    planes, n_seg = tdep.x_segments(grid, grid)
+    assert (planes, n_seg) == (3, 3)
+    seg, cuts = tdep._deposit_x_segments(keys.long(), fracs, grid, planes,
+                                         n_seg)
+    assert len(cuts) == n_seg + 1 and cuts[-1] == keys.shape[0]
+    _assert_close(tdep.fold_virtual(seg, grid), tdep.fold_virtual(flat, grid))
+
+
 @pytest.mark.parametrize("n_slabs", [2, 4, None])
 def test_slab_deposit_matches_jax(rng, n_slabs):
     n, grid, box = 4096, 16, 10.0
@@ -344,6 +374,51 @@ def test_p3m_matches_jax(cloud):
     np.testing.assert_allclose(got, want, atol=1e-4 * np.abs(want).max())
     net = np.abs((mass[:, None] * got).sum(0))
     assert np.all(net < 1e-3 * np.abs(mass[:, None] * got).sum(0))
+
+
+def test_p3m_deposits_through_cic_deposit_auto(cloud, monkeypatch):
+    """``make_p3m_force_fn`` deposits through ``cic_deposit_auto`` (K13
+    on CUDA tensors), which on these CPU tensors calls the scatter."""
+    pos, mass, box = cloud
+    calls = []
+    auto, scatter = tpm.cic_deposit_auto, tpm.cic_deposit
+
+    def spy_auto(*args, **kw):
+        calls.append("auto")
+        return auto(*args, **kw)
+
+    def spy_scatter(*args, **kw):
+        calls.append("scatter")
+        return scatter(*args, **kw)
+
+    monkeypatch.setattr(tpm, "cic_deposit_auto", spy_auto)
+    monkeypatch.setattr(tpm, "cic_deposit", spy_scatter)
+    tp3m.make_p3m_force_fn(grid=32)(_t(pos), _t(mass), box_size=box,
+                                    softening=0.05)
+    assert calls == ["auto", "scatter"]
+
+
+def test_p3m_through_sorted_deposit_matches_jax(cloud, monkeypatch):
+    """P3M with its depositor on K13's arithmetic (``cic_deposit_sorted``,
+    the kernel's plain version on the CPU) still matches JAX at
+    ``test_p3m_matches_jax``'s tolerance."""
+    pos, mass, box = cloud
+    calls = []
+
+    def sorted_deposit(*args, **kw):
+        calls.append(1)
+        return tdep.cic_deposit_sorted(*args, **kw)
+
+    monkeypatch.setattr(tpm, "cic_deposit_auto", sorted_deposit)
+    want = np.asarray(jax.jit(
+        lambda p, m: jp3m.make_p3m_force_fn(grid=32)(
+            p, m, box_size=box, softening=0.05)
+    )(jnp.asarray(pos), jnp.asarray(mass)))
+    got = tp3m.make_p3m_force_fn(grid=32)(_t(pos), _t(mass), box_size=box,
+                                          softening=0.05).numpy()
+    assert calls == [1]
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=1e-4 * np.abs(want).max())
 
 
 def test_p3m_close_pair_and_overflow():

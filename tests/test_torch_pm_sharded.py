@@ -8,6 +8,12 @@ gathered), so every rank's result is checked.  JAX runs on as many of
 the conftest's virtual CPU devices.  At the JAX tests' sizes
 (``tests/test_pm.py``, ``tests/test_p3m.py``):
 
+- the slab deposit of each rank's routed lanes (K13's plain version
+  here), its blocks assembled, within the deposit tests' ``rtol = atol
+  = 2e-5`` of JAX's ``cic_deposit``, in one x-segment and in three;
+  no float ``index_add_`` in the slab-resident and P3M forces; the psum
+  path deposits through ``cic_deposit_auto`` and matches JAX within
+  1e-4 through ``cic_deposit_sorted`` too;
 - the grid solve within 1e-4 of JAX's sharded solve, the psum path
   within 1e-4 of JAX's, the slab-resident rows and scalar paths within
   2e-4 of JAX's, rows against scalar within 1e-5 with particles pinned
@@ -80,6 +86,16 @@ def _inputs(d):
     sim_pos = rng.uniform(0, BOX, (SIM_N, 3)).astype(np.float32)
     sim_vel = rng.normal(scale=0.2, size=(SIM_N, 3)).astype(np.float32)
     sim_mass = rng.uniform(0.5, 2.0, SIM_N).astype(np.float32)
+    # the slab deposit's inputs: the pinned particles, and particles on
+    # the slab faces and the y and z box faces (the folds)
+    dep = pin.copy()
+    faces = [r * (BOX / d) + dx for r in range(d)
+             for dx in (0.0, 0.5 * h, -0.5 * h, 1e-4, -1e-4)]
+    dep[64:64 + len(faces), 0] = np.mod(faces, BOX)
+    for k, v in enumerate((0.0, 0.5 * h, BOX - 0.5 * h, BOX - 1e-4, BOX)):
+        dep[128 + k, 1] = v
+        dep[136 + k, 2] = v
+        dep[144 + k, 1:] = v
     rho = np.asarray(jax_deposit(jnp.asarray(pos), jnp.asarray(mass), GRID,
                                  BOX))
     return dict(
@@ -87,7 +103,15 @@ def _inputs(d):
         p3m_grid=P3M["grid"], p3m_box=P3M["box"], p3m_soft=P3M["soft"],
         p3m_pos=p3m_pos, p3m_mass=p3m_mass, thin_pos=thin,
         thin_mass=np.ones(2048, np.float32), bad_grid=8 * d + 1,
-        sim_pos=sim_pos, sim_vel=sim_vel, sim_mass=sim_mass)
+        sim_pos=sim_pos, sim_vel=sim_vel, sim_mass=sim_mass, dep_pos=dep,
+        seg_cells=_seg_cells(loc))
+
+
+def _seg_cells(loc, n_seg=3):
+    """The segment limit that cuts a slab of ``loc`` planes of the
+    ``GRID`` virtual grid into ``n_seg`` x-segments."""
+    sx, sy = (GRID + 1) ** 2, GRID + 1
+    return -(-loc // n_seg) * sx + sx + 2 * sy
 
 
 @pytest.fixture(scope="module", params=[2, 4], ids=["D2", "D4"])
@@ -127,6 +151,74 @@ def test_psum_path_matches_jax(world):
         jnp.asarray(inp["pos"]), jnp.asarray(inp["mass"])))
     for o in world["outs"]:
         assert np.abs(o["psum"] - want).max() < 1e-4 * _scale(want)
+
+
+@pytest.mark.timeout(300)
+def test_psum_path_deposits_through_auto(world):
+    """The psum path calls ``cic_deposit_auto`` (K13 on CUDA tensors; the
+    scatter ``cic_deposit`` on these CPU ones, whose float ``index_add_``
+    the spy sees), and through ``cic_deposit_sorted``, K13's plain
+    version, it still matches JAX within 1e-4."""
+    inp = world["inp"]
+    f = jps.make_sharded_pm_force_fn(world["mesh"], GRID)
+    want = np.asarray(jax.jit(lambda p, m: f(p, m, box_size=BOX))(
+        jnp.asarray(inp["pos"]), jnp.asarray(inp["mass"])))
+    for o in world["outs"]:
+        assert o["psum_calls"].tolist() == ["auto", "scatter"]
+        assert int(o["psum_float_adds"]) > 0
+        assert np.abs(o["psum_sorted"] - want).max() < 1e-4 * _scale(want)
+
+
+@pytest.mark.timeout(300)
+def test_slab_and_p3m_forces_reach_no_float_index_add(world):
+    """The slab-resident rows and scalar paths and distributed P3M
+    deposit through K13's stream (its plain version here), never a float
+    ``index_add_``."""
+    for o in world["outs"]:
+        assert int(o["slab_float_adds"]) == 0
+
+
+def _assemble(blocks, d):
+    """The global density from each rank's ``[loc + 1, G, G]`` slab
+    block: planes ``[r * loc, (r + 1) * loc)`` and the halo plane added
+    onto the next slab's first."""
+    loc = GRID // d
+    rho = np.zeros((GRID, GRID, GRID), np.float64)
+    for r, b in enumerate(blocks):
+        rho[r * loc:(r + 1) * loc] += b[:loc]
+        rho[((r + 1) * loc) % GRID] += b[loc]
+    return rho
+
+
+@pytest.mark.timeout(300)
+def test_slab_deposit_assembles_to_jax_deposit(world):
+    """Each rank's slab deposit of its routed lanes, the halo planes
+    added, is JAX's ``cic_deposit`` within the deposit tests' ``rtol =
+    atol = 2e-5``, with particles on the slab faces and the y and z box
+    faces."""
+    inp, d = world["inp"], world["d"]
+    want = np.asarray(jax_deposit(jnp.asarray(inp["dep_pos"]),
+                                  jnp.asarray(inp["mass"]), GRID, BOX))
+    got = _assemble([o["slab_block"] for o in world["outs"]], d)
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    for o in world["outs"]:
+        assert o["slab_block"].shape == (GRID // d + 1, GRID, GRID)
+
+
+@pytest.mark.timeout(300)
+def test_slab_deposit_in_three_segments(world):
+    """With the segment limit lowered, the slab deposit runs in three
+    x-segments and matches the one-segment deposit and JAX within the
+    same tolerance."""
+    inp, d = world["inp"], world["d"]
+    want = np.asarray(jax_deposit(jnp.asarray(inp["dep_pos"]),
+                                  jnp.asarray(inp["mass"]), GRID, BOX))
+    for o in world["outs"]:
+        assert o["slab_segments"].tolist() == [-(-(GRID // d) // 3), 3]
+        np.testing.assert_allclose(o["slab_block_seg"], o["slab_block"],
+                                   rtol=2e-5, atol=2e-5)
+    got = _assemble([o["slab_block_seg"] for o in world["outs"]], d)
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.timeout(300)

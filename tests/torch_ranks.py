@@ -431,19 +431,23 @@ def task_tracker2d(rank, world, work):
 
 def task_pm_sharded(rank, world, work):
     """The distributed PM of ``models/pm_sharded.py`` on a mesh ``{'x':
-    world}``: the grid solve, the psum path, the slab-resident rows and
-    scalar paths, distributed P3M, the overflow NaN mask, the occupancy
-    helper, the contract errors, the integrator through the slab force,
-    and ``ppermute`` / complex ``all_to_all``."""
+    world}``: the grid solve, the psum path (and which depositor it
+    calls), the slab-resident rows and scalar paths, distributed P3M (no
+    float ``index_add_`` in either), the slab deposit alone in one and in
+    several segments, the overflow NaN mask, the occupancy helper, the
+    contract errors, the integrator through the slab force, and
+    ``ppermute`` / complex ``all_to_all``."""
     import torch
     import torch.distributed as dist
 
+    from orbitanalysis_tpu_torch.models import pm as tpm
     from orbitanalysis_tpu_torch.models import pm_sharded as ps
     from orbitanalysis_tpu_torch.models.nbody import (
         OrbitNBodyConfig,
         nbody_state_from_numpy,
         simulate_with_tracking,
     )
+    from orbitanalysis_tpu_torch.ops import deposit as td
     from orbitanalysis_tpu_torch.parallel import make_mesh
     from orbitanalysis_tpu_torch.parallel.collectives import (
         all_to_all,
@@ -451,6 +455,7 @@ def task_pm_sharded(rank, world, work):
         reset_sent_bytes,
         sent_bytes,
     )
+    from orbitanalysis_tpu_torch.parallel.sharding import take_block
 
     inp = np.load(os.path.join(work, "pm_sharded_in.npz"))
     mesh = make_mesh({"x": world}, device="cpu")
@@ -465,21 +470,87 @@ def task_pm_sharded(rank, world, work):
     i, loc = rank, solve.slab
     out["local_solve"] = solve.local_solve(
         t("rho")[i * loc:(i + 1) * loc], box).numpy()
-    out["psum"] = ps.make_sharded_pm_force_fn(mesh, grid)(
-        t("pos"), t("mass"), box_size=box).numpy()
-    for a in ("rows", "scalar"):
-        f = ps.make_slab_resident_pm_force_fn(mesh, grid, assignment=a)
-        out[f"slab_{a}"] = f(t("pin_pos"), t("mass"), box_size=box).numpy()
-    reset_sent_bytes()
-    f = ps.make_slab_resident_pm_force_fn(mesh, grid, assignment="scalar")
-    out["slab_pos"] = f(t("pos"), t("mass"), box_size=box).numpy()
-    out["slab_bytes"] = np.array([sent_bytes()[k] for k in (
-        "all_to_all", "ppermute", "all_gather")])
-    out["occupancy"] = f.slab_occupancy(inp["pos"], box)
-    p3m = ps.make_slab_resident_pm_force_fn(
-        mesh, int(inp["p3m_grid"]), deconvolve=True, p3m_sigma_cells=1.5)
-    out["p3m"] = p3m(t("p3m_pos"), t("p3m_mass"), box_size=float(
-        inp["p3m_box"]), softening=float(inp["p3m_soft"])).numpy()
+
+    # the deposits the forces reach: a spy on float index_add_ while the
+    # slab-resident and P3M forces run, then on the psum path, whose
+    # depositors are spied too
+    float_adds = []
+    index_add = torch.Tensor.index_add_
+
+    def spy_index_add(self, *args, **kw):
+        if self.is_floating_point():
+            float_adds.append(1)
+        return index_add(self, *args, **kw)
+
+    torch.Tensor.index_add_ = spy_index_add
+    try:
+        for a in ("rows", "scalar"):
+            f = ps.make_slab_resident_pm_force_fn(mesh, grid, assignment=a)
+            out[f"slab_{a}"] = f(t("pin_pos"), t("mass"),
+                                 box_size=box).numpy()
+        reset_sent_bytes()
+        f = ps.make_slab_resident_pm_force_fn(mesh, grid,
+                                              assignment="scalar")
+        out["slab_pos"] = f(t("pos"), t("mass"), box_size=box).numpy()
+        out["slab_bytes"] = np.array([sent_bytes()[k] for k in (
+            "all_to_all", "ppermute", "all_gather")])
+        out["occupancy"] = f.slab_occupancy(inp["pos"], box)
+        p3m = ps.make_slab_resident_pm_force_fn(
+            mesh, int(inp["p3m_grid"]), deconvolve=True,
+            p3m_sigma_cells=1.5)
+        out["p3m"] = p3m(t("p3m_pos"), t("p3m_mass"), box_size=float(
+            inp["p3m_box"]), softening=float(inp["p3m_soft"])).numpy()
+        out["slab_float_adds"] = np.array(len(float_adds))
+        calls = []
+        auto, scatter = tpm.cic_deposit_auto, tpm.cic_deposit
+
+        def spy_auto(*args, **kw):
+            calls.append("auto")
+            return auto(*args, **kw)
+
+        def spy_scatter(*args, **kw):
+            calls.append("scatter")
+            return scatter(*args, **kw)
+
+        tpm.cic_deposit_auto, tpm.cic_deposit = spy_auto, spy_scatter
+        try:
+            out["psum"] = ps.make_sharded_pm_force_fn(mesh, grid)(
+                t("pos"), t("mass"), box_size=box).numpy()
+        finally:
+            tpm.cic_deposit_auto, tpm.cic_deposit = auto, scatter
+        out["psum_calls"] = np.array(calls)
+        out["psum_float_adds"] = np.array(len(float_adds)) \
+            - out["slab_float_adds"]
+    finally:
+        torch.Tensor.index_add_ = index_add
+    # the psum path on K13's arithmetic: its plain version on the CPU
+    tpm.cic_deposit_auto = td.cic_deposit_sorted
+    try:
+        out["psum_sorted"] = ps.make_sharded_pm_force_fn(mesh, grid)(
+            t("pos"), t("mass"), box_size=box).numpy()
+    finally:
+        tpm.cic_deposit_auto = auto
+
+    # the slab deposit alone, on this rank's routed lanes: one segment,
+    # then the segment limit lowered to seg_cells
+    def slab_block():
+        pos_l = take_block(t("dep_pos"), ("x",), mesh)
+        mass_l = take_block(t("mass"), ("x",), mesh)
+        cap = ps._bucket_cap(4.0, pos_l.shape[0], world)
+        lanes = ps._route(pos_l, mass_l, grid, box, loc, world, cap,
+                          mesh.group("x"))[0]
+        i0, fr = td.cic_base(lanes[:, :3], grid, box)
+        return ps._slab_deposit(i0[:, 0] - rank * loc, i0, fr, lanes[:, 3],
+                                grid, loc).numpy()
+
+    out["slab_block"] = slab_block()
+    limit = td._SEGMENT_CELLS
+    td._SEGMENT_CELLS = int(inp["seg_cells"])
+    try:
+        out["slab_segments"] = np.array(td.x_segments(grid, loc))
+        out["slab_block_seg"] = slab_block()
+    finally:
+        td._SEGMENT_CELLS = limit
     thin = ps.make_slab_resident_pm_force_fn(mesh, grid, bucket_factor=1.0)
     out["thin"] = thin(t("thin_pos"), t("thin_mass"), box_size=box).numpy()
     # the contract errors
