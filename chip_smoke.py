@@ -151,7 +151,15 @@ repository checkout; it imports nothing of JAX.  Phases:
    P3M equal to the world of one's within those tolerances, the sharded
    direct integrator (16,384 particles, 8 steps) with the counts of
    ``direct_forces``, the distributed example at its own size with its
-   world-of-one counts, and ``graft_entry.dryrun_multichip(2)``.
+   world-of-one counts, and ``graft_entry.dryrun_multichip(2)``;
+16. the stream probes (``orbitanalysis_tpu_torch/probes``) at the JAX
+   scripts' defaults: ``dma_probe.main(rows=2048)`` (every variant: torch's
+   ``x + 1`` and P1-P3 on a [2048, 65536] f32 plane) and
+   ``detect_probe.main()`` (K9 and P4 over 12 snapshots of the churn
+   workload at [64, 32768]), counted; each probe kernel bit-equal to its
+   plain version at those shapes and timed beside phase 3's kernels; then
+   each byte-bound kernel's stream floor: its bound's bytes at P4's rate
+   (K6-K10) or at the best rate of P1-P3 (the others).
 
 Any failed check exits non-zero without printing the result lines.  The
 last three lines are the card's name and power limit, the kernels' JSON
@@ -3450,10 +3458,11 @@ def _max_err(got, want):
 def pm15_world_of_one(dev, work):
     """Phase 15(a): an NCCL world of one in this process (gloo on the
     CPU).  At 12.6M / 256^3: the grid solve against ``pm_forces_grid`` on
-    the same deposit, the psum path and the slab-resident rows and
-    scalar paths against ``make_pm_force_fn``, each twice with the same
-    bits, and the slab block's K13 timed; then the main path (counted,
-    K13 once a force evaluation): PM15_STEPS steps of the integrator
+    the same fixed-order deposit (``cic_deposit_auto``), the psum path
+    and the slab-resident rows and scalar paths against
+    ``make_pm_force_fn``, each twice with the same bits, and the slab
+    block's K13 timed; then the main path (counted, K13 once a force
+    evaluation): PM15_STEPS steps of the integrator
     with the slab-resident force, whose counts are held against the
     single-device force's, and the same steps again with the same
     counts.  Distributed P3M at phase 13's size against
@@ -3470,7 +3479,7 @@ def pm15_world_of_one(dev, work):
     from orbitanalysis_tpu_torch.models import pm_sharded as ps
     from orbitanalysis_tpu_torch.models.p3m import make_p3m_force_fn
     from orbitanalysis_tpu_torch.models.pm import (
-        cic_deposit,
+        cic_deposit_auto,
         make_pm_force_fn,
         pm_forces_grid,
     )
@@ -3487,7 +3496,9 @@ def pm15_world_of_one(dev, work):
         rows, grid, _, _ = C4_SCALE
         n = rows * C4_ROW
         st = c4_state(n, dev)
-        rho = cic_deposit(st.pos, st.mass, grid, C4_BOX)
+        # the fixed-order deposit (K13 on the card): the same grid, and so
+        # the same error, on every run
+        rho = cic_deposit_auto(st.pos, st.mass, grid, C4_BOX)
         solve = ps.make_sharded_pm_grid_solver(mesh, grid)
         err, top = _max_err(solve(rho, C4_BOX),
                             pm_forces_grid(rho, grid, C4_BOX))
@@ -3787,6 +3798,154 @@ def pm_sharded_phase(dev, work, smi):
     return launches
 
 
+# ---------------------------------------------------------------- phase 16
+
+#: phase 16: the probes at the JAX scripts' defaults (dma_probe.py's plane
+#: rows; detect_probe.py's halos, slots and snapshots)
+PROBE_ROWS = 2048
+PROBE_DETECT = (64, 32768, 12)
+#: the ``dma_probe`` variant whose times stand in a P kernel's line: the
+#: JAX function's default parameters (auto_variant(8), manual_variant(16,
+#: 4), split_variant(32, 4, 1))
+PROBE_DEFAULTS = {"stream_add_rows": "auto8", "stream_add_ring": "man16x4",
+                  "stream_add_split": "split32x4"}
+#: kernels with K9's streams or the label path's, whose stream floor is
+#: P4's rate (the others' is the best rate of P1-P3)
+DETECT_STREAMS = ("frame_rows", "segment_moments",
+                  "detect_label_compact_rows", "detect_label_rows",
+                  "fused_label_rows", "detect_stream_rows")
+
+
+def probe_phase(dev, timings):
+    """Phase 16: the probes' entry points at the JAX defaults (counted:
+    P1-P3 through every ``dma_probe`` variant, P4 through
+    ``detect_probe``'s ``stream`` scan); then each probe kernel bit-equal
+    to its plain version on seeded planes of those shapes, timed into
+    ``timings``; then every byte-bound kernel's stream floor, its bound's
+    bytes at the measured rate.  Returns the launches and the floors
+    (ms, None for a kernel bound by operations)."""
+    import torch
+
+    from orbitanalysis_tpu_torch.ops import _cuda
+    from orbitanalysis_tpu_torch.probes import detect_probe, dma_probe
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    _cuda.reset_launch_counts()
+    dma = dma_probe.main(rows=PROBE_ROWS)
+    det = detect_probe.main(*PROBE_DETECT)
+    torch.cuda.synchronize()
+    launches = _cuda.launch_counts()
+    log(f"  launches: {launch_diff(launches)}")
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    x = torch.randn((PROBE_ROWS, dma_probe.LANES), generator=gen,
+                    device=dev)
+    worst = dict.fromkeys(PROBE_DEFAULTS, 0.0)
+    for name in dma_probe.VARIANTS:
+        fn = dma_probe.VARIANTS[name]()
+        kernel = fn.kernel
+        if kernel is None:
+            continue
+        xin = dma_probe.variant_input(fn, x)
+        got = fn(xin)
+        pairs = list(zip(xin, got)) if fn.n_planes else [(xin, got)]
+        for p, g in pairs:
+            want = dma_probe.stream_add_torch(p)
+            torch.cuda.synchronize()
+            worst[kernel] = max(worst[kernel], float((g - want).abs().max()))
+            check(torch.equal(g.view(torch.int32), want.view(torch.int32)),
+                  f"{name} ({kernel}) differs from x + 1")
+        log(f"  {name} ({kernel}) on {len(pairs)} plane(s) of "
+            f"{tuple(pairs[0][0].shape)}: bit-equal to x + 1 on every row")
+    results = {}
+    for kernel, name in PROBE_DEFAULTS.items():
+        fn = dma_probe.VARIANTS[name]()
+        b_ms, b_by = bound(dma_probe.moved_bytes(x), x.numel())
+        results[kernel] = dict(
+            max_abs_err=worst[kernel], ms=cuda_ms(lambda: fn(x)),
+            plain_ms=cuda_ms(lambda: dma_probe.stream_add_torch(x)),
+            library_ms=cuda_ms(lambda: torch.add(x, 1.0)),
+            bound_ms=b_ms, bound_by=b_by)
+    del x
+
+    # P4 on planes of detect_probe's shapes: sv and pk over the whole
+    # int32 range (sv + lab wraps), labels -1 to 63
+    h, cap, _ = PROBE_DETECT
+    w = detect_probe.ROW_WIDTH
+    r = h * cap // w
+
+    def normal(*shape):
+        return 50.0 * torch.randn(shape, generator=gen, device=dev)
+
+    def words(lo, hi):
+        return torch.randint(lo, hi, (r, w), generator=gen, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+
+    planes = (normal(6, r, w), words(-1, 64), normal(3, r, w),
+              normal(3, r, w), words(-2**31, 2**31), normal(3, r, w),
+              words(-2**31, 2**31))
+    got = detect_probe.detect_stream(*planes)
+    want = detect_probe.detect_stream_torch(*planes)
+    torch.cuda.synchronize()
+    ne = sum(int((g.view(torch.int32) != v.view(torch.int32)).sum())
+             for g, v in zip(got, want))
+    log(f"  detect_stream_rows [{r}, {w}]: lanes that differ from the plain "
+        f"version (sv', r-hat, packed, payload, counts) {ne}")
+    check(ne == 0 and all(g.shape == v.shape for g, v in zip(got, want)),
+          "detect_stream_rows differs from its plain version")
+    n = r * w
+    b_ms, b_by = bound(detect_probe.PARTICLE_BYTES * n + 4 * r, 9 * n)
+    results["detect_stream_rows"] = dict(
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: detect_probe.detect_stream(*planes)),
+        plain_ms=cuda_ms(lambda: detect_probe.detect_stream_torch(*planes)),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    del planes, got, want
+    log_timings(results)
+    timings.update(results)
+
+    lib = max(v["gbps"] for k, v in dma.items() if k.startswith("xla"))
+    best_name, best = max(((k, v["gbps"]) for k, v in dma.items()
+                           if not k.startswith("xla")), key=lambda t: t[1])
+    p4 = det["stream"]["gbps"]
+    log(f"  measured rates: P1-P3 best {best:.1f} GB/s ({best_name}), "
+        f"torch x + 1 {lib:.1f} GB/s, P4 {p4:.1f} GB/s, K9 on the same "
+        f"streams {det['full']['gbps']:.1f} GB/s ({det['full']['ms']:.4f} "
+        f"ms a snapshot); data sheet {PEAK_BYTES / 1e9:.1f} GB/s")
+    floors = {}
+    for name, t in timings.items():
+        if t["bound_by"] != "bytes":
+            floors[name] = None
+            log(f"  stream floor {name}: bound by operations, none")
+            continue
+        nbytes = t["bound_ms"] * 1e-3 * PEAK_BYTES
+        rate = p4 if name in DETECT_STREAMS else best
+        floors[name] = floor = nbytes / rate / 1e6
+        log(f"  stream floor {name}: {nbytes:.0f} B at {rate:.1f} GB/s = "
+            f"{floor:.4f} ms (bound {t['bound_ms']:.4f} ms); kernel "
+            f"{t['ms']:.4f} ms = {t['ms'] / floor:.3f} x the floor")
+    log(f"  phase 16: {time.perf_counter() - t_phase:.1f} s")
+    return launches, floors
+
+
+def log_excess(kernels, floors):
+    """Each kernel's launches in this run x its time above its stream
+    floor (above its bound where it has none), largest first, beside the
+    same product against the bound."""
+    rows = []
+    for k in kernels:
+        floor = floors[k["name"]]
+        ref = k["bound_ms"] if floor is None else floor
+        rows.append((k["launches"] * (k["ms"] - ref), ref, k))
+    log("  launches x (ms - stream floor), the whole run's launches, "
+        "largest first (operations-bound kernels against their bound):")
+    for excess, ref, k in sorted(rows, key=lambda t: -t[0]):
+        log(f"    {k['name']}: {k['launches']} x ({k['ms']:.4f} - "
+            f"{ref:.4f}) = {excess:.3f} ms; against the bound "
+            f"{k['launches'] * (k['ms'] - k['bound_ms']):.3f} ms")
+
+
 def main():
     import torch
 
@@ -3887,6 +4046,9 @@ def _phases(dev, rank_dir, smi):
     log("== phase 15: the distributed PM (models/pm_sharded.py): an NCCL "
         f"world of one at 12.6M / 256^3, then a gloo world of {RANKS} ranks")
     pm_launches = pm_sharded_phase(dev, rank_dir, smi)
+    log("== phase 16: the stream probes (P1-P4) at the JAX scripts' "
+        "defaults, and the stream floor of every byte-bound kernel")
+    probe_launches, floors = probe_phase(dev, timings)
     kernels = []
     for name, k in _cuda.KERNELS.items():
         n = (launches[name] + label_launches[name] + sorted_launches[name]
@@ -3894,7 +4056,7 @@ def _phases(dev, rank_dir, smi):
              + aligned_launches[name]
              + oracle_launches[name] + scale_launches[name]
              + direct_launches[name] + sharded_launches[name]
-             + pm_launches[name])
+             + pm_launches[name] + probe_launches[name])
         r = timings[name]
         kernels.append(dict(
             name=name, route=k.route, source=k.source, replaces=k.replaces,
@@ -3903,6 +4065,7 @@ def _phases(dev, rank_dir, smi):
             bound_by=r["bound_by"], library_ms=r["library_ms"],
         ))
         check(n > 0, f"{name} was not launched by a main path")
+    log_excess(kernels, floors)
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

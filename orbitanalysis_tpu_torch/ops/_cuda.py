@@ -57,6 +57,9 @@ class Kernel:
 
 _SRC = "orbitanalysis_tpu_torch/csrc/"
 _JAX = "orbitanalysis_tpu/ops/"
+#: The probe scripts of the JAX package, whose four kernels P1-P4 the
+#: port's ``probes/`` run as ``csrc/probe.cu``.
+_BENCH = "benchmarks/"
 
 
 def _sites(*lines):
@@ -97,6 +100,14 @@ KERNELS = {
                _sites("pallas_deposit.py:217")),
         Kernel("direct_forces", _SRC + "nbody.cu",
                _sites("pallas_nbody.py:130")),
+        Kernel("stream_add_rows", _SRC + "probe.cu",
+               _BENCH + "dma_probe.py:68"),
+        Kernel("stream_add_ring", _SRC + "probe.cu",
+               _BENCH + "dma_probe.py:144"),
+        Kernel("stream_add_split", _SRC + "probe.cu",
+               _BENCH + "dma_probe.py:244"),
+        Kernel("detect_stream_rows", _SRC + "probe.cu",
+               _BENCH + "detect_probe.py:138"),
     )
 }
 
@@ -224,6 +235,10 @@ def bind(lib):
                                 i, p],
         "deposit_sorted": [p, p, p, p, i, ll, i, i, p],
         "direct_forces": [p, p, p, p, i, i, i, f, f, i, f, f, p],
+        "stream_add_rows": [p, p, ll, ll, p],
+        "stream_add_ring": [p, p, ll, i, i, i, p],
+        "stream_add_split": [p, p, ll, i, i, i, i, p],
+        "detect_stream_rows": [p] * 12 + [i, i, p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name, None)
@@ -708,3 +723,121 @@ def direct_forces(pos: torch.Tensor, mass: torch.Tensor, softening: float,
             f(1.0 / box if box_size is not None else 0.0),
             device=pos.device)
     return out
+
+
+#: Shared memory a probe block may give its rings (the H100's 227 KB a
+#: block, less the barriers).
+RING_SMEM = 227 * 1024 - 1024
+#: Ring depths the probe kernels are built for (``csrc/probe.cu``).
+RING_DEPTHS = (2, 4, 8)
+
+
+def _check_stream(name, x):
+    _check(name, x, dtype=torch.float32, dim=x.dim())
+    if x.numel() % 4 or x.data_ptr() % 16:
+        raise ValueError(f"{name}: want a 16-byte aligned tensor of a "
+                         "multiple of 4 elements")
+
+
+def stream_add_rows(x: torch.Tensor, block_rows: int) -> torch.Tensor:
+    """Launch P1: ``x + 1`` over ``x [R, L]`` f32, one block a tile of
+    ``block_rows`` rows (the last tile may be short: every row is
+    written)."""
+    name = "stream_add_rows"
+    if x.dim() != 2 or x.shape[1] % 4 or block_rows < 1:
+        raise ValueError(f"{name}: want x [R, L] with L a multiple of 4 "
+                         f"and block_rows >= 1, got {tuple(x.shape)}, "
+                         f"{block_rows}")
+    _check_stream(name, x)
+    y = torch.empty_like(x)
+    if x.numel():
+        _launch(name, _library().stream_add_rows, x.data_ptr(),
+                y.data_ptr(), x.numel() // 4, block_rows * x.shape[1] // 4,
+                device=x.device)
+    return y
+
+
+def _ring_grid(n_bytes, stage, device):
+    stages = -(-n_bytes // stage)
+    return min(stages, torch.cuda.get_device_properties(
+        device).multi_processor_count)
+
+
+def stream_add_ring(x: torch.Tensor, stage: int, n_buf: int) -> torch.Tensor:
+    """Launch P2: ``x + 1`` over the flat f32 ``x`` through one
+    ``n_buf``-slot shared-memory ring of ``stage`` bytes a slot in each
+    persistent block, filled and drained by TMA bulk copies; a slot is
+    refilled only after its store has read it out."""
+    name = "stream_add_ring"
+    if n_buf not in RING_DEPTHS or stage <= 0 or stage % 16 or (
+            n_buf * stage > RING_SMEM):
+        raise ValueError(f"{name}: want n_buf in {RING_DEPTHS} and a stage "
+                         f"of a multiple of 16 bytes, the ring within "
+                         f"{RING_SMEM} bytes; got {n_buf} x {stage}")
+    _check_stream(name, x)
+    y = torch.empty_like(x)
+    n_bytes = x.numel() * 4
+    if n_bytes:
+        _launch(name, _library().stream_add_ring, x.data_ptr(), y.data_ptr(),
+                n_bytes, stage, n_buf, _ring_grid(n_bytes, stage, x.device),
+                device=x.device)
+    return y
+
+
+def stream_add_split(x: torch.Tensor, stage: int, n_buf: int,
+                     n_dma: int) -> torch.Tensor:
+    """Launch P3: ``x + 1`` over the flat f32 ``x`` through separate
+    in and out rings of ``n_buf`` slots of ``stage`` bytes, ``n_dma``
+    bulk copies a stage each way; an in slot is refilled without
+    waiting for a store, an out slot waits for its own last store."""
+    name = "stream_add_split"
+    if n_buf not in RING_DEPTHS or n_dma < 1 or stage <= 0 or (
+            stage % (16 * n_dma)) or 2 * n_buf * stage > RING_SMEM:
+        raise ValueError(f"{name}: want n_buf in {RING_DEPTHS}, a stage of "
+                         f"a multiple of 16 * n_dma bytes and both rings "
+                         f"within {RING_SMEM} bytes; got {n_buf} x {stage}, "
+                         f"n_dma {n_dma}")
+    _check_stream(name, x)
+    y = torch.empty_like(x)
+    n_bytes = x.numel() * 4
+    if n_bytes:
+        _launch(name, _library().stream_add_split, x.data_ptr(),
+                y.data_ptr(), n_bytes, stage, n_buf, n_dma,
+                _ring_grid(n_bytes, stage, x.device), device=x.device)
+    return y
+
+
+def detect_stream_rows(rows, lab, pos, vel, sv, rh, pk):
+    """Launch P4, a copy kernel with K9's streams: ``rows [6, R, W]``,
+    ``pos``/``vel``/``rh [3, R, W]`` f32, ``lab``/``sv``/``pk [R, W]``
+    int32 -> ``(sv + lab, rh, pk, payload [R, W], count [R, 1])``, the
+    payload the bits of ``rows[0] + pos[0] + pos[1] + pos[2] + vel[0] +
+    vel[1] + vel[2] + rows[3]`` and the count each row's sum of
+    ``lab``."""
+    name = "detect_stream_rows"
+    if lab.dim() != 2:
+        raise ValueError(f"{name}: want lab [R, W], got {tuple(lab.shape)}")
+    r, w = lab.shape
+    for t, want in ((rows, (6, r, w)), (pos, (3, r, w)), (vel, (3, r, w)),
+                    (rh, (3, r, w)), (sv, (r, w)), (pk, (r, w))):
+        if t.shape != want:
+            raise ValueError(f"{name}: want shape {want}, got "
+                             f"{tuple(t.shape)}")
+    _check(name, lab, sv, pk)
+    _check(name, rows, pos, vel, rh, dtype=torch.float32, dim=3)
+    planes = (rows, lab, pos, vel, sv, rh, pk)
+    if len({t.device for t in planes}) > 1:
+        raise ValueError(f"{name}: tensors on different devices")
+    if w % 4 or r > 65535 or any(t.data_ptr() % 16 for t in planes):
+        raise ValueError(f"{name}: want at most 65535 rows of a multiple of "
+                         "4 entries, every plane 16-byte aligned")
+    osv, orh, opk = (torch.empty_like(sv), torch.empty_like(rh),
+                     torch.empty_like(pk))
+    pay = torch.empty_like(pk)
+    count = torch.zeros((r, 1), dtype=torch.int32, device=lab.device)
+    if lab.numel():
+        _launch(name, _library().detect_stream_rows,
+                *(t.data_ptr() for t in planes), osv.data_ptr(),
+                orh.data_ptr(), opk.data_ptr(), pay.data_ptr(),
+                count.data_ptr(), r, w, device=lab.device)
+    return osv, orh, opk, pay, count

@@ -26,6 +26,8 @@ from orbitanalysis_tpu_torch.ops import label_step as tls
 from orbitanalysis_tpu_torch.ops import merge as tm
 from orbitanalysis_tpu_torch.ops import sorted_step as tss
 from orbitanalysis_tpu_torch.ops import step as ts
+from orbitanalysis_tpu_torch.probes import detect_probe as tdp
+from orbitanalysis_tpu_torch.probes import dma_probe as tdm
 from orbitanalysis_tpu_torch.utils.metrics import Metrics
 
 pytestmark = pytest.mark.cuda
@@ -1651,3 +1653,47 @@ def test_integrator_on_cuda_matches_cpu(dev):
         assert torch.equal(tg.rhat.cpu(), tc.rhat)
         torch.testing.assert_close(tg.angles.cpu(), tc.angles, rtol=0,
                                    atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [
+    # rows off the 8- and 32-row tiles and the 4096-particle tile, stages
+    # cut short (4,000 bytes a row of 1000), more stages than blocks,
+    # one vector, five planes of no rows, the bench row
+    (13, 1000), (37, 65536), (300, 4096), (1, 4), (3, 4100), (8, 32768)])
+@pytest.mark.parametrize("name", [*(n for n in tdm.VARIANTS
+                                    if not n.startswith("xla")), "stream"])
+def test_probe_kernels_match_plain(dev, name, shape):
+    """P1-P4 bit for bit against their plain versions on the card: every
+    ``dma_probe`` variant (P1, P2, P3) writes ``x + 1`` on every row, one
+    launch a plane, and P4 (``stream``) gives the copy kernel's five
+    outputs."""
+    rng = np.random.default_rng(shape[0] * 7 + shape[1])
+    _cuda.reset_launch_counts()
+    if name == "stream":
+        r, w = shape
+        f = lambda *s: torch.from_numpy(  # noqa: E731
+            rng.normal(scale=50.0, size=s).astype(np.float32)).to(dev)
+        i = lambda lo: torch.from_numpy(rng.integers(  # noqa: E731
+            lo, 2**31, (r, w), dtype=np.int64).astype(np.int32)).to(dev)
+        planes = (f(6, r, w), i(-1) % 64 - 1, f(3, r, w), f(3, r, w),
+                  i(-2**31), f(3, r, w), i(-2**31))
+        got = tdp.detect_stream(*planes)
+        want = tdp.detect_stream_torch(*planes)
+        torch.cuda.synchronize()
+        for g, v in zip(got, want):
+            assert g.shape == v.shape
+            assert torch.equal(g.view(torch.int32), v.view(torch.int32))
+        assert _cuda.launch_counts()["detect_stream_rows"] == 1
+        return
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+    fn = tdm.VARIANTS[name]()
+    xin = tdm.variant_input(fn, x)
+    got = fn(xin)
+    torch.cuda.synchronize()
+    planes = zip(xin, got) if fn.n_planes else [(xin, got)]
+    n = 0
+    for p, g in planes:
+        n += p.numel() > 0
+        assert torch.equal(g.view(torch.int32),
+                           tdm.stream_add_torch(p).view(torch.int32))
+    assert _cuda.launch_counts()[fn.kernel] == n
