@@ -156,7 +156,9 @@ repository checkout; it imports nothing of JAX.  Phases:
    scripts' defaults: ``dma_probe.main(rows=2048)`` (every variant: torch's
    ``x + 1`` and P1-P3 on a [2048, 65536] f32 plane) and
    ``detect_probe.main()`` (K9 and P4 over 12 snapshots of the churn
-   workload at [64, 32768]), counted; each probe kernel bit-equal to its
+   workload at [64, 32768]), counted, with P1's and P3's grids and each P1
+   and P3 variant's ms over torch's on the same planes (``xla``, ``xla5``
+   for ``pallas5``); each probe kernel bit-equal to its
    plain version at those shapes and timed beside phase 3's kernels; then
    each byte-bound kernel's stream floor: its bound's bytes at P4's rate
    (K6-K10) or at the best rate of P1-P3 (the others).
@@ -3837,6 +3839,27 @@ def probe_phase(dev, timings):
     torch.cuda.synchronize()
     launches = _cuda.launch_counts()
     log(f"  launches: {launch_diff(launches)}")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for what, rows in (("the plane", PROBE_ROWS),
+                       ("a pallas5 plane", PROBE_ROWS // 5)):
+        n_vecs = rows * dma_probe.LANES // 4
+        grid, threads, per_sm = _cuda.rows_launch(n_vecs, dev)
+        log(f"  stream_add_rows on {what} ({n_vecs} vectors): {grid} blocks "
+            f"of {threads} threads ({per_sm} an SM x {n_sm} SMs)")
+    for name in ("split32x4", "dual32x4", "quad64x2"):
+        p = dma_probe.VARIANTS[name]().params
+        stage = p["chunk_rows"] * dma_probe.STAGE_ROW_BYTES
+        grid, per_sm = _cuda.split_plan(PROBE_ROWS * dma_probe.LANES * 4,
+                                        stage, p["n_buf"], n_sm)
+        log(f"  stream_add_split {name}: {grid} blocks ({per_sm} an SM), "
+            f"rings 2 x {p['n_buf']} x {stage} B")
+    for name, r in dma.items():
+        fn = dma_probe.VARIANTS[name]()
+        if fn.kernel in ("stream_add_rows", "stream_add_split"):
+            ref = "xla5" if fn.n_planes else "xla"
+            log(f"  {name} ({fn.kernel}): {r['ms']:.4f} ms over torch's "
+                f"{ref} on the same planes {dma[ref]['ms']:.4f} ms = "
+                f"{r['ms'] / dma[ref]['ms']:.3f} x")
 
     gen = torch.Generator(device=dev).manual_seed(16)
     x = torch.randn((PROBE_ROWS, dma_probe.LANES), generator=gen,

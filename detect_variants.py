@@ -5,7 +5,9 @@ compact_payload_rows and compact_events_rows, one tile kernel), K19
 (``csrc/label.cu`` detect_label_compact_rows), K15 and K16
 (``csrc/merge.cu`` merge_rows and fused_join_detect) and K17
 (``csrc/static.cu`` static_detect_rows) on ``chip_smoke.py`` phase 3's
-inputs, in one process (K3 at phase 3's ``[4, 262144]`` and at one halo
+inputs, and the stream probes P1 and P3 (``csrc/probe.cu``
+stream_add_rows and stream_add_split) on ``dma_probe.py``'s ``[2048,
+65536]`` f32 plane beside torch's ``x + 1``, in one process (K3 at phase 3's ``[4, 262144]`` and at one halo
 of ``[1, 1 << 19]``; K18 on phase 3's static step, on 2 % events and on
 every lane an event at ``[64, 32768]``; K19 with group a of six channels
 and of one).
@@ -24,9 +26,15 @@ and input:
 its name, then the milliseconds of two timings (``chip_smoke.cuda_ms``)
 and, for a variant that leaves a phase out, the count of output lanes
 that differ.  It needs a CUDA card; the argument picks the kernels (all
-nine by default):
+nine K kernels by default; P1 and P3 only when named):
 
-    python3 detect_variants.py [K1,K3,K4,K8,K15,K16,K17,K18,K19]
+    python3 detect_variants.py [K1,K3,K4,K8,K15,K16,K17,K18,K19,P1,P3]
+
+P1 runs ``auto8``, ``auto32`` and ``pallas5`` (five planes of 409
+rows); P3 runs ``split32x4``, ``dual32x4`` and ``quad64x2`` with stages
+of ``chunk_rows`` x 256, 512 and 768 bytes; both print torch's ``x +
+1`` on the same planes first (``xla``, ``xla5``) and P2's ``man16x4``
+of the package's own build.
 """
 import ctypes
 import os
@@ -57,7 +65,8 @@ def shape(vt_line, vt, threads, threads_line="constexpr int kThreads = 256;"):
 SOURCES = {"K1": "compact.cu", "K3": "compact.cu", "K4": "compact.cu",
            "K18": "compact.cu",
            "K8": "label.cu", "K15": "merge.cu", "K16": "merge.cu",
-           "K17": "static.cu", "K19": "compact.cu"}
+           "K17": "static.cu", "K19": "compact.cu",
+           "P1": "probe.cu", "P3": "probe.cu"}
 #: The kernel function each variant's ptxas lines are printed for (a
 #: part of its mangled name).
 KERNEL_FUNCTIONS = {"K1": "AngleWords", "K3": "PairWords",
@@ -65,7 +74,9 @@ KERNEL_FUNCTIONS = {"K1": "AngleWords", "K3": "PairWords",
                     "K19": "compact_groups_kernel",
                     "K8": "detect_label_compact_kernel",
                     "K15": "merge_rows_kernel",
-                    "K16": "join_detect_kernel", "K17": "static_detect_kernel"}
+                    "K16": "join_detect_kernel", "K17": "static_detect_kernel",
+                    "P1": "stream_add_rows_kernel",
+                    "P3": "stream_add_split_kernel"}
 #: (kernel, name, substitutions, checked): the shipped shapes first.
 K16_VT = "constexpr int kJoinVT = 4;"
 K17_VT = "constexpr int kVT = 8;"
@@ -104,6 +115,93 @@ def k15_blocks(n):
     old = "constexpr int kMergeBlocks = 8;"
     return (old, old.rsplit("=", 1)[0] + f"= {n};")
 
+
+P1_THREADS = "constexpr int kRowsThreads = 1024;"
+P1_UNROLL = ("constexpr int kRowsUnroll = 4;  // 16-byte loads in flight a "
+             "thread")
+P1_CONTIGUOUS = [(
+    "  const long long first = static_cast<long long>(blockIdx.x) * "
+    "kRowsThreads + threadIdx.x;\n"
+    "  if (first >= n_vecs) return;\n"
+    "  const long long stride = static_cast<long long>(gridDim.x) * "
+    "kRowsThreads;\n"
+    "  const int count = static_cast<int>((n_vecs - 1 - first) / stride) + "
+    "1;",
+    "  const long long units = (n_vecs + kRowsThreads - 1) / kRowsThreads;\n"
+    "  const long long b = blockIdx.x, base = units / gridDim.x, "
+    "rem = units % gridDim.x;\n"
+    "  const long long lo = b * base + min(b, rem), "
+    "hi = lo + base + (b < rem ? 1 : 0);\n"
+    "  const long long first = lo * kRowsThreads + threadIdx.x;\n"
+    "  const long long end = min(hi * kRowsThreads, n_vecs);\n"
+    "  if (first >= end) return;\n"
+    "  const long long stride = kRowsThreads;\n"
+    "  const int count = static_cast<int>((end - 1 - first) / stride) + 1;")]
+#: the grid of the work: one block a unit (the geometry reports more
+#: blocks an SM than any unit count needs)
+P1_WORK_GRID = [(
+    "  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(\n"
+    "      blocks_per_sm, stream_add_rows_kernel, kRowsThreads, 0));",
+    "  *blocks_per_sm = 1 << 20;\n  return 0;")]
+P1_LOAD = "    if (u < left) v[u] = __ldcs(p);"
+P1_STORE = ("      __stcs(p, make_float4(v[u].x + 1.0f, v[u].y + 1.0f, "
+            "v[u].z + 1.0f, v[u].w + 1.0f));")
+P1_PLAIN = [(P1_LOAD, P1_LOAD.replace("__ldcs(p)", "*p")),
+            (P1_STORE, P1_STORE.replace("__stcs(p, ", "*p = ").replace(
+                "));", ");"))]
+P1_EVICT_FIRST = [
+    (P1_LOAD, P1_LOAD.replace("v[u] = __ldcs(p);", (
+        "asm(\"{.reg .b64 q;\\n"
+        "createpolicy.fractional.L2::evict_first.b64 q, 1.0;\\n"
+        "ld.global.nc.L1::no_allocate.L2::cache_hint.v4.f32 "
+        "{%0, %1, %2, %3}, [%4], q;}\\n\" : \"=f\"(v[u].x), \"=f\"(v[u].y), "
+        "\"=f\"(v[u].z), \"=f\"(v[u].w) : \"l\"(p));"))),
+    (P1_STORE, (
+        "      {\n        const float4 w = make_float4(v[u].x + 1.0f, "
+        "v[u].y + 1.0f, v[u].z + 1.0f, v[u].w + 1.0f);\n"
+        "        asm volatile(\"{.reg .b64 q;\\n"
+        "createpolicy.fractional.L2::evict_first.b64 q, 1.0;\\n"
+        "st.global.L1::no_allocate.L2::cache_hint.v4.f32 "
+        "[%0], {%1, %2, %3, %4}, q;}\\n\" :: \"l\"(p), \"f\"(w.x), "
+        "\"f\"(w.y), \"f\"(w.z), \"f\"(w.w) : \"memory\");\n      }"))]
+#: torch's own grid for x + 1 on sm_90 (ATen's vectorized elementwise
+#: kernel): one block a chunk of 2 x 128 vectors, 2 vectors a thread,
+#: plain loads and stores, as many blocks as chunks
+P1_TORCH_GRID = [
+    vt(P1_THREADS, 128), *P1_PLAIN,
+    ("  const long long first = static_cast<long long>(blockIdx.x) * "
+     "kRowsThreads + threadIdx.x;\n"
+     "  if (first >= n_vecs) return;\n"
+     "  const long long stride = static_cast<long long>(gridDim.x) * "
+     "kRowsThreads;\n"
+     "  const int count = static_cast<int>((n_vecs - 1 - first) / stride) + "
+     "1;",
+     "  const long long first = static_cast<long long>(blockIdx.x) * 2 * "
+     "kRowsThreads + threadIdx.x;\n"
+     "  if (first >= n_vecs) return;\n"
+     "  const long long stride = kRowsThreads;\n"
+     "  const int count = static_cast<int>(min(2LL, (n_vecs - 1 - first) / "
+     "stride + 1));"),
+    ("stream_add_rows_kernel<<<grid, kRowsThreads,",
+     "stream_add_rows_kernel<<<static_cast<unsigned>((n_vecs + 2 * "
+     "kRowsThreads - 1) / (2 * kRowsThreads)), kRowsThreads,")]
+P1_UNPIPELINED = [(
+    "    load_rows(next, xp, stride, count - k - kRowsUnroll);\n"
+    "    store_rows(yp, cur, stride, count - k);",
+    "    store_rows(yp, cur, stride, count - k);\n"
+    "    load_rows(next, xp, stride, count - k - kRowsUnroll);")]
+P3_WARPS = "constexpr int kSplitComputeWarps = 8;"
+P3_LAG = "constexpr int kSplitLag = 1;"
+P3_NO_HINT = [
+    ("complete_tx::bytes.L2::cache_hint ", "complete_tx::bytes "),
+    ("[%0], [%1], %2, [%3], %4;", "[%0], [%1], %2, [%3];"),
+    ("bulk_group.L2::cache_hint [%0], [%1], %2, %3;",
+     "bulk_group [%0], [%1], %2;")]
+#: P3's calls: the JAX split variants' (chunk_rows, n_buf, n_dma), each
+#: at stages of chunk_rows x these bytes
+P3_CALLS = {"split32x4": (32, 4, 1), "dual32x4": (32, 4, 2),
+            "quad64x2": (64, 2, 4)}
+P3_ROW_BYTES = (256, 512, 768)
 
 ROW_LOOKBACK = ("lookback_prefix(scratch + 1 + static_cast<size_t>(row) * "
                 "tiles, t, total, &slot);", "0;")
@@ -189,6 +287,26 @@ VARIANTS = [
         LOOKBACK, CLAIM, ("if (take[v] && o < a.len) {", "if (false) {"),
         ("  const int total = tile_ranks<kThreads, kVT>(take, rank, "
          "counts);", "  const int total = 0;")], False),
+    ("P1", "shipped (1024 threads x 4 loads ahead, interleaved units, "
+     "__ldcs/__stcs)", [], True),
+    ("P1", "256 x 4", [vt(P1_THREADS, 256)], True),
+    ("P1", "512 x 4", [vt(P1_THREADS, 512)], True),
+    ("P1", "1024 x 2", [vt(P1_UNROLL, 2)], True),
+    ("P1", "1024 x 1", [vt(P1_UNROLL, 1)], True),
+    ("P1", "contiguous shares", P1_CONTIGUOUS, True),
+    ("P1", "no cache hints", P1_PLAIN, True),
+    ("P1", "L1 no-allocate, L2 evict-first policy", P1_EVICT_FIRST, True),
+    ("P1", "stores before the next loads", P1_UNPIPELINED, True),
+    ("P1", "a grid of the work: one block a unit", P1_WORK_GRID, True),
+    ("P1", "a grid of the work, 128 threads, no cache hints",
+     [vt(P1_THREADS, 128), *P1_PLAIN, *P1_WORK_GRID], True),
+    ("P1", "torch's grid: a block of 128 threads a chunk of 256 vectors, "
+     "no cache hints", P1_TORCH_GRID, True),
+    ("P3", "shipped (8 compute warps, lag 1, L2 evict-first)", [], True),
+    ("P3", "4 compute warps", [vt(P3_WARPS, 4)], True),
+    ("P3", "16 compute warps", [vt(P3_WARPS, 16)], True),
+    ("P3", "lag 0", [vt(P3_LAG, 0)], True),
+    ("P3", "no L2 hint", P3_NO_HINT, True),
 ]
 
 
@@ -344,6 +462,45 @@ def event_calls(cs, dev):
              compact.compact_events_torch(*a)) for tag, a in out]
 
 
+def stream_calls(cs, dev, which):
+    """P1's and P3's calls on a seeded ``[2048, 65536]`` f32 plane, each
+    with its plain version's outputs, by kernel: ``{kernel: [(label,
+    fn, want)]}``; prints torch's ``x + 1`` on the same planes and P2's
+    ``man16x4`` (the package's build) first."""
+    import torch
+
+    from orbitanalysis_tpu_torch.ops import _cuda
+    from orbitanalysis_tpu_torch.probes import dma_probe
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    x = torch.randn((2048, dma_probe.LANES), generator=gen, device=dev)
+    planes = dma_probe.variant_input(dma_probe.VARIANTS["pallas5"](), x)
+    for tag, fn in (("torch x + 1 (xla)", lambda: x + 1.0),
+                    ("torch x + 1 on 5 planes (xla5)",
+                     lambda: tuple(p + 1.0 for p in planes)),
+                    ("P2 man16x4 (package build)",
+                     lambda: dma_probe.stream_add_ring(x, 16, 4))):
+        times = [cs.cuda_ms(fn) for _ in range(2)]
+        print(f"{tag}: {times[0]:.5f} {times[1]:.5f} ms", flush=True)
+    calls, whole = {}, (x + 1.0,)
+    if "P1" in which:
+        calls["P1"] = []
+        for name in ("auto8", "auto32", "pallas5"):
+            fn = dma_probe.VARIANTS[name]()
+            xin = dma_probe.variant_input(fn, x)
+            want = (tuple(p + 1.0 for p in xin) if fn.n_planes else whole)
+            run = ((lambda fn=fn, xin=xin: fn(xin)) if fn.n_planes
+                   else (lambda fn=fn, xin=xin: (fn(xin),)))
+            calls["P1"].append((name, run, want))
+    if "P3" in which:
+        calls["P3"] = [
+            (f"{name} at {b} B a row",
+             lambda c=c, n=n, d=d, b=b: (_cuda.stream_add_split(
+                 x, c * b, n, d),), whole)
+            for name, (c, n, d) in P3_CALLS.items() for b in P3_ROW_BYTES]
+    return calls
+
+
 def main(which="K1,K3,K4,K8,K15,K16,K17,K18,K19"):
     sys.path.insert(0, ROOT)
     import torch
@@ -385,6 +542,8 @@ def main(which="K1,K3,K4,K8,K15,K16,K17,K18,K19"):
         kw["event_capacity"] = k
         calls["K8"] = (lambda: label.detect_label_compact(*args, 0.0, **kw),
                        label.detect_label_compact_torch(*args, 0.0, **kw))
+    if which & {"P1", "P3"}:
+        calls.update(stream_calls(cs, dev, which))
     if which & {"K16", "K17"}:
         (prev, cur, peri, invalid, cap), k17 = kernel_ab.detect_inputs(
             cs, dev)
@@ -408,7 +567,14 @@ def main(which="K1,K3,K4,K8,K15,K16,K17,K18,K19"):
           "rows; K19 on unfused sorted churn step 2",
           flush=True)
     for i, (kernel, name, _, checked) in enumerate(variants):
-        if kernel in ("K3", "K18", "K19"):
+        if kernel == "P1":
+            from orbitanalysis_tpu_torch.ops import _cuda
+
+            grid, threads, per_sm = with_library(
+                libs[i], lambda: _cuda.rows_launch(2048 * 65536 // 4, dev))()
+            print(f"P1 {name}: the wrapper's plan, {grid} blocks of "
+                  f"{threads} threads ({per_sm} an SM)", flush=True)
+        if kernel in ("K3", "K18", "K19", "P1", "P3"):
             runs = [(f" {tag}", with_library(libs[i], fn), want)
                     for tag, fn, want in calls[kernel]]
             runs = [(tag, fn, fn, want) for tag, fn, want in runs]

@@ -15,12 +15,27 @@
 // element is written (the TPU grid of r // block_rows blocks left the
 // last rows of a plane undefined).  What bounds them on the H100:
 // bytes, 8 B an element (each input read once, each output written
-// once, 1,073,741,824 B at the probe's [2048, 65536] plane).
-//   stream_add_rows: the TPU's automatic pipeline over row blocks
-//     becomes one block a tile of block_rows rows (a grid of
-//     ceil(R / block_rows) blocks, so a tile count below the SM count
-//     leaves SMs idle, as the probe means to show), 1024 threads, four
-//     16-byte streaming loads in flight a thread before their stores.
+// once, 1,073,741,824 B at the probe's [2048, 65536] plane), so each is
+// held to torch's own x + 1 on the same planes.  By Little's law the
+// card's 3.35 TB/s over ~1 us of memory latency needs ~25 KB of loads
+// in flight an SM; P1 and P3 keep more than that on every SM.
+//   stream_add_rows: the TPU's automatic pipeline over row blocks (one
+//     grid step a block of block_rows rows) becomes a grid of the card:
+//     the blocks of kRowsThreads threads that fit every SM at once
+//     (cudaOccupancyMaxActiveBlocksPerMultiprocessor x the SMs: one
+//     1024-thread block an SM, as the kernel holds more than 32
+//     registers a thread),
+//     capped by the work, whatever block_rows is.  The flat tensor is
+//     cut into units of one 16-byte vector a thread, and block b takes
+//     units b, b + grid, b + 2 grid, ...: every block's share is within
+//     one vector a thread of every other's (ops/_cuda.py rows_share
+//     states the same), and the blocks sweep the tensor together.  Each
+//     thread keeps kRowsUnroll streaming 16-byte loads (__ldcs) in
+//     flight, 64 KiB an SM, and issues the next ones before it stores
+//     (__stcs) the current ones.  Measured (detect_variants.py P1): a
+//     persistent grid, whatever its shape, shares or hints, stays ~4 %
+//     above torch's x + 1, which launches one short block a 4 KiB chunk;
+//     the same loads on such a grid of the work match it.
 //   stream_add_ring: the single-program rotating VMEM ring becomes one
 //     persistent block an SM, each walking its share of the stages
 //     (stage g of the flat tensor goes to block g % grid) through an
@@ -32,14 +47,27 @@
 //     a slot is refilled only after its own store has read it out
 //     (cp.async.bulk.wait_group.read 0: the store of the previous stage,
 //     the slot's last occupant).
-//   stream_add_split: separate in and out rings (ibuf, obuf), n_dma bulk
-//     copies a stage over disjoint sub-ranges in each direction, one
-//     mbarrier a slot for all of them; an in slot is refilled without
-//     waiting for any store, and an out slot waits only for its own
-//     previous store (wait_group.read NBUF - 1: the store NBUF stages
-//     back, dma_probe.py:219-224).
+//   stream_add_split: the TPU's separate in and out VMEM buffers become
+//     a warp-specialised TMA pipeline over an in ring and an out ring
+//     of NBUF slots, with no block-wide barrier after the set-up.  One
+//     producer thread (warp 0) keeps bulk loads in flight into the in
+//     ring, n_dma copies a stage over disjoint sub-ranges, each slot
+//     gated by an empty mbarrier on which the compute warps arrive once
+//     they have read it; the kSplitComputeWarps compute warps add 1 from
+//     an in slot to its out slot and arrive on the slot's full
+//     mbarrier; one store thread (warp 1) issues the stage's n_dma bulk
+//     stores and, before it hands an out slot back to the compute warps,
+//     waits (cp.async.bulk.wait_group.read) until that slot's own store
+//     has read it out, as the JAX split variant does
+//     (dma_probe.py:219-224).  Bulk copies carry an L2 evict-first
+//     policy: no byte is read twice.  One or two blocks an SM, as many
+//     as their rings fit in its 228 KB (ops/_cuda.py split_plan).
+//     Measured (detect_variants.py P3): ~3.7 % above torch's x + 1 at
+//     every JAX variant, 4 to 16 compute warps, lags 0 and 1 and stages
+//     of chunk_rows x 256 to 768 B alike; without the L2 policy ~1 %
+//     slower.  Like P1, a persistent grid sets the pace.
 // A JAX chunk of chunk_rows rows of 256 KiB does not fit the 227 KiB of
-// shared memory a block has; the wrapper passes a stage of chunk_rows x
+// shared memory a block has; the wrappers pass a stage of chunk_rows x
 // 512 bytes (1/512 of the chunk), so every ring of the probe's variants
 // is 32 to 128 KiB (two rings for split) and NBUF is the TPU's n_buf.
 //
@@ -63,35 +91,62 @@
 namespace {
 
 constexpr int kRowsThreads = 1024;
-constexpr int kRowsUnroll = 4;
+constexpr int kRowsUnroll = 4;  // 16-byte loads in flight a thread
 constexpr int kRingThreads = 256;
+constexpr int kSplitComputeWarps = 8;
+constexpr int kSplitThreads = 32 * (2 + kSplitComputeWarps);
+constexpr int kSplitCompute = 32 * kSplitComputeWarps;
+// Out stages whose stores may still be reading their slot when the store
+// thread hands the oldest one back (at most NBUF - 1).
+constexpr int kSplitLag = 1;
 constexpr int kDetectThreads = 256;
 constexpr int kDetectVecs = 4;  // float4s a thread: 4096 particles a block
 
+// v[u] = p[u * stride] for u < left.
+__device__ __forceinline__ void load_rows(float4 (&v)[kRowsUnroll], const float4* p,
+                                          long long stride, int left) {
+#pragma unroll
+  for (int u = 0; u < kRowsUnroll; ++u) {
+    if (u < left) v[u] = __ldcs(p);
+    p += stride;
+  }
+}
+
+// p[u * stride] = v[u] + 1 for u < left.
+__device__ __forceinline__ void store_rows(float4* p, const float4 (&v)[kRowsUnroll],
+                                           long long stride, int left) {
+#pragma unroll
+  for (int u = 0; u < kRowsUnroll; ++u) {
+    if (u < left)
+      __stcs(p, make_float4(v[u].x + 1.0f, v[u].y + 1.0f, v[u].z + 1.0f, v[u].w + 1.0f));
+    p += stride;
+  }
+}
+
+// Block b takes units b, b + grid, b + 2 grid, ... of the ceil(n_vecs /
+// kRowsThreads) units of one vector a thread, so the blocks sweep the
+// tensor together; thread t holds the vectors (b + k grid) kRowsThreads
+// + t, and loads the next kRowsUnroll of them before it stores the
+// current ones.
 __global__ void __launch_bounds__(kRowsThreads)
 stream_add_rows_kernel(const float4* __restrict__ x, float4* __restrict__ y,
-                       long long n_vecs, long long tile_vecs) {
-  const long long begin = static_cast<long long>(blockIdx.x) * tile_vecs;
-  const long long end = min(begin + tile_vecs, n_vecs);
-  for (long long i = begin + threadIdx.x; i < end;
-       i += static_cast<long long>(kRowsThreads) * kRowsUnroll) {
-    float4 v[kRowsUnroll];
+                       long long n_vecs) {
+  const long long first = static_cast<long long>(blockIdx.x) * kRowsThreads + threadIdx.x;
+  if (first >= n_vecs) return;
+  const long long stride = static_cast<long long>(gridDim.x) * kRowsThreads;
+  const int count = static_cast<int>((n_vecs - 1 - first) / stride) + 1;
+  const float4* xp = x + first;
+  float4* yp = y + first;
+  float4 cur[kRowsUnroll];
+  load_rows(cur, xp, stride, count);
+  for (int k = 0; k < count; k += kRowsUnroll) {
+    xp += kRowsUnroll * stride;
+    float4 next[kRowsUnroll];
+    load_rows(next, xp, stride, count - k - kRowsUnroll);
+    store_rows(yp, cur, stride, count - k);
+    yp += kRowsUnroll * stride;
 #pragma unroll
-    for (int u = 0; u < kRowsUnroll; ++u) {
-      const long long k = i + static_cast<long long>(u) * kRowsThreads;
-      if (k < end) v[u] = __ldcs(x + k);
-    }
-#pragma unroll
-    for (int u = 0; u < kRowsUnroll; ++u) {
-      const long long k = i + static_cast<long long>(u) * kRowsThreads;
-      if (k < end) {
-        v[u].x += 1.0f;
-        v[u].y += 1.0f;
-        v[u].z += 1.0f;
-        v[u].w += 1.0f;
-        __stcs(y + k, v[u]);
-      }
-    }
+    for (int u = 0; u < kRowsUnroll; ++u) cur[u] = next[u];
   }
 }
 
@@ -164,6 +219,37 @@ __device__ __forceinline__ void bulk_wait_all() {
 // the bulk copies (the async proxy) that read it next.
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// An L2 policy that evicts the lines it touches first: for bytes that
+// are never read again.
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+// bulk_load and bulk_store with an L2 cache policy.
+__device__ __forceinline__ void bulk_load_l2(uint32_t dst, const void* src,
+                                             uint32_t bytes, uint32_t bar,
+                                             uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "l"(policy)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_store_l2(void* dst, uint32_t src,
+                                              uint32_t bytes, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint [%0], [%1], %2, %3;\n" ::"l"(dst),
+      "r"(src), "r"(bytes), "l"(policy)
+      : "memory");
 }
 
 // The stages of one ring block: stage g covers bytes [g * stage, g *
@@ -243,57 +329,95 @@ stream_add_ring_kernel(const unsigned char* __restrict__ x,
   if (threadIdx.x == 0) bulk_wait_all();
 }
 
+// The split pipeline's barriers, NBUF of each: an in slot is full
+// (producer's expect_tx and the loads' bytes) and empty (kSplitCompute
+// arrivals); an out slot is full (kSplitCompute arrivals) and empty (the
+// store thread's arrival once the slot's store has read it out).
 template <int NBUF>
-__global__ void __launch_bounds__(kRingThreads)
+struct SplitBars {
+  uint64_t in_full[NBUF], in_empty[NBUF], out_full[NBUF], out_empty[NBUF];
+};
+
+// Warp 0's lane 0 loads, warp 1's lane 0 stores, the other warps add.
+// Stage j sits in slot j % NBUF of both rings; round r = j / NBUF of a
+// slot waits on the barriers' phase r (parity r & 1) and, for r > 0, on
+// the release of round r - 1 (parity (r - 1) & 1).
+template <int NBUF>
+__global__ void __launch_bounds__(kSplitThreads)
 stream_add_split_kernel(const unsigned char* __restrict__ x,
                         unsigned char* __restrict__ y, long long n_bytes,
                         int stage, int n_dma) {
   extern __shared__ __align__(128) unsigned char ring[];  // ibuf, obuf
-  __shared__ __align__(8) uint64_t full[NBUF];
+  __shared__ __align__(8) SplitBars<NBUF> bars;
   unsigned char* ibuf = ring;
   unsigned char* obuf = ring + static_cast<size_t>(NBUF) * stage;
   const Stages st{n_bytes, stage};
   const int n = st.count();
   const uint32_t sub = static_cast<uint32_t>(stage / n_dma);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < NBUF; ++s) mbar_init(smem_addr(&full[s]), 1);
+    for (int s = 0; s < NBUF; ++s) {
+      mbar_init(smem_addr(&bars.in_full[s]), 1);
+      mbar_init(smem_addr(&bars.in_empty[s]), kSplitCompute);
+      mbar_init(smem_addr(&bars.out_full[s]), kSplitCompute);
+      mbar_init(smem_addr(&bars.out_empty[s]), 1);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
-  auto load = [&](int j) {  // thread 0 only: n_dma copies, one barrier
-    const int slot = j % NBUF;
-    const uint32_t bar = smem_addr(&full[slot]);
-    const uint32_t size = st.size(j);
-    mbar_expect_tx(bar, size);
-    for (uint32_t off = 0; off < size; off += sub)
-      bulk_load(smem_addr(ibuf + static_cast<size_t>(slot) * stage + off),
-                x + st.offset(j) + off, min(sub, size - off), bar);
-  };
-  if (threadIdx.x == 0)
-    for (int j = 0; j < NBUF - 1 && j < n; ++j) load(j);
-  for (int j = 0; j < n; ++j) {
-    const int slot = j % NBUF;
-    if (threadIdx.x == 0) {
-      // the in slot of stage j - 1 was read before the last barrier
-      if (j + NBUF - 1 < n) load(j + NBUF - 1);
-      // the out slot's previous store (stage j - NBUF) has read it out
-      if (j >= NBUF) bulk_wait_read<NBUF - 1>();
-    }
-    mbar_wait(smem_addr(&full[slot]), (j / NBUF) & 1);
-    __syncthreads();  // thread 0's wait for the out slot is done
-    const uint32_t size = st.size(j);
-    unsigned char* out = obuf + static_cast<size_t>(slot) * stage;
-    add_one(ibuf + static_cast<size_t>(slot) * stage, out, size);
-    fence_async_smem();
-    __syncthreads();
-    if (threadIdx.x == 0) {
+  __syncthreads();  // the only block-wide barrier
+  if (warp == 0) {
+    if (lane != 0) return;
+    const uint64_t policy = l2_evict_first();
+    for (int j = 0; j < n; ++j) {
+      const int slot = j % NBUF;
+      if (j >= NBUF) mbar_wait(smem_addr(&bars.in_empty[slot]), (j / NBUF - 1) & 1);
+      const uint32_t bar = smem_addr(&bars.in_full[slot]);
+      const uint32_t size = st.size(j);
+      mbar_expect_tx(bar, size);
       for (uint32_t off = 0; off < size; off += sub)
-        bulk_store(y + st.offset(j) + off, smem_addr(out + off),
-                   min(sub, size - off));
+        bulk_load_l2(smem_addr(ibuf + static_cast<size_t>(slot) * stage + off),
+                     x + st.offset(j) + off, min(sub, size - off), bar, policy);
+    }
+  } else if (warp == 1) {
+    if (lane != 0) return;
+    const uint64_t policy = l2_evict_first();
+    for (int j = 0; j < n; ++j) {
+      const int slot = j % NBUF;
+      mbar_wait(smem_addr(&bars.out_full[slot]), (j / NBUF) & 1);
+      const uint32_t size = st.size(j);
+      const unsigned char* out = obuf + static_cast<size_t>(slot) * stage;
+      for (uint32_t off = 0; off < size; off += sub)
+        bulk_store_l2(y + st.offset(j) + off, smem_addr(out + off),
+                      min(sub, size - off), policy);
       bulk_commit();
+      if (j >= kSplitLag) {
+        // stage j - kSplitLag's store has read its slot: hand it back
+        bulk_wait_read<kSplitLag>();
+        mbar_arrive(smem_addr(&bars.out_empty[(j - kSplitLag) % NBUF]));
+      }
+    }
+    bulk_wait_all();
+  } else {
+    const int t = threadIdx.x - 64;
+    for (int j = 0; j < n; ++j) {
+      const int slot = j % NBUF;
+      mbar_wait(smem_addr(&bars.in_full[slot]), (j / NBUF) & 1);
+      if (j >= NBUF) mbar_wait(smem_addr(&bars.out_empty[slot]), (j / NBUF - 1) & 1);
+      const float4* src = reinterpret_cast<const float4*>(
+          ibuf + static_cast<size_t>(slot) * stage);
+      float4* dst = reinterpret_cast<float4*>(obuf + static_cast<size_t>(slot) * stage);
+      const uint32_t vecs = st.size(j) / 16;
+      for (uint32_t i = t; i < vecs; i += kSplitCompute) {
+        const float4 v = src[i];
+        dst[i] = make_float4(v.x + 1.0f, v.y + 1.0f, v.z + 1.0f, v.w + 1.0f);
+      }
+      mbar_arrive(smem_addr(&bars.in_empty[slot]));
+      // this thread's writes, visible to the bulk store that reads them
+      fence_async_smem();
+      mbar_arrive(smem_addr(&bars.out_full[slot]));
     }
   }
-  if (threadIdx.x == 0) bulk_wait_all();
 }
 
 // A 16-byte load the compiler may not drop though its value is unused:
@@ -388,7 +512,7 @@ cudaError_t launch_split(const void* x, void* y, long long n_bytes, int stage,
   cudaError_t err = cudaFuncSetAttribute(
       stream_add_split_kernel<NBUF>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  stream_add_split_kernel<NBUF><<<grid, kRingThreads, smem, s>>>(
+  stream_add_split_kernel<NBUF><<<grid, kSplitThreads, smem, s>>>(
       static_cast<const unsigned char*>(x), static_cast<unsigned char*>(y), n_bytes, stage,
       n_dma);
   return cudaGetLastError();
@@ -396,15 +520,20 @@ cudaError_t launch_split(const void* x, void* y, long long n_bytes, int stage,
 
 }  // namespace
 
-// x, y: n_vecs float4s; one block a tile of tile_vecs float4s.
+// P1's block shape: threads a block and the blocks an SM holds at once.
+extern "C" int stream_add_rows_geometry(int* threads, int* blocks_per_sm) {
+  *threads = kRowsThreads;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, stream_add_rows_kernel, kRowsThreads, 0));
+}
+
+// x, y: n_vecs float4s over grid blocks (at most one a unit of
+// kRowsThreads vectors).
 extern "C" int stream_add_rows(const void* x, void* y, long long n_vecs,
-                               long long tile_vecs, void* stream) {
-  if (n_vecs > 0) {
-    const long long blocks = (n_vecs + tile_vecs - 1) / tile_vecs;
-    stream_add_rows_kernel<<<static_cast<unsigned>(blocks), kRowsThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float4*>(x), static_cast<float4*>(y), n_vecs, tile_vecs);
-  }
+                               int grid, void* stream) {
+  if (n_vecs > 0)
+    stream_add_rows_kernel<<<grid, kRowsThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float4*>(x), static_cast<float4*>(y), n_vecs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -422,7 +551,8 @@ extern "C" int stream_add_ring(const void* x, void* y, long long n_bytes,
 }
 
 // As stream_add_ring, with n_dma copies a stage each way (stage a
-// multiple of 16 * n_dma) and two rings of n_buf slots.
+// multiple of 16 * n_dma), two rings of n_buf slots and kSplitThreads
+// threads a block.
 extern "C" int stream_add_split(const void* x, void* y, long long n_bytes,
                                 int stage, int n_buf, int n_dma, int grid,
                                 void* stream) {

@@ -235,7 +235,8 @@ def bind(lib):
                                 i, p],
         "deposit_sorted": [p, p, p, p, i, ll, i, i, p],
         "direct_forces": [p, p, p, p, i, i, i, f, f, i, f, f, p],
-        "stream_add_rows": [p, p, ll, ll, p],
+        "stream_add_rows_geometry": [ctypes.POINTER(i), ctypes.POINTER(i)],
+        "stream_add_rows": [p, p, ll, i, p],
         "stream_add_ring": [p, p, ll, i, i, i, p],
         "stream_add_split": [p, p, ll, i, i, i, i, p],
         "detect_stream_rows": [p] * 12 + [i, i, p],
@@ -728,8 +729,15 @@ def direct_forces(pos: torch.Tensor, mass: torch.Tensor, softening: float,
 #: Shared memory a probe block may give its rings (the H100's 227 KB a
 #: block, less the barriers).
 RING_SMEM = 227 * 1024 - 1024
+#: Shared memory of one H100 SM, which its resident blocks share (228
+#: KB), and what the card holds back of it for each block (1 KB).
+SM_SMEM = 228 * 1024
+BLOCK_RESERVED_SMEM = 1024
 #: Ring depths the probe kernels are built for (``csrc/probe.cu``).
 RING_DEPTHS = (2, 4, 8)
+#: P3's static shared memory: four mbarriers of 8 bytes a slot
+#: (``csrc/probe.cu`` ``SplitBars``).
+SPLIT_BARRIER_BYTES = 4 * 8
 
 
 def _check_stream(name, x):
@@ -739,10 +747,48 @@ def _check_stream(name, x):
                          "multiple of 4 elements")
 
 
+def rows_plan(n_vecs: int, n_sm: int, blocks_per_sm: int,
+              threads: int) -> tuple[int, int]:
+    """P1's ``(grid, units)`` for ``n_vecs`` 16-byte vectors: the flat
+    tensor in ``units`` of ``threads`` vectors (one a thread, the last
+    cut short), dealt out to the blocks that fit the card at once,
+    ``n_sm * blocks_per_sm``, or one block a unit where there are
+    fewer units."""
+    units = -(-n_vecs // threads)
+    return min(n_sm * blocks_per_sm, units), units
+
+
+def rows_share(block: int, grid: int, units: int, threads: int,
+               n_vecs: int) -> list[tuple[int, int]]:
+    """The vector ranges ``[lo, hi)`` that block ``block`` of P1's grid
+    takes (``csrc/probe.cu`` ``stream_add_rows_kernel`` walks the same):
+    units ``block``, ``block + grid``, ``block + 2 grid``, ..., each of
+    ``threads`` vectors, the last cut at ``n_vecs``."""
+    return [(u * threads, min((u + 1) * threads, n_vecs))
+            for u in range(block, units, grid)]
+
+
+def rows_launch(n_vecs: int, device) -> tuple[int, int, int]:
+    """P1's ``(grid, threads, blocks_per_sm)`` for ``n_vecs`` vectors on
+    the CUDA ``device``: the block shape the library was built for and
+    the blocks of it an SM holds at once (the CUDA occupancy
+    calculator), through :func:`rows_plan`."""
+    threads, per_sm = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        rc = _library().stream_add_rows_geometry(ctypes.byref(threads),
+                                                 ctypes.byref(per_sm))
+    if rc != 0 or per_sm.value < 1:
+        raise RuntimeError(f"stream_add_rows_geometry failed: cudaError "
+                           f"{rc}, {per_sm.value} blocks an SM")
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    grid, _ = rows_plan(n_vecs, n_sm, per_sm.value, threads.value)
+    return grid, threads.value, per_sm.value
+
+
 def stream_add_rows(x: torch.Tensor, block_rows: int) -> torch.Tensor:
-    """Launch P1: ``x + 1`` over ``x [R, L]`` f32, one block a tile of
-    ``block_rows`` rows (the last tile may be short: every row is
-    written)."""
+    """Launch P1: ``x + 1`` over ``x [R, L]`` f32 on a grid of the card
+    (:func:`rows_launch`), every row written.  ``block_rows``, the TPU
+    kernel's row block, is checked and sets nothing on the card."""
     name = "stream_add_rows"
     if x.dim() != 2 or x.shape[1] % 4 or block_rows < 1:
         raise ValueError(f"{name}: want x [R, L] with L a multiple of 4 "
@@ -750,10 +796,11 @@ def stream_add_rows(x: torch.Tensor, block_rows: int) -> torch.Tensor:
                          f"{block_rows}")
     _check_stream(name, x)
     y = torch.empty_like(x)
-    if x.numel():
+    n_vecs = x.numel() // 4
+    if n_vecs:
+        grid, _, _ = rows_launch(n_vecs, x.device)
         _launch(name, _library().stream_add_rows, x.data_ptr(),
-                y.data_ptr(), x.numel() // 4, block_rows * x.shape[1] // 4,
-                device=x.device)
+                y.data_ptr(), n_vecs, grid, device=x.device)
     return y
 
 
@@ -784,12 +831,26 @@ def stream_add_ring(x: torch.Tensor, stage: int, n_buf: int) -> torch.Tensor:
     return y
 
 
+def split_plan(n_bytes: int, stage: int, n_buf: int,
+               n_sm: int) -> tuple[int, int]:
+    """P3's ``(grid, blocks_per_sm)``: one or two blocks an SM, as many
+    as an SM's shared memory holds with their in and out rings (``2 *
+    n_buf * stage`` bytes), barriers and reserve, and at most one block
+    a stage."""
+    block = (2 * n_buf * stage + n_buf * SPLIT_BARRIER_BYTES
+             + BLOCK_RESERVED_SMEM)
+    per_sm = max(1, min(2, SM_SMEM // block))
+    return min(-(-n_bytes // stage), per_sm * n_sm), per_sm
+
+
 def stream_add_split(x: torch.Tensor, stage: int, n_buf: int,
                      n_dma: int) -> torch.Tensor:
-    """Launch P3: ``x + 1`` over the flat f32 ``x`` through separate
-    in and out rings of ``n_buf`` slots of ``stage`` bytes, ``n_dma``
-    bulk copies a stage each way; an in slot is refilled without
-    waiting for a store, an out slot waits for its own last store."""
+    """Launch P3: ``x + 1`` over the flat f32 ``x`` through a
+    warp-specialised pipeline over in and out rings of ``n_buf`` slots
+    of ``stage`` bytes, ``n_dma`` bulk copies a stage each way: the
+    loads gated by the compute warps' release of an in slot, an out
+    slot handed back once its own store has read it; the grid from
+    :func:`split_plan`."""
     name = "stream_add_split"
     if n_buf not in RING_DEPTHS or n_dma < 1 or stage <= 0 or (
             stage % (16 * n_dma)) or 2 * n_buf * stage > RING_SMEM:
@@ -801,9 +862,12 @@ def stream_add_split(x: torch.Tensor, stage: int, n_buf: int,
     y = torch.empty_like(x)
     n_bytes = x.numel() * 4
     if n_bytes:
+        n_sm = torch.cuda.get_device_properties(
+            x.device).multi_processor_count
+        grid, _ = split_plan(n_bytes, stage, n_buf, n_sm)
         _launch(name, _library().stream_add_split, x.data_ptr(),
-                y.data_ptr(), n_bytes, stage, n_buf, n_dma,
-                _ring_grid(n_bytes, stage, x.device), device=x.device)
+                y.data_ptr(), n_bytes, stage, n_buf, n_dma, grid,
+                device=x.device)
     return y
 
 

@@ -5,14 +5,18 @@ Each variant keeps its JAX name and parameters:
 
   xla, xla5    torch's ``x + 1`` (the JAX ``jit(x + 1)``, "the speed of
                light"): the library line, no kernel of the port
-  auto*        P1, ``stream_add_rows``: one block a tile of
-               ``block_rows`` rows (the JAX grid of row blocks)
+  auto*        P1, ``stream_add_rows``: the JAX grid of row blocks
+               becomes a grid of the card (the blocks every SM holds
+               at once, each a balanced share of the flat tensor);
+               ``block_rows`` is checked and sets nothing
   man*         P2, ``stream_add_ring``: persistent blocks, an
                ``n_buf``-slot shared-memory ring filled and drained by
                TMA bulk copies, a slot refilled only after its store has
                read it out (the JAX rotating VMEM buffer)
   split32x4,   P3, ``stream_add_split``: separate in and out rings,
-  dual*, quad* ``n_dma`` bulk copies a stage each way
+  dual*, quad* ``n_dma`` bulk copies a stage each way, a
+               warp-specialised pipeline (a producer warp, compute
+               warps, a store thread on mbarriers)
   pallas5,     five planes of ``rows // 5`` rows, one call each
   xla5
 
@@ -92,8 +96,8 @@ def stream_add_torch(x: torch.Tensor) -> torch.Tensor:
 
 
 def stream_add_rows(x: torch.Tensor, block_rows: int) -> torch.Tensor:
-    """P1: ``x + 1`` over ``x [R, L]``, one block a tile of
-    ``block_rows`` rows on CUDA tensors (every row written),
+    """P1: ``x + 1`` over ``x [R, L]`` on a grid of the card on CUDA
+    tensors (every row written; ``block_rows`` checked),
     :func:`stream_add_torch` on CPU tensors."""
     if _cuda.on_cpu(x, "stream"):
         return stream_add_torch(x)

@@ -1655,27 +1655,71 @@ def test_integrator_on_cuda_matches_cpu(dev):
                                    atol=1e-5)
 
 
+#: Edges of the probe kernels' grids, resolved on the card by
+#: :func:`_edge_shape`: ``few`` fewer vectors than the grid has threads
+#: (P1) or fewer stages than blocks (P2, P3); ``past`` one vector past a
+#: multiple of the grid's share (P1: a vector a thread; P2, P3: a stage a
+#: block); ``view`` a plane that is a row-offset view of a larger one,
+#: as ``pallas5``'s are.
+PROBE_EDGES = ("few", "past", "view")
+#: Particles of one block of P4 (``csrc/probe.cu`` kDetectThreads x
+#: kDetectVecs float4s).
+P4_TILE = 4096
+
+
+def _edge_shape(dev, fn, edge):
+    """``(rows, row length)`` of edge ``edge`` of the grid of ``fn``'s
+    kernel on ``dev`` (``view``: of the view; rows of one vector for
+    the others)."""
+    if edge == "view":
+        return (37, 65536)
+    if fn.kernel == "stream_add_rows":
+        grid, threads, _ = _cuda.rows_launch(1 << 40, dev)
+        share = grid * threads
+    else:
+        stage = fn.params["chunk_rows"] * tdm.STAGE_ROW_BYTES
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        grid = (_cuda.split_plan(1 << 40, stage, fn.params["n_buf"], n_sm)[0]
+                if fn.kernel == "stream_add_split" else n_sm)
+        share = grid * stage // 16
+    return (share // 2 + 3 if edge == "few" else 3 * share + 1, 4)
+
+
 @pytest.mark.parametrize("shape", [
     # rows off the 8- and 32-row tiles and the 4096-particle tile, stages
     # cut short (4,000 bytes a row of 1000), more stages than blocks,
-    # one vector, five planes of no rows, the bench row
-    (13, 1000), (37, 65536), (300, 4096), (1, 4), (3, 4100), (8, 32768)])
+    # one vector, five planes of no rows, the bench row; the grids' edges
+    (13, 1000), (37, 65536), (300, 4096), (1, 4), (3, 4100), (8, 32768),
+    *PROBE_EDGES])
 @pytest.mark.parametrize("name", [*(n for n in tdm.VARIANTS
                                     if not n.startswith("xla")), "stream"])
 def test_probe_kernels_match_plain(dev, name, shape):
     """P1-P4 bit for bit against their plain versions on the card: every
     ``dma_probe`` variant (P1, P2, P3) writes ``x + 1`` on every row, one
     launch a plane, and P4 (``stream``) gives the copy kernel's five
-    outputs."""
+    outputs; at the grids' edges (:data:`PROBE_EDGES`) too, P4's at its
+    own tile (fewer particles than a block, one vector past a multiple
+    of the tile, its 2-D planes row-offset views)."""
+    edge = shape if isinstance(shape, str) else None
+    fn = None if name == "stream" else tdm.VARIANTS[name]()
+    if edge and fn:
+        shape = _edge_shape(dev, fn, edge)
+    elif edge:
+        shape = {"few": (1, 4), "past": (3, 3 * P4_TILE + 4),
+                 "view": (13, 1000)}[edge]
+    skip = 1 if edge == "view" else 0
     rng = np.random.default_rng(shape[0] * 7 + shape[1])
     _cuda.reset_launch_counts()
     if name == "stream":
         r, w = shape
         f = lambda *s: torch.from_numpy(  # noqa: E731
             rng.normal(scale=50.0, size=s).astype(np.float32)).to(dev)
-        i = lambda lo: torch.from_numpy(rng.integers(  # noqa: E731
-            lo, 2**31, (r, w), dtype=np.int64).astype(np.int32)).to(dev)
-        planes = (f(6, r, w), i(-1) % 64 - 1, f(3, r, w), f(3, r, w),
+        def i(lo, labels=False):
+            t = torch.from_numpy(rng.integers(
+                lo, 2**31, (r + skip, w), dtype=np.int64).astype(np.int32))
+            return (t % 64 - 1 if labels else t).to(dev)[skip:]
+
+        planes = (f(6, r, w), i(-1, labels=True), f(3, r, w), f(3, r, w),
                   i(-2**31), f(3, r, w), i(-2**31))
         got = tdp.detect_stream(*planes)
         want = tdp.detect_stream_torch(*planes)
@@ -1685,8 +1729,8 @@ def test_probe_kernels_match_plain(dev, name, shape):
             assert torch.equal(g.view(torch.int32), v.view(torch.int32))
         assert _cuda.launch_counts()["detect_stream_rows"] == 1
         return
-    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
-    fn = tdm.VARIANTS[name]()
+    x = torch.from_numpy(rng.normal(size=(shape[0] + skip, shape[1])).astype(
+        np.float32)).to(dev)[skip:]
     xin = tdm.variant_input(fn, x)
     got = fn(xin)
     torch.cuda.synchronize()

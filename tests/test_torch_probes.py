@@ -2,7 +2,9 @@
 every ``dma_probe.VARIANTS`` entry against the JAX package's
 ``benchmarks/dma_probe.py`` function in TPU interpret mode, P4's plain
 version against a NumPy restatement of the JAX ``copy_kernel``, the
-entry points at small sizes, and the kernel wrappers' checks.
+entry points at small sizes, the kernel wrappers' checks, and P1's and
+P3's launch plans (``ops/_cuda.py`` ``rows_plan``, ``rows_share``,
+``split_plan``) with the kernels' index arithmetic restated.
 
 The JAX half skips where jax is missing (the machine with the card runs
 the repo's tests without jax); the CUDA kernels are held against their
@@ -16,6 +18,8 @@ import os
 import numpy as np
 import pytest
 import torch
+from hypothesis import assume, given, settings
+from hypothesis import strategies as st
 
 from orbitanalysis_tpu_torch.ops import _cuda
 from orbitanalysis_tpu_torch.probes import detect_probe as tdp
@@ -229,3 +233,162 @@ def test_probe_kernels_are_registered_with_their_sites():
         with open(os.path.join(REPO, path)) as f:
             text = f.read().splitlines()
         assert "pl.pallas_call(" in text[int(line) - 1]
+
+
+# --- the host-side plans of P1 and P3 (ops/_cuda.py) ----------------------
+
+#: The H100's SMs, and the bytes of loads an SM needs in flight to cover
+#: ~1 us of memory latency at 3.35 TB/s (Little's law).
+H100_SMS = 132
+LATENCY_BYTES = 25 * 1024
+
+
+def _check_rows_shares(n_vecs, n_sm, per_sm, threads):
+    """P1's plan deals every vector to exactly one block, uses at most the
+    card's resident blocks and one block a unit, and keeps every block's
+    share within one vector a thread of every other's."""
+    grid, units = _cuda.rows_plan(n_vecs, n_sm, per_sm, threads)
+    assert units * threads >= n_vecs > (units - 1) * threads
+    assert 1 <= grid <= min(n_sm * per_sm, units)
+    ranges = sorted(r for b in range(grid)
+                    for r in _cuda.rows_share(b, grid, units, threads, n_vecs))
+    assert ranges[0][0] == 0 and ranges[-1][1] == n_vecs
+    assert all(lo < hi for lo, hi in ranges)
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    sizes = [sum(hi - lo for lo, hi in _cuda.rows_share(
+        b, grid, units, threads, n_vecs)) for b in range(grid)]
+    assert max(sizes) - min(sizes) <= threads
+    return grid
+
+
+@pytest.mark.parametrize("n_vecs,n_sm,per_sm,threads", [
+    # the probe's plane and a pallas5 plane on the H100's 1024-thread
+    # blocks; fewer vectors than the grid has threads; one vector past a
+    # multiple of the grid's share; one vector; a short last unit
+    (2048 * 65536 // 4, H100_SMS, 1, 1024),
+    (409 * 65536 // 4, H100_SMS, 1, 1024),
+    (H100_SMS * 1024 // 2 + 3, H100_SMS, 1, 1024),
+    (3 * H100_SMS * 1024 + 1, H100_SMS, 1, 1024),
+    (1, H100_SMS, 1, 1024),
+    (5 * 256 + 7, 2, 4, 256),
+])
+def test_rows_plan_deals_every_vector_once(n_vecs, n_sm, per_sm, threads):
+    grid = _check_rows_shares(n_vecs, n_sm, per_sm, threads)
+    if n_vecs >= n_sm * per_sm * threads:
+        assert grid == n_sm * per_sm  # every SM full
+
+
+@settings(max_examples=60, deadline=None, database=None)
+@given(n_vecs=st.integers(1, 1 << 18), n_sm=st.integers(1, 160),
+       per_sm=st.integers(1, 16),
+       threads=st.sampled_from([32, 128, 256, 512, 1024]))
+def test_rows_plan_any_size(n_vecs, n_sm, per_sm, threads):
+    _check_rows_shares(n_vecs, n_sm, per_sm, threads)
+
+
+def _rows_kernel_walk(n_vecs, grid, threads, unroll=4):
+    """The vectors ``csrc/probe.cu`` stream_add_rows_kernel loads and
+    stores, by block: thread ``t`` of block ``b`` starts at ``b *
+    threads + t``, steps ``grid * threads`` and takes ``count`` vectors,
+    ``unroll`` at a time, the next ones loaded before the current ones
+    are stored."""
+    out = []
+    stride = grid * threads
+    for b in range(grid):
+        mine = []
+        for t in range(threads):
+            first = b * threads + t
+            if first >= n_vecs:
+                continue
+            count = (n_vecs - 1 - first) // stride + 1
+            loaded = [first + u * stride for u in range(min(unroll, count))]
+            stored = []
+            for k in range(0, count, unroll):
+                nxt = [first + (k + unroll + u) * stride for u in range(unroll)
+                       if u < count - k - unroll]
+                stored += [first + (k + u) * stride for u in range(unroll)
+                           if u < count - k]
+                loaded += nxt
+            assert loaded == stored  # each vector loaded once, then stored
+            mine += stored
+        out.append(sorted(mine))
+    return out
+
+
+@pytest.mark.parametrize("n_vecs,n_sm,per_sm,threads", [
+    (1, 3, 1, 8), (7, 3, 1, 8), (24, 3, 1, 8), (25, 3, 1, 8),
+    (3 * 3 * 8 * 4 + 1, 3, 1, 8), (1000, 5, 2, 16), (4096, 4, 1, 32)])
+def test_rows_kernel_walk_is_the_plan(n_vecs, n_sm, per_sm, threads):
+    """The kernel's index arithmetic, restated, visits exactly the
+    vectors :func:`_cuda.rows_share` gives each block."""
+    grid, units = _cuda.rows_plan(n_vecs, n_sm, per_sm, threads)
+    walk = _rows_kernel_walk(n_vecs, grid, threads)
+    for b in range(grid):
+        want = [v for lo, hi in _cuda.rows_share(b, grid, units, threads,
+                                                 n_vecs)
+                for v in range(lo, hi)]
+        assert walk[b] == want
+
+
+def _split_copies(n_bytes, stage, n_dma, grid):
+    """The ``(offset, bytes)`` bulk copies of ``csrc/probe.cu``
+    stream_add_split_kernel (each the same way in and out): stage ``g``
+    of the flat tensor goes to block ``g % grid``, ``n_dma`` copies of
+    ``stage // n_dma`` bytes a stage, the last stage and copy cut
+    short."""
+    sub = stage // n_dma
+    copies = []
+    n_stages = -(-n_bytes // stage)
+    for b in range(grid):
+        for g in range(b, n_stages, grid):
+            size = min(stage, n_bytes - g * stage)
+            copies += [(g * stage + off, min(sub, size - off))
+                       for off in range(0, size, sub)]
+    return copies
+
+
+def _check_split_plan(n_bytes, stage, n_buf, n_dma, n_sm):
+    grid, per_sm = _cuda.split_plan(n_bytes, stage, n_buf, n_sm)
+    block = (2 * n_buf * stage + n_buf * _cuda.SPLIT_BARRIER_BYTES
+             + _cuda.BLOCK_RESERVED_SMEM)
+    assert per_sm in (1, 2)
+    assert 2 * n_buf * stage + n_buf * _cuda.SPLIT_BARRIER_BYTES <= 227 * 1024
+    assert per_sm * block <= _cuda.SM_SMEM
+    assert 1 <= grid <= min(per_sm * n_sm, -(-n_bytes // stage))
+    copies = sorted(_split_copies(n_bytes, stage, n_dma, grid))
+    assert all(size > 0 and size % 16 == 0 and off % 16 == 0
+               for off, size in copies)
+    assert copies[0][0] == 0
+    assert all(a[0] + a[1] == b[0] for a, b in zip(copies, copies[1:]))
+    assert copies[-1][0] + copies[-1][1] == n_bytes
+    return grid, per_sm
+
+
+@pytest.mark.parametrize("name", ["split32x4", "dual32x4", "quad64x2"])
+@pytest.mark.parametrize("n_bytes", [
+    # the probe's plane; fewer stages than blocks; one vector past a
+    # multiple of stage x grid; one vector
+    2048 * 65536 * 4, 4096 * 7, 3 * H100_SMS * 32 * 512 + 16, 16])
+def test_split_plan_fits_and_covers(name, n_bytes):
+    """P3's rings fit 227 KB a block and 228 KB an SM at every JAX
+    variant, hold enough loads in flight an SM to cover the latency, and
+    its bulk copies cover every byte once."""
+    p = tdm.VARIANTS[name]().params
+    stage = p["chunk_rows"] * tdm.STAGE_ROW_BYTES
+    grid, per_sm = _check_split_plan(n_bytes, stage, p["n_buf"], p["n_dma"],
+                                      H100_SMS)
+    assert per_sm * p["n_buf"] * stage >= LATENCY_BYTES
+    if n_bytes >= per_sm * H100_SMS * stage:
+        assert grid == per_sm * H100_SMS
+
+
+@settings(max_examples=60, deadline=None, database=None)
+@given(vecs=st.integers(1, 1 << 16), rows=st.sampled_from([1, 8, 16, 32, 64]),
+       row_bytes=st.sampled_from([64, 256, 512, 768]),
+       n_buf=st.sampled_from(_cuda.RING_DEPTHS),
+       n_dma=st.sampled_from([1, 2, 4]), n_sm=st.integers(1, 160))
+def test_split_plan_any_size(vecs, rows, row_bytes, n_buf, n_dma, n_sm):
+    stage = rows * row_bytes
+    # the stages the wrapper takes
+    assume(stage % (16 * n_dma) == 0 and 2 * n_buf * stage <= _cuda.RING_SMEM)
+    _check_split_plan(16 * vecs, stage, n_buf, n_dma, n_sm)
