@@ -156,9 +156,12 @@ repository checkout; it imports nothing of JAX.  Phases:
    scripts' defaults: ``dma_probe.main(rows=2048)`` (every variant: torch's
    ``x + 1`` and P1-P3 on a [2048, 65536] f32 plane) and
    ``detect_probe.main()`` (K9 and P4 over 12 snapshots of the churn
-   workload at [64, 32768]), counted, with P1's and P3's grids and each P1
-   and P3 variant's ms over torch's on the same planes (``xla``, ``xla5``
-   for ``pallas5``); each probe kernel bit-equal to its
+   workload at [64, 32768]), counted, with P1's, P2's and P3's grids (P2's
+   blocks an SM by ``ring_plan``, checked against the occupancy
+   calculator, and its loads in flight an SM), each P1-P3 variant's ms
+   over torch's on the same planes (``xla``, ``xla5`` for ``pallas5``) and
+   the spread of P2's block end times (``man16x4``, the card's clock);
+   each probe kernel bit-equal to its
    plain version at those shapes and timed beside phase 3's kernels; then
    each byte-bound kernel's stream floor: its bound's bytes at P4's rate
    (K6-K10) or at the best rate of P1-P3 (the others).
@@ -3853,9 +3856,22 @@ def probe_phase(dev, timings):
                                         stage, p["n_buf"], n_sm)
         log(f"  stream_add_split {name}: {grid} blocks ({per_sm} an SM), "
             f"rings 2 x {p['n_buf']} x {stage} B")
+    n_bytes = PROBE_ROWS * dma_probe.LANES * 4
+    for name in (n for n in dma_probe.VARIANTS if n.startswith("man")):
+        p = dma_probe.VARIANTS[name]().params
+        stage = p["chunk_rows"] * dma_probe.STAGE_ROW_BYTES
+        grid, per_sm = _cuda.ring_plan(n_bytes, stage, p["n_buf"], n_sm)
+        threads, calc = _cuda.ring_geometry(stage, p["n_buf"], dev)
+        log(f"  stream_add_ring {name}: {grid} blocks of {threads} threads "
+            f"({per_sm} an SM; the occupancy calculator {calc}), rings "
+            f"{p['n_buf']} x {stage} B, {per_sm * p['n_buf'] * stage} B of "
+            "loads in flight an SM at most")
+        check(calc == per_sm, f"stream_add_ring {name}: ring_plan gives "
+              f"{per_sm} blocks an SM, the calculator {calc}")
     for name, r in dma.items():
         fn = dma_probe.VARIANTS[name]()
-        if fn.kernel in ("stream_add_rows", "stream_add_split"):
+        if fn.kernel in ("stream_add_rows", "stream_add_ring",
+                         "stream_add_split"):
             ref = "xla5" if fn.n_planes else "xla"
             log(f"  {name} ({fn.kernel}): {r['ms']:.4f} ms over torch's "
                 f"{ref} on the same planes {dma[ref]['ms']:.4f} ms = "
@@ -3881,6 +3897,20 @@ def probe_phase(dev, timings):
                   f"{name} ({kernel}) differs from x + 1")
         log(f"  {name} ({kernel}) on {len(pairs)} plane(s) of "
             f"{tuple(pairs[0][0].shape)}: bit-equal to x + 1 on every row")
+    # how P2's blocks end: each block's start and end on the card's clock
+    p = dma_probe.VARIANTS[PROBE_DEFAULTS["stream_add_ring"]]().params
+    for _ in range(2):
+        _, clock = _cuda.stream_add_ring_on(
+            x, p["chunk_rows"] * dma_probe.STAGE_ROW_BYTES, p["n_buf"],
+            clock=True)
+        c = (clock - clock[:, 0].min()).double().cpu() / 1e3
+        end = c[:, 1]
+        log(f"  stream_add_ring man16x4 block clocks: {len(c)} blocks, span "
+            f"{float(end.max()):.2f} us, starts within "
+            f"{float(c[:, 0].max()):.2f} us, ends "
+            f"{float(end.min()):.2f}-{float(end.max()):.2f} us (spread "
+            f"{float(end.max() - end.min()):.2f} us, median "
+            f"{float(end.median()):.2f} us)")
     results = {}
     for kernel, name in PROBE_DEFAULTS.items():
         fn = dma_probe.VARIANTS[name]()

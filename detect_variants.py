@@ -5,9 +5,10 @@ compact_payload_rows and compact_events_rows, one tile kernel), K19
 (``csrc/label.cu`` detect_label_compact_rows), K15 and K16
 (``csrc/merge.cu`` merge_rows and fused_join_detect) and K17
 (``csrc/static.cu`` static_detect_rows) on ``chip_smoke.py`` phase 3's
-inputs, and the stream probes P1 and P3 (``csrc/probe.cu``
-stream_add_rows and stream_add_split) on ``dma_probe.py``'s ``[2048,
-65536]`` f32 plane beside torch's ``x + 1``, in one process (K3 at phase 3's ``[4, 262144]`` and at one halo
+inputs, and the stream probes P1, P2 and P3 (``csrc/probe.cu``
+stream_add_rows, stream_add_ring and stream_add_split) on
+``dma_probe.py``'s ``[2048, 65536]`` f32 plane beside torch's ``x + 1``,
+in one process (K3 at phase 3's ``[4, 262144]`` and at one halo
 of ``[1, 1 << 19]``; K18 on phase 3's static step, on 2 % events and on
 every lane an event at ``[64, 32768]``; K19 with group a of six channels
 and of one).
@@ -26,15 +27,22 @@ and input:
 its name, then the milliseconds of two timings (``chip_smoke.cuda_ms``)
 and, for a variant that leaves a phase out, the count of output lanes
 that differ.  It needs a CUDA card; the argument picks the kernels (all
-nine K kernels by default; P1 and P3 only when named):
+nine K kernels by default; P1, P2 and P3 only when named):
 
-    python3 detect_variants.py [K1,K3,K4,K8,K15,K16,K17,K18,K19,P1,P3]
+    python3 detect_variants.py [K1,K3,K4,K8,K15,K16,K17,K18,K19,P1,P2,P3]
+        [PARENT_CHECKOUT]
 
 P1 runs ``auto8``, ``auto32`` and ``pallas5`` (five planes of 409
 rows); P3 runs ``split32x4``, ``dual32x4`` and ``quad64x2`` with stages
 of ``chunk_rows`` x 256, 512 and 768 bytes; both print torch's ``x +
 1`` on the same planes first (``xla``, ``xla5``) and P2's ``man16x4``
-of the package's own build.
+of the package's own build.  P2 runs every ``man*`` variant at
+``ring_plan``'s grid and ``man16x4`` at one block an SM too, through
+``_cuda.stream_add_ring_on``, and prints the ``man16x4`` calls' block
+end-time spread (each block's start and end on the card's nanosecond
+clock); given a parent checkout, it rebuilds that checkout's P2 with the
+block clocks patched in and runs every ``man*`` at one block an SM (its
+own grid) and at ``ring_plan``'s blocks an SM.
 """
 import ctypes
 import os
@@ -66,7 +74,8 @@ SOURCES = {"K1": "compact.cu", "K3": "compact.cu", "K4": "compact.cu",
            "K18": "compact.cu",
            "K8": "label.cu", "K15": "merge.cu", "K16": "merge.cu",
            "K17": "static.cu", "K19": "compact.cu",
-           "P1": "probe.cu", "P3": "probe.cu"}
+           "P1": "probe.cu", "P2": "probe.cu", "P2p": "probe.cu",
+           "P3": "probe.cu"}
 #: The kernel function each variant's ptxas lines are printed for (a
 #: part of its mangled name).
 KERNEL_FUNCTIONS = {"K1": "AngleWords", "K3": "PairWords",
@@ -76,6 +85,8 @@ KERNEL_FUNCTIONS = {"K1": "AngleWords", "K3": "PairWords",
                     "K15": "merge_rows_kernel",
                     "K16": "join_detect_kernel", "K17": "static_detect_kernel",
                     "P1": "stream_add_rows_kernel",
+                    "P2": "stream_add_ring_kernel",
+                    "P2p": "stream_add_ring_kernel",
                     "P3": "stream_add_split_kernel"}
 #: (kernel, name, substitutions, checked): the shipped shapes first.
 K16_VT = "constexpr int kJoinVT = 4;"
@@ -203,6 +214,64 @@ P3_CALLS = {"split32x4": (32, 4, 1), "dual32x4": (32, 4, 2),
             "quad64x2": (64, 2, 4)}
 P3_ROW_BYTES = (256, 512, 768)
 
+P2_WARPS = "constexpr int kRingComputeWarps = 4;"
+P2_LAG = "constexpr int kRingLag = NBUF > 2 ? 0 : 1;"
+P2_CLAIM = ("if (j % claim == 0) first = atomicAdd(next_stage, claim);\n"
+            "      const long long g = first + j % claim;")
+#: (a) taken out: stage g dealt to block g % grid, as the parent did
+P2_DEALT = [(P2_CLAIM, "const long long g = blockIdx.x + "
+             "static_cast<long long>(j) * gridDim.x;")]
+#: one stage a claim, whatever its size
+P2_SINGLE = [(P2_CLAIM, "const long long g = atomicAdd(next_stage, 1);")]
+#: both bulk copies with an L2 evict-first policy, as P3's
+P2_EVICT_FIRST = [
+    ("    if (lane != 0) return;\n    long long first = 0;\n",
+     "    if (lane != 0) return;\n"
+     "    const uint64_t policy = l2_evict_first();\n"
+     "    long long first = 0;\n"),
+    ("bulk_load(smem_addr(ring + static_cast<size_t>(slot) * stage), "
+     "x + g * stage,\n                size(g), bar);",
+     "bulk_load_l2(smem_addr(ring + static_cast<size_t>(slot) * stage), "
+     "x + g * stage,\n                size(g), bar, policy);"),
+    ("    if (lane != 0) return;\n    for (int j = 0;; ++j) {\n"
+     "      const int slot = j % NBUF;\n      mbar_wait(smem_addr("
+     "&slots.done[slot])",
+     "    if (lane != 0) return;\n    const uint64_t policy = l2_evict_first();\n"
+     "    for (int j = 0;; ++j) {\n      const int slot = j % NBUF;\n"
+     "      mbar_wait(smem_addr(&slots.done[slot])"),
+    ("bulk_store(y + g * stage, smem_addr(ring + static_cast<size_t>(slot) * "
+     "stage),\n                 size(g));",
+     "bulk_store_l2(y + g * stage, smem_addr(ring + static_cast<size_t>(slot) "
+     "* stage),\n                    size(g), policy);")]
+#: The parent's P2 (a persistent block an SM, stages dealt, a block-wide
+#: barrier a stage; ``csrc/probe.cu`` before the redesign) with each
+#: block's start and end on the card's nanosecond clock, read back by
+#: ``ring_clock_read``.
+P2_PARENT_CLOCK = [
+    ('#include "common.cuh"\n',
+     '#include "common.cuh"\n\n__device__ unsigned long long '
+     'ring_clock[2 * 8192];\n\n__device__ __forceinline__ unsigned long '
+     'long clock_ns() {\n  unsigned long long t;\n  asm volatile("mov.u64 '
+     '%0, %%globaltimer;" : "=l"(t));\n  return t;\n}\n'),
+    ("  __shared__ __align__(8) uint64_t full[NBUF];\n"
+     "  const Stages st{n_bytes, stage};",
+     "  __shared__ __align__(8) uint64_t full[NBUF];\n"
+     "  if (threadIdx.x == 0) ring_clock[2 * blockIdx.x] = clock_ns();\n"
+     "  const Stages st{n_bytes, stage};"),
+    ("  if (threadIdx.x == 0) bulk_wait_all();\n}\n\n// The split",
+     "  if (threadIdx.x == 0) {\n    bulk_wait_all();\n"
+     "    ring_clock[2 * blockIdx.x + 1] = clock_ns();\n  }\n}\n\n"
+     "// The split"),
+    ("// [R, W] planes (W a multiple of 4",
+     'extern "C" int ring_clock_read(void* host, int blocks) {\n'
+     "  return static_cast<int>(cudaMemcpyFromSymbol(host, ring_clock, "
+     "16 * blocks));\n}\n\n// [R, W] planes (W a multiple of 4")]
+#: The blocks an SM the parent's ring kernel is also run at (its own: 1)
+P2_PARENT_PER_SM = (1, 6)
+#: P2's calls: every JAX manual variant at ring_plan's grid
+P2_CALLS = ("man16x4", "man8x8", "man32x4", "man64x2", "man128x2",
+            "man64x4", "man32x8")
+
 ROW_LOOKBACK = ("lookback_prefix(scratch + 1 + static_cast<size_t>(row) * "
                 "tiles, t, total, &slot);", "0;")
 VARIANTS = [
@@ -307,19 +376,31 @@ VARIANTS = [
     ("P3", "16 compute warps", [vt(P3_WARPS, 16)], True),
     ("P3", "lag 0", [vt(P3_LAG, 0)], True),
     ("P3", "no L2 hint", P3_NO_HINT, True),
+    ("P2", "shipped (claims of at least 8 KiB, ring_plan's blocks an SM, "
+     "warp-specialised, 4 compute warps, lag 0, 1 at two slots)", [], True),
+    ("P2", "(a) out: dealt stages", P2_DEALT, True),
+    ("P2", "2 compute warps", [vt(P2_WARPS, 2)], True),
+    ("P2", "8 compute warps", [vt(P2_WARPS, 8)], True),
+    ("P2", "lag 1", [vt(P2_LAG, 1)], True),
+    ("P2", "one stage a claim", P2_SINGLE, True),
+    ("P2", "L2 evict-first bulk copies", P2_EVICT_FIRST, True),
+    ("P2p", "the parent's kernel with block clocks", P2_PARENT_CLOCK, True),
 ]
 
 
-def build(variants):
+def build(variants, parent=None):
     """Compile each variant's source into its own library; returns
-    ``({index: ctypes.CDLL}, {index: nvcc's output})``.  Raises on a
+    ``({index: ctypes.CDLL}, {index: nvcc's output})``.  A ``P2p``
+    variant's source is the checkout ``parent``'s.  Raises on a
     substitution that does not apply or a failed build."""
     from orbitanalysis_tpu_torch.ops import _cuda
 
     shutil.rmtree(BUILD, ignore_errors=True)
     procs = []
     for i, (kernel, name, subs, _) in enumerate(variants):
-        src = os.path.join(CSRC, SOURCES[kernel])
+        csrc = (os.path.join(parent, "orbitanalysis_tpu_torch", "csrc")
+                if kernel == "P2p" else CSRC)
+        src = os.path.join(csrc, SOURCES[kernel])
         text = open(src).read()
         for a, b in subs:
             if a not in text:
@@ -327,7 +408,7 @@ def build(variants):
             text = text.replace(a, b)
         d = os.path.join(BUILD, str(i))
         os.makedirs(d)
-        shutil.copy(os.path.join(CSRC, "common.cuh"), d)
+        shutil.copy(os.path.join(csrc, "common.cuh"), d)
         with open(os.path.join(d, "k.cu"), "w") as f:
             f.write(text)
         so = os.path.join(d, "lib.so")
@@ -479,7 +560,9 @@ def stream_calls(cs, dev, which):
                     ("torch x + 1 on 5 planes (xla5)",
                      lambda: tuple(p + 1.0 for p in planes)),
                     ("P2 man16x4 (package build)",
-                     lambda: dma_probe.stream_add_ring(x, 16, 4))):
+                     lambda: dma_probe.stream_add_ring(x, 16, 4)),
+                    ("P2 man8x8 (package build)",
+                     lambda: dma_probe.stream_add_ring(x, 8, 8))):
         times = [cs.cuda_ms(fn) for _ in range(2)]
         print(f"{tag}: {times[0]:.5f} {times[1]:.5f} ms", flush=True)
     calls, whole = {}, (x + 1.0,)
@@ -492,6 +575,8 @@ def stream_calls(cs, dev, which):
             run = ((lambda fn=fn, xin=xin: fn(xin)) if fn.n_planes
                    else (lambda fn=fn, xin=xin: (fn(xin),)))
             calls["P1"].append((name, run, want))
+    if "P2" in which:
+        calls["P2"] = x
     if "P3" in which:
         calls["P3"] = [
             (f"{name} at {b} B a row",
@@ -501,7 +586,88 @@ def stream_calls(cs, dev, which):
     return calls
 
 
-def main(which="K1,K3,K4,K8,K15,K16,K17,K18,K19"):
+def clock_spread(clock):
+    """Each block's start and end (``[grid, 2]`` ns on the card's clock)
+    as one line: the span from the first start to the last end, the
+    range of the starts and of the ends, the ends' spread as a share of
+    the span, and the median end."""
+    import numpy as np
+
+    c = np.asarray(clock, dtype=np.int64)
+    t0 = c[:, 0].min()
+    start, end = (c[:, 0] - t0) / 1e3, (c[:, 1] - t0) / 1e3
+    spread = end.max() - end.min()
+    return (f"{len(c)} blocks, span {end.max():.2f} us; starts "
+            f"{start.min():.2f}-{start.max():.2f} us; ends {end.min():.2f}-"
+            f"{end.max():.2f} us (spread {spread:.2f} us = "
+            f"{100 * spread / end.max():.1f} % of the span), median end "
+            f"{np.median(end):.2f} us")
+
+
+def ring_runs(lib, x, n_sm, parent=False):
+    """P2's calls on ``x``, each with its plain version's output and its
+    block clocks: ``[(label, fn, want, clocked)]``, ``clocked()`` one
+    call's ``[grid, 2]`` clock on the host.  Every ``man*`` variant at
+    ``ring_plan``'s grid, and ``man16x4`` at one block an SM.  ``parent``:
+    ``lib`` is the parent's build (its C signature, its clock read back
+    from ``ring_clock_read``), run at one block an SM (its own grid)
+    and at ``ring_plan``'s blocks an SM."""
+    import torch
+
+    from orbitanalysis_tpu_torch.ops import _cuda
+    from orbitanalysis_tpu_torch.probes import dma_probe
+
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    if parent:
+        lib.stream_add_ring.argtypes = [p, p, ll, i, i, i, p]
+        lib.ring_clock_read.argtypes = [p, i]
+
+    def parent_call(stage, n_buf, grid):
+        y = torch.empty_like(x)
+        rc = lib.stream_add_ring(x.data_ptr(), y.data_ptr(), x.numel() * 4,
+                                 stage, n_buf, grid,
+                                 torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"parent stream_add_ring failed: {rc}")
+        return y
+
+    def parent_clocked(stage, n_buf, grid):
+        parent_call(stage, n_buf, grid)
+        torch.cuda.synchronize()
+        out = (ctypes.c_ulonglong * (2 * grid))()
+        if lib.ring_clock_read(ctypes.cast(out, p), grid) != 0:
+            raise RuntimeError("ring_clock_read failed")
+        return [[out[2 * b], out[2 * b + 1]] for b in range(grid)]
+
+    def own_clocked(stage, n_buf, grid):
+        return with_library(lib, lambda: _cuda.stream_add_ring_on(
+            x, stage, n_buf, grid, clock=True)[1].cpu().tolist())()
+
+    want, n_bytes, runs = (x + 1.0,), x.numel() * 4, []
+    for name in P2_CALLS:
+        q = dma_probe.VARIANTS[name]().params
+        stage, n_buf = q["chunk_rows"] * dma_probe.STAGE_ROW_BYTES, q["n_buf"]
+        grid, per_sm = _cuda.ring_plan(n_bytes, stage, n_buf, n_sm)
+        grids = [(grid, per_sm)]
+        if name == "man16x4" or parent:
+            grids = ([(n_sm, 1)] if parent else []) + grids + (
+                [] if parent else [(n_sm, 1)])
+        for g, k in dict.fromkeys(grids):
+            tag = f" {name} at {k} an SM ({g} blocks)"
+            if parent:
+                fn = (lambda s=stage, b=n_buf, g=g: (parent_call(s, b, g),))
+                clocked = (lambda s=stage, b=n_buf, g=g: parent_clocked(
+                    s, b, g))
+            else:
+                fn = with_library(lib, lambda s=stage, b=n_buf, g=g: (
+                    _cuda.stream_add_ring_on(x, s, b, g)[0],))
+                clocked = (lambda s=stage, b=n_buf, g=g: own_clocked(s, b, g))
+            runs.append((tag, fn, want, clocked if name == "man16x4"
+                         else None))
+    return runs
+
+
+def main(which="K1,K3,K4,K8,K15,K16,K17,K18,K19", parent=None):
     sys.path.insert(0, ROOT)
     import torch
 
@@ -511,9 +677,11 @@ def main(which="K1,K3,K4,K8,K15,K16,K17,K18,K19"):
     from orbitanalysis_tpu_torch.ops import step as tstep
 
     which = set(which.split(","))
+    if parent and "P2" in which:
+        which.add("P2p")
     variants = [v for v in VARIANTS if v[0] in which]
     dev = torch.device("cuda")
-    libs, logs = build(variants)
+    libs, logs = build(variants, parent and os.path.abspath(parent))
     calls = {}
     if "K1" in which:
         x, k1 = kernel_ab.k1_plane(cs, dev)
@@ -542,7 +710,7 @@ def main(which="K1,K3,K4,K8,K15,K16,K17,K18,K19"):
         kw["event_capacity"] = k
         calls["K8"] = (lambda: label.detect_label_compact(*args, 0.0, **kw),
                        label.detect_label_compact_torch(*args, 0.0, **kw))
-    if which & {"P1", "P3"}:
+    if which & {"P1", "P2", "P3"}:
         calls.update(stream_calls(cs, dev, which))
     if which & {"K16", "K17"}:
         (prev, cur, peri, invalid, cap), k17 = kernel_ab.detect_inputs(
@@ -574,7 +742,16 @@ def main(which="K1,K3,K4,K8,K15,K16,K17,K18,K19"):
                 libs[i], lambda: _cuda.rows_launch(2048 * 65536 // 4, dev))()
             print(f"P1 {name}: the wrapper's plan, {grid} blocks of "
                   f"{threads} threads ({per_sm} an SM)", flush=True)
-        if kernel in ("K3", "K18", "K19", "P1", "P3"):
+        clocks = {}
+        if kernel in ("P2", "P2p"):
+            runs = []
+            n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+            for tag, fn, want, clocked in ring_runs(
+                    libs[i], calls["P2"], n_sm, kernel == "P2p"):
+                runs.append((tag, fn, fn, want))
+                if clocked:
+                    clocks[tag] = clocked
+        elif kernel in ("K3", "K18", "K19", "P1", "P3"):
             runs = [(f" {tag}", with_library(libs[i], fn), want)
                     for tag, fn, want in calls[kernel]]
             runs = [(tag, fn, fn, want) for tag, fn, want in runs]
@@ -599,9 +776,13 @@ def main(which="K1,K3,K4,K8,K15,K16,K17,K18,K19"):
                     else f" (leaves a phase out: {ne} lanes differ)")
             print(f"{kernel} {name}{tag}: {times[0]:.5f} {times[1]:.5f} "
                   f"ms{note}", flush=True)
+            if tag in clocks:
+                for _ in range(2):
+                    print(f"  block clocks: {clock_spread(clocks[tag]())}",
+                          flush=True)
         print("\n".join(ptxas_lines(logs[i], KERNEL_FUNCTIONS[kernel])),
               flush=True)
 
 
 if __name__ == "__main__":
-    main(*sys.argv[1:2])
+    main(*sys.argv[1:3])

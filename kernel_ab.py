@@ -36,9 +36,10 @@ on the bench's churn sequence through the checkout's own
 ms a step, the host's ms to issue one, kernels a step, idle share; the
 unfused sorted route (K15 + K19) on phase 8's first 12 snapshots and
 the sorted step on the 12 static snapshots (K16, then K18) too.
-``P1`` and ``P3`` (not in the default set) time every ``dma_probe``
-variant of the stream probe P1 (``auto8``, ``auto32``, ``pallas5``) or
-P3 (``split32x4``, ``dual32x4``, ``quad64x2``) and torch's ``x + 1`` on
+``P1``, ``P2`` and ``P3`` (not in the default set) time every
+``dma_probe`` variant of the stream probe P1 (``auto8``, ``auto32``,
+``pallas5``), P2 (the seven ``man*``) or P3 (``split32x4``,
+``dual32x4``, ``quad64x2``) and torch's ``x + 1`` on
 the same planes (``xla``, and ``xla5`` for ``pallas5``'s five) on one
 seeded ``[2048, 65536]`` f32 plane, each variant checked bit for bit
 against ``x + 1``, through the checkout's own ``probes/dma_probe.py``.
@@ -536,12 +537,14 @@ def step_times(cs, dev):
 
 #: The stream probes' ``dma_probe`` variants, by kernel.
 PROBE_VARIANTS = {"P1": ("auto8", "auto32", "pallas5"),
+                  "P2": ("man16x4", "man8x8", "man32x4", "man64x2",
+                         "man128x2", "man64x4", "man32x8"),
                   "P3": ("split32x4", "dual32x4", "quad64x2")}
 
 
 def probe_times(cs, dev, which):
-    """Milliseconds of each P1 or P3 variant of ``which`` and of torch's
-    ``x + 1`` on the same planes (``xla``; ``xla5`` where a variant
+    """Milliseconds of each P1, P2 or P3 variant of ``which`` and of
+    torch's ``x + 1`` on the same planes (``xla``; ``xla5`` where a variant
     takes five planes), on one seeded ``[2048, 65536]`` f32 plane, each
     variant bit-equal to ``x + 1`` on every plane."""
     import torch
@@ -550,7 +553,7 @@ def probe_times(cs, dev, which):
 
     gen = torch.Generator(device=dev).manual_seed(16)
     x = torch.randn((2048, dma_probe.LANES), generator=gen, device=dev)
-    names = {n: f"{k}_{n}" for k in ("P1", "P3") if k in which
+    names = {n: f"{k}_{n}" for k in ("P1", "P2", "P3") if k in which
              for n in PROBE_VARIANTS[k]}
     out = {}
     for name in ["xla", "xla5", *names]:
@@ -626,7 +629,7 @@ def main(root, tag, which="K1,K4,K8,K10,K13,K14,K15,K16,K17"):
             acc.tobytes()).hexdigest()
     if "K16" in which or "K17" in which:
         out.update(detect_times(cs, dev, which))
-    if "P1" in which or "P3" in which:
+    if {"P1", "P2", "P3"} & set(which):
         out.update(probe_times(cs, dev, which))
     if "STEPS" in which:
         step_times(cs, dev)
@@ -638,6 +641,6 @@ def main(root, tag, which="K1,K4,K8,K10,K13,K14,K15,K16,K17"):
 if __name__ == "__main__":
     if len(sys.argv) not in (3, 4):
         raise SystemExit("usage: python3 kernel_ab.py CHECKOUT TAG "
-                         "[K1,K4,K8,K10,K13,K14,K15,K16,K17,K18,K19,P1,P3,"
+                         "[K1,K4,K8,K10,K13,K14,K15,K16,K17,K18,K19,P1,P2,P3,"
                          "STEPS,LABEL_STEPS]")
     main(*sys.argv[1:])

@@ -18,7 +18,7 @@
 // once, 1,073,741,824 B at the probe's [2048, 65536] plane), so each is
 // held to torch's own x + 1 on the same planes.  By Little's law the
 // card's 3.35 TB/s over ~1 us of memory latency needs ~25 KB of loads
-// in flight an SM; P1 and P3 keep more than that on every SM.
+// in flight an SM; P1-P3 keep more than that on every SM.
 //   stream_add_rows: the TPU's automatic pipeline over row blocks (one
 //     grid step a block of block_rows rows) becomes a grid of the card:
 //     the blocks of kRowsThreads threads that fit every SM at once
@@ -36,17 +36,26 @@
 //     persistent grid, whatever its shape, shares or hints, stays ~4 %
 //     above torch's x + 1, which launches one short block a 4 KiB chunk;
 //     the same loads on such a grid of the work match it.
-//   stream_add_ring: the single-program rotating VMEM ring becomes one
-//     persistent block an SM, each walking its share of the stages
-//     (stage g of the flat tensor goes to block g % grid) through an
-//     NBUF-slot shared-memory ring.  Thread 0 fills a slot by one TMA
+//   stream_add_ring: the single-program rotating VMEM ring becomes a
+//     warp-specialised in-place ring in each block: as many blocks an
+//     SM as their rings fit in its 228 KB (ops/_cuda.py ring_plan: six
+//     at 32 KiB rings, three at 64 KiB, one at 128 KiB), so 64 to 192
+//     KiB of loads can be in flight an SM.  One producer thread (warp
+//     0) claims the next stages from a global counter (zeroed on the
+//     stream before each launch), as the compactions take their tiles,
+//     so a fast SM takes more stages and the kernel ends when the work
+//     does; a claim is at least 8 KiB (two stages of 4 KiB: ring_claim),
+//     which halves the atomics on the one counter where stages are
+//     small.  It tags the slot with the stage and fills it by one TMA
 //     bulk copy (cp.async.bulk global->shared, completing on the slot's
-//     mbarrier with complete_tx) NBUF - 1 stages ahead; the block adds 1
-//     in shared memory and thread 0 stores the slot back by one
-//     cp.async.bulk shared->global.  As on the TPU (dma_probe.py:116-121)
-//     a slot is refilled only after its own store has read it out
-//     (cp.async.bulk.wait_group.read 0: the store of the previous stage,
-//     the slot's last occupant).
+//     full mbarrier with complete_tx).  The kRingComputeWarps compute
+//     warps add 1 in place and arrive on the slot's done mbarrier; one
+//     store thread (warp 1) stores the slot back by one cp.async.bulk
+//     shared->global and, as on the TPU (dma_probe.py:116-121), frees
+//     the slot for its next load only once cp.async.bulk.wait_group.read
+//     shows that the slot's own store has read it out.  No block-wide
+//     barrier after the set-up; a claim past the last stage tags the
+//     slot -1, which ends every warp.
 //   stream_add_split: the TPU's separate in and out VMEM buffers become
 //     a warp-specialised TMA pipeline over an in ring and an out ring
 //     of NBUF slots, with no block-wide barrier after the set-up.  One
@@ -92,7 +101,16 @@ namespace {
 
 constexpr int kRowsThreads = 1024;
 constexpr int kRowsUnroll = 4;  // 16-byte loads in flight a thread
-constexpr int kRingThreads = 256;
+constexpr int kRingComputeWarps = 4;
+constexpr int kRingThreads = 32 * (2 + kRingComputeWarps);
+constexpr int kRingCompute = 32 * kRingComputeWarps;
+// Stores that may still be reading their slots when P2's store thread
+// hands the oldest one back (at most NBUF - 1): none from four slots up,
+// each slot freed as soon as its own store has read it; one at two
+// slots, so the store thread does not wait on the store it just issued
+// (detect_variants.py P2).
+template <int NBUF>
+constexpr int kRingLag = NBUF > 2 ? 0 : 1;
 constexpr int kSplitComputeWarps = 8;
 constexpr int kSplitThreads = 32 * (2 + kSplitComputeWarps);
 constexpr int kSplitCompute = 32 * kSplitComputeWarps;
@@ -252,8 +270,9 @@ __device__ __forceinline__ void bulk_store_l2(void* dst, uint32_t src,
       : "memory");
 }
 
-// The stages of one ring block: stage g covers bytes [g * stage, g *
-// stage + size) of the flat tensor, the last one shorter.
+// The stages of one split block: stage g covers bytes [g * stage, g *
+// stage + size) of the flat tensor, the last one shorter, and goes to
+// block g % grid.
 struct Stages {
   long long n_bytes;
   int stage;
@@ -270,63 +289,113 @@ struct Stages {
   }
 };
 
-__device__ __forceinline__ void add_one(const unsigned char* src,
-                                        unsigned char* dst, uint32_t bytes) {
-  const float4* s = reinterpret_cast<const float4*>(src);
-  float4* d = reinterpret_cast<float4*>(dst);
-  for (uint32_t i = threadIdx.x; i < bytes / 16; i += blockDim.x) {
-    float4 v = s[i];
-    v.x += 1.0f;
-    v.y += 1.0f;
-    v.z += 1.0f;
-    v.w += 1.0f;
-    d[i] = v;
-  }
+// P2's barriers and stage tags, NBUF of each: a slot is full (the
+// producer's expect_tx and the load's bytes, or its plain arrival with
+// no stage left), done (kRingCompute arrivals once 1 is added in place)
+// and empty (the store thread's arrival once the slot's store has read
+// it out); stage is the stage the slot holds, -1 once none is left.
+template <int NBUF>
+struct RingSlots {
+  uint64_t full[NBUF], done[NBUF], empty[NBUF];
+  long long stage[NBUF];
+};
+
+// The card's nanosecond clock, common to every SM.
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
 }
 
+// Warp 0's lane 0 claims stages, claim at a time, and loads them, warp
+// 1's lane 0 stores them, the other warps add 1 in place.  The block's
+// j-th stage sits in slot j % NBUF; round r = j / NBUF of a slot waits
+// on the barriers' phase r (parity r & 1) and, for r > 0, on the release
+// of round r - 1.  next_stage: the claim counter, zeroed before the
+// launch; clock: null, or [grid, 2] for each block's start and end on
+// global_ns.
 template <int NBUF>
 __global__ void __launch_bounds__(kRingThreads)
 stream_add_ring_kernel(const unsigned char* __restrict__ x,
                        unsigned char* __restrict__ y, long long n_bytes,
-                       int stage) {
+                       int stage, int claim, int* __restrict__ next_stage,
+                       unsigned long long* __restrict__ clock) {
   extern __shared__ __align__(128) unsigned char ring[];  // [NBUF][stage]
-  __shared__ __align__(8) uint64_t full[NBUF];
-  const Stages st{n_bytes, stage};
-  const int n = st.count();
+  __shared__ __align__(8) RingSlots<NBUF> slots;
+  if (clock != nullptr && threadIdx.x == 0) clock[2 * blockIdx.x] = global_ns();
+  const long long n = (n_bytes + stage - 1) / stage;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  auto size = [&](long long g) {
+    return static_cast<uint32_t>(min(static_cast<long long>(stage), n_bytes - g * stage));
+  };
   if (threadIdx.x == 0) {
-    for (int s = 0; s < NBUF; ++s) mbar_init(smem_addr(&full[s]), 1);
+    for (int s = 0; s < NBUF; ++s) {
+      mbar_init(smem_addr(&slots.full[s]), 1);
+      mbar_init(smem_addr(&slots.done[s]), kRingCompute);
+      mbar_init(smem_addr(&slots.empty[s]), 1);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
-  auto load = [&](int j) {  // thread 0 only
-    const int slot = j % NBUF;
-    const uint32_t bar = smem_addr(&full[slot]);
-    mbar_expect_tx(bar, st.size(j));
-    bulk_load(smem_addr(ring + static_cast<size_t>(slot) * stage),
-              x + st.offset(j), st.size(j), bar);
-  };
-  if (threadIdx.x == 0)
-    for (int j = 0; j < NBUF - 1 && j < n; ++j) load(j);
-  for (int j = 0; j < n; ++j) {
-    const int slot = j % NBUF;
-    const int next = j + NBUF - 1;
-    if (threadIdx.x == 0 && next < n) {
-      // the slot to refill last held stage j - 1, stored at the end of
-      // the previous iteration: wait until that store has read it
-      if (next >= NBUF) bulk_wait_read<0>();
-      load(next);
+  __syncthreads();  // the only block-wide barrier
+  if (warp == 0) {
+    if (lane != 0) return;
+    long long first = 0;
+    for (int j = 0;; ++j) {
+      const int slot = j % NBUF;
+      // claimed before the slot is free, so the atomic's round trip
+      // overlaps the wait; claim stages at a time
+      if (j % claim == 0) first = atomicAdd(next_stage, claim);
+      const long long g = first + j % claim;
+      if (j >= NBUF) mbar_wait(smem_addr(&slots.empty[slot]), (j / NBUF - 1) & 1);
+      const uint32_t bar = smem_addr(&slots.full[slot]);
+      if (g >= n) {
+        slots.stage[slot] = -1;
+        mbar_arrive(bar);
+        return;
+      }
+      slots.stage[slot] = g;
+      mbar_expect_tx(bar, size(g));
+      bulk_load(smem_addr(ring + static_cast<size_t>(slot) * stage), x + g * stage,
+                size(g), bar);
     }
-    mbar_wait(smem_addr(&full[slot]), (j / NBUF) & 1);
-    unsigned char* buf = ring + static_cast<size_t>(slot) * stage;
-    add_one(buf, buf, st.size(j));
-    fence_async_smem();
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      bulk_store(y + st.offset(j), smem_addr(buf), st.size(j));
+  } else if (warp == 1) {
+    if (lane != 0) return;
+    for (int j = 0;; ++j) {
+      const int slot = j % NBUF;
+      mbar_wait(smem_addr(&slots.done[slot]), (j / NBUF) & 1);
+      const long long g = slots.stage[slot];
+      if (g < 0) break;
+      bulk_store(y + g * stage, smem_addr(ring + static_cast<size_t>(slot) * stage),
+                 size(g));
       bulk_commit();
+      if (j >= kRingLag<NBUF>) {
+        // claim j - lag's store has read its slot: hand it back
+        bulk_wait_read<kRingLag<NBUF>>();
+        mbar_arrive(smem_addr(&slots.empty[(j - kRingLag<NBUF>) % NBUF]));
+      }
+    }
+    bulk_wait_all();
+    if (clock != nullptr) clock[2 * blockIdx.x + 1] = global_ns();
+  } else {
+    const int t = threadIdx.x - 64;
+    for (int j = 0;; ++j) {
+      const int slot = j % NBUF;
+      mbar_wait(smem_addr(&slots.full[slot]), (j / NBUF) & 1);
+      const long long g = slots.stage[slot];
+      if (g >= 0) {
+        float4* v = reinterpret_cast<float4*>(ring + static_cast<size_t>(slot) * stage);
+        for (uint32_t i = t; i < size(g) / 16; i += kRingCompute) {
+          const float4 a = v[i];
+          v[i] = make_float4(a.x + 1.0f, a.y + 1.0f, a.z + 1.0f, a.w + 1.0f);
+        }
+        // this thread's writes, visible to the bulk store that reads them
+        fence_async_smem();
+      }
+      mbar_arrive(smem_addr(&slots.done[slot]));
+      if (g < 0) return;
     }
   }
-  if (threadIdx.x == 0) bulk_wait_all();
 }
 
 // The split pipeline's barriers, NBUF of each: an in slot is full
@@ -494,14 +563,34 @@ detect_stream_kernel(const float4* __restrict__ rows,
 }
 
 template <int NBUF>
-cudaError_t launch_ring(const void* x, void* y, long long n_bytes, int stage,
-                        int grid, cudaStream_t s) {
-  const int smem = NBUF * stage;
-  cudaError_t err = cudaFuncSetAttribute(
-      stream_add_ring_kernel<NBUF>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+cudaError_t ring_attributes(int stage) {
+  cudaError_t err = cudaFuncSetAttribute(stream_add_ring_kernel<NBUF>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         NBUF * stage);
   if (err != cudaSuccess) return err;
-  stream_add_ring_kernel<NBUF><<<grid, kRingThreads, smem, s>>>(
-      static_cast<const unsigned char*>(x), static_cast<unsigned char*>(y), n_bytes, stage);
+  return cudaFuncSetAttribute(stream_add_ring_kernel<NBUF>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+template <int NBUF>
+cudaError_t ring_geometry(int stage, int* blocks_per_sm) {
+  cudaError_t err = ring_attributes<NBUF>(stage);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, stream_add_ring_kernel<NBUF>, kRingThreads, NBUF * stage);
+}
+
+template <int NBUF>
+cudaError_t launch_ring(const void* x, void* y, long long n_bytes, int stage,
+                        int claim, int grid, int* counter, unsigned long long* clock,
+                        cudaStream_t s) {
+  cudaError_t err = ring_attributes<NBUF>(stage);
+  if (err == cudaSuccess) err = cudaMemsetAsync(counter, 0, sizeof(int), s);
+  if (err != cudaSuccess) return err;
+  stream_add_ring_kernel<NBUF><<<grid, kRingThreads, NBUF * stage, s>>>(
+      static_cast<const unsigned char*>(x), static_cast<unsigned char*>(y), n_bytes, stage,
+      claim, counter, clock);
   return cudaGetLastError();
 }
 
@@ -537,15 +626,35 @@ extern "C" int stream_add_rows(const void* x, void* y, long long n_vecs,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x, y: n_bytes (a multiple of 16, 16-byte aligned); stage a multiple
-// of 16; n_buf 2, 4 or 8; grid persistent blocks.
-extern "C" int stream_add_ring(const void* x, void* y, long long n_bytes,
-                               int stage, int n_buf, int grid, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+// P2's block shape: threads a block and the blocks of an n_buf x stage
+// ring an SM holds at once (the occupancy calculator).
+extern "C" int stream_add_ring_geometry(int stage, int n_buf, int* threads,
+                                        int* blocks_per_sm) {
+  *threads = kRingThreads;
   switch (n_buf) {
-    case 2: return static_cast<int>(launch_ring<2>(x, y, n_bytes, stage, grid, s));
-    case 4: return static_cast<int>(launch_ring<4>(x, y, n_bytes, stage, grid, s));
-    case 8: return static_cast<int>(launch_ring<8>(x, y, n_bytes, stage, grid, s));
+    case 2: return static_cast<int>(ring_geometry<2>(stage, blocks_per_sm));
+    case 4: return static_cast<int>(ring_geometry<4>(stage, blocks_per_sm));
+    case 8: return static_cast<int>(ring_geometry<8>(stage, blocks_per_sm));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// x, y: n_bytes (a multiple of 16, 16-byte aligned); stage a multiple
+// of 16; n_buf 2, 4 or 8; claim >= 1 stages a claim; grid blocks
+// (stages + (grid + 1) x claim below 2^31); counter: one int of scratch,
+// zeroed here on the stream before the launch; clock: null, or grid x 2
+// uint64 for each block's start and end in nanoseconds.
+extern "C" int stream_add_ring(const void* x, void* y, long long n_bytes,
+                               int stage, int n_buf, int claim, int grid,
+                               void* counter, void* clock, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* c = static_cast<int*>(counter);
+  unsigned long long* t = static_cast<unsigned long long*>(clock);
+  if (claim < 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (n_buf) {
+    case 2: return static_cast<int>(launch_ring<2>(x, y, n_bytes, stage, claim, grid, c, t, s));
+    case 4: return static_cast<int>(launch_ring<4>(x, y, n_bytes, stage, claim, grid, c, t, s));
+    case 8: return static_cast<int>(launch_ring<8>(x, y, n_bytes, stage, claim, grid, c, t, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -237,7 +237,9 @@ def bind(lib):
         "direct_forces": [p, p, p, p, i, i, i, f, f, i, f, f, p],
         "stream_add_rows_geometry": [ctypes.POINTER(i), ctypes.POINTER(i)],
         "stream_add_rows": [p, p, ll, i, p],
-        "stream_add_ring": [p, p, ll, i, i, i, p],
+        "stream_add_ring_geometry": [i, i, ctypes.POINTER(i),
+                                     ctypes.POINTER(i)],
+        "stream_add_ring": [p, p, ll, i, i, i, i, p, p, p],
         "stream_add_split": [p, p, ll, i, i, i, i, p],
         "detect_stream_rows": [p] * 12 + [i, i, p],
     }
@@ -738,6 +740,19 @@ RING_DEPTHS = (2, 4, 8)
 #: P3's static shared memory: four mbarriers of 8 bytes a slot
 #: (``csrc/probe.cu`` ``SplitBars``).
 SPLIT_BARRIER_BYTES = 4 * 8
+#: P2's threads a block (``csrc/probe.cu`` kRingThreads: a producer
+#: warp, a store warp and four compute warps) and its static shared
+#: memory a slot (``RingSlots``: three mbarriers and a stage tag of 8
+#: bytes each).
+RING_THREADS = 192
+RING_SLOT_BYTES = 4 * 8
+#: The least bytes P2's producer claims at a time: stages of 4 KiB go two
+#: to a claim, which halves the atomics on the one claim counter
+#: (``detect_variants.py P2``).
+RING_CLAIM_BYTES = 8192
+#: Threads and blocks one H100 SM holds at once.
+SM_THREADS = 2048
+SM_BLOCKS = 32
 
 
 def _check_stream(name, x):
@@ -804,17 +819,50 @@ def stream_add_rows(x: torch.Tensor, block_rows: int) -> torch.Tensor:
     return y
 
 
-def _ring_grid(n_bytes, stage, device):
-    stages = -(-n_bytes // stage)
-    return min(stages, torch.cuda.get_device_properties(
-        device).multi_processor_count)
+def ring_claim(stage: int) -> int:
+    """P2's stages a claim: at least :data:`RING_CLAIM_BYTES` a claim."""
+    return max(1, RING_CLAIM_BYTES // stage)
 
 
-def stream_add_ring(x: torch.Tensor, stage: int, n_buf: int) -> torch.Tensor:
-    """Launch P2: ``x + 1`` over the flat f32 ``x`` through one
-    ``n_buf``-slot shared-memory ring of ``stage`` bytes a slot in each
-    persistent block, filled and drained by TMA bulk copies; a slot is
-    refilled only after its store has read it out."""
+def ring_plan(n_bytes: int, stage: int, n_buf: int,
+              n_sm: int) -> tuple[int, int]:
+    """P2's ``(grid, blocks_per_sm)``: as many blocks an SM as its
+    shared memory holds with their rings (``n_buf * stage`` bytes), slot
+    barriers and reserve, and as its threads and block slots allow (the
+    occupancy calculator's rule, ``stream_add_ring_geometry`` on the
+    card), and at most one block a stage.  Raises ValueError where the
+    stages and blocks pass the kernel's int32 claim counter."""
+    block = n_buf * stage + n_buf * RING_SLOT_BYTES + BLOCK_RESERVED_SMEM
+    per_sm = max(1, min(SM_SMEM // block, SM_THREADS // RING_THREADS,
+                        SM_BLOCKS))
+    grid = min(-(-n_bytes // stage), per_sm * n_sm)
+    _check_claims(n_bytes, stage, grid)
+    return grid, per_sm
+
+
+def _check_claims(n_bytes, stage, grid):
+    """The most P2's claim counter reaches on ``grid`` blocks, below
+    2^31."""
+    if -(-n_bytes // stage) + (grid + 1) * ring_claim(stage) >= 2**31:
+        raise ValueError(f"stream_add_ring: {n_bytes} bytes in stages of "
+                         f"{stage} on {grid} blocks exceed the int32 claim "
+                         "counter")
+
+
+def ring_geometry(stage: int, n_buf: int, device) -> tuple[int, int]:
+    """P2's ``(threads, blocks_per_sm)`` on the CUDA ``device`` from the
+    CUDA occupancy calculator, given the ring's shared memory."""
+    threads, per_sm = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        rc = _library().stream_add_ring_geometry(
+            stage, n_buf, ctypes.byref(threads), ctypes.byref(per_sm))
+    if rc != 0 or per_sm.value < 1:
+        raise RuntimeError(f"stream_add_ring_geometry failed: cudaError "
+                           f"{rc}, {per_sm.value} blocks an SM")
+    return threads.value, per_sm.value
+
+
+def _ring(x, stage, n_buf, grid, clock):
     name = "stream_add_ring"
     if n_buf not in RING_DEPTHS or stage <= 0 or stage % 16 or (
             n_buf * stage > RING_SMEM):
@@ -824,11 +872,45 @@ def stream_add_ring(x: torch.Tensor, stage: int, n_buf: int) -> torch.Tensor:
     _check_stream(name, x)
     y = torch.empty_like(x)
     n_bytes = x.numel() * 4
-    if n_bytes:
-        _launch(name, _library().stream_add_ring, x.data_ptr(), y.data_ptr(),
-                n_bytes, stage, n_buf, _ring_grid(n_bytes, stage, x.device),
-                device=x.device)
-    return y
+    if not n_bytes:
+        return y, (torch.zeros((0, 2), dtype=torch.int64, device=x.device)
+                   if clock else None)
+    if grid is None:
+        n_sm = torch.cuda.get_device_properties(
+            x.device).multi_processor_count
+        grid = ring_plan(n_bytes, stage, n_buf, n_sm)[0]
+    elif grid < 1:
+        raise ValueError(f"{name}: want at least one block, got {grid}")
+    else:
+        _check_claims(n_bytes, stage, grid)
+    counter = torch.empty(1, dtype=torch.int32, device=x.device)
+    # every block writes its two entries
+    clock = (torch.empty((grid, 2), dtype=torch.int64, device=x.device)
+             if clock else None)
+    _launch(name, _library().stream_add_ring, x.data_ptr(), y.data_ptr(),
+            n_bytes, stage, n_buf, ring_claim(stage), grid,
+            counter.data_ptr(),
+            None if clock is None else clock.data_ptr(), device=x.device)
+    return y, clock
+
+
+def stream_add_ring(x: torch.Tensor, stage: int, n_buf: int) -> torch.Tensor:
+    """Launch P2: ``x + 1`` over the flat f32 ``x`` through an
+    ``n_buf``-slot shared-memory ring of ``stage`` bytes a slot in each
+    block, warp-specialised: a producer claims stages from a counter and
+    fills slots by TMA bulk loads, compute warps add 1 in place, a store
+    thread drains each slot and frees it once its store has read it
+    out; the grid from :func:`ring_plan`."""
+    return _ring(x, stage, n_buf, None, False)[0]
+
+
+def stream_add_ring_on(x: torch.Tensor, stage: int, n_buf: int,
+                       grid: int | None = None, clock: bool = False):
+    """P2 as :func:`stream_add_ring`, on ``grid`` blocks where given (a
+    diagnostic of the grid: any count is correct), with each block's
+    start and end on the card's nanosecond clock where ``clock``: ``(y,
+    clock [grid, 2] int64 or None)``."""
+    return _ring(x, stage, n_buf, grid, clock)
 
 
 def split_plan(n_bytes: int, stage: int, n_buf: int,

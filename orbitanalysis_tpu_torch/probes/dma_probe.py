@@ -9,10 +9,12 @@ Each variant keeps its JAX name and parameters:
                becomes a grid of the card (the blocks every SM holds
                at once, each a balanced share of the flat tensor);
                ``block_rows`` is checked and sets nothing
-  man*         P2, ``stream_add_ring``: persistent blocks, an
-               ``n_buf``-slot shared-memory ring filled and drained by
-               TMA bulk copies, a slot refilled only after its store has
-               read it out (the JAX rotating VMEM buffer)
+  man*         P2, ``stream_add_ring``: an ``n_buf``-slot
+               shared-memory ring a block filled and drained by TMA bulk
+               copies, a slot refilled only after its store has read it
+               out (the JAX rotating VMEM buffer); warp-specialised, as
+               many blocks an SM as their rings fit, each taking its
+               stages from a shared counter
   split32x4,   P3, ``stream_add_split``: separate in and out rings,
   dual*, quad* ``n_dma`` bulk copies a stage each way, a
                warp-specialised pipeline (a producer warp, compute

@@ -1657,11 +1657,12 @@ def test_integrator_on_cuda_matches_cpu(dev):
 
 #: Edges of the probe kernels' grids, resolved on the card by
 #: :func:`_edge_shape`: ``few`` fewer vectors than the grid has threads
-#: (P1) or fewer stages than blocks (P2, P3); ``past`` one vector past a
-#: multiple of the grid's share (P1: a vector a thread; P2, P3: a stage a
-#: block); ``view`` a plane that is a row-offset view of a larger one,
-#: as ``pallas5``'s are.
-PROBE_EDGES = ("few", "past", "view")
+#: (P1) or fewer stages than blocks, the last one short (P2, P3);
+#: ``past`` one vector past a multiple of the grid's share (P1: a vector
+#: a thread; P2, P3: a stage a block); ``one`` one unit of a block (P1)
+#: or one whole stage (P2, P3); ``view`` a plane that is a row-offset
+#: view of a larger one, as ``pallas5``'s are.
+PROBE_EDGES = ("few", "past", "one", "view")
 #: Particles of one block of P4 (``csrc/probe.cu`` kDetectThreads x
 #: kDetectVecs float4s).
 P4_TILE = 4096
@@ -1675,14 +1676,17 @@ def _edge_shape(dev, fn, edge):
         return (37, 65536)
     if fn.kernel == "stream_add_rows":
         grid, threads, _ = _cuda.rows_launch(1 << 40, dev)
-        share = grid * threads
+        unit = threads
     else:
         stage = fn.params["chunk_rows"] * tdm.STAGE_ROW_BYTES
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        grid = (_cuda.split_plan(1 << 40, stage, fn.params["n_buf"], n_sm)[0]
-                if fn.kernel == "stream_add_split" else n_sm)
-        share = grid * stage // 16
-    return (share // 2 + 3 if edge == "few" else 3 * share + 1, 4)
+        plan = (_cuda.split_plan if fn.kernel == "stream_add_split"
+                else _cuda.ring_plan)
+        grid = plan(1 << 40, stage, fn.params["n_buf"], n_sm)[0]
+        unit = stage // 16
+    share = grid * unit
+    return ({"few": share // 2 + 3, "past": 3 * share + 1,
+             "one": unit}[edge], 4)
 
 
 @pytest.mark.parametrize("shape", [
@@ -1699,14 +1703,14 @@ def test_probe_kernels_match_plain(dev, name, shape):
     launch a plane, and P4 (``stream``) gives the copy kernel's five
     outputs; at the grids' edges (:data:`PROBE_EDGES`) too, P4's at its
     own tile (fewer particles than a block, one vector past a multiple
-    of the tile, its 2-D planes row-offset views)."""
+    of the tile, one tile, its 2-D planes row-offset views)."""
     edge = shape if isinstance(shape, str) else None
     fn = None if name == "stream" else tdm.VARIANTS[name]()
     if edge and fn:
         shape = _edge_shape(dev, fn, edge)
     elif edge:
         shape = {"few": (1, 4), "past": (3, 3 * P4_TILE + 4),
-                 "view": (13, 1000)}[edge]
+                 "one": (1, P4_TILE), "view": (13, 1000)}[edge]
     skip = 1 if edge == "view" else 0
     rng = np.random.default_rng(shape[0] * 7 + shape[1])
     _cuda.reset_launch_counts()
@@ -1741,3 +1745,41 @@ def test_probe_kernels_match_plain(dev, name, shape):
         assert torch.equal(g.view(torch.int32),
                            tdm.stream_add_torch(p).view(torch.int32))
     assert _cuda.launch_counts()[fn.kernel] == n
+
+
+def test_ring_back_to_back_calls_and_plan(dev):
+    """P2's claim counter is zeroed on the stream before each launch: two
+    calls queued back to back on one stream with different inputs (and a
+    third on a plane of another size) each give their own ``x + 1``; its
+    blocks an SM are the occupancy calculator's at every ``man*``
+    variant, and the block clocks of a call bracket its work."""
+    rng = np.random.default_rng(5)
+    xs = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev)
+          for s in ((512, 4096), (512, 4096), (3, 4100))]
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name in (n for n in tdm.VARIANTS if n.startswith("man")):
+        q = tdm.VARIANTS[name]().params
+        stage = q["chunk_rows"] * tdm.STAGE_ROW_BYTES
+        _cuda.reset_launch_counts()
+        ys = [_cuda.stream_add_ring(x, stage, q["n_buf"]) for x in xs]
+        torch.cuda.synchronize()
+        for x, y in zip(xs, ys):
+            assert torch.equal(y.view(torch.int32),
+                               tdm.stream_add_torch(x).view(torch.int32))
+        assert _cuda.launch_counts()["stream_add_ring"] == 3
+        threads, per_sm = _cuda.ring_geometry(stage, q["n_buf"], dev)
+        assert threads == _cuda.RING_THREADS
+        assert per_sm == _cuda.ring_plan(1 << 40, stage, q["n_buf"],
+                                         n_sm)[1], name
+        y, clock = _cuda.stream_add_ring_on(xs[0], stage, q["n_buf"],
+                                            clock=True)
+        assert torch.equal(y, ys[0])
+        grid = _cuda.ring_plan(xs[0].numel() * 4, stage, q["n_buf"],
+                               n_sm)[0]
+        assert clock.shape == (grid, 2)
+        assert bool((clock[:, 1] > clock[:, 0]).all())
+        # any grid is correct: one block, and more blocks than stages
+        for g in (1, 4 * grid):
+            y, _ = _cuda.stream_add_ring_on(xs[2], stage, q["n_buf"], g)
+            assert torch.equal(y.view(torch.int32),
+                               tdm.stream_add_torch(xs[2]).view(torch.int32))

@@ -2,9 +2,10 @@
 every ``dma_probe.VARIANTS`` entry against the JAX package's
 ``benchmarks/dma_probe.py`` function in TPU interpret mode, P4's plain
 version against a NumPy restatement of the JAX ``copy_kernel``, the
-entry points at small sizes, the kernel wrappers' checks, and P1's and
-P3's launch plans (``ops/_cuda.py`` ``rows_plan``, ``rows_share``,
-``split_plan``) with the kernels' index arithmetic restated.
+entry points at small sizes, the kernel wrappers' checks, and P1's,
+P2's and P3's launch plans (``ops/_cuda.py`` ``rows_plan``,
+``rows_share``, ``ring_plan``, ``split_plan``) with the kernels' index
+arithmetic and P2's stage claims restated.
 
 The JAX half skips where jax is missing (the machine with the card runs
 the repo's tests without jax); the CUDA kernels are held against their
@@ -392,3 +393,129 @@ def test_split_plan_any_size(vecs, rows, row_bytes, n_buf, n_dma, n_sm):
     # the stages the wrapper takes
     assume(stage % (16 * n_dma) == 0 and 2 * n_buf * stage <= _cuda.RING_SMEM)
     _check_split_plan(16 * vecs, stage, n_buf, n_dma, n_sm)
+
+
+# --- P2's plan and stage claims (ops/_cuda.py ring_plan, csrc/probe.cu) ---
+
+#: The blocks an H100 SM holds of each ring size (bytes), as the CUDA
+#: occupancy calculator gives them for 192-thread blocks.
+RING_BLOCKS = {32 * 1024: 6, 64 * 1024: 3, 128 * 1024: 1}
+
+
+def _ring_claims(n_bytes, stage, n_buf, grid, claim, turns):
+    """``csrc/probe.cu`` stream_add_ring_kernel's claims, restated: each
+    block's producer takes ``claim`` stages a claim (``atomicAdd(
+    next_stage, claim)``), one stage a turn, its j-th stage from the
+    claim made at j - j % claim, in the order ``turns`` gives (a block
+    index a turn, drawn round-robin once it runs out; a finished block's
+    turn passes); each stops at its first stage past the last, which
+    tags its slot -1.  Returns the counter's last value and, by block,
+    the ``(slot, offset, bytes)`` of each stage it loaded and stored."""
+    n_stages = -(-n_bytes // stage)
+    counter, claims, live = 0, [[] for _ in range(grid)], set(range(grid))
+    first = [0] * grid
+    turns = iter(list(turns) + [b for _ in range(n_stages + 1)
+                                for b in range(grid)])
+    while live:
+        b = next(turns) % grid
+        if b not in live:
+            continue
+        j = len(claims[b])
+        if j % claim == 0:
+            first[b], counter = counter, counter + claim
+        g = first[b] + j % claim
+        if g >= n_stages:
+            live.discard(b)
+            continue
+        claims[b].append((j % n_buf, g * stage,
+                          min(stage, n_bytes - g * stage)))
+    return counter, claims
+
+
+def _check_ring_claims(n_bytes, stage, n_buf, n_sm, turns=()):
+    grid, per_sm = _cuda.ring_plan(n_bytes, stage, n_buf, n_sm)
+    claim = _cuda.ring_claim(stage)
+    assert claim * stage >= _cuda.RING_CLAIM_BYTES or claim == 1
+    n_stages = -(-n_bytes // stage)
+    assert 1 <= grid <= min(per_sm * n_sm, n_stages)
+    counter, claims = _ring_claims(n_bytes, stage, n_buf, grid, claim, turns)
+    # the claims tile [0, counter); the bound ring_plan checks holds
+    assert counter % claim == 0 and n_stages <= counter
+    assert counter < n_stages + (grid + 1) * claim
+    copies = sorted((off, size) for c in claims for _, off, size in c)
+    assert len(copies) == n_stages  # every stage claimed once
+    assert copies[0][0] == 0
+    assert all(a[0] + a[1] == b[0] for a, b in zip(copies, copies[1:]))
+    assert copies[-1][0] + copies[-1][1] == n_bytes
+    assert all(size > 0 and size % 16 == 0 and off % 16 == 0
+               for off, size in copies)
+    # a block's k-th stage sits in slot k % n_buf
+    assert all(slot == k % n_buf for c in claims
+               for k, (slot, _, _) in enumerate(c))
+    return grid, per_sm, claims
+
+
+@pytest.mark.parametrize("name", [n for n in tdm.VARIANTS
+                                  if n.startswith("man")])
+def test_ring_plan_fits_every_manual_variant(name):
+    """P2's rings fit 227 KB a block, and as many blocks an SM as the
+    228 KB of an SM holds (the occupancy calculator's count, checked on
+    the card by tests/test_torch_cuda.py), enough loads in flight an SM
+    to cover the latency; at least one block a stage and at most the
+    stages, on the probe's plane and on fewer stages than blocks."""
+    p = tdm.VARIANTS[name]().params
+    stage = p["chunk_rows"] * tdm.STAGE_ROW_BYTES
+    ring = p["n_buf"] * stage
+    grid, per_sm = _cuda.ring_plan(2048 * 65536 * 4, stage, p["n_buf"],
+                                   H100_SMS)
+    assert per_sm == RING_BLOCKS[ring]
+    assert ring + p["n_buf"] * _cuda.RING_SLOT_BYTES <= 227 * 1024
+    assert per_sm * (ring + p["n_buf"] * _cuda.RING_SLOT_BYTES
+                     + _cuda.BLOCK_RESERVED_SMEM) <= _cuda.SM_SMEM
+    assert per_sm * _cuda.RING_THREADS <= _cuda.SM_THREADS
+    assert per_sm * ring >= 64 * 1024 or per_sm == 1
+    assert per_sm * ring >= LATENCY_BYTES
+    assert grid == per_sm * H100_SMS
+    for n_bytes in (16, stage, 5 * stage + 16, per_sm * H100_SMS * stage
+                    - stage + 48):
+        g, _ = _cuda.ring_plan(n_bytes, stage, p["n_buf"], H100_SMS)
+        assert g == min(-(-n_bytes // stage), per_sm * H100_SMS) >= 1
+
+
+@pytest.mark.parametrize("n_bytes,stage,n_buf,n_sm", [
+    # the probe's plane at man16x4; one stage; one vector; fewer stages
+    # than blocks, the last one short; one vector past a multiple of
+    # stage x grid; a 128 KiB ring on a few SMs
+    (2048 * 65536 * 4, 8192, 4, H100_SMS), (8192, 8192, 4, H100_SMS),
+    (16, 8192, 4, H100_SMS), (37 * 8192 + 4000 - 4000 % 16, 8192, 4, 13),
+    (3 * 6 * 4 * 4096 + 16, 4096, 8, 4), (40 * 65536 + 16, 65536, 2, 3)])
+def test_ring_claims_cover_every_stage_once(n_bytes, stage, n_buf, n_sm):
+    """Claimed round-robin, each stage goes to one claim and every byte
+    to one bulk copy each way."""
+    _check_ring_claims(n_bytes, stage, n_buf, n_sm)
+
+
+@settings(max_examples=60, deadline=None, database=None)
+@given(vecs=st.integers(1, 1 << 14), rows=st.sampled_from([1, 8, 16, 64]),
+       row_bytes=st.sampled_from([16, 64, 512]),
+       n_buf=st.sampled_from(_cuda.RING_DEPTHS), n_sm=st.integers(1, 40),
+       turns=st.lists(st.integers(0, 1 << 10), max_size=400))
+def test_ring_claims_any_size_any_order(vecs, rows, row_bytes, n_buf, n_sm,
+                                        turns):
+    """Whatever order the blocks claim in (a fast block taking many
+    stages in a row, a slow one none), every stage is claimed once, every
+    byte is copied once, and every block ends on its one claim past the
+    last stage."""
+    stage = rows * row_bytes
+    assume(n_buf * stage <= _cuda.RING_SMEM)
+    _check_ring_claims(16 * vecs, stage, n_buf, n_sm, turns)
+
+
+def test_ring_plan_bounds_the_claim_counter():
+    """Stages and blocks that pass the kernel's int32 claim counter are
+    refused before the card is asked."""
+    # stages of 16 B go 512 to a claim
+    n = 2**31 - 1321 * 512 - 1
+    assert _cuda.ring_plan(16 * n, 16, 2, H100_SMS)[0] == 1320
+    with pytest.raises(ValueError, match="int32 claim counter"):
+        _cuda.ring_plan(16 * (n + 1), 16, 2, H100_SMS)
