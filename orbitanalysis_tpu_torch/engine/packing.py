@@ -15,6 +15,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 
+from orbitanalysis_tpu_torch.utils.metrics import phase_timer
 from orbitanalysis_tpu_torch.utils.padding import (
     invalid_id_for,
     pack_ragged,
@@ -235,12 +236,16 @@ def pack_snapshot_aligned(
     id_dtype=np.int32,
     pos_dtype=np.float32,
     restore_dest: Optional[np.ndarray] = None,
+    phases: Optional[dict] = None,
 ) -> PackedSnapshot:
     """Pack one loader snapshot into the stable layout (see
     :func:`align_packed` for the slot contract).  ``restore_dest``
     (resume seeding): ``[H, P]`` checkpointed stable positions of this
     snapshot's load-order entries, restored into the layout before
     aligning so the resumed run reproduces the crashed run's positions.
+    ``phases``: a record dict the alignment's host seconds are added
+    into (``align_s``, :func:`~orbitanalysis_tpu_torch.utils.metrics.
+    phase_timer`).
     """
     load = pack_snapshot(
         snapshot, rows, n_halos, layout.capacity, region_positions,
@@ -248,9 +253,10 @@ def pack_snapshot_aligned(
     )
     if restore_dest is not None:
         layout.restore(load.ids, restore_dest)
-    ids, pos, vel, mass, slot = align_packed(
-        layout, load.ids, load.pos, load.vel, load.mass
-    )
+    with phase_timer(phases, "track.pack.align"):
+        ids, pos, vel, mass, slot = align_packed(
+            layout, load.ids, load.pos, load.vel, load.mass
+        )
     return load._replace(ids=ids, pos=pos, vel=vel, mass=mass, slot=slot)
 
 

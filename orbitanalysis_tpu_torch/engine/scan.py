@@ -29,6 +29,7 @@ from orbitanalysis_tpu_torch.ops.apsis import (
     make_orbit_step,
 )
 from orbitanalysis_tpu_torch.ops.join import gather_rows
+from orbitanalysis_tpu_torch.utils.metrics import phase_timer
 from orbitanalysis_tpu_torch.utils.padding import invalid_id_for
 
 
@@ -60,16 +61,18 @@ def _on_device(snaps: SnapshotBatch, dev) -> dict:
 def _scan(step, carry, snaps: SnapshotBatch, dev, emit):
     """``step`` over the snapshots of ``snaps``, the stack moved to
     ``dev`` once; ``emit(ev)`` picks each step's outputs, stacked along
-    a new leading axis.  Returns ``(final_carry, stacked outputs)``."""
+    a new leading axis.  Returns ``(final_carry, stacked outputs)``.
+    Each step is the profiler range ``oa.scan.step``."""
     snaps = _with_drag_axis(snaps)
     fields = _on_device(snaps, dev)
     outs = []
     for s in range(snaps.ids.shape[0]):
-        batch = SnapshotBatch(
-            **{k: None if v is None else v[s] for k, v in fields.items()},
-            hubble_drag=float(snaps.hubble_drag[s]))
-        carry, ev = step(carry, batch)
-        outs.append(emit(ev))
+        with phase_timer(None, "scan.step"):
+            batch = SnapshotBatch(
+                **{k: None if v is None else v[s] for k, v in fields.items()},
+                hubble_drag=float(snaps.hubble_drag[s]))
+            carry, ev = step(carry, batch)
+            outs.append(emit(ev))
     return carry, tuple(torch.stack(x) for x in zip(*outs))
 
 

@@ -30,6 +30,7 @@ are gathered to every rank and rank 0 writes.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import NamedTuple, Optional
 
@@ -308,17 +309,21 @@ def _on_primary(fn):
     return value
 
 
-def _stage(packed: PackedSnapshot, hubble_drag: float, device, mesh=None):
+def _stage(packed: PackedSnapshot, hubble_drag: float, device, mesh=None,
+           counts=None):
     """One packed snapshot as a device :class:`SnapshotBatch` (with a
     mesh: this rank's block of it).  On CUDA the host arrays go through
     pinned buffers with asynchronous copies, so staging does not wait
-    for the step still running."""
+    for the step still running.  ``counts``: a dict whose ``h2d_bytes``
+    the bytes handed to the device are added into."""
     cuda = torch.device(device).type == "cuda"
 
     def t(a):
         if a is None:
             return None
         x = torch.from_numpy(np.ascontiguousarray(a))
+        if counts is not None:
+            counts["h2d_bytes"] = counts.get("h2d_bytes", 0) + x.nbytes
         if cuda:
             return x.pin_memory().to(device, non_blocking=True)
         return x.to(device)
@@ -362,6 +367,25 @@ def _particles_step(step, mesh):
         return shard_tree(carry, mesh, keep), events
 
     return sharded
+
+
+class _StepClock:
+    """The step's stretch of the device stream: CUDA timing events
+    recorded after the staging copies (at creation) and after the step's
+    last launch (:meth:`stop`, before the step's fetch copies).  Read
+    once the fetch's own event has completed, which completes both: no
+    added synchronisation."""
+
+    def __init__(self):
+        self._start = torch.cuda.Event(enable_timing=True)
+        self._end = torch.cuda.Event(enable_timing=True)
+        self._start.record()
+
+    def stop(self):
+        self._end.record()
+
+    def seconds(self) -> float:
+        return self._start.elapsed_time(self._end) * 1e-3
 
 
 class _DeviceEngine:
@@ -596,15 +620,19 @@ class _DeviceEngine:
             device=self.device if self.mesh is None else "cpu"))
         return out, ids_l
 
-    def stage(self, packed: PackedSnapshot, hubble_drag: float):
+    def stage(self, packed: PackedSnapshot, hubble_drag: float,
+              counts=None):
         """The step's input: this rank's block of ``packed`` on the
-        device."""
-        return _stage(packed, hubble_drag, self.device, self.mesh)
+        device (``counts``: as :func:`_stage`'s)."""
+        return _stage(packed, hubble_drag, self.device, self.mesh, counts)
 
-    def step(self, batch: SnapshotBatch, static: bool = False):
+    def step(self, batch: SnapshotBatch, static: bool = False,
+             clock: Optional[_StepClock] = None):
         fn = self._step_fn(
             static=static and self.join not in ("sorted", "aligned"))
         self.carry, events = fn(self.carry, batch)
+        if clock is not None:
+            clock.stop()
         if self.join == "aligned":
             small = dict(count=events.count, ids=events.ids,
                          angles=events.angles, bulk_vel=events.bulk_vel)
@@ -782,12 +810,13 @@ class _HashEngine:
         self.event_capacity = new_cap
         self._build()
 
-    def stage(self, packed, hubble_drag):
+    def stage(self, packed, hubble_drag, counts=None):  # noqa: ARG002
         """The step's input: the routed batch row with the full centre
-        and bulk-velocity tables (:func:`_hash_batch`)."""
+        and bulk-velocity tables (:func:`_hash_batch`; routed on the
+        device, so nothing to count)."""
         return packed.batch, packed.center, packed.bulk_vel, hubble_drag
 
-    def step(self, staged, static=False):  # noqa: ARG002 — no static path
+    def step(self, staged, static=False, clock=None):  # noqa: ARG002 — mesh
         self.carry, events = self._step(self.carry, *staged)
         small = dict(count=events.count, halo=events.halo, ids=events.ids,
                      slots=events.slots, angles=events.angles,
@@ -872,7 +901,11 @@ def track_orbits(
         ``mode='both'``.
     mode : {'pericentric', 'apocentric', 'both'}
     capacity, headroom, id_dtype, angle_dtype, event_capacity, metrics,
-    prefetch, checkpoint, resume, verbose : as in the JAX package.
+    prefetch, checkpoint, resume, verbose : as in the JAX package.  On
+        the single-device engines the ``metrics`` records also account
+        for the whole call (:class:`~orbitanalysis_tpu_torch.utils.
+        metrics.Metrics` lists their keys); with a mesh they hold the
+        phases of each snapshot.
     profile_dir : directory for a ``torch.profiler`` Chrome trace.
     join_impl : {'auto', 'general', 'sorted', 'aligned'}.  ``'auto'``
         picks ``'aligned'`` on a CUDA device when its constraints hold
@@ -907,6 +940,12 @@ def track_orbits(
         its checkpoint.  The steps run on the mesh's device, which must
         be of ``device``'s type.
     """
+    # the call's accounting (single-device engines, with metrics): the
+    # lead runs from here to the first saved snapshot's iteration
+    acct = metrics is not None and mesh is None
+    lead = {} if acct else None
+    lead_span = contextlib.ExitStack()
+    lead_span.enter_context(phase_timer(lead, "track.lead"))
     device = resolve_device(device, "track_orbits")
     writer = io_hdf5.H5Writer() if writer is None else writer
     if join_impl not in ("auto", "general", "sorted", "aligned"):
@@ -1011,19 +1050,50 @@ def track_orbits(
     # and its event fetch + savefile write deferred into ``pending``,
     # flushed while snapshot s+1 loads, packs and computes.
     pending = None
+    flushed_s = 0.0  # a saved snapshot's flush inside this iteration
 
     def flush_pending():
-        nonlocal pending
+        nonlocal pending, flushed_s
         if pending is None:
             return
         p, phases = pending, pending["phases"]
         pending = None
+        new = phases if acct else None  # keys of the call's accounting
+        flush = {} if acct and p["save"] else None
+        with phase_timer(flush, "track.flush"):
+            _flush(p, phases, new)
+        if flush is not None:
+            phases["snapshot_s"] = phases.get("snapshot_s", 0.0) + \
+                flush["flush_s"]
+            flushed_s += flush["flush_s"]
+        if p["save"] and metrics is not None:
+            extra = (
+                {"n_events_" + io_hdf5.apsis_tag(m): n
+                 for m, n in p["n_events_by_mode"].items()}
+                if len(modes) > 1 else {}
+            )
+            metrics.log(
+                snapshot=int(p["snapshot_number"]),
+                n_halos_active=int(len(p["rows"])),
+                n_particles=int(p["n_particles"]),
+                n_events=int(sum(p["n_events_by_mode"].values())),
+                join=engine.join,
+                capacity=int(engine.capacity),
+                event_capacity=int(engine.event_capacity),
+                **extra,
+                **phases,
+            )
+
+    def _flush(p, phases, new):
+        """Fetch, decode and write the pending snapshot ``p``, then its
+        checkpoint; ``new``: the dict of the accounting's keys, or
+        None."""
         if p["save"]:
-            n_events_by_mode = {}
+            n_events_by_mode = p["n_events_by_mode"] = {}
             saved_rows = p["saved_rows"]
             for (events, fetch), ev_engine, mname, fname in zip(
                     p["events_list"], engines, modes, savefiles):
-                with phase_timer(phases, "fetch"):
+                with phase_timer(phases, "track.fetch"):
                     ev_count = fetch["count"]
                     bulk_vel = fetch["bulk_vel"]
                 if verbose:
@@ -1043,7 +1113,7 @@ def track_orbits(
                         fetch, ev_engine, saved_rows, n_rows, phases)
                 elif engine.join == "aligned":
                     ids_flat, angles_flat = _aligned_events(
-                        p, events, fetch, ev_engine, counts, phases,
+                        p, events, fetch, ev_engine, counts, phases, new,
                         verbose)
                 elif engine.join == "sorted":
                     # overflow free (the event buffer spans the
@@ -1052,32 +1122,37 @@ def track_orbits(
                     # count-bounded slice
                     kf = min(round_up(max(int(counts.max(initial=0)), 1),
                                       256), ev_engine.capacity)
-                    with phase_timer(phases, "fetch"):
+                    with phase_timer(phases, "track.fetch"):
                         ev_ids = fetch["ids"][saved_rows, :kf]
                         ev_angles = fetch["angles"][saved_rows, :kf]
                         ev_slots = fetch["slots"][saved_rows, :kf]
-                    sel = np.arange(kf)[None, :] < counts[:, None]
-                    order = np.argsort(
-                        np.where(sel, ev_slots, np.iinfo(np.int32).max),
-                        axis=-1, kind="stable")
-                    ids_flat = np.take_along_axis(ev_ids, order, -1)[sel]
-                    angles_flat = np.take_along_axis(ev_angles, order,
-                                                     -1)[sel]
+                    with phase_timer(new, "track.decode"):
+                        sel = np.arange(kf)[None, :] < counts[:, None]
+                        order = np.argsort(
+                            np.where(sel, ev_slots, np.iinfo(np.int32).max),
+                            axis=-1, kind="stable")
+                        ids_flat = np.take_along_axis(ev_ids, order,
+                                                      -1)[sel]
+                        angles_flat = np.take_along_axis(ev_angles, order,
+                                                         -1)[sel]
                 elif int(counts.max(initial=0)) > ev_engine.event_capacity:
                     # event-capacity overflow: fetch the full masks
-                    with phase_timer(phases, "fetch"):
+                    with phase_timer(phases, "track.fetch"):
                         apsis = _host(events.apsis)
                         apsis_angle = _host(events.apsis_angle)
-                    _, ids_flat, angles_flat = unpack_mask(
-                        apsis, p["layout_ids"], apsis_angle, rows=saved_rows)
+                    with phase_timer(new, "track.decode"):
+                        _, ids_flat, angles_flat = unpack_mask(
+                            apsis, p["layout_ids"], apsis_angle,
+                            rows=saved_rows)
                 else:
-                    with phase_timer(phases, "fetch"):
+                    with phase_timer(phases, "track.fetch"):
                         ev_ids = fetch["ids"][saved_rows]
                         ev_angles = fetch["angles"][saved_rows]
-                    sel = (np.arange(ev_ids.shape[1])[None, :]
-                           < counts[:, None])
-                    ids_flat, angles_flat = ev_ids[sel], ev_angles[sel]
-                with phase_timer(phases, "save"):
+                    with phase_timer(new, "track.decode"):
+                        sel = (np.arange(ev_ids.shape[1])[None, :]
+                               < counts[:, None])
+                        ids_flat, angles_flat = ev_ids[sel], ev_angles[sel]
+                with phase_timer(phases, "track.save"):
                     if primary:  # single writer
                         writer.append_snapshot(
                             fname, p["snapshot_number"],
@@ -1097,23 +1172,9 @@ def track_orbits(
                             verbose=verbose,
                         )
                 n_events_by_mode[mname] = int(len(ids_flat))
-            if metrics is not None:
-                extra = (
-                    {"n_events_" + io_hdf5.apsis_tag(m): n
-                     for m, n in n_events_by_mode.items()}
-                    if len(modes) > 1 else {}
-                )
-                metrics.log(
-                    snapshot=int(p["snapshot_number"]),
-                    n_halos_active=int(len(p["rows"])),
-                    n_particles=int(p["n_particles"]),
-                    n_events=int(sum(n_events_by_mode.values())),
-                    join=engine.join,
-                    capacity=int(engine.capacity),
-                    event_capacity=int(engine.event_capacity),
-                    **extra,
-                    **phases,
-                )
+            if p["clock"] is not None:
+                # every fetch has been read: the clock's events are done
+                phases["step_device_s"] = p["clock"].seconds()
         if checkpoint:
             _write_checkpoint(p, engines, savefiles, writer, primary)
 
@@ -1124,274 +1185,297 @@ def track_orbits(
     try:
         with trace(profile_dir):
             for i, (halo_ids, snapshot_number) in enumerate(items):
-                if verbose:
-                    print("-" * 30, "\n")
-                    print("Snapshot {}\n".format("%03d" % snapshot_number))
                 phases = {}
-                # the recorded 'load' phase is the residual wait on the
-                # prefetch thread
-                with phase_timer(phases, "load"):
-                    rows, payload = feed.get(i)
-                if payload is None:
-                    continue
-                (region_positions, region_radii, region_bulk_vels,
-                 snapshot) = payload
-                if len(snapshot["coordinates"]) == 0:
-                    continue
-                hubble_drag = _hubble_drag(snapshot)
-                offsets = np.asarray(snapshot["region_offsets"],
-                                     dtype=np.int64)
-                lengths = np.diff(np.concatenate(
-                    (offsets, [len(snapshot["ids"])])))
+                new = phases if acct else None  # the accounting's keys
+                if started:
+                    lead_span.close()  # the seed snapshot is done
+                flushed_s = 0.0
+                with phase_timer(new, "track.snapshot"):
+                    if verbose:
+                        print("-" * 30, "\n")
+                        print("Snapshot {}\n".format(
+                            "%03d" % snapshot_number))
+                    # the recorded 'load' phase is the residual wait on the
+                    # prefetch thread
+                    with phase_timer(phases, "track.load"):
+                        rows, payload = feed.get(i)
+                    if payload is None:
+                        continue
+                    (region_positions, region_radii, region_bulk_vels,
+                     snapshot) = payload
+                    if len(snapshot["coordinates"]) == 0:
+                        continue
+                    hubble_drag = _hubble_drag(snapshot)
+                    offsets = np.asarray(snapshot["region_offsets"],
+                                         dtype=np.int64)
+                    lengths = np.diff(np.concatenate(
+                        (offsets, [len(snapshot["ids"])])))
 
-                if engine is None and join_impl == "hash":
-                    box_size = snapshot.get("box_size")
-                    n_shards = int(mesh.shape["shards"])
-                    cap = capacity or round_up(int(np.ceil(
-                        len(snapshot["ids"]) / n_shards * headroom)) + 1,
-                        128)
-                    from orbitanalysis_tpu_torch.parallel.hash_sharded import (
-                        WideIdMap,
-                    )
+                    if engine is None and join_impl == "hash":
+                        box_size = snapshot.get("box_size")
+                        n_shards = int(mesh.shape["shards"])
+                        cap = capacity or round_up(int(np.ceil(
+                            len(snapshot["ids"]) / n_shards * headroom)) + 1,
+                            128)
+                        from orbitanalysis_tpu_torch.parallel.hash_sharded \
+                            import WideIdMap
 
-                    # one ID map: the pair routes once, through engines[0]
-                    id_map = (WideIdMap() if np.dtype(id_dtype).itemsize == 8
-                              else None)
-                    engines = [
-                        _HashEngine(mesh, n_rows, m, box_size, cap,
-                                    angle_dtype, id_map=id_map)
-                        for m in modes
-                    ]
-                    engine = engines[0]
-                    if not resume and primary:
-                        for fname, m in zip(savefiles, modes):
-                            writer.initialize(fname, m, box_size, verbose)
-                if engine is None:
-                    box_size = snapshot.get("box_size")
-                    cap = capacity or required_capacity(lengths, headroom)
-                    if join_impl == "sorted":
-                        cap = max(round_up_pow2(cap), 128)
-                        if cap > MAX_FUSED_CAPACITY:
-                            raise ValueError(
-                                f"join_impl='sorted' supports per-halo "
-                                f"capacities up to {MAX_FUSED_CAPACITY} "
-                                f"(needed {cap}); use join_impl='general'"
-                            )
-                    if join_impl == "aligned":
-                        cap = max(round_up_pow2(cap), 128)
-                        if (resume_layout_flat is not None
-                                and resume_layout_flat.size):
-                            # the crashed run may have grown past what
-                            # the seed snapshot needs; its checkpointed
-                            # positions must stay addressable
-                            cap = max(cap, round_up_pow2(
-                                int(resume_layout_flat.max()) + 1))
-                        wide = np.dtype(id_dtype).itemsize == 8
-                        limit = (
-                            MAX_ALIGNED_CAPACITY
-                            if (not join_was_auto) or wide
-                            else AUTO_FUSED_CAPACITY
-                        )
-                        if cap > limit:
-                            if join_was_auto and not wide:
-                                join_impl = "general"
-                                cap = capacity or required_capacity(
-                                    lengths, headroom)
-                            else:
-                                raise ValueError(
-                                    f"join_impl={join_impl!r} supports "
-                                    f"per-halo capacities up to {limit} "
-                                    f"(needed {cap}); use "
-                                    "join_impl='general'"
-                                )
-                    engines = [
-                        _DeviceEngine(
-                            n_rows, cap, m, box_size, id_dtype, angle_dtype,
-                            device, event_capacity=event_capacity,
-                            join=join_impl, mesh=mesh,
-                        )
-                        for m in modes
-                    ]
-                    engine = engines[0]
-                    if join_impl == "aligned":
-                        stable_layout = StableLayout(
-                            n_rows, engine.capacity, id_dtype=id_dtype)
-                    if not resume and primary:
-                        for fname, m in zip(savefiles, modes):
-                            writer.initialize(fname, m, box_size, verbose)
-
-                # the hash engine grows its shard capacity in route()
-                if (engine.join != "hash" and lengths.size
-                        and int(lengths.max()) > engine.capacity):
-                    # growth re-pads device state: drain the pipeline so
-                    # pending overflow fallbacks keep their shapes
-                    flush_pending()
-                    new_cap = required_capacity(lengths, headroom)
-                    to_general = engine.join in ("sorted", "aligned") and (
-                        grow_impl == "general"
-                        or (grow_impl == "auto" and join_was_auto)
-                    )
-                    if to_general and engine.surrogate:
-                        if grow_impl == "general":
-                            raise ValueError(
-                                "wide (64-bit) particle IDs ride a 32-bit "
-                                "device surrogate on the aligned engine; "
-                                "grow in place instead: grow_impl='keep'"
-                            )
-                        to_general = False
-                    if to_general:
-                        if verbose:
-                            print(
-                                "Growing particle capacity "
-                                f"{engine.capacity} -> {new_cap}; "
-                                "switching to the general join engine\n"
-                            )
-                        converted = [e.to_general(new_cap, prev_ids_host)
-                                     for e in engines]
-                        engines = [e for e, _ in converted]
+                        # one ID map: the pair routes once, through engines[0]
+                        id_map = (WideIdMap()
+                                  if np.dtype(id_dtype).itemsize == 8
+                                  else None)
+                        engines = [
+                            _HashEngine(mesh, n_rows, m, box_size, cap,
+                                        angle_dtype, id_map=id_map)
+                            for m in modes
+                        ]
                         engine = engines[0]
-                        prev_ids_host = converted[0][1]
-                        join_impl = "general"
-                        stable_layout = None
-                    else:
-                        if verbose:
-                            print(
-                                "Growing particle capacity "
-                                f"{engine.capacity} -> {new_cap}\n"
+                        if not resume and primary:
+                            for fname, m in zip(savefiles, modes):
+                                writer.initialize(fname, m, box_size, verbose)
+                    if engine is None:
+                        box_size = snapshot.get("box_size")
+                        cap = capacity or required_capacity(lengths, headroom)
+                        if join_impl == "sorted":
+                            cap = max(round_up_pow2(cap), 128)
+                            if cap > MAX_FUSED_CAPACITY:
+                                raise ValueError(
+                                    f"join_impl='sorted' supports per-halo "
+                                    f"capacities up to {MAX_FUSED_CAPACITY} "
+                                    f"(needed {cap}); use join_impl='general'"
+                                )
+                        if join_impl == "aligned":
+                            cap = max(round_up_pow2(cap), 128)
+                            if (resume_layout_flat is not None
+                                    and resume_layout_flat.size):
+                                # the crashed run may have grown past what
+                                # the seed snapshot needs; its checkpointed
+                                # positions must stay addressable
+                                cap = max(cap, round_up_pow2(
+                                    int(resume_layout_flat.max()) + 1))
+                            wide = np.dtype(id_dtype).itemsize == 8
+                            limit = (
+                                MAX_ALIGNED_CAPACITY
+                                if (not join_was_auto) or wide
+                                else AUTO_FUSED_CAPACITY
                             )
-                        for e in engines:
-                            e.grow(new_cap)
-                        if stable_layout is not None:
-                            stable_layout.grow(engine.capacity)
-                        if prev_ids_host is not None:
-                            grow_by = ((0, 0), (0, engine.capacity
-                                                - prev_ids_host.shape[1]))
-                            prev_ids_host = np.pad(
-                                prev_ids_host, grow_by,
-                                constant_values=engine.invalid)
-                            if prev_slot_host is not None:
-                                # padded positions are all FRESH next
-                                # step, so no event can reference them
-                                prev_slot_host = np.pad(prev_slot_host,
-                                                        grow_by)
+                            if cap > limit:
+                                if join_was_auto and not wide:
+                                    join_impl = "general"
+                                    cap = capacity or required_capacity(
+                                        lengths, headroom)
+                                else:
+                                    raise ValueError(
+                                        f"join_impl={join_impl!r} supports "
+                                        f"per-halo capacities up to {limit} "
+                                        f"(needed {cap}); use "
+                                        "join_impl='general'"
+                                    )
+                        engines = [
+                            _DeviceEngine(
+                                n_rows, cap, m, box_size, id_dtype,
+                                angle_dtype, device,
+                                event_capacity=event_capacity,
+                                join=join_impl, mesh=mesh,
+                            )
+                            for m in modes
+                        ]
+                        engine = engines[0]
+                        if join_impl == "aligned":
+                            stable_layout = StableLayout(
+                                n_rows, engine.capacity, id_dtype=id_dtype)
+                        if not resume and primary:
+                            for fname, m in zip(savefiles, modes):
+                                writer.initialize(fname, m, box_size, verbose)
 
-                with phase_timer(phases, "pack"):
-                    if join_impl == "hash":
-                        packed = _hash_batch(
-                            engines, snapshot, rows, lengths, n_rows,
-                            region_positions, region_bulk_vels, device)
-                    elif join_impl == "aligned":
-                        restore = None
-                        if not started and resume_layout_flat is not None:
-                            restore = pack_ragged(
-                                resume_layout_flat.astype(np.int32),
-                                offsets, n_rows, engine.capacity, rows=rows,
-                                fill=-1,
+                    # the hash engine grows its shard capacity in route()
+                    if (engine.join != "hash" and lengths.size
+                            and int(lengths.max()) > engine.capacity):
+                        # growth re-pads device state: drain the pipeline so
+                        # pending overflow fallbacks keep their shapes
+                        flush_pending()
+                        new_cap = required_capacity(lengths, headroom)
+                        to_general = engine.join in ("sorted", "aligned") and (
+                            grow_impl == "general"
+                            or (grow_impl == "auto" and join_was_auto)
+                        )
+                        if to_general and engine.surrogate:
+                            if grow_impl == "general":
+                                raise ValueError(
+                                    "wide (64-bit) particle IDs ride a 32-bit "
+                                    "device surrogate on the aligned engine; "
+                                    "grow in place instead: grow_impl='keep'"
+                                )
+                            to_general = False
+                        if to_general:
+                            if verbose:
+                                print(
+                                    "Growing particle capacity "
+                                    f"{engine.capacity} -> {new_cap}; "
+                                    "switching to the general join engine\n"
+                                )
+                            converted = [e.to_general(new_cap, prev_ids_host)
+                                         for e in engines]
+                            engines = [e for e, _ in converted]
+                            engine = engines[0]
+                            prev_ids_host = converted[0][1]
+                            join_impl = "general"
+                            stable_layout = None
+                        else:
+                            if verbose:
+                                print(
+                                    "Growing particle capacity "
+                                    f"{engine.capacity} -> {new_cap}\n"
+                                )
+                            for e in engines:
+                                e.grow(new_cap)
+                            if stable_layout is not None:
+                                stable_layout.grow(engine.capacity)
+                            if prev_ids_host is not None:
+                                grow_by = ((0, 0), (0, engine.capacity
+                                                    - prev_ids_host.shape[1]))
+                                prev_ids_host = np.pad(
+                                    prev_ids_host, grow_by,
+                                    constant_values=engine.invalid)
+                                if prev_slot_host is not None:
+                                    # padded positions are all FRESH next
+                                    # step, so no event can reference them
+                                    prev_slot_host = np.pad(prev_slot_host,
+                                                            grow_by)
+
+                    with phase_timer(phases, "track.pack"):
+                        if join_impl == "hash":
+                            packed = _hash_batch(
+                                engines, snapshot, rows, lengths, n_rows,
+                                region_positions, region_bulk_vels, device)
+                        elif join_impl == "aligned":
+                            restore = None
+                            if not started and resume_layout_flat is not None:
+                                restore = pack_ragged(
+                                    resume_layout_flat.astype(np.int32),
+                                    offsets, n_rows, engine.capacity,
+                                    rows=rows, fill=-1,
+                                )
+                            packed = pack_snapshot_aligned(
+                                snapshot, rows, n_rows, stable_layout,
+                                region_positions, region_bulk_vels,
+                                id_dtype=id_dtype, restore_dest=restore,
+                                phases=new,
                             )
-                        packed = pack_snapshot_aligned(
-                            snapshot, rows, n_rows, stable_layout,
-                            region_positions, region_bulk_vels,
-                            id_dtype=id_dtype, restore_dest=restore,
+                        else:
+                            packed = pack_snapshot(
+                                snapshot, rows, n_rows, engine.capacity,
+                                region_positions, region_bulk_vels,
+                                id_dtype=id_dtype,
+                                sort_ids=join_impl == "sorted",
+                            )
+
+                    t0 = time.time()
+                    # host bookkeeping copies (none for the hash engine)
+                    packed_ids_host = packed.ids
+                    packed_slot_host = packed.slot
+                    if join_impl == "aligned":
+                        # strip the FRESH flags: host bookkeeping uses the
+                        # slot channel as scatter/gather indices
+                        packed_slot_host = packed_slot_host & SLOT_MASK
+                    if engine.surrogate:
+                        # wide IDs stay on the host; the device ID channel
+                        # is the position surrogate (iota where occupied)
+                        iota = np.broadcast_to(
+                            np.arange(engine.capacity, dtype=np.int32),
+                            packed.ids.shape)
+                        packed = packed._replace(ids=np.where(
+                            packed.ids != engine.invalid, iota,
+                            np.int32(engine._dev_invalid)))
+                    # static membership (general engine): an identical ID
+                    # layout to the previous snapshot needs no join (the
+                    # sorted engine tests it on the device)
+                    static = (
+                        join_impl not in ("sorted", "aligned")
+                        and prev_ids_host is not None
+                        and bool(np.array_equal(packed_ids_host,
+                                                prev_ids_host))
+                    )
+                    if checkpoint and pending is not None:
+                        # the pending snapshot's angles, before the next
+                        # step replaces the carry
+                        pending["angles_host"] = [
+                            e.checkpoint_angles() for e in engines]
+                    layout_ids = prev_ids_host  # the queued step's layout
+                    with phase_timer(phases, "track.step"):
+                        with phase_timer(new, "track.stage"):
+                            batch = engine.stage(packed, hubble_drag,
+                                                 counts=new)
+                        with phase_timer(new, "track.issue"):
+                            clock = (_StepClock()
+                                     if acct and device.type == "cuda"
+                                     else None)
+                            events_list = [
+                                e.step(batch, static=static, clock=clock)
+                                for e in engines]
+
+                    if not started:
+                        # the first processed snapshot seeds the carry;
+                        # nothing to save
+                        if resume:
+                            _resume_angles(engines, savefiles, writer, offsets,
+                                           rows, angle_dtype, snapshot_number,
+                                           packed_slot_host)
+                        started = True
+                        new_pending = dict(
+                            save=False, phases=phases, rows=rows,
+                            packed_ids=packed_ids_host,
+                            packed_slot=packed_slot_host,
+                            n_particles=len(snapshot["ids"]),
+                            snapshot_number=snapshot_number,
                         )
                     else:
-                        packed = pack_snapshot(
-                            snapshot, rows, n_rows, engine.capacity,
-                            region_positions, region_bulk_vels,
-                            id_dtype=id_dtype,
-                            sort_ids=join_impl == "sorted",
+                        saved_rows = np.intersect1d(rows, prev_rows)
+                        radii_full = np.zeros(
+                            n_rows, dtype=np.asarray(region_radii).dtype)
+                        radii_full[rows] = region_radii
+                        pos_full = np.zeros((n_rows, 3),
+                                            dtype=region_positions.dtype)
+                        pos_full[rows] = region_positions
+                        if lead:  # the call's first record
+                            phases.update(lead)
+                            lead = None
+                        new_pending = dict(
+                            save=True,
+                            phases=phases,
+                            events_list=events_list,
+                            clock=clock,
+                            t0=t0,
+                            rows=rows,
+                            saved_rows=saved_rows,
+                            layout_ids=layout_ids,
+                            packed_ids=packed_ids_host,
+                            packed_slot=packed_slot_host,
+                            prev_packed_slot=prev_slot_host,
+                            snapshot_number=snapshot_number,
+                            n_particles=len(snapshot["ids"]),
+                            halo_ids_saved=halo_ids[saved_rows],
+                            final_desc=(
+                                final_branch[saved_rows]
+                                if snapshot_number != final_snapshot
+                                else None
+                            ),
+                            region_radii_saved=radii_full[saved_rows],
+                            region_positions_saved=pos_full[saved_rows],
                         )
 
-                t0 = time.time()
-                # host bookkeeping copies (none for the hash engine)
-                packed_ids_host = packed.ids
-                packed_slot_host = packed.slot
-                if join_impl == "aligned":
-                    # strip the FRESH flags: host bookkeeping uses the
-                    # slot channel as scatter/gather indices
-                    packed_slot_host = packed_slot_host & SLOT_MASK
-                if engine.surrogate:
-                    # wide IDs stay on the host; the device ID channel
-                    # is the position surrogate (iota where occupied)
-                    iota = np.broadcast_to(
-                        np.arange(engine.capacity, dtype=np.int32),
-                        packed.ids.shape)
-                    packed = packed._replace(ids=np.where(
-                        packed.ids != engine.invalid, iota,
-                        np.int32(engine._dev_invalid)))
-                # static membership (general engine): an identical ID
-                # layout to the previous snapshot needs no join (the
-                # sorted engine tests it on the device)
-                static = (
-                    join_impl not in ("sorted", "aligned")
-                    and prev_ids_host is not None
-                    and bool(np.array_equal(packed_ids_host, prev_ids_host))
-                )
-                if checkpoint and pending is not None:
-                    # the pending snapshot's angles, before the next
-                    # step replaces the carry
-                    pending["angles_host"] = [
-                        e.checkpoint_angles() for e in engines]
-                layout_ids = prev_ids_host  # the queued step's prev layout
-                with phase_timer(phases, "step"):
-                    batch = engine.stage(packed, hubble_drag)
-                    events_list = [e.step(batch, static=static)
-                                   for e in engines]
-
-                if not started:
-                    # the first processed snapshot seeds the carry;
-                    # nothing to save
-                    if resume:
-                        _resume_angles(engines, savefiles, writer, offsets,
-                                       rows, angle_dtype, snapshot_number,
-                                       packed_slot_host)
-                    started = True
-                    new_pending = dict(
-                        save=False, phases=phases, rows=rows,
-                        packed_ids=packed_ids_host,
-                        packed_slot=packed_slot_host,
-                        n_particles=len(snapshot["ids"]),
-                        snapshot_number=snapshot_number,
-                    )
-                else:
-                    saved_rows = np.intersect1d(rows, prev_rows)
-                    radii_full = np.zeros(
-                        n_rows, dtype=np.asarray(region_radii).dtype)
-                    radii_full[rows] = region_radii
-                    pos_full = np.zeros((n_rows, 3),
-                                        dtype=region_positions.dtype)
-                    pos_full[rows] = region_positions
-                    new_pending = dict(
-                        save=True,
-                        phases=phases,
-                        events_list=events_list,
-                        t0=t0,
-                        rows=rows,
-                        saved_rows=saved_rows,
-                        layout_ids=layout_ids,
-                        packed_ids=packed_ids_host,
-                        packed_slot=packed_slot_host,
-                        prev_packed_slot=prev_slot_host,
-                        snapshot_number=snapshot_number,
-                        n_particles=len(snapshot["ids"]),
-                        halo_ids_saved=halo_ids[saved_rows],
-                        final_desc=(
-                            final_branch[saved_rows]
-                            if snapshot_number != final_snapshot
-                            else None
-                        ),
-                        region_radii_saved=radii_full[saved_rows],
-                        region_positions_saved=pos_full[saved_rows],
-                    )
-
-                # flush the previous snapshot's I/O while this step runs
-                flush_pending()
-                pending = new_pending
-                prev_ids_host = packed_ids_host
-                prev_slot_host = packed_slot_host
-                prev_rows = rows
+                    # flush the previous snapshot's I/O while this step runs
+                    flush_pending()
+                    pending = new_pending
+                    prev_ids_host = packed_ids_host
+                    prev_slot_host = packed_slot_host
+                    prev_rows = rows
+                if flushed_s:  # the previous snapshot's, in its own
+                    phases["snapshot_s"] -= flushed_s
             flush_pending()
     finally:
         feed.close()
+        lead_span.close()
 
     if verbose:
         print(
@@ -1419,9 +1503,11 @@ def _hubble_drag(snapshot) -> float:
     return float(Hz / (1.0 + snapshot["redshift"]))
 
 
-def _aligned_events(p, events, fetch, ev_engine, counts, phases, verbose):
+def _aligned_events(p, events, fetch, ev_engine, counts, phases, decode,
+                    verbose):
     """Positional aligned-engine events of one snapshot -> ``(ids,
-    angles)`` flat in reference order.
+    angles)`` flat in reference order (the fetches timed into
+    ``phases``, the host decode into ``decode``, which may be None).
 
     The device returns stable-layout row positions and f16-exact
     angles; particle IDs come from the current snapshot's staged ID
@@ -1437,7 +1523,7 @@ def _aligned_events(p, events, fetch, ev_engine, counts, phases, verbose):
         # this snapshot from the full pre-compaction payload plane, then
         # grow the event capacity for the following steps.
         kf = round_up(int(counts.max()), 256)
-        with phase_timer(phases, "fetch"):
+        with phase_timer(phases, "track.fetch"):
             pay = events.payload
             if isinstance(pay, tuple):
                 # wide-row pair format: pos + 1 where an event fired,
@@ -1455,14 +1541,15 @@ def _aligned_events(p, events, fetch, ev_engine, counts, phases, verbose):
                 # the kernel's own f16 encode (clamps past 65504)
                 angw = f16_bits_rne(torch.from_numpy(
                     (pw & np.uint32(0x7FFFFFFF)).view(np.float32))).numpy()
-        nsr = posw.shape[0]
-        ev_pos = np.zeros((nsr, kf), np.int32)
-        ang_bits = np.zeros((nsr, kf), np.uint16)
-        for r in range(nsr):
-            nz = np.flatnonzero(posw[r])
-            ev_pos[r, :len(nz)] = posw[r, nz].astype(np.int64) - 1
-            ang_bits[r, :len(nz)] = angw[r, nz].astype(np.uint16)
-        ev_angles = ang_bits.view(np.float16).astype(np.float32)
+        with phase_timer(decode, "track.decode"):
+            nsr = posw.shape[0]
+            ev_pos = np.zeros((nsr, kf), np.int32)
+            ang_bits = np.zeros((nsr, kf), np.uint16)
+            for r in range(nsr):
+                nz = np.flatnonzero(posw[r])
+                ev_pos[r, :len(nz)] = posw[r, nz].astype(np.int64) - 1
+                ang_bits[r, :len(nz)] = angw[r, nz].astype(np.uint16)
+            ev_angles = ang_bits.view(np.float16).astype(np.float32)
         if verbose:
             print(
                 "Event buffer overflow on snapshot "
@@ -1474,23 +1561,25 @@ def _aligned_events(p, events, fetch, ev_engine, counts, phases, verbose):
         ev_engine.grow_events(int(counts.max()))
     else:
         kf = width
-        with phase_timer(phases, "fetch"):
+        with phase_timer(phases, "track.fetch"):
             ev_pos = fetch["ids"][saved_rows]
             ev_angles = fetch["angles"][saved_rows]
-    sel = np.arange(kf)[None, :] < counts[:, None]
-    prev_slot = p["prev_packed_slot"][saved_rows]
-    pos_idx = np.clip(ev_pos.astype(np.int64), 0, prev_slot.shape[1] - 1)
-    ev_slots = np.take_along_axis(prev_slot, pos_idx, axis=-1)
-    slot_key = np.where(sel, ev_slots, np.iinfo(np.int32).max)
-    order = np.argsort(slot_key, axis=-1, kind="stable")
-    ev_pos = np.take_along_axis(ev_pos, order, axis=-1)
-    ev_angles = np.take_along_axis(ev_angles, order, axis=-1)
-    id_tab = p["packed_ids"][saved_rows]
-    ev_ids = np.take_along_axis(
-        id_tab, np.clip(ev_pos.astype(np.int64), 0, id_tab.shape[1] - 1),
-        axis=-1,
-    )
-    return ev_ids[sel], ev_angles[sel]
+    with phase_timer(decode, "track.decode"):
+        sel = np.arange(kf)[None, :] < counts[:, None]
+        prev_slot = p["prev_packed_slot"][saved_rows]
+        pos_idx = np.clip(ev_pos.astype(np.int64), 0,
+                          prev_slot.shape[1] - 1)
+        ev_slots = np.take_along_axis(prev_slot, pos_idx, axis=-1)
+        slot_key = np.where(sel, ev_slots, np.iinfo(np.int32).max)
+        order = np.argsort(slot_key, axis=-1, kind="stable")
+        ev_pos = np.take_along_axis(ev_pos, order, axis=-1)
+        ev_angles = np.take_along_axis(ev_angles, order, axis=-1)
+        id_tab = p["packed_ids"][saved_rows]
+        ev_ids = np.take_along_axis(
+            id_tab, np.clip(ev_pos.astype(np.int64), 0, id_tab.shape[1] - 1),
+            axis=-1,
+        )
+        return ev_ids[sel], ev_angles[sel]
 
 
 class _HashPacked(NamedTuple):
@@ -1544,7 +1633,7 @@ def _hash_events(fetch, ev_engine, saved_rows, n_rows, phases):
         events_to_reference_order,
     )
 
-    with phase_timer(phases, "fetch"):
+    with phase_timer(phases, "track.fetch"):
         offs, ids, ang = events_to_reference_order(
             fetch["count"], fetch["halo"], fetch["ids"], fetch["slots"],
             fetch["angles"], n_rows)

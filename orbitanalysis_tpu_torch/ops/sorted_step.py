@@ -56,6 +56,7 @@ from orbitanalysis_tpu_torch.ops.merge import (
     u32_order,
 )
 from orbitanalysis_tpu_torch.utils.device import resolve_device
+from orbitanalysis_tpu_torch.utils.metrics import phase_timer
 from orbitanalysis_tpu_torch.utils.numerics import (
     oct_decode,
     oct_encode,
@@ -385,6 +386,11 @@ def make_aligned_native_step(
       power of two >= 128 long.
 
     ``soa_batch=True``: ``pos``/``vel`` arrive as ``[3, H, P]``.
+
+    Under a profiler the step's stages are the ranges ``oa.step.frame``
+    (:func:`region_frame`), ``oa.step.detect`` (:func:`aligned_detect_math`,
+    or the K17 call), ``oa.step.compact`` (K1 or the pair compaction)
+    and ``oa.step.finish`` (the event lists and the new carry).
     """
     _check_aligned(mode, angle_dtype, id_dtype)
     if detect_impl not in ("xla", "pallas"):
@@ -415,63 +421,71 @@ def make_aligned_native_step(
                 "pack_snapshot_aligned"
             )
         h, p = snap.ids.shape
-        valid_cur = snap.ids != invalid
-        frame = region_frame(
-            snap.pos, snap.vel, valid_cur, snap.center, mass=snap.mass,
-            bulk_vel=snap.bulk_vel, box_size=box_size,
-            hubble_drag=snap.hubble_drag, soa=soa_batch,
-        )
+        with phase_timer(None, "step.frame"):
+            valid_cur = snap.ids != invalid
+            frame = region_frame(
+                snap.pos, snap.vel, valid_cur, snap.center, mass=snap.mass,
+                bulk_vel=snap.bulk_vel, box_size=box_size,
+                hubble_drag=snap.hubble_drag, soa=soa_batch,
+            )
         k_eff = min(K, p)
         if detect_impl == "pallas":
-            cur_key, cur_sv, _, _ = _aligned_keys(valid_cur, snap.slot, frame,
-                                                  invalid)
-            rh = frame.rhat
-            packed, evk, evsv, evang, count = fused_static_detect(
-                (carry.key, carry.sv, carry.rhat[0], carry.rhat[1],
-                 carry.rhat[2], carry.packed),
-                (cur_key, cur_sv, rh[0], rh[1], rh[2]),
-                pericentric, invalid, k_eff, native=True)
-            ev_ids, ev_angles, ev_slots = _finish_events(
-                count, (evk >> 1) & 0x7FFFFFFF, evsv & 0x00FFFFFF, evang, K,
-                invalid, id_dt, id_order=events_id_order)
-            return AlignedCarry(key=cur_key, sv=cur_sv, rhat=rh,
-                                packed=packed), CompactEvents(
-                count=count, ids=ev_ids, angles=ev_angles,
-                bulk_vel=frame.bulk_vel, slots=ev_slots)
-        (cur_key, cur_sv, apsis, angle_acc, packed, ang16, count,
-         pos_iota) = aligned_detect_math(
-            carry, valid_cur, snap.slot, frame, pericentric, invalid,
-            rhat_packed=rhat_packed)
-        if p <= PAYLOAD_MAX_ROW:
-            aw = angle_acc.view(torch.int32) | torch.where(
-                apsis, _BIT31, 0).to(torch.int32)
-            full_payload = aw if emit_payload else None
-            evpay = compact_angle_blocked(aw, k_eff)
-            ev_pos = ((evpay >> 15) & 0x1FFFF) - 1
-            ev_ang_bits = evpay & 0x7FFF
-        else:
-            # pos + 1 = 2**17 at the last position of a 131072-wide row
-            # would wrap the single payload word: two streams instead
-            posw = torch.where(apsis, pos_iota + 1,
-                               torch.zeros_like(pos_iota))
-            full_payload = (posw, ang16) if emit_payload else None
-            evposw, ev_ang_bits = compact_payload_pair(posw, ang16, k_eff)
-            ev_pos = evposw - 1
-        evang = (ev_ang_bits & 0xFFFF).to(torch.int16).view(
-            torch.float16).to(torch.float32)
-        kiota = torch.arange(ev_pos.shape[1], device=ev_pos.device)
-        ev_ok = kiota[None, :] < count[:, None]
-        return AlignedCarry(
-            key=cur_key, sv=cur_sv,
-            rhat=oct_encode(frame.rhat) if rhat_packed else frame.rhat,
-            packed=packed), CompactEvents(
-            count=count,
-            ids=torch.where(ev_ok, ev_pos,
-                            torch.full_like(ev_pos, invalid))[:, :K],
-            angles=torch.where(ev_ok, evang, torch.zeros_like(evang))[:, :K],
-            bulk_vel=frame.bulk_vel,
-            payload=full_payload,
-        )
+            with phase_timer(None, "step.detect"):
+                cur_key, cur_sv, _, _ = _aligned_keys(valid_cur, snap.slot,
+                                                      frame, invalid)
+                rh = frame.rhat
+                packed, evk, evsv, evang, count = fused_static_detect(
+                    (carry.key, carry.sv, carry.rhat[0], carry.rhat[1],
+                     carry.rhat[2], carry.packed),
+                    (cur_key, cur_sv, rh[0], rh[1], rh[2]),
+                    pericentric, invalid, k_eff, native=True)
+            with phase_timer(None, "step.finish"):
+                ev_ids, ev_angles, ev_slots = _finish_events(
+                    count, (evk >> 1) & 0x7FFFFFFF, evsv & 0x00FFFFFF, evang,
+                    K, invalid, id_dt, id_order=events_id_order)
+                return AlignedCarry(key=cur_key, sv=cur_sv, rhat=rh,
+                                    packed=packed), CompactEvents(
+                    count=count, ids=ev_ids, angles=ev_angles,
+                    bulk_vel=frame.bulk_vel, slots=ev_slots)
+        with phase_timer(None, "step.detect"):
+            (cur_key, cur_sv, apsis, angle_acc, packed, ang16, count,
+             pos_iota) = aligned_detect_math(
+                carry, valid_cur, snap.slot, frame, pericentric, invalid,
+                rhat_packed=rhat_packed)
+        with phase_timer(None, "step.compact"):
+            if p <= PAYLOAD_MAX_ROW:
+                aw = angle_acc.view(torch.int32) | torch.where(
+                    apsis, _BIT31, 0).to(torch.int32)
+                full_payload = aw if emit_payload else None
+                evpay = compact_angle_blocked(aw, k_eff)
+                ev_pos = ((evpay >> 15) & 0x1FFFF) - 1
+                ev_ang_bits = evpay & 0x7FFF
+            else:
+                # pos + 1 = 2**17 at the last position of a 131072-wide
+                # row would wrap the single payload word: two streams
+                posw = torch.where(apsis, pos_iota + 1,
+                                   torch.zeros_like(pos_iota))
+                full_payload = (posw, ang16) if emit_payload else None
+                evposw, ev_ang_bits = compact_payload_pair(posw, ang16,
+                                                           k_eff)
+                ev_pos = evposw - 1
+        with phase_timer(None, "step.finish"):
+            evang = (ev_ang_bits & 0xFFFF).to(torch.int16).view(
+                torch.float16).to(torch.float32)
+            kiota = torch.arange(ev_pos.shape[1], device=ev_pos.device)
+            ev_ok = kiota[None, :] < count[:, None]
+            return AlignedCarry(
+                key=cur_key, sv=cur_sv,
+                rhat=oct_encode(frame.rhat) if rhat_packed else frame.rhat,
+                packed=packed), CompactEvents(
+                count=count,
+                ids=torch.where(ev_ok, ev_pos,
+                                torch.full_like(ev_pos, invalid))[:, :K],
+                angles=torch.where(ev_ok, evang,
+                                   torch.zeros_like(evang))[:, :K],
+                bulk_vel=frame.bulk_vel,
+                payload=full_payload,
+            )
 
     return step
 

@@ -1,12 +1,26 @@
-"""Observability: structured step metrics, phase timers, profiler scope
+"""Observability: structured step metrics, phase spans, profiler scope
 (twin of ``orbitanalysis_tpu/utils/metrics.py``).
 
 - :class:`Metrics` — append-only structured records (JSON-lines file
-  and/or in-memory), one per snapshot;
-- :func:`phase_timer` — scoped wall-clock timing of named phases
-  (load / pack / step / fetch / save);
+  and/or in-memory), one per saved snapshot;
+- :func:`phase_timer` — the one span primitive: host seconds of a named
+  phase into a record dict and, while a ``torch.profiler`` records, a
+  ``record_function`` range ``oa.<name>`` on the profiler's clock;
 - :func:`trace` — a ``torch.profiler`` scope that writes a Chrome
   trace of the CPU and CUDA activity into a directory.
+
+Ranges the port opens (each only while a profiler records):
+
+- ``oa.track.lead``, ``oa.track.snapshot``, ``oa.track.flush`` and, in
+  them, ``oa.track.load``, ``oa.track.pack`` (``oa.track.pack.align``),
+  ``oa.track.step`` (``oa.track.stage``, ``oa.track.issue``),
+  ``oa.track.fetch``, ``oa.track.decode``, ``oa.track.save``:
+  ``engine/tracker.track_orbits``;
+- ``oa.scan.step``: each step of ``engine/scan``'s per-step drivers;
+- ``oa.step.frame``, ``oa.step.detect``, ``oa.step.compact``,
+  ``oa.step.finish``: the aligned step (``ops/sorted_step.
+  make_aligned_native_step``), under ``oa.track.issue`` or
+  ``oa.scan.step``.
 """
 
 from __future__ import annotations
@@ -18,6 +32,8 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
+import torch
+
 
 @dataclass
 class Metrics:
@@ -25,6 +41,35 @@ class Metrics:
 
     ``jsonl_path``: optional file to append one JSON object per record.
     Records are always kept in ``.records`` for programmatic access.
+
+    ``track_orbits(metrics=...)`` logs one record per saved snapshot
+    (the seed snapshot is in the first record's ``lead_s``): ``t``,
+    ``snapshot``, ``n_halos_active``, ``n_particles``, ``n_events``
+    (``n_events_<tag>`` for ``mode='both'``), ``join``, ``capacity``,
+    ``event_capacity`` and the host seconds of its phases:
+
+    - ``load_s``: the wait on the prefetch thread for the callbacks;
+    - ``pack_s``: host staging into the padded layout, of which
+      ``align_s`` is the stable-layout alignment (aligned engine);
+    - ``step_s``: ``stage_s`` (the staging copies and their
+      host-to-device enqueue) plus ``issue_s`` (the step's enqueue);
+    - ``fetch_s``: the wait for the step's small outputs on the host;
+    - ``decode_s``: the host ordering and ID mapping of the events;
+    - ``save_s``: the writer's append;
+
+    and, on the single-device engines only (general, sorted, aligned):
+
+    - ``lead_s`` (first record of a call): from the call's entry to the
+      first saved snapshot's iteration (checks, engine and writer
+      set-up, the seed snapshot);
+    - ``snapshot_s``: the snapshot's loop iteration, less the previous
+      snapshot's flush nested in it, plus its own deferred flush; its
+      self time, ``snapshot_s`` less ``load_s + pack_s + step_s +
+      fetch_s + decode_s + save_s``, is the tracker's own Python;
+    - ``h2d_bytes``: the bytes staged to the device;
+    - ``step_device_s`` (CUDA): the step's stretch of the device stream,
+      between CUDA timing events after the staging copies and after the
+      step's last launch.
     """
 
     jsonl_path: Optional[str] = None
@@ -53,16 +98,50 @@ class Metrics:
         }
 
 
-@contextlib.contextmanager
-def phase_timer(out: Dict[str, float], name: str):
-    """``with phase_timer(d, 'step'): ...`` accumulates ``d['step_s']``."""
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        out[name + "_s"] = out.get(name + "_s", 0.0) + (
-            time.perf_counter() - t0
-        )
+#: ``torch.autograd.profiler.record_function`` opens a range only while
+#: a profiler records on this thread; entering one costs ~15 us even
+#: then, this flag ~0.2 us (thread-local, as the profiler's state).
+_profiling = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    """One open :func:`phase_timer`: host seconds into ``out[key]``, and
+    the profiler range ``name`` around them (either may be None)."""
+
+    __slots__ = ("_out", "_key", "_name", "_range", "_t0")
+
+    def __init__(self, out, key, name):
+        self._out, self._key, self._name = out, key, name
+        self._range = None
+
+    def __enter__(self):
+        if self._name is not None:
+            self._range = torch.autograd.profiler.record_function(self._name)
+            self._range.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self._out is not None:
+            self._out[self._key] = self._out.get(self._key, 0.0) + (
+                time.perf_counter() - self._t0)
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        return False
+
+
+def phase_timer(out: Optional[Dict[str, float]], name: str):
+    """``with phase_timer(d, 'track.step'): ...`` adds the block's host
+    seconds into ``d['step_s']`` (the key is the name's last dotted part
+    and ``_s``) and, while a ``torch.profiler`` records, opens the range
+    ``oa.track.step``.  ``out=None``: the range alone.  With neither a
+    dict nor a profiler it does nothing."""
+    profiling = _profiling()
+    if out is None and not profiling:
+        return _OFF
+    return _Span(out, name.rpartition(".")[2] + "_s",
+                 "oa." + name if profiling else None)
 
 
 @contextlib.contextmanager
@@ -73,7 +152,6 @@ def trace(logdir: Optional[str]):
     if logdir is None:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]

@@ -210,6 +210,44 @@ def test_main_path_on_cuda_matches_cpu(dev):
     assert n_events > 0
 
 
+def test_tracker_accounting_on_cuda(dev, monkeypatch):
+    """With ``metrics`` every record of the card's aligned run holds the
+    step's device seconds (CUDA timing events read after the fetch),
+    positive and inside the call, and the staged bytes; the accounted
+    seconds stay inside the call.  With tracing off no CUDA timing event
+    is made and no profiler range is entered."""
+    import time
+
+    args = _setup()
+    m = Metrics()
+    t0 = time.perf_counter()
+    track_orbits(*args, "run.h5", verbose=False, metrics=m,
+                 writer=MemoryWriter())
+    call_s = time.perf_counter() - t0
+    assert {r["join"] for r in m.records} == {"aligned"}
+    for r in m.records:
+        assert 0.0 < r["step_device_s"] < call_s
+        assert r["stage_s"] + r["issue_s"] <= r["step_s"] + 1e-6
+        assert r["h2d_bytes"] > 36 * r["capacity"]
+    assert m.records[0]["lead_s"] + sum(
+        r["snapshot_s"] for r in m.records) <= call_s
+
+    real = torch.cuda.Event
+
+    def event(*a, **k):
+        if k.get("enable_timing"):
+            raise AssertionError("a CUDA timing event with tracing off")
+        return real(*a, **k)
+
+    def refuse(*a, **k):
+        raise AssertionError("record_function entered with no profiler")
+
+    monkeypatch.setattr(torch.cuda, "Event", event)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    track_orbits(*args, "run.h5", verbose=False, writer=MemoryWriter())
+    torch.cuda.synchronize()
+
+
 # ----------------------------------------------------------------------
 # the label-native detector's kernels (K4-K9) and its step
 # ----------------------------------------------------------------------
