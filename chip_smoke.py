@@ -173,6 +173,7 @@ record and the device JSON line.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import statistics
@@ -411,6 +412,111 @@ def kernel_checks(dev):
         f"plain torch {wide['plain_ms']:.4f} ms, bound "
         f"{wide['bound_ms']:.4f} ms ({wide['bound_by']}) (timed as below)")
     return results
+
+
+#: Config 2's aligned rows: halos, slots a row, snapshots staged.
+ALIGNED_CHAIN = (100, 16384, 3)
+
+
+def aligned_chain_checks(dev):
+    """The aligned step's fused frame-and-detect kernels at config 2's
+    shape ([100, 16384] SoA rows with masses, box 25, the Hubble term):
+    the pass fed the plain chain's bulk velocities against the plain
+    chain on the same CUDA tensors, bit for bit; the moments kernel's
+    bulk velocities against the plain chain's; their times, and the
+    plain chain's (both halves together)."""
+    import torch
+
+    from orbitanalysis_tpu_torch.engine.packing import (
+        StableLayout,
+        align_packed,
+    )
+    from orbitanalysis_tpu_torch.models.synthetic import churn_workload
+    from orbitanalysis_tpu_torch.ops import _cuda, sorted_step
+    from orbitanalysis_tpu_torch.ops.apsis import SnapshotBatch
+    from orbitanalysis_tpu_torch.utils.numerics import hubble_parameter
+
+    h, p, n_snap = ALIGNED_CHAIN
+    ids, pos, vel, cen, _ = churn_workload(h, p, n_snap, seed=4)
+    rng = np.random.default_rng(4)
+    lay = StableLayout(h, p)
+    drag = float(hubble_parameter(0.5, 0.1, 0.3, 0.7) / 1.5)
+    step = sorted_step.make_aligned_native_step(1024, box_size=25.0,
+                                                soa_batch=True)
+    carry = sorted_step.init_aligned_carry(h, p, device=dev)
+    for s in range(n_snap):
+        a = align_packed(lay, ids[s], pos[s], vel[s],
+                         rng.uniform(0.5, 2.0, (h, p)).astype(np.float32),
+                         soa=True)
+        snap = SnapshotBatch(
+            *(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+              for x in (a[0], a[1], a[2], cen[s], a[3])),
+            hubble_drag=drag, slot=torch.from_numpy(a[4]).to(dev))
+        if s < n_snap - 1:
+            carry, _ = step(carry, snap)
+    args = (25.0, True, np.iinfo(np.int32).max)
+    plain = sorted_step.aligned_chain_torch(carry, snap, *args, soa=True)
+    fed = snap._replace(bulk_vel=plain[6].contiguous())
+    got = sorted_step.aligned_chain(carry, fed, *args, soa=True)
+    est = sorted_step.aligned_chain(carry, snap, *args, soa=True)
+    torch.cuda.synchronize()
+    same = all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+               for g, w in zip(got[:6], plain[:6]))
+    gap = float((est[6] - plain[6]).abs().max())
+    log(f"  aligned_frame_detect [{h}, {p}]: {int(plain[5].sum())} events, "
+        f"fed the plain bulk velocities the plain chain's bits: {same}; "
+        f"aligned_moments' bulk velocities within {gap:.3e} of torch's")
+    check(same, "aligned_frame_detect differs from the plain chain")
+    check(gap <= 1e-6, "aligned_moments' bulk velocities stray")
+    inv = np.iinfo(np.int32).max
+    partial = _cuda.aligned_moments(snap.ids, snap.vel, snap.mass, inv, True)
+    box = (25.0, 25.0, 25.0)
+    prev = (carry.sv, carry.rhat, carry.packed)
+    n = h * p
+    plain_ms = cuda_ms(lambda: sorted_step.aligned_chain_torch(
+        carry, snap, *args, soa=True))
+
+    def moments(c):
+        ids, vel, mass = (t.clone() for t in (snap.ids, snap.vel, snap.mass))
+        return lambda: _cuda.aligned_moments(ids, vel, mass, inv, True)
+
+    def fused(c):
+        ids, slot, pos, vel, center = (t.clone() for t in (
+            snap.ids, snap.slot, snap.pos, snap.vel, snap.center))
+        old = tuple(t.clone() for t in prev)
+        return lambda: _cuda.aligned_frame_detect(
+            ids, slot, pos, vel, center, partial, drag, box, old, True, inv,
+            -1, True, False, False)
+
+    # moments: ID, velocity, mass read; the pass: ID, slot, position,
+    # velocity, the carry's sv, r-hat and packed word read, key, sv,
+    # r-hat, packed and the angle word written
+    out = {}
+    for name, n_bytes, make in (("aligned_moments", n * 20, moments),
+                                ("aligned_frame_detect", n * 80, fused)):
+        b_ms, b_by = bound(n_bytes, 0)
+        cold, warm = cold_ms(make, n_bytes), cuda_ms(make(0))
+        log(f"  {name}: {cold:.4f} ms with its inputs out of L2, "
+            f"{warm:.4f} ms on one set of inputs back to back (as warm as "
+            f"{n_bytes / 1e6:.1f} MB a call leaves the card's L2)")
+        out[name] = dict(max_abs_err=0 if same else 1, ms=cold,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None)
+    return out
+
+
+def cold_ms(make, n_bytes):
+    """:func:`cuda_ms` of a call with its inputs out of L2: ``make(c)``
+    returns the call on the c-th copy of its inputs, and the calls visit
+    enough copies in turn that the ``n_bytes`` each moves, times the
+    other copies, exceed the card's L2 twice over."""
+    import torch
+
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
+                 50 << 20)
+    calls = [make(c) for c in range(2 + 2 * l2 // n_bytes)]
+    turn = itertools.cycle(calls)
+    return cuda_ms(lambda: next(turn)())
 
 
 def _pair_check(dev, rng, h, p, k):
@@ -2184,9 +2290,13 @@ def aligned_full_width(dev, seq):
     launches = _cuda.launch_counts()
     # ---- end of the counted main path
 
-    check(counts["xla"] == {"compact_angle_rows": s_n},
-          f"scan_events_aligned launched {counts['xla']}, not K1 once a "
-          "step")
+    # the staged stack carries no catalog bulk velocities: the moments
+    # pass runs beside the fused frame-and-detect pass and K1
+    per_step = {k: s_n for k in ("aligned_moments", "aligned_frame_detect",
+                                 "compact_angle_rows")}
+    check(counts["xla"] == per_step,
+          f"scan_events_aligned launched {counts['xla']}, not the moments, "
+          "the fused pass and K1 once a step")
     check(counts["batched"] == {"compact_payload_rows": 1},
           f"scan_events_aligned(batched=True) launched {counts['batched']}, "
           "not K5 once")
@@ -2240,7 +2350,7 @@ def aligned_full_width(dev, seq):
     del events, carries, slots, pos_ids, ok
 
     k5_err = batched_payload_check(dev, stack, kw)
-    for name, what in (("xla", "aligned step, 'xla' (torch chain + K1)"),
+    for name, what in (("xla", "aligned step, 'xla' (fused pass + K1)"),
                        ("pallas", "aligned step, 'pallas' (K17)"),
                        ("legacy", "legacy aligned step (K17)")):
         time_scan(dev, stack, s_n, seq["n_valid"], what, *steps[name])
@@ -3310,7 +3420,10 @@ def sharded_phase(dev, ctx, work, keys, smi):
         st = o["steps"]
         check(st["sorted"] == {"fused_join_detect": s_n},
               f"rank {o['rank']}: sharded sorted launched {st['sorted']}")
-        check(st["aligned"] == {"compact_angle_rows": s_n},
+        # no catalog bulk velocities: moments, fused pass and K1 a step
+        check(st["aligned"] == {k: s_n for k in (
+            "aligned_moments", "aligned_frame_detect",
+            "compact_angle_rows")},
               f"rank {o['rank']}: sharded aligned launched {st['aligned']}")
         check(st["label"] == {"segment_moments": s_n, "frame_rows": s_n,
                               "detect_label_compact_rows": s_n},
@@ -4054,6 +4167,7 @@ def _phases(dev, rank_dir, smi):
     timings.update(label_kernel_checks(dev, work))
     timings.update(sorted_kernel_checks(dev, seq))
     timings.update(force_kernel_checks(dev))
+    timings.update(aligned_chain_checks(dev))
     log_timings(timings)
     log(f"== phase 4: aligned step parity, CUDA vs CPU, {PARITY[:2]}")
     step_parity(dev)

@@ -53,6 +53,39 @@ __device__ __forceinline__ float acos_f32(float x) {
   return ax > 0.5f ? acos_big : acos_small;
 }
 
+// The octahedral r-hat codec of the packed carries (label.cu, static.cu),
+// operation for operation as utils/numerics.oct_encode
+// (pallas_label._oct_encode_kernel) and oct_decode below.
+__device__ __forceinline__ uint32_t oct_encode(float x, float y, float z) {
+  const float s = fmaxf(fabsf(x) + fabsf(y) + fabsf(z), 1e-30f);
+  float px = x / s;
+  float py = y / s;
+  const float fx = (1.0f - fabsf(py)) * (px >= 0.0f ? 1.0f : -1.0f);
+  const float fy = (1.0f - fabsf(px)) * (py >= 0.0f ? 1.0f : -1.0f);
+  if (z < 0.0f) {
+    px = fx;
+    py = fy;
+  }
+  const float qx = fminf(fmaxf(rintf((px * 0.5f + 0.5f) * 65535.0f), 0.0f), 65535.0f);
+  const float qy = fminf(fmaxf(rintf((py * 0.5f + 0.5f) * 65535.0f), 0.0f), 65535.0f);
+  return static_cast<uint32_t>(qx) | (static_cast<uint32_t>(qy) << 16);
+}
+
+// utils/numerics.oct_decode (pallas_label._oct_decode_kernel).
+__device__ __forceinline__ void oct_decode(uint32_t p, float& x, float& y, float& z) {
+  const float k = static_cast<float>(2.0 / 65535.0);
+  const float px = static_cast<float>(p & 0xFFFFu) * k - 1.0f;
+  const float py = static_cast<float>((p >> 16) & 0xFFFFu) * k - 1.0f;
+  z = 1.0f - fabsf(px) - fabsf(py);
+  const float t = fmaxf(-z, 0.0f);
+  x = px - (px >= 0.0f ? t : -t);
+  y = py - (py >= 0.0f ? t : -t);
+  const float inv = 1.0f / fmaxf(sqrtf(x * x + y * y + z * z), 1e-30f);
+  x = x * inv;
+  y = y * inv;
+  z = z * inv;
+}
+
 // ---------------------------------------------------------------------
 // Ordered multi-block compaction by decoupled look-back.
 //

@@ -68,6 +68,13 @@ def _sites(*lines):
     return ", ".join(_JAX + x for x in lines)
 
 
+#: What the aligned step's fused frame-and-detect kernels stand for: no
+#: Pallas kernel, but the chain XLA fuses on the TPU.
+_FUSED_CHAIN = ("none: XLA's fusion of " + _JAX + "geometry.py:42 "
+                "region_frame and " + _JAX + "sorted_step.py:734 "
+                "aligned_detect_math")
+
+
 KERNELS = {
     k.name: k for k in (
         Kernel("compact_angle_rows", _SRC + "compact.cu",
@@ -92,6 +99,8 @@ KERNELS = {
                _sites("pallas_step.py:457")),
         Kernel("static_detect_rows", _SRC + "static.cu",
                _sites("pallas_step.py:360")),
+        Kernel("aligned_moments", _SRC + "static.cu", _FUSED_CHAIN),
+        Kernel("aligned_frame_detect", _SRC + "static.cu", _FUSED_CHAIN),
         Kernel("compact_events_rows", _SRC + "compact.cu",
                _sites("pallas_compact.py:173")),
         Kernel("compact_rows_groups", _SRC + "compact.cu",
@@ -228,6 +237,9 @@ def bind(lib):
         "fused_join_detect": [p] * 17 + [ll] + [i] * 5 + [p],
         "static_detect_rows_scratch": [i, i],
         "static_detect_rows": [p] * 16 + [ll] + [i] * 6 + [p],
+        "aligned_moments_tiles": [i],
+        "aligned_moments": [p] * 4 + [i] * 4 + [p],
+        "aligned_frame_detect": [p] * 18 + [i] * 4 + [f] * 4 + [i] * 5 + [p],
         "compact_events_rows_scratch": [i, i],
         "compact_events_rows": [p] * 7 + [ll, i, i, i, p],
         "compact_rows_groups_scratch": [i, i],
@@ -593,6 +605,106 @@ def static_detect_rows(prev, cur, pericentric: bool, invalid: int,
                         torch.int32 if native else torch.float32)
     return _detect_events(name, (*prev[1:], *cur), h, p, k128, int(invalid),
                           int(pericentric), int(native))
+
+
+def aligned_moments(ids, vel, mass, invalid: int, soa: bool):
+    """Launch the aligned step's moment partials: ``ids [H, P]`` int32,
+    ``vel`` ``[H, P, 3]`` (``[3, H, P]`` with ``soa``) and ``mass [H,
+    P]`` (or None) float32 -> ``[H, T, 4]`` float64 partials ``[sum w m
+    v, sum w m]`` of each row's T tiles (``w``: the ID is not
+    ``invalid``), for :func:`aligned_frame_detect`."""
+    name = "aligned_moments"
+    h, p = ids.shape
+    _check(name, ids)
+    _check(name, vel, dtype=torch.float32, dim=3)
+    if vel.shape != ((3, h, p) if soa else (h, p, 3)):
+        raise ValueError(f"{name}: vel {tuple(vel.shape)} against ids "
+                         f"{(h, p)}")
+    if mass is not None:
+        _check(name, mass, dtype=torch.float32)
+        if mass.shape != (h, p):
+            raise ValueError(f"{name}: mass must be [{h}, {p}]")
+    if len({t.device for t in (ids, vel, mass) if t is not None}) > 1:
+        raise ValueError(f"{name}: tensors on different devices")
+    lib = _library()
+    partial = torch.empty((h, lib.aligned_moments_tiles(p), 4),
+                          dtype=torch.float64, device=ids.device)
+    _launch(name, lib.aligned_moments, ids.data_ptr(), vel.data_ptr(),
+            None if mass is None else mass.data_ptr(), partial.data_ptr(),
+            h, p, int(invalid), int(soa), device=ids.device)
+    return partial
+
+
+def aligned_frame_detect(ids, slot, pos, vel, center, bulk, hub, box,
+                         prev, pericentric: bool, invalid: int,
+                         invalid_key: int, soa: bool, rhat_packed: bool,
+                         pair: bool):
+    """Launch the aligned step's fused frame-and-detect pass.
+
+    ``ids``/``slot`` ``[H, P]`` int32; ``pos``/``vel`` ``[H, P, 3]``
+    (``[3, H, P]`` with ``soa``) and ``center [H, 3]`` float32; ``bulk``:
+    the ``[H, 3]`` float32 catalog bulk velocities, or the ``[H, T, 4]``
+    float64 partials of :func:`aligned_moments`; ``hub``: the Hubble
+    term, a float; ``box``: None or three floats; ``prev``: the carry's
+    ``(sv, rhat, packed)`` (``rhat`` ``[3, H, P]`` float32, or ``[H, P]``
+    int32 octahedral words with ``rhat_packed``).  Returns ``(key, sv, rhat, packed, words, count
+    [H], bulk_vel [H, 3])``: ``words`` is K1's ``[H, P]`` angle-word
+    plane, or with ``pair`` the ``(posw, ang16)`` planes of K3."""
+    name = "aligned_frame_detect"
+    h, p = ids.shape
+    psv, prhat, ppacked = prev
+    _check(name, ids, slot, psv, ppacked)
+    for t in (ids, slot, psv, ppacked):
+        if t.shape != (h, p):
+            raise ValueError(f"{name}: every [H, P] plane must be "
+                             f"[{h}, {p}]")
+    _check(name, pos, vel, dtype=torch.float32, dim=3)
+    if pos.shape != vel.shape or pos.shape != ((3, h, p) if soa
+                                               else (h, p, 3)):
+        raise ValueError(f"{name}: pos/vel {tuple(pos.shape)} against ids "
+                         f"{(h, p)}")
+    _check(name, center, dtype=torch.float32)
+    moments = bulk.dtype == torch.float64
+    _check(name, bulk, dtype=bulk.dtype, dim=3 if moments else 2)
+    if center.shape != (h, 3) or (not moments and bulk.shape != (h, 3)):
+        raise ValueError(f"{name}: centres and bulk velocities must be "
+                         f"[{h}, 3]")
+    if rhat_packed:
+        _check(name, prhat)
+        rhat_shape = (h, p)
+    else:
+        _check(name, prhat, dtype=torch.float32, dim=3)
+        rhat_shape = (3, h, p)
+    if prhat.shape != rhat_shape:
+        raise ValueError(f"{name}: carried r-hat must be {rhat_shape}")
+    tensors = (ids, slot, pos, vel, center, bulk, psv, prhat, ppacked)
+    if len({t.device for t in tensors}) > 1:
+        raise ValueError(f"{name}: tensors on different devices")
+    dev = ids.device
+    key, sv, packed = (torch.empty((h, p), dtype=torch.int32, device=dev)
+                       for _ in range(3))
+    rhat = torch.empty(rhat_shape, dtype=prhat.dtype, device=dev)
+    words = torch.empty((h, p), dtype=torch.int32, device=dev)
+    ang16 = torch.empty_like(words) if pair else None
+    count = torch.empty(h, dtype=torch.int32, device=dev)
+    bulk_out = torch.empty((h, 3), dtype=torch.float32,
+                           device=dev) if moments else bulk
+    box3 = (0.0, 0.0, 0.0) if box is None else box
+    _launch(name, _library().aligned_frame_detect, ids.data_ptr(),
+            slot.data_ptr(), pos.data_ptr(), vel.data_ptr(),
+            center.data_ptr(), None if moments else bulk.data_ptr(),
+            bulk.data_ptr() if moments else None,
+            psv.data_ptr(), prhat.data_ptr(), ppacked.data_ptr(),
+            key.data_ptr(), sv.data_ptr(), rhat.data_ptr(),
+            packed.data_ptr(), words.data_ptr(),
+            None if ang16 is None else ang16.data_ptr(),
+            bulk_out.data_ptr() if moments else None, count.data_ptr(),
+            h, p, int(invalid), int(invalid_key), ctypes.c_float(hub),
+            *(ctypes.c_float(b) for b in box3), int(box is not None),
+            int(pericentric), int(soa), int(rhat_packed), int(pair),
+            device=dev)
+    return (key, sv, rhat, packed, (words, ang16) if pair else words, count,
+            bulk_out)
 
 
 def compact_events_rows(packed, key, sv, k128: int):

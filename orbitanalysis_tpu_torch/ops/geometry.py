@@ -36,6 +36,16 @@ class RegionFrame(NamedTuple):
     bulk_vel: torch.Tensor  # [H, 3]    bulk velocity used for each region
 
 
+def box_f32(box_size):
+    """The periodic box as :func:`region_frame` applies it: ``box_size``
+    rounded to float32, one float for a scalar box, a tuple of floats for
+    a per-axis one."""
+    box = np.asarray(box_size, dtype=np.float32)
+    if box.ndim == 1:
+        return tuple(float(b) for b in box)
+    return float(box)
+
+
 def region_frame(
     pos: torch.Tensor,            # [H, P, 3] (or [3, H, P] with soa=True)
     vel: torch.Tensor,            # [H, P, 3] (or [3, H, P] with soa=True)
@@ -71,13 +81,13 @@ def region_frame(
     if box_size is not None:
         # the box as a tensor on the data's device, filled there (no
         # host->device copy)
-        box = np.asarray(box_size, dtype=np.float32)
-        if box.ndim == 1:
+        box = box_f32(box_size)
+        if isinstance(box, tuple):
             # per-dimension box against the leading component axis
-            box = torch.stack([rel.new_full((), float(b)) for b in box])
+            box = torch.stack([rel.new_full((), b) for b in box])
             box = box[:, None, None]
         else:
-            box = rel.new_full((), float(box))
+            box = rel.new_full((), box)
         rel = rel - box * torch.round(div_rn(rel, box))
     # zero out padding so garbage slots cannot feed inf/nan into sums
     rel = rel * w[None]

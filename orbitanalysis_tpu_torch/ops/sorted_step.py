@@ -18,8 +18,9 @@ runs plain torch.
 The aligned engine's host staging (:class:`orbitanalysis_tpu_torch.
 engine.packing.StableLayout`) gives every particle a persistent row
 position, so consecutive staged snapshots are aligned element-wise and
-the step needs no join: ``region_frame``, an elementwise detect chain,
-and one ordered event compaction — the hand-written CUDA kernel of
+the step needs no join: ``region_frame`` and an elementwise detect chain
+(on the GPU one fused kernel, :func:`aligned_chain`), and one ordered
+event compaction — the hand-written CUDA kernel of
 :mod:`orbitanalysis_tpu_torch.ops.compact` on the GPU — or, with
 ``detect_impl='pallas'`` and in the legacy step, the aligned detect
 kernel of :mod:`orbitanalysis_tpu_torch.ops.step` (K17), which detects
@@ -41,6 +42,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from orbitanalysis_tpu_torch.ops import _cuda
 from orbitanalysis_tpu_torch.ops.compact import (
     PAYLOAD_MAX_ROW,
     compact_angle_blocked,
@@ -49,7 +51,7 @@ from orbitanalysis_tpu_torch.ops.compact import (
     compact_rows,
     f16_bits_rne,
 )
-from orbitanalysis_tpu_torch.ops.geometry import region_frame
+from orbitanalysis_tpu_torch.ops.geometry import box_f32, region_frame
 from orbitanalysis_tpu_torch.ops.merge import (
     merge_rows,
     sort_descending_u32,
@@ -327,6 +329,90 @@ def aligned_detect_math(carry: AlignedCarry, valid_cur, slot, frame,
             pos_iota)
 
 
+def aligned_chain_torch(carry: AlignedCarry, snap, box_size, pericentric,
+                        invalid, soa: bool = False,
+                        rhat_packed: bool = False):
+    """The aligned step's frame-and-detect chain in plain torch:
+    :func:`region_frame`, :func:`aligned_detect_math` and the input words
+    of the event compaction.  The twin of the fused kernels
+    (:func:`aligned_chain`), and the route of CPU tensors.
+
+    Returns ``(key, sv, rhat, packed, words, count, bulk_vel)``: the new
+    carry's planes (``rhat`` octahedral words with ``rhat_packed``);
+    ``words``, the ``[H, P]`` angle words ``f32_bits(angle) | apsis <<
+    31`` of K1 or, for rows wider than :data:`PAYLOAD_MAX_ROW`, the
+    ``(apsis ? position + 1 : 0, f16 angle bits)`` planes of K3; the
+    ``[H]`` apsis counts; the ``[H, 3]`` bulk velocities."""
+    p = snap.ids.shape[1]
+    valid_cur, frame = _aligned_frame(snap, box_size, invalid, soa)
+    with phase_timer(None, "step.detect"):
+        (cur_key, cur_sv, apsis, angle_acc, packed, ang16, count,
+         pos_iota) = aligned_detect_math(
+            carry, valid_cur, snap.slot, frame, pericentric, invalid,
+            rhat_packed=rhat_packed)
+        if p <= PAYLOAD_MAX_ROW:
+            words = angle_acc.view(torch.int32) | torch.where(
+                apsis, _BIT31, 0).to(torch.int32)
+        else:
+            # pos + 1 = 2**17 at the last position of a 131072-wide row
+            # would wrap the single payload word: two streams
+            words = (torch.where(apsis, pos_iota + 1,
+                                 torch.zeros_like(pos_iota)), ang16)
+        rhat = oct_encode(frame.rhat) if rhat_packed else frame.rhat
+    return cur_key, cur_sv, rhat, packed, words, count, frame.bulk_vel
+
+
+def _aligned_frame(snap, box_size, invalid, soa):
+    """The plain chain's first half, timed as ``step.frame``: the valid
+    mask of ``snap``'s slots and their :func:`region_frame`."""
+    with phase_timer(None, "step.frame"):
+        valid_cur = snap.ids != invalid
+        return valid_cur, region_frame(
+            snap.pos, snap.vel, valid_cur, snap.center, mass=snap.mass,
+            bulk_vel=snap.bulk_vel, box_size=box_size,
+            hubble_drag=snap.hubble_drag, soa=soa,
+        )
+
+
+def aligned_chain(carry: AlignedCarry, snap, box_size, pericentric, invalid,
+                  soa: bool = False, rhat_packed: bool = False):
+    """The aligned step's frame-and-detect chain, with the outputs of
+    :func:`aligned_chain_torch`: on CPU tensors that plain chain, on CUDA
+    tensors the fused kernels of ``csrc/static.cu`` (every layout, box,
+    Hubble term, mode, r-hat carry and row width): ``aligned_moments``
+    when ``snap.bulk_vel`` is None, then one ``aligned_frame_detect``
+    pass.  The kernels take float32 coordinates, masses and bulk
+    velocities, and a scalar ``hubble_drag``.  Given the same bulk
+    velocity the two routes agree bit for bit; the kernel's own bulk
+    velocity sums in float64, within 2 float32 ulps of the exact quotient
+    (``torch.sum``'s float32 order strays further)."""
+    if _cuda.on_cpu(snap.ids, "aligned frame-and-detect"):
+        return aligned_chain_torch(carry, snap, box_size, pericentric,
+                                   invalid, soa=soa, rhat_packed=rhat_packed)
+    p = snap.ids.shape[1]
+    # the plain chain leaves an [H, P, 3] step's r-hat strided
+    ids, slot, pos, vel, center = (t.contiguous() for t in (
+        snap.ids, snap.slot, snap.pos, snap.vel, snap.center))
+    prev = tuple(t.contiguous() for t in (carry.sv, carry.rhat,
+                                          carry.packed))
+    with phase_timer(None, "step.frame"):
+        if snap.bulk_vel is None:
+            bulk = _cuda.aligned_moments(
+                ids, vel, None if snap.mass is None
+                else snap.mass.contiguous(), invalid, soa)
+        else:
+            bulk = snap.bulk_vel.to(torch.float32).contiguous()
+    # the box per axis, each rounded to float32 as region_frame rounds it
+    box = None if box_size is None else tuple(
+        np.broadcast_to(box_f32(box_size), 3).tolist())
+    with phase_timer(None, "step.detect"):
+        return _cuda.aligned_frame_detect(
+            ids, slot, pos, vel, center, bulk,
+            float(np.float32(snap.hubble_drag)), box, prev, pericentric,
+            invalid, _invalid_key(invalid), soa, rhat_packed,
+            p > PAYLOAD_MAX_ROW)
+
+
 def _check_aligned(mode, angle_dtype, id_dtype):
     if mode not in ("pericentric", "apocentric"):
         raise ValueError(
@@ -370,13 +456,16 @@ def make_aligned_native_step(
 
     ``detect_impl``:
 
-    - ``'xla'`` (the JAX package's name for its default): the detect
-      chain as plain torch and one ordered compaction of f16-exact
-      angles — one payload word an event for rows up to
-      :data:`PAYLOAD_MAX_ROW`, a position/angle pair for wider rows.
-      ``emit_payload=True`` also returns the full pre-compaction plane in
-      ``CompactEvents.payload``; ``rhat_packed=True`` carries octahedral
-      r-hat words (:func:`init_aligned_carry` with ``rhat_packed``).
+    - ``'xla'`` (the JAX package's name for its default): the frame and
+      detect chain (:func:`aligned_chain`: plain torch on the CPU, the
+      fused kernels of ``csrc/static.cu`` on CUDA, one pass a step and a
+      moments pass when ``snap.bulk_vel`` is None) and one ordered
+      compaction of f16-exact angles — one payload word an event for
+      rows up to :data:`PAYLOAD_MAX_ROW` (K1), a position/angle pair for
+      wider rows (K3).  ``emit_payload=True`` also returns the full
+      pre-compaction plane in ``CompactEvents.payload``;
+      ``rhat_packed=True`` carries octahedral r-hat words
+      (:func:`init_aligned_carry` with ``rhat_packed``).
     - ``'pallas'``: detection and compaction in one call, the aligned
       detect kernel (K17, :func:`~orbitanalysis_tpu_torch.ops.step.
       fused_static_detect` with ``native=True``): float32 angles, and
@@ -388,9 +477,10 @@ def make_aligned_native_step(
     ``soa_batch=True``: ``pos``/``vel`` arrive as ``[3, H, P]``.
 
     Under a profiler the step's stages are the ranges ``oa.step.frame``
-    (:func:`region_frame`), ``oa.step.detect`` (:func:`aligned_detect_math`,
-    or the K17 call), ``oa.step.compact`` (K1 or the pair compaction)
-    and ``oa.step.finish`` (the event lists and the new carry).
+    (:func:`region_frame`, or the moments kernel), ``oa.step.detect``
+    (:func:`aligned_detect_math`, the fused pass, or the K17 call),
+    ``oa.step.compact`` (K1 or the pair compaction) and
+    ``oa.step.finish`` (the event lists and the new carry).
     """
     _check_aligned(mode, angle_dtype, id_dtype)
     if detect_impl not in ("xla", "pallas"):
@@ -420,16 +510,11 @@ def make_aligned_native_step(
                 "(with FRESH flags in bit 27) is mandatory — stage via "
                 "pack_snapshot_aligned"
             )
-        h, p = snap.ids.shape
-        with phase_timer(None, "step.frame"):
-            valid_cur = snap.ids != invalid
-            frame = region_frame(
-                snap.pos, snap.vel, valid_cur, snap.center, mass=snap.mass,
-                bulk_vel=snap.bulk_vel, box_size=box_size,
-                hubble_drag=snap.hubble_drag, soa=soa_batch,
-            )
+        p = snap.ids.shape[1]
         k_eff = min(K, p)
         if detect_impl == "pallas":
+            valid_cur, frame = _aligned_frame(snap, box_size, invalid,
+                                              soa_batch)
             with phase_timer(None, "step.detect"):
                 cur_key, cur_sv, _, _ = _aligned_keys(valid_cur, snap.slot,
                                                       frame, invalid)
@@ -447,45 +532,32 @@ def make_aligned_native_step(
                                     packed=packed), CompactEvents(
                     count=count, ids=ev_ids, angles=ev_angles,
                     bulk_vel=frame.bulk_vel, slots=ev_slots)
-        with phase_timer(None, "step.detect"):
-            (cur_key, cur_sv, apsis, angle_acc, packed, ang16, count,
-             pos_iota) = aligned_detect_math(
-                carry, valid_cur, snap.slot, frame, pericentric, invalid,
-                rhat_packed=rhat_packed)
+        cur_key, cur_sv, rhat, packed, words, count, bulk_vel = \
+            aligned_chain(carry, snap, box_size, pericentric, invalid,
+                          soa=soa_batch, rhat_packed=rhat_packed)
         with phase_timer(None, "step.compact"):
             if p <= PAYLOAD_MAX_ROW:
-                aw = angle_acc.view(torch.int32) | torch.where(
-                    apsis, _BIT31, 0).to(torch.int32)
-                full_payload = aw if emit_payload else None
-                evpay = compact_angle_blocked(aw, k_eff)
+                evpay = compact_angle_blocked(words, k_eff)
                 ev_pos = ((evpay >> 15) & 0x1FFFF) - 1
                 ev_ang_bits = evpay & 0x7FFF
             else:
-                # pos + 1 = 2**17 at the last position of a 131072-wide
-                # row would wrap the single payload word: two streams
-                posw = torch.where(apsis, pos_iota + 1,
-                                   torch.zeros_like(pos_iota))
-                full_payload = (posw, ang16) if emit_payload else None
-                evposw, ev_ang_bits = compact_payload_pair(posw, ang16,
-                                                           k_eff)
-                ev_pos = evposw - 1
+                evpay, ev_ang_bits = compact_payload_pair(*words, k_eff)
+                ev_pos = evpay - 1
         with phase_timer(None, "step.finish"):
-            evang = (ev_ang_bits & 0xFFFF).to(torch.int16).view(
-                torch.float16).to(torch.float32)
-            kiota = torch.arange(ev_pos.shape[1], device=ev_pos.device)
-            ev_ok = kiota[None, :] < count[:, None]
+            # both compactions zero each row past its count, and an
+            # event's word is never 0 (it holds the position + 1), so
+            # the angles there are 0 already
+            evang = ev_ang_bits.to(torch.int16).view(torch.float16).to(
+                torch.float32)
             return AlignedCarry(
-                key=cur_key, sv=cur_sv,
-                rhat=oct_encode(frame.rhat) if rhat_packed else frame.rhat,
-                packed=packed), CompactEvents(
-                count=count,
-                ids=torch.where(ev_ok, ev_pos,
-                                torch.full_like(ev_pos, invalid))[:, :K],
-                angles=torch.where(ev_ok, evang,
-                                   torch.zeros_like(evang))[:, :K],
-                bulk_vel=frame.bulk_vel,
-                payload=full_payload,
-            )
+                key=cur_key, sv=cur_sv, rhat=rhat, packed=packed), \
+                CompactEvents(
+                    count=count,
+                    ids=torch.where(evpay != 0, ev_pos, invalid)[:, :K],
+                    angles=evang[:, :K],
+                    bulk_vel=bulk_vel,
+                    payload=words if emit_payload else None,
+                )
 
     return step
 

@@ -1296,8 +1296,9 @@ def test_aligned_steps_on_cuda_match_cpu(dev, static):
 def test_aligned_scan_batched_on_cuda(dev, p, soa):
     """``scan_events_aligned(batched=True)`` on the card (one payload
     compaction over all S*H rows; the pair compaction for rows past
-    PAYLOAD_MAX_ROW) against ``batched=False`` on the card (the
-    angle-word compaction, or the pair compaction, once a step) and the
+    PAYLOAD_MAX_ROW) against ``batched=False`` on the card (the fused
+    frame-and-detect pass and its moments, then the angle-word
+    compaction, or the pair compaction, once a step) and the
     batched driver on the CPU: counts and positions exact, angles within
     one f16 ulp, the final carries' keys and slots equal."""
     from orbitanalysis_tpu_torch.engine.packing import stage_batch_aligned
@@ -1324,6 +1325,10 @@ def test_aligned_scan_batched_on_cuda(dev, p, soa):
                 want = {name: 1 if batched else s_n}
             else:
                 want = {"compact_angle_rows": s_n}
+            if not batched:
+                # the per-step route's fused frame-and-detect pass, with
+                # its moments (no catalog bulk velocities here)
+                want.update(aligned_moments=s_n, aligned_frame_detect=s_n)
             assert {n: c for n, c in _cuda.launch_counts().items()
                     if c} == want
     carry, (cnt, ids_b, ang) = runs[str(dev), True]
