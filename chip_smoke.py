@@ -2895,7 +2895,7 @@ def c4_scale(dev):
         log(f"  detector on identical states ({'identity' if ident else 'gather'}"
             f"): {int(ac.sum())} apsides, flags, counts and r-hat "
             f"{'bit-equal' if torch.equal(tg.rhat.cpu(), tc.rhat) else 'DIFFER'}"
-            f"; angles within {dang:.3g} rad (torch.acos; limit 1e-5)")
+            f"; angles within {dang:.3g} rad (atan2 turns; limit 1e-5)")
         check(torch.equal(ag.cpu(), ac) and torch.equal(tg.counts.cpu(),
                                                         tc.counts),
               "the detector differs between CUDA and CPU")

@@ -39,6 +39,16 @@ Differences from the JAX package:
   (:func:`~orbitanalysis_tpu_torch.utils.numerics.div_rn`/``sqrt_rn``),
   so the detector gives the same flags on the card and on the CPU for
   the same state.
+- The detector measures each turn as ``atan2(|a x b|, a . b)``
+  (:func:`turn_angle`) where the JAX package takes ``arccos(a . b)``.
+  In float32 the dot of two directions less than ~3.4e-4 rad apart
+  rounds to 1 and ``arccos`` gives 0, so at a fine detection cadence
+  (config 4: ~1e-5 rad between detections) a turn never adds to the
+  angle, a sign flip never passes ``angle > angle_cut`` and is not
+  counted.  Large turns agree with the JAX package's to float32
+  rounding.
+- :func:`simulate_with_tracking` takes ``metrics`` (spans, counters and
+  device stretches of the call); the JAX package has no such argument.
 - :func:`run_tracked_simulation` checkpoints with ``torch.save`` (one
   ``step_XXXXXXXX.pt`` file a chunk: state, track(s), every per-step
   event count, the step) where the JAX package uses orbax.
@@ -46,6 +56,7 @@ Differences from the JAX package:
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import os
 from typing import Callable, NamedTuple, Optional
@@ -55,6 +66,7 @@ import torch
 
 from orbitanalysis_tpu_torch.ops.nbody import direct_forces_blocked
 from orbitanalysis_tpu_torch.utils.device import resolve_device
+from orbitanalysis_tpu_torch.utils.metrics import phase_timer
 from orbitanalysis_tpu_torch.utils.numerics import (
     box_tensor,
     div_rn,
@@ -145,7 +157,7 @@ def _check_full_f32_matmul(x: torch.Tensor):
             "make_direct_force_fn(use_pallas=True)")
 
 
-def direct_forces(pos, mass, softening=0.05, G=1.0, box_size=None):
+def direct_forces(pos, mass, softening=0.05, G=1.0, box_size=None, **_):
     """Softened direct-summation gravitational acceleration ``[N, 3]``.
 
     Free space uses the Gram expansion ``d_ij^2 = |x_i|^2 + |x_j|^2 -
@@ -301,15 +313,28 @@ def _halo_frames(state: NBodyState, members, valid, box_size, center=None,
     return rhat, vrad, radius, center, bulk
 
 
+def turn_angle(a, b):
+    """The angle between the directions ``a`` and ``b`` (``[..., 3]``,
+    unit or zero), as ``atan2(|a x b|, a . b)``.  The cross product is
+    taken as ``a x (b - a)``, the same vector, whose digits survive a
+    small turn: ``b - a`` is nearly exact there, where each product of
+    ``a x b`` rounds to ~6e-8 of 1.  float32 ``acos(a . b)`` rounds every
+    turn below ~3.4e-4 rad to 0, since ``a . b`` rounds to 1."""
+    d = b - a
+    cx = a[..., 1] * d[..., 2] - a[..., 2] * d[..., 1]
+    cy = a[..., 2] * d[..., 0] - a[..., 0] * d[..., 2]
+    cz = a[..., 0] * d[..., 1] - a[..., 1] * d[..., 0]
+    sin = torch.sqrt(cx * cx + cy * cy + cz * cz)
+    cos = a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+    return torch.atan2(sin, cos)
+
+
 def _apsis_update(track, rhat, vrad, valid, mode, angle_cut):
     """Mode-specific half of the static detector: sign flip and angle
     accumulate/reset against fresh region frames (split out so
     ``mode='both'`` computes the frames once and runs this twice)."""
-    cos = track.rhat[..., 0] * rhat[..., 0] + track.rhat[..., 1] \
-        * rhat[..., 1] + track.rhat[..., 2] * rhat[..., 2]
-    cosang = torch.clamp(cos, -1.0, 1.0)
     zero = torch.zeros((), dtype=rhat.dtype, device=rhat.device)
-    dtheta = torch.where(valid, torch.acos(cosang), zero)
+    dtheta = torch.where(valid, turn_angle(track.rhat, rhat), zero)
     if mode == "pericentric":
         flip = (track.vrad < 0) & (vrad > 0)
     else:
@@ -358,12 +383,50 @@ def _num(v):
     return float(a) if a.ndim == 0 else tuple(float(x) for x in a)
 
 
+class _CallPhases:
+    """The spans and counters of one :func:`simulate_with_tracking` call:
+    :func:`~orbitanalysis_tpu_torch.utils.metrics.phase_timer` spans into
+    ``metrics`` (the profiler's ranges alone with None) and, on CUDA with
+    ``metrics``, each phase's stretch of the device stream between CUDA
+    timing events, read once by :meth:`close`."""
+
+    def __init__(self, metrics, device):
+        self._out = metrics
+        self._clock = metrics is not None and device.type == "cuda"
+        self._events = []
+
+    @contextlib.contextmanager
+    def __call__(self, name, counter=None, device_key=None):
+        with phase_timer(self._out, name):
+            if self._clock and device_key is not None:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                yield
+                end.record()
+                self._events.append((device_key, start, end))
+            else:
+                yield
+        if counter is not None and self._out is not None:
+            self._out[counter] = self._out.get(counter, 0) + 1
+
+    def close(self):
+        """Add the device stretches into ``metrics``: one wait, on the
+        last event recorded, which completes every earlier one."""
+        if self._events:
+            self._events[-1][2].synchronize()
+        for key, start, end in self._events:
+            self._out[key] = self._out.get(key, 0.0) + start.elapsed_time(
+                end) * 1e-3
+
+
 def simulate_with_tracking(state: NBodyState, members,
                            config: OrbitNBodyConfig,
                            force_fn: Callable = direct_forces,
                            track: Optional[TrackState] = None,
                            step_offset: int = 0,
-                           identity: Optional[bool] = None):
+                           identity: Optional[bool] = None,
+                           metrics: Optional[dict] = None):
     """Run ``n_steps`` of KDK with apsis detection every ``detect_every``
     steps.
 
@@ -378,7 +441,20 @@ def simulate_with_tracking(state: NBodyState, members,
     phase across chunks.  ``identity`` (members are ``arange(n)``, every
     particle tracked in order: the frames skip their gathers) is detected
     only for a host NumPy ``members``; pass ``identity=True`` for device
-    tensors.  ``members`` is ``[H, P]`` (NumPy or a tensor)."""
+    tensors.  ``members`` is ``[H, P]`` (NumPy or a tensor).
+
+    ``metrics`` (a dict, as :func:`~orbitanalysis_tpu_torch.utils.
+    metrics.phase_timer` takes) gathers the call's host seconds, adding
+    to what it holds: ``step_s`` (``sim.step``: each step's enqueue, the
+    KDK step and its detection), ``force_s`` (``sim.force``) and
+    ``detect_s`` (``sim.detect``), the counters ``force_evals`` and
+    ``detections`` (the opening force evaluation and, on a fresh track,
+    the seeding detection included) and, on CUDA tensors, the device
+    stretches ``force_device_s`` and ``detect_device_s`` (CUDA timing
+    events, read once at the end of the call).  ``force_fn`` is then
+    called with ``metrics=`` too (the PM force adds its ``deposit_s``,
+    ``solve_s``, ``interp_s`` and ``deposited``).  Without it no timing
+    event is recorded and nothing waits for the device."""
     if config.mode not in ("pericentric", "apocentric", "both"):
         raise ValueError(
             "Orbit detection mode not recognized. Please specify either "
@@ -413,18 +489,26 @@ def simulate_with_tracking(state: NBodyState, members,
 
     centers, bulks = as_dev(config.centers), as_dev(config.bulk_vels)
 
-    def detect(trs, st):
-        rhat, vrad, _r, _c, _b = _halo_frames(
-            st, members, valid, box, center=centers, bulk=bulks,
-            identity=identity)
-        outs, evs = [], []
-        for m, tr in zip(modes, trs):
-            tr2, apsis = _apsis_update(tr, rhat, vrad, valid, m, cut)
-            outs.append(tr2)
-            evs.append(torch.sum(apsis, dtype=torch.int32))
-        return tuple(outs), torch.stack(evs)
+    phases = _CallPhases(metrics, dev)
+    extra = {} if metrics is None else {"metrics": metrics}
 
-    acc = force_fn(state.pos, state.mass, softening=soft, G=G, box_size=box)
+    def force(pos, mass, **kw):
+        with phases("sim.force", "force_evals", "force_device_s"):
+            return force_fn(pos, mass, **kw, **extra)
+
+    def detect(trs, st):
+        with phases("sim.detect", "detections", "detect_device_s"):
+            rhat, vrad, _r, _c, _b = _halo_frames(
+                st, members, valid, box, center=centers, bulk=bulks,
+                identity=identity)
+            outs, evs = [], []
+            for m, tr in zip(modes, trs):
+                tr2, apsis = _apsis_update(tr, rhat, vrad, valid, m, cut)
+                outs.append(tr2)
+                evs.append(torch.sum(apsis, dtype=torch.int32))
+            return tuple(outs), torch.stack(evs)
+
+    acc = force(state.pos, state.mass, softening=soft, G=G, box_size=box)
     if track is None:
         trs = tuple(init_track_state(h, p, dtype=state.pos.dtype, device=dev)
                     for _ in modes)
@@ -436,10 +520,12 @@ def simulate_with_tracking(state: NBodyState, members,
     events = torch.zeros((n_steps, len(modes)), dtype=torch.int32, device=dev)
     st = state
     for k in range(n_steps):
-        st, acc = kdk_step(st, acc, dt, force_fn, box_size=box,
-                           softening=soft, G=G)
-        if (int(step_offset) + k + 1) % every == 0:
-            trs, events[k] = detect(trs, st)
+        with phases("sim.step"):
+            st, acc = kdk_step(st, acc, dt, force, box_size=box,
+                               softening=soft, G=G)
+            if (int(step_offset) + k + 1) % every == 0:
+                trs, events[k] = detect(trs, st)
+    phases.close()
     if both:
         return st, trs, events
     return st, trs[0], events[:, 0]

@@ -39,6 +39,7 @@ from orbitanalysis_tpu_torch.ops.deposit import (
     deposit_supported,
     mass_vector,
 )
+from orbitanalysis_tpu_torch.utils.metrics import phase_timer
 from orbitanalysis_tpu_torch.utils.numerics import box_tensor, div_rn
 
 
@@ -365,17 +366,29 @@ def select_interpolator(assignment: str, grid: int = 0):
 
 
 def pm_forces(pos, mass, grid, box_size, G=1.0, deconvolve=False,
-              assignment="auto", deposit="auto", **_):
+              assignment="auto", deposit="auto", metrics=None, **_):
     """PM accelerations ``[N, 3]`` for all particles (signature-compatible
     with :func:`orbitanalysis_tpu_torch.models.nbody.direct_forces`
     given a closure over ``grid``).  ``assignment`` picks the
     interpolation (:func:`select_interpolator`), ``deposit`` the mass
-    assignment (:func:`select_depositor`)."""
+    assignment (:func:`select_depositor`).
+
+    Spans ``pm.deposit``, ``pm.solve`` and ``pm.interp``: host seconds
+    into ``metrics`` (``deposit_s``, ``solve_s``, ``interp_s``) and the
+    profiler's ranges; ``metrics['deposited']`` counts the particles
+    deposited."""
     interp = select_interpolator(assignment, grid)
     depositor = select_depositor(deposit, grid)
-    rho = depositor(pos, mass, grid, box_size)
-    field = pm_forces_grid(rho, grid, box_size, G=G, deconvolve=deconvolve)
-    return interp(field, pos, grid, box_size)
+    with phase_timer(metrics, "pm.deposit"):
+        rho = depositor(pos, mass, grid, box_size)
+    with phase_timer(metrics, "pm.solve"):
+        field = pm_forces_grid(rho, grid, box_size, G=G,
+                               deconvolve=deconvolve)
+    with phase_timer(metrics, "pm.interp"):
+        acc = interp(field, pos, grid, box_size)
+    if metrics is not None:
+        metrics["deposited"] = metrics.get("deposited", 0) + pos.shape[0]
+    return acc
 
 
 def make_pm_force_fn(grid: int, deconvolve: bool = False,
@@ -385,11 +398,11 @@ def make_pm_force_fn(grid: int, deconvolve: bool = False,
     select_interpolator(assignment, grid)
     select_depositor(deposit, grid)
 
-    def force(pos, mass, box_size=None, G=1.0, **_):
+    def force(pos, mass, box_size=None, G=1.0, metrics=None, **_):
         if box_size is None:
             raise ValueError("PM forces require a periodic box_size")
         return pm_forces(pos, mass, grid, box_size, G=G,
                          deconvolve=deconvolve, assignment=assignment,
-                         deposit=deposit)
+                         deposit=deposit, metrics=metrics)
 
     return force

@@ -20,7 +20,12 @@ Ranges the port opens (each only while a profiler records):
 - ``oa.step.frame``, ``oa.step.detect``, ``oa.step.compact``,
   ``oa.step.finish``: the aligned step (``ops/sorted_step.
   make_aligned_native_step``), under ``oa.track.issue`` or
-  ``oa.scan.step``.
+  ``oa.scan.step``;
+- ``oa.sim.step`` (a step's enqueue: the KDK step and its detection)
+  and, in it or before the loop, ``oa.sim.force`` and ``oa.sim.detect``:
+  ``models/nbody.simulate_with_tracking``;
+- ``oa.pm.deposit``, ``oa.pm.solve``, ``oa.pm.interp``: the PM force
+  (``models/pm.pm_forces``), under ``oa.sim.force``.
 """
 
 from __future__ import annotations
