@@ -20,7 +20,9 @@ repository checkout; it imports nothing of JAX.  Phases:
    kernels and the aligned detect kernel on the inputs of real steps,
    the fused label detect kernel on the label path's, the sorted
    deposit on the streams of the first force evaluations of phase 12's
-   two runs, 12.6M / 257^3 and 33.5M / 513^3, the blocked direct forces
+   two runs, 12.6M / 257^3 and 33.5M / 513^3, the CIC interpolation on
+   the same evaluations' force fields (12.6M on 256^3, 33.5M on 512^3;
+   its time with its inputs out of L2), the blocked direct forces
    at N = 16,384 and 131,072, free and periodic), with timings,
    the card's bound for the same work and, where one PyTorch call
    computes the same function, that call's time;
@@ -100,7 +102,8 @@ repository checkout; it imports nothing of JAX.  Phases:
    snapshot rate missing more; the same runs on the CPU, counts within
    one on at most 0.1 % of the particles;
 12. config 4 at scale with PM forces (``make_pm_force_fn``, the sorted
-   deposit kernel once a force evaluation): 12,582,912 particles on
+   deposit kernel and the interpolation kernel once a force evaluation,
+   and no other kernel): 12,582,912 particles on
    256^3 for 32 steps, integrator only and tracked, a profiler window
    over 8 tracked steps, and one detection on the identity and the
    gather paths; then 33,554,432 particles on 512^3
@@ -112,7 +115,8 @@ repository checkout; it imports nothing of JAX.  Phases:
    (16 steps, detection every 4), against the same run with the plain
    blocked version on the card; one P3M force evaluation at 262,144
    particles on 64^3 (finite, net force near zero, and two calls the
-   same bits: its deposit is K13);
+   same bits: its deposit is K13; the timed call launches the deposit
+   and the interpolation kernels once each);
 14. the distributed engines (``parallel/``, ``track_orbits(mesh=)``):
    (a) an NCCL world of one rank in this process: config 2 through a
    ``{'halos': 1}`` mesh under ``join_impl='auto'`` (the aligned engine,
@@ -2575,6 +2579,63 @@ def _k13_check(dev, n, grid, results):
     return r
 
 
+def _interp_check(dev, n, grid, results):
+    """The CIC interpolation kernel on the force field of the first force
+    evaluation of config 4's ``n``-particle run on ``grid``^3: bit-equal
+    to its plain version on the same CUDA tensors, twice the same bits;
+    returns the timings (the kernel's with its inputs out of L2)."""
+    import torch
+
+    from orbitanalysis_tpu_torch.models import pm as tpm
+
+    st = c4_state(n, dev)
+    pos = st.pos
+    field = tpm.pm_forces_grid(
+        tpm.cic_deposit_auto(pos, st.mass, grid, C4_BOX), grid, C4_BOX)
+    del st
+
+    def kernel(f=field, p=pos):
+        return tpm.cic_interpolate(f, p, grid, C4_BOX)
+
+    def plain():
+        return tpm.cic_interpolate_torch(field, pos, grid, C4_BOX)
+
+    got, again, want = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    bits = got.view(torch.int32)
+    check(torch.equal(bits, want.view(torch.int32)),
+          f"cic_interpolate differs from its twin at {n} / {grid}^3")
+    check(torch.equal(bits, again.view(torch.int32)),
+          "cic_interpolate is not deterministic")
+    del got, again, want, bits
+    # the function reads each position and writes each acceleration once
+    # (12 + 12 B) and reads each cell of the three planes once (12 B)
+    n_bytes = 24 * n + 12 * grid ** 3
+    b_ms, b_by = bound(n_bytes, 0)
+
+    def on_copy(c):
+        if c == 0:
+            return kernel
+        f, p = field.clone(), pos.clone()
+        return lambda: kernel(f, p)
+
+    r = dict(max_abs_err=0.0, ms=cold_ms(on_copy, n_bytes),
+             plain_ms=cuda_ms(plain, runs=3, reps=2, warmup=1),
+             bound_ms=b_ms, bound_by=b_by,
+             # no single PyTorch call interpolates a periodic field (the
+             # padding modes of grid_sample do not wrap)
+             library_ms=None)
+    warm = cuda_ms(kernel)
+    log(f"  cic_interpolate {n} particles on {grid}^3: bit-equal to its "
+        f"twin, twice the same bits; kernel {r['ms']:.4f} ms cold "
+        f"({warm:.4f} back to back), plain {r['plain_ms']:.4f}, bound "
+        f"{b_ms:.4f} ({b_by}), {r['ms'] / b_ms:.2f} x the bound; "
+        f"{n / r['ms'] * 1e-6:.4g}e9 particles/s")
+    results[n, grid] = r
+    torch.cuda.empty_cache()
+    return r
+
+
 def _k14_check(dev, n, box, results):
     """K14 at ``n`` particles (free, or periodic in ``box``) against its
     plain version and, where its pair matrix fits, the Gram or dense
@@ -2631,16 +2692,21 @@ def _k14_check(dev, n, box, results):
 
 def force_kernel_checks(dev):
     """Phase 3 for K13 (the sorted streams of the first force evaluations
-    of the 12.6M / 256^3 and 33.5M / 512^3 runs) and K14 (N = 16384 and
-    131072, free and periodic).  Returns the timings at the kernels' main
-    shapes (12.6M / 257^3; N = 16384 free) and logs every shape's."""
+    of the 12.6M / 256^3 and 33.5M / 512^3 runs), the CIC interpolation
+    (those evaluations' force fields) and K14 (N = 16384 and 131072, free
+    and periodic).  Returns the timings at the kernels' main shapes
+    (12.6M / 257^3; 12.6M / 256^3; N = 16384 free) and logs every
+    shape's."""
     import torch
 
-    k13, k14 = {}, {}
+    k13, k14, interp = {}, {}, {}
     results = {"deposit_sorted": _k13_check(
         dev, C4_SCALE[0] * C4_ROW, C4_SCALE[1], k13)}
     _k13_check(dev, C4_ANCHOR[0] * C4_ROW, C4_ANCHOR[1], k13)
     torch.cuda.empty_cache()
+    results["cic_interpolate"] = _interp_check(
+        dev, C4_SCALE[0] * C4_ROW, C4_SCALE[1], interp)
+    _interp_check(dev, C4_ANCHOR[0] * C4_ROW, C4_ANCHOR[1], interp)
     log(f"  matmul: allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
         f"float32 precision '{torch.get_float32_matmul_precision()}' (the "
         "Gram form needs full float32; cudnn.allow_tf32="
@@ -2653,6 +2719,8 @@ def force_kernel_checks(dev):
         _k14_check(dev, n, box, k14)
     for (n, grid), r in k13.items():
         log(f"  K13 at {n} / {grid + 1}^3: {json.dumps(r)}")
+    for (n, grid), r in interp.items():
+        log(f"  cic_interpolate at {n} / {grid}^3: {json.dumps(r)}")
     for (n, box), r in k14.items():
         log(f"  K14 at N={n} {'free' if box is None else 'periodic'}: "
             f"{json.dumps(r)}")
@@ -2804,14 +2872,18 @@ def c4_scale(dev):
         # ---- end of the counted main path
         for k, c in counts.items():
             totals[k] = totals.get(k, 0) + c
-        k13 = counts["deposit_sorted"]
+        k13, interp = counts["deposit_sorted"], counts["cic_interpolate"]
         log(f"  {n} particles, {grid}^3, {steps} steps, {label}: "
             f"{wall:.3f} s, {steps / wall:.3f} steps/s, "
             f"{n * steps / wall:.4g} particle-steps/s; {int(ev.sum())} "
-            f"events; deposit_sorted {k13} launches")
+            f"events; deposit_sorted {k13}, cic_interpolate {interp} "
+            "launches")
         check(k13 == steps + 1, f"K13 launched {k13} times, not {steps + 1}")
+        check(interp == steps + 1,
+              f"cic_interpolate launched {interp} times, not {steps + 1}")
         check(bool(torch.isfinite(tr.angles).all()), "non-finite angles")
-        check(set(launch_diff(counts)) == {"deposit_sorted"},
+        check(set(launch_diff(counts)) == {"deposit_sorted",
+                                           "cic_interpolate"},
               f"unexpected kernels {launch_diff(counts)}")
     # where a tracked PM step's device time goes (8 steps, 9 force
     # evaluations with the opening one)
@@ -2848,14 +2920,18 @@ def c4_scale(dev):
     for k, c in counts.items():
         totals[k] = totals.get(k, 0) + c
     peak = torch.cuda.max_memory_allocated()
-    k13 = counts["deposit_sorted"]
+    k13, interp = counts["deposit_sorted"], counts["cic_interpolate"]
     log(f"  {n} particles, {grid}^3, {steps} steps in {chunk}-step chunks, "
         f"detect_every={C4_DETECT_EVERY}: {wall:.3f} s, {wall / steps:.4f} "
         f"s/step, {n * steps / wall:.4g} particle-steps/s, {int(ev.sum())} "
-        f"events; peak memory {peak / 2**30:.2f} GiB; deposit_sorted {k13} "
-        "launches")
-    check(k13 == (steps // chunk) * (chunk + 1),
-          f"K13 launched {k13} times at 512^3")
+        f"events; peak memory {peak / 2**30:.2f} GiB; deposit_sorted {k13}, "
+        f"cic_interpolate {interp} launches")
+    evals = (steps // chunk) * (chunk + 1)
+    check(k13 == evals, f"K13 launched {k13} times at 512^3")
+    check(interp == evals,
+          f"cic_interpolate launched {interp} times at 512^3, not {evals}")
+    check(set(launch_diff(counts)) == {"deposit_sorted", "cic_interpolate"},
+          f"unexpected kernels at 512^3 {launch_diff(counts)}")
     check(bool(torch.isfinite(tr.angles).all()), "non-finite angles at 512^3")
     del st, tr, ev, members
     torch.cuda.empty_cache()
@@ -2969,10 +3045,16 @@ def direct_phase(dev):
     p3m = make_p3m_force_fn(grid)
     first = p3m(pos, mass, box_size=C4_BOX, softening=0.05)     # warm-up
     torch.cuda.synchronize()
+    # ---- the main path, counted
+    c0 = _cuda.launch_counts()
     t0 = time.perf_counter()
     acc = p3m(pos, mass, box_size=C4_BOX, softening=0.05)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    p3m_launches = launch_diff(_cuda.launch_counts(), c0)
+    # ---- end of the counted main path
+    for k, c in p3m_launches.items():
+        launches[k] += c
     ma = mass[:, None].double() * acc.double()
     net = ma.sum(0).abs()
     scale = ma.abs().sum(0)
@@ -2984,6 +3066,9 @@ def direct_phase(dev):
     check(bool(torch.isfinite(acc).all()), "P3M forces not finite")
     check(bool((net < 1e-3 * scale).all()), "P3M net force not near zero")
     check(same, "P3M gave other bits on a second call")
+    check(p3m_launches == {"deposit_sorted": 1, "cic_interpolate": 1},
+          f"one P3M force evaluation launched {p3m_launches}, not the "
+          "deposit and the interpolation once each")
     return launches
 
 

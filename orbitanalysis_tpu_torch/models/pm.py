@@ -15,7 +15,12 @@ sorted-stream deposit of :mod:`orbitanalysis_tpu_torch.ops.deposit`
 (``index_add_``) on CPU tensors, the choice the JAX package makes
 between the accelerator its kernel was written for and the CPU.
 Interpolation policy (:func:`select_interpolator`): ``'auto'`` is
-``'scalar'``, the JAX answer off a TPU.  The ``'rows'`` and ``'cells'``
+``'scalar'``, the JAX answer off a TPU: :func:`cic_interpolate`, which
+runs the hand-written kernel ``cic_interpolate`` (``csrc/interp.cu``: a
+thread a particle, the field visited by x-slabs that fit the L2) on CUDA
+tensors and its plain version :func:`cic_interpolate_torch` (the
+corners' ``[8, N]`` indices and weights, then 24 gathers) on CPU
+tensors; the two equal bit for bit.  The ``'rows'`` and ``'cells'``
 tables exist to cut the TPU's cost per gather index, which the card does
 not have; they are plain torch here, for parity.
 
@@ -33,6 +38,7 @@ from typing import NamedTuple
 
 import torch
 
+from orbitanalysis_tpu_torch.ops import _cuda
 from orbitanalysis_tpu_torch.ops.deposit import (
     cic_base,
     cic_deposit_sorted,
@@ -99,7 +105,21 @@ def cic_deposit(pos, mass, grid, box_size):
 
 def cic_interpolate(field3, pos, grid, box_size):
     """Interpolate a ``[3, grid, grid, grid]`` vector field to particles:
-    ``[N, 3]``, each component's 8 corners added in corner order."""
+    ``[N, 3]``, each component's 8 corners added in corner order.  On
+    CUDA tensors the kernel ``cic_interpolate`` (``csrc/interp.cu``), on
+    CPU tensors its plain version :func:`cic_interpolate_torch`: the two
+    equal bit for bit."""
+    if _cuda.on_cpu(pos, "cic_interpolate"):
+        return cic_interpolate_torch(field3, pos, grid, box_size)
+    return _cuda.cic_interpolate(field3.contiguous(),
+                                 pos.to(torch.float32).contiguous(), grid,
+                                 box_size)
+
+
+def cic_interpolate_torch(field3, pos, grid, box_size):
+    """Plain-torch twin of the interpolation kernel: the 8 corners' flat
+    indices and weights (:func:`_cic_neighbors`), then 24 gathers, each
+    component's products added in corner order."""
     flat, w = _cic_neighbors(pos, grid, box_size)
     out = []
     for c in range(3):

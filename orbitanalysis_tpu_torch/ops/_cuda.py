@@ -73,6 +73,10 @@ def _sites(*lines):
 _FUSED_CHAIN = ("none: XLA's fusion of " + _JAX + "geometry.py:42 "
                 "region_frame and " + _JAX + "sorted_step.py:734 "
                 "aligned_detect_math")
+#: What the PM force's interpolation kernel stands for: no Pallas kernel,
+#: but the gathers XLA fuses on the TPU.
+_GATHER_CHAIN = ("none: XLA's fusion of orbitanalysis_tpu/models/pm.py:129 "
+                 "cic_interpolate")
 
 
 KERNELS = {
@@ -107,6 +111,7 @@ KERNELS = {
                _sites("pallas_compact.py:137")),
         Kernel("deposit_sorted", _SRC + "deposit.cu",
                _sites("pallas_deposit.py:217")),
+        Kernel("cic_interpolate", _SRC + "interp.cu", _GATHER_CHAIN),
         Kernel("direct_forces", _SRC + "nbody.cu",
                _sites("pallas_nbody.py:130")),
         Kernel("stream_add_rows", _SRC + "probe.cu",
@@ -246,6 +251,7 @@ def bind(lib):
         "compact_rows_groups": [p, pp, pp, i, i, p, pp, pp, i, i, p, ll, i,
                                 i, p],
         "deposit_sorted": [p, p, p, p, i, ll, i, i, p],
+        "cic_interpolate": [p, p, p, ll, i, f, i, p],
         "direct_forces": [p, p, p, p, i, i, i, f, f, i, f, f, p],
         "stream_add_rows_geometry": [ctypes.POINTER(i), ctypes.POINTER(i)],
         "stream_add_rows": [p, p, ll, i, p],
@@ -781,6 +787,48 @@ def deposit_sorted(keys: torch.Tensor, fracs: torch.Tensor, n_cells: int,
     _launch(name, _library().deposit_sorted, keys.data_ptr(),
             fracs.data_ptr(), bounds.data_ptr(), out.data_ptr(), n, n_cells,
             sx, sy, device=keys.device)
+    return out
+
+
+#: The most x-slabs the interpolation kernel visits the field in: each
+#: slab reads the positions once more (``csrc/interp.cu``).
+INTERP_MAX_SLABS = 16
+
+
+def interp_slabs(grid: int, l2_bytes: int) -> int:
+    """The x-slabs of the interpolation kernel on a ``grid^3`` field: the
+    fewest whose three float32 planes fit a third of the card's
+    ``l2_bytes`` of L2, at most :data:`INTERP_MAX_SLABS` (12 at 256^3 on
+    the H100's 50 MB)."""
+    return max(1, min(INTERP_MAX_SLABS, -(-36 * grid ** 3 // l2_bytes)))
+
+
+def cic_interpolate(field3: torch.Tensor, pos: torch.Tensor, grid: int,
+                    box_size) -> torch.Tensor:
+    """Launch the CIC interpolation: ``field3 [3, G, G, G]`` f32 (a
+    periodic vector field on ``grid^3`` cells), ``pos [N, 3]`` f32 ->
+    ``[N, 3]`` f32, each component's 8 corners weighted and added in
+    corner order, as ``models/pm.py`` ``cic_interpolate_torch`` does
+    (the cell size is the float32 ``box_size / grid``); the field visited
+    in :func:`interp_slabs` x-slabs."""
+    name = "cic_interpolate"
+    n = pos.shape[0]
+    _check(name, field3, dtype=torch.float32, dim=4)
+    _check(name, pos, dtype=torch.float32)
+    if field3.shape != (3, grid, grid, grid):
+        raise ValueError(f"{name}: field3 must be [3, {grid}, {grid}, "
+                         f"{grid}], got {tuple(field3.shape)}")
+    if pos.shape != (n, 3):
+        raise ValueError(f"{name}: pos must be [N, 3], got "
+                         f"{tuple(pos.shape)}")
+    if field3.device != pos.device:
+        raise ValueError(f"{name}: tensors on different devices")
+    slabs = interp_slabs(grid, torch.cuda.get_device_properties(
+        pos.device).L2_cache_size)
+    out = torch.empty((n, 3), dtype=torch.float32, device=pos.device)
+    _launch(name, _library().cic_interpolate, field3.data_ptr(),
+            pos.data_ptr(), out.data_ptr(), n, int(grid),
+            ctypes.c_float(float(box_size) / grid), slabs, device=pos.device)
     return out
 
 

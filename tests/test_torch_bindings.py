@@ -84,3 +84,15 @@ def test_fused_chain_kernels_name_the_jax_chain():
         for path, line, fn in sites:
             with open(os.path.join(REPO, path)) as f:
                 assert f"def {fn}(" in f.read().splitlines()[int(line) - 1]
+
+
+def test_interpolation_kernel_names_the_jax_function():
+    """The PM force's interpolation kernel replaces no Pallas kernel: its
+    record names the JAX function whose gathers XLA fuses on the TPU."""
+    k = _cuda.KERNELS["cic_interpolate"]
+    assert k.source == "orbitanalysis_tpu_torch/csrc/interp.cu"
+    (path, line, fn), = re.findall(
+        r"(orbitanalysis_tpu/models/\w+\.py):(\d+) (\w+)", k.replaces)
+    assert fn == "cic_interpolate"
+    with open(os.path.join(REPO, path)) as f:
+        assert f"def {fn}(" in f.read().splitlines()[int(line) - 1]

@@ -1646,6 +1646,8 @@ def test_deposit_kernel_refuses_bad_inputs_and_counts(dev):
         pos, torch.ones(500, device=dev), box_size=4.0)
     counts = _cuda.launch_counts()
     assert counts.pop("deposit_sorted") == 2
+    # both force evaluations interpolate through the kernel
+    assert counts.pop("cic_interpolate") == 2
     assert set(counts.values()) == {0}
     with pytest.raises(ValueError, match="CUDA"):
         _cuda.deposit_sorted(keys.cpu(), fracs.cpu(), 729, 81, 9)
