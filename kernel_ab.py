@@ -46,8 +46,10 @@ against ``x + 1``, through the checkout's own ``probes/dma_probe.py``.
 ``LABEL_STEPS`` (not in the default set either) runs phase 7's label
 step timings (``'split'``, ``'fused'``, ``'pallas'``) on the bench's
 label sequence through the checkout's own
-``chip_smoke.time_label_step``, or :func:`label_step_fallback` for a
-checkout that predates it, which prints the same.
+``chip_smoke.time_label_step``, which prints them.
+``COMPACT`` (not in the default set) times K3 at ``[4, 262144]`` and
+``[1, 1 << 19]`` (``K3_wide``) and K18 with every lane an event
+(``K18_full``) on seeded synthetic words (:func:`compact_times`).
 Each is checked against its plain version as ``chip_smoke.py`` checks it.
 Prints one JSON line of milliseconds, with a digest of K14's forces at
 N = 16384 so that two builds can be compared bit for bit.  Two checkouts
@@ -57,9 +59,8 @@ are compared on one card by running it in each, in the order A, B, B, A:
     python3 kernel_ab.py . new [K1,K4,K8,K10,...]
 
 The third argument picks the kernels (K1, K4, K8, K10, K13, K14, K15,
-K16 and K17 by default).  A checkout whose ``chip_smoke.py`` predates
-``_k13_check``/``_k14_check`` gets the same checks and timings from this
-script's own :func:`k13_fallback` and :func:`k14_fallback`.  It needs a
+K16 and K17 by default).  The checkout's ``chip_smoke.py`` must have
+``_k13_check``, ``_k14_check`` and ``time_label_step``.  It needs a
 CUDA card and builds the checkout's kernels at first use.
 """
 import hashlib
@@ -121,45 +122,6 @@ def k10_times(cs, dev, label_args):
         out[f"K10_H{h}"] = cs.cuda_ms(
             lambda: label.fused_label_detect(tab, *run_args, 0.0, **kw))
     return out
-
-
-def k13_fallback(cs, dev, n, grid):
-    """``_k13_check``'s bit-equality check and kernel time, for a
-    checkout that predates it."""
-    import torch
-
-    from orbitanalysis_tpu_torch.ops import deposit as td
-
-    st = cs.c4_state(n, dev)
-    keys, fracs = td.sorted_stream(st.pos, st.mass, grid, cs.C4_BOX)
-    del st
-    cs.check(torch.equal(td.deposit_stream(keys, fracs, grid),
-                         td.deposit_stream_torch(keys, fracs, grid)),
-             f"K13 differs from its plain version at {n}")
-    return {"ms": cs.cuda_ms(lambda: td.deposit_stream(keys, fracs, grid))}
-
-
-def k14_fallback(cs, dev, n, box):
-    """``_k14_check``'s inputs, plain-version check and kernel time, for
-    a checkout that predates it."""
-    import numpy as np
-    import torch
-
-    from orbitanalysis_tpu_torch.ops import nbody as tn
-
-    rng = np.random.default_rng(0)
-    pos = (rng.normal(size=(n, 3)) if box is None
-           else rng.uniform(0, box, (n, 3))).astype(np.float32)
-    p = torch.from_numpy(pos).to(dev)
-    m = torch.from_numpy(rng.uniform(0.5, 2.0, n).astype(np.float32)).to(dev)
-    if n == cs.K14_N:
-        rel = cs.force_rel(tn.direct_forces_blocked(p, m, 0.1, box_size=box),
-                           tn.direct_forces_blocked_torch(p, m, 0.1, 1.0, box))
-        cs.check(rel < 1e-3, f"K14 differs from its plain version: {rel}")
-    big = n > cs.K14_N
-    return {"ms": cs.cuda_ms(
-        lambda: tn.direct_forces_blocked(p, m, 0.1, box_size=box),
-        runs=3 if big else 5, reps=2 if big else 10)}
 
 
 def kernel_split(fn, reps=20):
@@ -269,65 +231,15 @@ def k8_times(cs, dev, label_args):
     return out
 
 
-def label_step_fallback(dev, work, frames, what, cs):
-    """``chip_smoke.time_label_step`` for a checkout that predates it:
-    the same scans, timings and profile."""
-    import statistics
-    import time
-
-    import torch
-
-    from orbitanalysis_tpu_torch.ops import label_step as ls
-
-    n = work["label"].shape[1]
-    s_n = work["label"].shape[0]
-    step = ls.make_label_orbit_step(cs.LABEL_K, frames=frames,
-                                    box_size=cs.LABEL_BOX,
-                                    row_width=cs.LABEL_ROW, rhat_packed=True)
-
-    def run_scan(queue=None):
-        carry = ls.init_label_carry(n, True, cs.LABEL_ROW, device=dev)
-        for s in range(s_n):
-            t1 = time.perf_counter()
-            carry, _ = step(carry, (work["pos"][s], work["vel"][s],
-                                    work["label"][s], work["centers"][s],
-                                    None, None, 0.0))
-            if queue is not None:
-                queue.append((time.perf_counter() - t1) * 1e3)
-
-    run_scan()
-    walls, busy, queue = [], [], []
-    for _ in range(cs.LABEL_SCANS):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        a.record()
-        run_scan(queue)
-        b.record()
-        b.synchronize()
-        walls.append(a.elapsed_time(b))
-        busy.append(cs.device_ms(run_scan))
-    wall_ms, dev_ms = statistics.median(walls), statistics.median(busy)
-    cs.log(f"  label step, frames='{frames}' ({what}), medians of "
-           f"{cs.LABEL_SCANS} scans of {s_n} steps (CUDA events): wall "
-           f"{wall_ms / s_n:.4f} ms/step (scans {min(walls):.3f}-"
-           f"{max(walls):.3f} ms), device {dev_ms / s_n:.4f} ms/step (scans "
-           f"{min(busy):.3f}-{max(busy):.3f} ms); the host takes "
-           f"{statistics.median(queue):.4f} ms to queue a step")
-    cs.profile_scan(run_scan, s_n, wall_ms)
-
-
 def label_step_times(cs, dev):
     """Phase 7's label step timings on the bench's label sequence (48
     snapshots of [64, 32768]): ``'split'`` (K7, K6, K8), ``'fused'``
     (K7, K10, K5) and ``'pallas'`` (K12, K11, the plain chain, K5)."""
     work = label_work(cs, dev, cs.LABEL[2])
-    timed = getattr(cs, "time_label_step", None) or (
-        lambda *a: label_step_fallback(*a, cs))
     for frames, what in (("auto", "'split': K7 -> K6 -> K8"),
                          ("fused", "K7 -> K10 -> K5"),
                          ("pallas", "K12 -> K11 -> plain chain -> K5")):
-        timed(dev, work, frames, what)
+        cs.time_label_step(dev, work, frames, what)
 
 
 def sorted_stack(dev, churn):
@@ -412,6 +324,52 @@ def k18_times(cs, dev):
     out = checked_times(cs, "K18", lambda: compact.compact_events(*a),
                         lambda: compact.compact_events_torch(*a))
     out["K18_events"] = int((a[0] < 0).sum())
+    return out
+
+
+#: K3's second shape: one halo at MAX_ALIGNED_CAPACITY, K = 16384.
+WIDE_PAIR = (1, 1 << 19, 16384)
+
+
+def compact_times(cs, dev):
+    """``COMPACT``: K3 at ``chip_smoke.PAIR_ROWS`` (``[4, 262144]``) and
+    on one halo of ``1 << 19`` (``K3_wide``), 3 % events each, and K18
+    on ``[64, 32768]`` with every lane an event (``K18_full``: each
+    row's k128 outputs full), each bit for bit against its plain
+    version.  K3's words are the first draws of ``default_rng(1)``,
+    ``K18_full``'s follow a K1 plane's draws from ``default_rng(2)``."""
+    import numpy as np
+    import torch
+
+    from orbitanalysis_tpu_torch.ops import compact
+
+    def words(x):
+        return torch.from_numpy(np.ascontiguousarray(x).view(np.int32)).to(dev)
+
+    out = {}
+    for tag, (h, p, k), seed in (("K3", cs.PAIR_ROWS, 1),
+                                 ("K3_wide", WIDE_PAIR, 3)):
+        rng = np.random.default_rng(seed)
+        sel = rng.random((h, p)) < 0.03
+        pw = words(np.where(sel, np.arange(p, dtype=np.uint32) + 1,
+                            np.uint32(0)))
+        aw = words(np.where(sel, rng.integers(0, 0x7BFF, (h, p)).astype(
+            np.uint32), np.uint32(0)))
+        out.update(checked_times(
+            cs, tag, lambda pw=pw, aw=aw, k=k: compact.compact_payload_pair(
+                pw, aw, k),
+            lambda pw=pw, aw=aw, k=k: compact.compact_payload_pair_torch(
+                pw, aw, k)))
+    h, p, k = cs.ANGLE_ROWS
+    rng = np.random.default_rng(2)
+    rng.uniform(0, 7, (h, p)), rng.random((h, p))  # the K1 plane's draws
+    key, sv = (words(rng.integers(0, 1 << 32, (h, p), dtype=np.uint64)
+                     .astype(np.uint32)) for _ in range(2))
+    full = words(rng.integers(0, 1 << 31, (h, p)).astype(np.uint32)
+                 | np.uint32(1 << 31))
+    out.update(checked_times(
+        cs, "K18_full", lambda: compact.compact_events(full, key, sv, k),
+        lambda: compact.compact_events_torch(full, key, sv, k)))
     return out
 
 
@@ -592,6 +550,8 @@ def main(root, tag, which="K1,K4,K8,K10,K13,K14,K15,K16,K17"):
         out.update(k18_times(cs, dev))
     if "K19" in which:
         out.update(k19_times(cs, dev))
+    if "COMPACT" in which:
+        out.update(compact_times(cs, dev))
     if {"K4", "K8", "K10"} & set(which):
         label_args = cs._detect_inputs(dev, label_work(cs, dev), True)
         for name, fn in (("K4", k4_times), ("K8", k8_times),
@@ -605,9 +565,7 @@ def main(root, tag, which="K1,K4,K8,K10,K13,K14,K15,K16,K17"):
             n = rows * cs.C4_ROW
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-            out[f"K13_{n}_{grid + 1}"] = (
-                cs._k13_check(dev, n, grid, {}) if hasattr(cs, "_k13_check")
-                else k13_fallback(cs, dev, n, grid))
+            out[f"K13_{n}_{grid + 1}"] = cs._k13_check(dev, n, grid, {})
             out[f"K13_{n}_{grid + 1}_peak_GiB"] = (
                 torch.cuda.max_memory_allocated() / 2**30)
             torch.cuda.empty_cache()
@@ -615,10 +573,7 @@ def main(root, tag, which="K1,K4,K8,K10,K13,K14,K15,K16,K17"):
         for n in (cs.K14_N, 8 * cs.K14_N):
             for box in (None, 10.0):
                 key = f"K14_N{n}_{'free' if box is None else 'periodic'}"
-                out[key] = (
-                    cs._k14_check(dev, n, box, {})
-                    if hasattr(cs, "_k14_check")
-                    else k14_fallback(cs, dev, n, box))
+                out[key] = cs._k14_check(dev, n, box, {})
         rng = np.random.default_rng(0)
         p = torch.from_numpy(
             rng.normal(size=(cs.K14_N, 3)).astype(np.float32)).to(dev)
@@ -641,6 +596,6 @@ def main(root, tag, which="K1,K4,K8,K10,K13,K14,K15,K16,K17"):
 if __name__ == "__main__":
     if len(sys.argv) not in (3, 4):
         raise SystemExit("usage: python3 kernel_ab.py CHECKOUT TAG "
-                         "[K1,K4,K8,K10,K13,K14,K15,K16,K17,K18,K19,P1,P2,P3,"
-                         "STEPS,LABEL_STEPS]")
+                         "[K1,K4,K8,K10,K13,K14,K15,K16,K17,K18,K19,COMPACT,"
+                         "P1,P2,P3,STEPS,LABEL_STEPS]")
     main(*sys.argv[1:])

@@ -272,6 +272,46 @@ def test_auto_picks_general_off_cuda(tmp_path, churn_setup):
     assert {r["join"] for r in m.records} == {"general"}
 
 
+PARTICLES = ("halos", "particles")
+
+#: (join_impl, device type, mesh axes, ID dtype, angle dtype, seed
+#: capacity) -> the engine's ``join``, or the text of the ValueError.
+PICKS = [
+    ("auto", "cuda", (), np.int32, np.float32, 1024, "aligned"),
+    ("auto", "cpu", (), np.int32, np.float32, 1024, "general"),
+    ("auto", "cuda", (), np.int32, np.float16, 1024, "general"),
+    ("auto", "cuda", (), np.uint32, np.float32, 1024, "general"),
+    ("auto", "cuda", PARTICLES, np.int32, np.float32, 1024, "general"),
+    ("auto", "cuda", ("shards",), np.int32, np.float32, 1024, "hash"),
+    ("sorted", "cuda", ("shards",), np.int32, np.float32, None,
+     "'shards' mesh"),
+    ("auto", "cuda", (), np.int32, np.float32, 65536, "aligned"),
+    ("auto", "cuda", (), np.int32, np.float32, 131072, "general"),
+    ("auto", "cuda", (), np.int64, np.float32, 131072, "aligned"),
+    ("sorted", "cuda", (), np.int32, np.float32, 262144, "capacities up to"),
+    ("aligned", "cpu", PARTICLES, np.int32, np.float32, None,
+     "halo axis only"),
+    ("hash", "cpu", (), np.int32, np.float32, None, "join_impl"),
+]
+
+
+@pytest.mark.parametrize("join_impl,device,axes,ids,angles,capacity,want",
+                         PICKS)
+def test_picker_decision_table(join_impl, device, axes, ids, angles,
+                               capacity, want):
+    """The engine picker is a pure function of its arguments: it answers
+    for a 'cuda' device type on a host without CUDA, and raises what
+    ``track_orbits`` raises."""
+    from orbitanalysis_tpu_torch.engine.tracker import _pick_engine
+
+    args = (join_impl, device, axes, ids, angles, capacity)
+    if want in ("aligned", "general", "sorted", "hash"):
+        assert _pick_engine(*args).join == want
+    else:
+        with pytest.raises(ValueError, match=want):
+            _pick_engine(*args)
+
+
 def test_unported_paths_raise(tmp_path, churn_setup):
     """mesh= is ported: a world-of-one mesh runs and writes the unsharded
     savefile, and a mesh that is not the port's raises TypeError
