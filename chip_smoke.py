@@ -2580,16 +2580,21 @@ def _k13_check(dev, n, grid, results):
 
 
 def _interp_check(dev, n, grid, results):
-    """The CIC interpolation kernel on the force field of the first force
-    evaluation of config 4's ``n``-particle run on ``grid``^3: bit-equal
-    to its plain version on the same CUDA tensors, twice the same bits;
-    returns the timings (the kernel's with its inputs out of L2)."""
+    """The CIC interpolation kernel in both forms on the force field of
+    the first force evaluation of config 4's ``n``-particle run on
+    ``grid``^3: the positions form and the stream form (the deposit's
+    cell-sorted stream, as ``pm_forces`` runs it) each bit-equal to the
+    positions form's plain version on the same CUDA tensors and twice
+    the same bits; returns the timings (each kernel's with its inputs out
+    of L2)."""
     import torch
 
     from orbitanalysis_tpu_torch.models import pm as tpm
+    from orbitanalysis_tpu_torch.ops import deposit as td
 
     st = c4_state(n, dev)
     pos = st.pos
+    stream = td._sorted_stream(pos, st.mass, grid, C4_BOX)
     field = tpm.pm_forces_grid(
         tpm.cic_deposit_auto(pos, st.mass, grid, C4_BOX), grid, C4_BOX)
     del st
@@ -2597,21 +2602,32 @@ def _interp_check(dev, n, grid, results):
     def kernel(f=field, p=pos):
         return tpm.cic_interpolate(f, p, grid, C4_BOX)
 
+    def streamed(f=field, s=stream):
+        return tpm.cic_interpolate_stream(f, *s, grid)
+
     def plain():
         return tpm.cic_interpolate_torch(field, pos, grid, C4_BOX)
 
-    got, again, want = kernel(), kernel(), plain()
-    torch.cuda.synchronize()
-    bits = got.view(torch.int32)
-    check(torch.equal(bits, want.view(torch.int32)),
-          f"cic_interpolate differs from its twin at {n} / {grid}^3")
-    check(torch.equal(bits, again.view(torch.int32)),
-          "cic_interpolate is not deterministic")
-    del got, again, want, bits
-    # the function reads each position and writes each acceleration once
-    # (12 + 12 B) and reads each cell of the three planes once (12 B)
+    want = plain().view(torch.int32)
+    for what, fn in (("cic_interpolate", kernel),
+                     ("cic_interpolate (stream form)", streamed)):
+        got, again = fn(), fn()
+        torch.cuda.synchronize()
+        bits = got.view(torch.int32)
+        check(torch.equal(bits, want),
+              f"{what} differs from its twin at {n} / {grid}^3")
+        check(torch.equal(bits, again.view(torch.int32)),
+              f"{what} is not deterministic")
+        del got, again, bits
+    del want
+    # the positions form reads each position and writes each
+    # acceleration once (12 + 12 B) and reads each cell of the three
+    # planes once (12 B); the stream form reads a key, three fractions and
+    # an order an entry (24 B) instead of the position
     n_bytes = 24 * n + 12 * grid ** 3
+    s_bytes = 36 * n + 12 * grid ** 3
     b_ms, b_by = bound(n_bytes, 0)
+    s_ms, s_by = bound(s_bytes, 0)
 
     def on_copy(c):
         if c == 0:
@@ -2619,19 +2635,35 @@ def _interp_check(dev, n, grid, results):
         f, p = field.clone(), pos.clone()
         return lambda: kernel(f, p)
 
+    def on_stream_copy(c):
+        if c == 0:
+            return streamed
+        f, s = field.clone(), tuple(t.clone() for t in stream)
+        return lambda: streamed(f, s)
+
     r = dict(max_abs_err=0.0, ms=cold_ms(on_copy, n_bytes),
              plain_ms=cuda_ms(plain, runs=3, reps=2, warmup=1),
              bound_ms=b_ms, bound_by=b_by,
              # no single PyTorch call interpolates a periodic field (the
              # padding modes of grid_sample do not wrap)
-             library_ms=None)
-    warm = cuda_ms(kernel)
-    log(f"  cic_interpolate {n} particles on {grid}^3: bit-equal to its "
-        f"twin, twice the same bits; kernel {r['ms']:.4f} ms cold "
-        f"({warm:.4f} back to back), plain {r['plain_ms']:.4f}, bound "
-        f"{b_ms:.4f} ({b_by}), {r['ms'] / b_ms:.2f} x the bound; "
-        f"{n / r['ms'] * 1e-6:.4g}e9 particles/s")
+             library_ms=None,
+             stream_ms=cold_ms(on_stream_copy, s_bytes),
+             stream_bound_ms=s_ms, stream_bound_by=s_by,
+             # the stream form's scattered rows: 1.25 sectors of 32 B a
+             # 12-byte row
+             stream_sector_floor_ms=bound(24 * n + 40 * n
+                                          + 12 * grid ** 3, 0)[0])
+    warm, s_warm = cuda_ms(kernel), cuda_ms(streamed)
+    log(f"  cic_interpolate {n} particles on {grid}^3: both forms "
+        f"bit-equal to the twin, twice the same bits; positions kernel "
+        f"{r['ms']:.4f} ms cold ({warm:.4f} back to back), bound "
+        f"{b_ms:.4f} ({b_by}), {r['ms'] / b_ms:.2f} x; stream kernel "
+        f"{r['stream_ms']:.4f} ms cold ({s_warm:.4f} back to back), bound "
+        f"{s_ms:.4f} ({s_by}), {r['stream_ms'] / s_ms:.2f} x, sector floor "
+        f"{r['stream_sector_floor_ms']:.4f}; plain {r['plain_ms']:.4f}; "
+        f"stream {n / r['stream_ms'] * 1e-6:.4g}e9 particles/s")
     results[n, grid] = r
+    del stream
     torch.cuda.empty_cache()
     return r
 

@@ -48,10 +48,46 @@
 // longer blocks a pass); a particle's base cell and weights stay in
 // registers, its 24 corner loads are all issued on the read-only path
 // before any product is formed, and its row of acc is written once.
-// What would come closer changes another layer: the three planes
-// interleaved ([G, G, G, 3]: one sector for a corner's three
-// components), or the particles visited in the deposit's cell-sorted
-// order.
+//
+// The stream form, cic_interpolate_kernel_stream (C entry
+// cic_interpolate_stream, launches counted as cic_interpolate), replaces
+// that form in the PM force wherever the force deposits through the
+// sorted stream (models/pm.py pm_forces): it visits the particles in the
+// deposit's cell-sorted order (ops/deposit.py _sorted_stream) instead of
+// their index order.  Input: field as above, the stream's keys [N] int32
+// (base cells on the virtual (G+1)^3 grid, strides sx = (G+1)^2, sy =
+// G+1, each cell wrapped into [0, G)), fracs [4, N] f32 (rows fx, fy,
+// fz read; the mass row not) and order [N] int64 (entry i is particle
+// order[i]).  Output: acc [N, 3], row order[i] from entry i.  The
+// arithmetic is the positions form's: the stream's fractions are the
+// floats x - floor(x) that base_cell forms, its keys the same wrapped
+// base cells (bx = k / sx, by = (k % sx) / sy, bz = k % sy), so the two
+// forms and the plain twin (models/pm.py cic_interpolate_stream_torch)
+// equal bit for bit.
+//
+// Bound on the H100: bytes.  It reads 24 B an entry (key 4, fractions
+// 12, order 8), writes 12 B a particle and reads each field cell once
+// (12 B a cell): 36 N + 12 G^3 bytes (654 MB, 0.195 ms at 12.6M /
+// 256^3).  The gathers come close to one read of the field: one thread
+// an entry, consecutive threads on consecutive entries, so a warp's 32
+// entries lie in some 43 consecutive cells of one or two (x, y) rows and
+// its corner loads share sectors (about 3 a particle, against 13.5 in
+// index order), and the stream sweeps the x-planes in order, so the
+// working set is two planes of three components (1.5 MB at 256^3),
+// which the L2 holds: no slabs, no position read.  The stream is read by
+// streaming loads (evicted first) and each entry's 24 corner loads are
+// issued before any product.  Written in stream order, the rows would
+// take the whole pass to 0.247 ms at 12.6M / 256^3 (PERF.md).  The
+// scattered write is the cost: rows land at random particle indices in
+// an array three times the L2, 1.25 32-byte sectors a 12-byte row, each
+// sector written in part (40 B of sector traffic a particle, 0.300 ms
+// with the reads, before any read-modify-write).  Three scalar stores a
+// row, each a request of its own, took the pass to 1.90 ms (the scatter
+// alone 1.81); store_rows hands each warp's 32 rows, through shuffles,
+// to three store instructions of whole rows, one request a row or two,
+// which took it to 1.11 ms (the scatter alone 1.01).  What would come
+// closer changes another layer: particles kept near cell order in
+// memory, so that order[i] is near i.
 
 #include "common.cuh"
 
@@ -68,6 +104,11 @@ __device__ __forceinline__ long long wrap(long long i, long long g) {
   return r < 0 ? r + g : r;
 }
 
+// The +1 neighbour of wrapped cell b on an axis of g cells.
+__device__ __forceinline__ long long up_cell(long long b, long long g) {
+  return b + 1 == g ? 0 : b + 1;
+}
+
 // The base cell of coordinate p on an axis of g cells, its fraction
 // toward the +1 neighbour and that neighbour.
 __device__ __forceinline__ void base_cell(float p, float h, long long g,
@@ -77,21 +118,16 @@ __device__ __forceinline__ void base_cell(float p, float h, long long g,
   const float fl = floorf(x);
   f = x - fl;
   b = wrap(static_cast<long long>(fl), g);
-  up = b + 1 == g ? 0 : b + 1;
+  up = up_cell(b, g);
 }
 
-// Particle i at p, when its base x-plane lies in [lo, lo + width).
-__device__ __forceinline__ void interpolate(const float* __restrict__ field,
-                                            float* __restrict__ acc,
-                                            long long i, const float* p,
-                                            float h, long long g,
-                                            long long lo, int width) {
-  long long b[3], up[3];
-  float f[3];
-  base_cell(p[0], h, g, b[0], up[0], f[0]);
-  if (b[0] < lo || b[0] >= lo + width) return;
-  base_cell(p[1], h, g, b[1], up[1], f[1]);
-  base_cell(p[2], h, g, b[2], up[2], f[2]);
+// The three components at base cell b (neighbours up) with fractions f,
+// written to row_out[0..2].
+__device__ __forceinline__ void corners(const float* __restrict__ field,
+                                        float* __restrict__ row_out,
+                                        const long long* b,
+                                        const long long* up, const float* f,
+                                        long long g) {
   // the four (x, y) rows of the stencil, (dx, dy) lexicographic
   const long long row[4] = {(b[0] * g + b[1]) * g, (b[0] * g + up[1]) * g,
                             (up[0] * g + b[1]) * g, (up[0] * g + up[1]) * g};
@@ -116,8 +152,23 @@ __device__ __forceinline__ void interpolate(const float* __restrict__ field,
     float a = v[c][0] * w[0];
 #pragma unroll
     for (int q = 1; q < 8; ++q) a = a + v[c][q] * w[q];
-    acc[3 * i + c] = a;
+    row_out[c] = a;
   }
+}
+
+// Particle i at p, when its base x-plane lies in [lo, lo + width).
+__device__ __forceinline__ void interpolate(const float* __restrict__ field,
+                                            float* __restrict__ acc,
+                                            long long i, const float* p,
+                                            float h, long long g,
+                                            long long lo, int width) {
+  long long b[3], up[3];
+  float f[3];
+  base_cell(p[0], h, g, b[0], up[0], f[0]);
+  if (b[0] < lo || b[0] >= lo + width) return;
+  base_cell(p[1], h, g, b[1], up[1], f[1]);
+  base_cell(p[2], h, g, b[2], up[2], f[2]);
+  corners(field, acc + 3 * i, b, up, f, g);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -144,6 +195,63 @@ cic_interpolate_kernel(const float* __restrict__ field,
   }
 }
 
+// The warp's 32 rows (row o of lane l holds v), written by three store
+// instructions: lane l of instruction s stores element 32 s + l of the
+// warp's 96 floats, so a row's 12 bytes leave in one request, or two
+// where it straddles two instructions, and not in three.  Every lane of
+// the warp takes part; a lane whose live is false writes nothing.
+__device__ __forceinline__ void store_rows(float* __restrict__ acc,
+                                           long long o, const float* v,
+                                           bool live) {
+  constexpr unsigned kFull = 0xFFFFFFFFu;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int s = 0; s < 3; ++s) {
+    const int e = 32 * s + lane;
+    const int r = e / 3;
+    const int c = e - 3 * r;
+    const float v0 = __shfl_sync(kFull, v[0], r);
+    const float v1 = __shfl_sync(kFull, v[1], r);
+    const float v2 = __shfl_sync(kFull, v[2], r);
+    const long long dst = __shfl_sync(kFull, o, r);
+    if (__shfl_sync(kFull, live ? 1 : 0, r)) {
+      acc[3 * dst + c] = c == 0 ? v0 : (c == 1 ? v1 : v2);
+    }
+  }
+}
+
+// Stream entry i: its key's base cell and its fractions, written to
+// row order[i].
+__global__ void __launch_bounds__(kThreads)
+cic_interpolate_kernel_stream(const float* __restrict__ field,
+                              const int* __restrict__ keys,
+                              const float* __restrict__ fracs,
+                              const long long* __restrict__ order,
+                              float* __restrict__ acc, long long n,
+                              int grid) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const bool live = i < n;
+  float v[3] = {0.0f, 0.0f, 0.0f};
+  long long o = 0;
+  if (live) {
+    const int key = __ldcs(keys + i);
+    const float f[3] = {__ldcs(fracs + i), __ldcs(fracs + n + i),
+                        __ldcs(fracs + 2 * n + i)};
+    o = __ldcs(order + i);
+    const int sy = grid + 1;
+    const int bx = key / (sy * sy);
+    const int r = key - bx * (sy * sy);
+    const int by = r / sy;
+    const long long g = grid;
+    const long long b[3] = {bx, by, r - by * sy};
+    const long long up[3] = {up_cell(b[0], g), up_cell(b[1], g),
+                             up_cell(b[2], g)};
+    corners(field, v, b, up, f, g);
+  }
+  store_rows(acc, o, v, live);
+}
+
 }  // namespace
 
 // slabs: the x-slabs the wrapper asks for; the kernel runs
@@ -163,6 +271,27 @@ extern "C" int cic_interpolate(const void* field, const void* pos, void* acc,
                              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(field), static_cast<const float*>(pos),
         static_cast<float*>(acc), n, grid, h, width);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// keys, fracs [4, n] and order: the deposit's cell-sorted stream of n
+// entries on a grid^3 field; one thread an entry.
+extern "C" int cic_interpolate_stream(const void* field, const void* keys,
+                                      const void* fracs, const void* order,
+                                      void* acc, long long n, int grid,
+                                      void* stream) {
+  if (n > 0) {
+    const long long blocks = (n + kThreads - 1) / kThreads;
+    if (blocks > 0x7FFFFFFFLL || grid < 1) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    cic_interpolate_kernel_stream<<<static_cast<unsigned>(blocks), kThreads,
+                                    0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(field), static_cast<const int*>(keys),
+        static_cast<const float*>(fracs),
+        static_cast<const long long*>(order), static_cast<float*>(acc), n,
+        grid);
   }
   return static_cast<int>(cudaGetLastError());
 }

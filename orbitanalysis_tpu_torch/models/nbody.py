@@ -453,8 +453,9 @@ def simulate_with_tracking(state: NBodyState, members,
     stretches ``force_device_s`` and ``detect_device_s`` (CUDA timing
     events, read once at the end of the call).  ``force_fn`` is then
     called with ``metrics=`` too (the PM force adds its ``deposit_s``,
-    ``solve_s``, ``interp_s`` and ``deposited``).  Without it no timing
-    event is recorded and nothing waits for the device."""
+    ``solve_s``, ``interp_s``, ``deposited`` and ``interp_stream``).
+    Without it no timing event is recorded and nothing waits for the
+    device."""
     if config.mode not in ("pericentric", "apocentric", "both"):
         raise ValueError(
             "Orbit detection mode not recognized. Please specify either "

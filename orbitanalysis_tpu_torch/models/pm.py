@@ -24,6 +24,16 @@ tensors; the two equal bit for bit.  The ``'rows'`` and ``'cells'``
 tables exist to cut the TPU's cost per gather index, which the card does
 not have; they are plain torch here, for parity.
 
+Where :func:`pm_forces` deposits through the sorted stream and the
+interpolation is ``'scalar'``, it interpolates that stream instead of
+the positions (:func:`cic_interpolate_stream`): the deposit's keys and
+fractions in cell order, each row written at the particle's index
+(``order``), so neighbouring threads read neighbouring cells.  Its
+kernel is the stream form of ``cic_interpolate``, its plain version
+:func:`cic_interpolate_stream_torch`; both equal the positions form bit
+for bit, since the stream's fractions are the very floats
+:func:`~orbitanalysis_tpu_torch.ops.deposit.cic_base` gives.
+
 Every CIC helper takes the cell index as ``pos / h`` through
 :func:`~orbitanalysis_tpu_torch.utils.numerics.div_rn` (``h`` the float32
 cell size), the IEEE quotient on every backend; a CUDA division by a CPU
@@ -40,10 +50,14 @@ import torch
 
 from orbitanalysis_tpu_torch.ops import _cuda
 from orbitanalysis_tpu_torch.ops.deposit import (
+    _sorted_stream,
     cic_base,
     cic_deposit_sorted,
+    deposit_stream,
     deposit_supported,
+    fold_virtual,
     mass_vector,
+    stream_base,
 )
 from orbitanalysis_tpu_torch.utils.metrics import phase_timer
 from orbitanalysis_tpu_torch.utils.numerics import box_tensor, div_rn
@@ -72,7 +86,13 @@ def _corner_weights(f):
 def _cic_neighbors(pos, grid, box_size):
     """CIC cell indices and weights, 8 neighbours a particle:
     ``(flat [8, N] int64 cell indices, w [8, N])``."""
-    i0, f = cic_base(pos, grid, box_size)
+    return _corners(*cic_base(pos, grid, box_size), grid)
+
+
+def _corners(i0, f, grid):
+    """The 8 corners of base cells ``i0 [N, 3]`` (in ``[0, grid)``) with
+    fractions ``f [N, 3]``: ``(flat [8, N] int64, w [8, N])``, each
+    weight ``(wx * wy) * wz``."""
     flats, ws = [], []
     for dx, dy, dz in _CORNERS:
         wx = f[:, 0] if dx else 1.0 - f[:, 0]
@@ -120,7 +140,41 @@ def cic_interpolate_torch(field3, pos, grid, box_size):
     """Plain-torch twin of the interpolation kernel: the 8 corners' flat
     indices and weights (:func:`_cic_neighbors`), then 24 gathers, each
     component's products added in corner order."""
-    flat, w = _cic_neighbors(pos, grid, box_size)
+    return _gather_corners(field3, *_cic_neighbors(pos, grid, box_size))
+
+
+def cic_interpolate_stream(field3, skeys, fracs, order, grid):
+    """:func:`cic_interpolate` from the deposit's cell-sorted stream
+    (:func:`~orbitanalysis_tpu_torch.ops.deposit._sorted_stream`: keys
+    ``[N]`` int32, ``fracs [4, N]``, of which rows 0-2 are read, and
+    ``order [N]`` int64): ``[N, 3]`` in particle order, row ``order[i]``
+    from entry ``i``.  On CUDA tensors the stream form of the kernel
+    ``cic_interpolate``, on CPU tensors
+    :func:`cic_interpolate_stream_torch`; both equal
+    :func:`cic_interpolate` on the positions the stream was built from,
+    bit for bit."""
+    if _cuda.on_cpu(skeys, "cic_interpolate"):
+        return cic_interpolate_stream_torch(field3, skeys, fracs, order,
+                                            grid)
+    return _cuda.cic_interpolate_stream(field3.contiguous(), skeys, fracs,
+                                        order, grid)
+
+
+def cic_interpolate_stream_torch(field3, skeys, fracs, order, grid):
+    """Plain-torch twin of the stream form: each key's base cell
+    (:func:`~orbitanalysis_tpu_torch.ops.deposit.stream_base`) and the
+    entry's fractions, the gathers and sums of
+    :func:`cic_interpolate_torch`, then ``out[order] = vals``."""
+    vals = _gather_corners(field3, *_corners(stream_base(skeys, grid),
+                                             fracs[:3].T, grid))
+    out = torch.empty_like(vals)
+    out[order] = vals
+    return out
+
+
+def _gather_corners(field3, flat, w):
+    """``[N, 3]``: each component's 8 corner values times their weights,
+    added in corner order."""
     out = []
     for c in range(3):
         f = field3[c].reshape(-1)
@@ -385,29 +439,53 @@ def select_interpolator(assignment: str, grid: int = 0):
     }[_interp_choice(assignment, grid)]
 
 
+def _deposits_sorted(depositor, pos) -> bool:
+    """True where ``depositor`` (of :func:`select_depositor`) deposits
+    ``pos`` through the sorted stream."""
+    return depositor is cic_deposit_sorted or (
+        depositor is cic_deposit_auto and pos.is_cuda)
+
+
 def pm_forces(pos, mass, grid, box_size, G=1.0, deconvolve=False,
               assignment="auto", deposit="auto", metrics=None, **_):
     """PM accelerations ``[N, 3]`` for all particles (signature-compatible
     with :func:`orbitanalysis_tpu_torch.models.nbody.direct_forces`
     given a closure over ``grid``).  ``assignment`` picks the
     interpolation (:func:`select_interpolator`), ``deposit`` the mass
-    assignment (:func:`select_depositor`).
+    assignment (:func:`select_depositor`).  Where the deposit is the
+    sorted stream's and the interpolation ``'scalar'``, the stream is
+    built once, deposited, kept across the solve and interpolated
+    (:func:`cic_interpolate_stream`); the same bits as the positions
+    form.
 
     Spans ``pm.deposit``, ``pm.solve`` and ``pm.interp``: host seconds
     into ``metrics`` (``deposit_s``, ``solve_s``, ``interp_s``) and the
     profiler's ranges; ``metrics['deposited']`` counts the particles
-    deposited."""
+    deposited, ``metrics['interp_stream']`` those interpolated from the
+    stream."""
     interp = select_interpolator(assignment, grid)
     depositor = select_depositor(deposit, grid)
+    stream = (_interp_choice(assignment, grid) == "scalar"
+              and _deposits_sorted(depositor, pos))
     with phase_timer(metrics, "pm.deposit"):
-        rho = depositor(pos, mass, grid, box_size)
+        if stream:
+            skeys, fracs, order = _sorted_stream(pos, mass, grid, box_size)
+            rho = fold_virtual(deposit_stream(skeys, fracs, grid), grid)
+        else:
+            rho = depositor(pos, mass, grid, box_size)
     with phase_timer(metrics, "pm.solve"):
         field = pm_forces_grid(rho, grid, box_size, G=G,
                                deconvolve=deconvolve)
     with phase_timer(metrics, "pm.interp"):
-        acc = interp(field, pos, grid, box_size)
+        if stream:
+            acc = cic_interpolate_stream(field, skeys, fracs, order, grid)
+        else:
+            acc = interp(field, pos, grid, box_size)
     if metrics is not None:
-        metrics["deposited"] = metrics.get("deposited", 0) + pos.shape[0]
+        n = pos.shape[0]
+        metrics["deposited"] = metrics.get("deposited", 0) + n
+        metrics["interp_stream"] = (metrics.get("interp_stream", 0)
+                                    + (n if stream else 0))
     return acc
 
 

@@ -252,6 +252,7 @@ def bind(lib):
                                 i, p],
         "deposit_sorted": [p, p, p, p, i, ll, i, i, p],
         "cic_interpolate": [p, p, p, ll, i, f, i, p],
+        "cic_interpolate_stream": [p, p, p, p, p, ll, i, p],
         "direct_forces": [p, p, p, p, i, i, i, f, f, i, f, f, p],
         "stream_add_rows_geometry": [ctypes.POINTER(i), ctypes.POINTER(i)],
         "stream_add_rows": [p, p, ll, i, p],
@@ -829,6 +830,40 @@ def cic_interpolate(field3: torch.Tensor, pos: torch.Tensor, grid: int,
     _launch(name, _library().cic_interpolate, field3.data_ptr(),
             pos.data_ptr(), out.data_ptr(), n, int(grid),
             ctypes.c_float(float(box_size) / grid), slabs, device=pos.device)
+    return out
+
+
+def cic_interpolate_stream(field3: torch.Tensor, skeys: torch.Tensor,
+                           fracs: torch.Tensor, order: torch.Tensor,
+                           grid: int) -> torch.Tensor:
+    """Launch the stream form of the CIC interpolation (counted as
+    ``cic_interpolate``): ``field3 [3, G, G, G]`` f32, the deposit's
+    cell-sorted stream ``skeys [N]`` int32 (base-cell keys on the virtual
+    ``(G+1)^3`` grid, each cell in ``[0, G)``), ``fracs [4, N]`` f32
+    (rows 0-2 read) and ``order [N]`` int64 -> ``[N, 3]`` f32, row
+    ``order[i]`` from entry ``i``, as ``models/pm.py``
+    ``cic_interpolate_stream_torch`` computes it."""
+    name = "cic_interpolate"
+    n = skeys.shape[0]
+    _check(name, field3, dtype=torch.float32, dim=4)
+    _check(name, skeys, dtype=torch.int32, dim=1)
+    _check(name, fracs, dtype=torch.float32)
+    _check(name, order, dtype=torch.int64, dim=1)
+    if field3.shape != (3, grid, grid, grid):
+        raise ValueError(f"{name}: field3 must be [3, {grid}, {grid}, "
+                         f"{grid}], got {tuple(field3.shape)}")
+    if fracs.shape != (4, n) or order.shape != (n,):
+        raise ValueError(f"{name}: want fracs [4, {n}] and order [{n}], got "
+                         f"{tuple(fracs.shape)} and {tuple(order.shape)}")
+    if (grid + 1) ** 3 >= 2**31:
+        raise ValueError(f"{name}: the virtual {grid + 1}^3 grid's keys "
+                         "exceed int32")
+    if len({t.device for t in (field3, skeys, fracs, order)}) > 1:
+        raise ValueError(f"{name}: tensors on different devices")
+    out = torch.empty((n, 3), dtype=torch.float32, device=skeys.device)
+    _launch(name, _library().cic_interpolate_stream, field3.data_ptr(),
+            skeys.data_ptr(), fracs.data_ptr(), order.data_ptr(),
+            out.data_ptr(), n, int(grid), device=skeys.device)
     return out
 
 

@@ -9,7 +9,9 @@ The deposit runs in three parts, as in the JAX package:
    the 8 corner offsets are one static stride set), the key
    ``bx * sx + by * sy + bz`` with ``(sx, sy) =`` :func:`strides`, the
    fractions toward the +1 neighbours and the mass, sorted by key with a
-   stable ``torch.sort`` (the JAX package sorts unstably);
+   stable ``torch.sort`` (the JAX package sorts unstably); the PM force
+   keeps the sort's order too (:func:`_sorted_stream`) and interpolates
+   the same stream (``models/pm.py`` ``cic_interpolate_stream``);
 2. :func:`deposit_stream` (K13): the 8 trilinear weights of every entry
    added onto the flat virtual grid.  On CUDA tensors it launches the
    kernel ``deposit_sorted`` (``csrc/deposit.cu``: binary searches find
@@ -114,6 +116,13 @@ def sorted_stream(pos: torch.Tensor, mass, grid: int, box_size):
     """Cell-sorted deposit stream: ``(skeys [N] int32, fracs [4, N] f32)``
     (``fx, fy, fz, m``), stably sorted by base-cell key; ``mass`` a
     scalar or ``[N]``."""
+    return _sorted_stream(pos, mass, grid, box_size)[:2]
+
+
+def _sorted_stream(pos: torch.Tensor, mass, grid: int, box_size):
+    """:func:`sorted_stream` and the sort's ``order [N]`` int64: stream
+    entry ``i`` is particle ``order[i]`` (the PM force interpolates in
+    stream order and writes each particle's row there)."""
     n = pos.shape[0]
     pos = pos.to(torch.float32)
     base, f = cic_base(pos, grid, box_size)
@@ -122,7 +131,17 @@ def sorted_stream(pos: torch.Tensor, mass, grid: int, box_size):
     m = mass_vector(mass, n, pos)
     skeys, order = torch.sort(keys, stable=True)
     fracs = torch.stack([f[:, 0], f[:, 1], f[:, 2], m])[:, order]
-    return skeys.to(torch.int32), fracs.contiguous()
+    return skeys.to(torch.int32), fracs.contiguous(), order
+
+
+def stream_base(skeys: torch.Tensor, grid: int) -> torch.Tensor:
+    """The wrapped base cells ``[N, 3]`` int64 of stream keys, decoded on
+    the virtual grid: ``bx = k // sx``, ``by = (k % sx) // sy``, ``bz = k
+    % sy`` with ``(sx, sy) =`` :func:`strides` (each in ``[0, grid)``:
+    :func:`cic_base`'s ``i0``)."""
+    sx, sy = strides(grid)
+    k = skeys.to(torch.int64)
+    return torch.stack([k // sx, (k % sx) // sy, k % sy], dim=1)
 
 
 def _corner_weights8(fracs: torch.Tensor) -> torch.Tensor:

@@ -26,6 +26,12 @@ Ranges the port opens (each only while a profiler records):
   ``models/nbody.simulate_with_tracking``;
 - ``oa.pm.deposit``, ``oa.pm.solve``, ``oa.pm.interp``: the PM force
   (``models/pm.pm_forces``), under ``oa.sim.force``.
+
+Counters of the PM force (``models/pm.pm_forces``, into the ``metrics``
+dict it is handed): ``deposited``, the particles deposited, and
+``interp_stream``, those interpolated from the deposit's cell-sorted
+stream (all of them where it deposits through the sorted stream with
+the scalar interpolation, as on CUDA tensors by default; else 0).
 """
 
 from __future__ import annotations

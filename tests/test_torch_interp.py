@@ -1,18 +1,27 @@
 """The PM force's CIC interpolation (``models/pm.py`` ``cic_interpolate``):
 the hand-written kernel ``cic_interpolate`` (``csrc/interp.cu``) on CUDA
-tensors, its plain version ``cic_interpolate_torch`` on CPU tensors.
+tensors, its plain version ``cic_interpolate_torch`` on CPU tensors; and
+its stream form (``cic_interpolate_stream``: the deposit's cell-sorted
+stream, rows written at ``order``), which ``pm_forces`` runs wherever it
+deposits through the sorted stream, with the plain version
+``cic_interpolate_stream_torch``.
 
 On the CPU: the routing (CPU tensors take the plain chain and launch
-nothing, the policy still names ``cic_interpolate``), the wrapper's
-refusal of CPU tensors, and the plain version bit-equal to a NumPy
-model of the kernel's arithmetic, step by step as ``csrc/interp.cu``
-takes it.  On the card (tests marked ``cuda``, skipped without one): the
-kernel bit-equal to the plain version on the same CUDA tensors and on
-the CPU, at ragged N, grids 16, 64, 128 and 256 (one, two and twelve
-x-slabs on the H100) and positions on cell
-boundaries, at 0, at the box edge, outside the box and negative; through
-``pm_forces``, P3M and the sharded PM's ``local`` in a world of one; and
-the wrapper's checks.  The file imports nothing of JAX, so run its card
+nothing, the policy still names ``cic_interpolate``, ``pm_forces`` takes
+the stream form exactly with the sorted deposit and the scalar
+interpolation), the wrappers' refusal of CPU tensors, the plain version
+bit-equal to a NumPy model of the kernel's arithmetic, step by step as
+``csrc/interp.cu`` takes it, and the stream form's plain version
+bit-equal to the positions form's.  On the card (tests marked ``cuda``,
+skipped without one): the kernel bit-equal to the plain version on the
+same CUDA tensors and on the CPU, at ragged N, grids 16, 64, 128 and 256
+(one, two and twelve x-slabs on the H100) and positions on cell
+boundaries, at 0, at the box edge, outside the box and negative; the
+stream kernel bit-equal to both plain versions and the positions kernel
+at 32^3 and config 4's 12.6M / 256^3, on runs of equal keys and an
+empty stream; through ``pm_forces`` (profiled: the kernel the benchmark
+reads), P3M and the sharded PM's ``local`` in a world of one; and the
+wrappers' checks.  The file imports nothing of JAX, so run its card
 tests on the card without the repo's conftest:
 
     python -m pytest --noconftest -q tests/test_torch_interp.py
@@ -24,6 +33,7 @@ import torch
 
 from orbitanalysis_tpu_torch.models import pm as tpm
 from orbitanalysis_tpu_torch.ops import _cuda
+from orbitanalysis_tpu_torch.ops import deposit as tdep
 
 BOX = 10.0
 
@@ -60,6 +70,17 @@ def _positions(n, grid, seed):
     k = min(n, len(pins))
     pos[:k] = pins[:k]
     return pos
+
+
+def _clustered(n, grid, seed):
+    """``n`` positions in a few cells, on their faces and inside: long
+    runs of equal stream keys."""
+    rng = np.random.default_rng(seed)
+    h = BOX / grid
+    cell = rng.integers(0, grid, size=(3, 3)).astype(np.float32) * h
+    frac = rng.choice(np.array([0.0, 0.25, 0.5, 0.5, 0.75], np.float32),
+                      size=(n, 3))
+    return (cell[rng.integers(0, 3, n)] + frac * h).astype(np.float32)
 
 
 def _field(grid, seed):
@@ -161,6 +182,95 @@ def test_wrapper_refuses_cpu_tensors():
     field = torch.zeros(3, 8, 8, 8)
     with pytest.raises(ValueError, match="CUDA"):
         _cuda.cic_interpolate(field, torch.zeros(10, 3), 8, BOX)
+    skeys, fracs, order = tdep._sorted_stream(torch.zeros(10, 3), 1.0, 8,
+                                              BOX)
+    with pytest.raises(ValueError, match="CUDA"):
+        _cuda.cic_interpolate_stream(field, skeys, fracs, order, 8)
+
+
+def _stream_and_positions(n, grid, seed, clustered=False):
+    pos = (_clustered if clustered else _positions)(n, grid, seed)
+    return torch.from_numpy(pos), torch.from_numpy(_field(grid, seed))
+
+
+@pytest.mark.parametrize("grid", [8, 32, 33, 64])
+@pytest.mark.parametrize("n,clustered", [(0, False), (1, False),
+                                         (4099, False), (4099, True),
+                                         (20001, False)])
+def test_stream_twin_equals_positions_twin(grid, n, clustered):
+    """The stream form's plain version on the stream the PM force builds
+    (``_sorted_stream``) equals the positions form's bit for bit, rows in
+    particle order: uniform positions with the pinned faces, 0, the box
+    edge and the outside, or a few cells' long runs of equal keys."""
+    pos, field = _stream_and_positions(n, grid, grid + n, clustered)
+    skeys, fracs, order = tdep._sorted_stream(pos, 1.0, grid, BOX)
+    if clustered:
+        assert torch.unique(skeys).numel() <= 24
+    got = tpm.cic_interpolate_stream(field, skeys, fracs, order, grid)
+    want = tpm.cic_interpolate_torch(field, pos, grid, BOX)
+    assert got.shape == (n, 3) and got.dtype == torch.float32
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("grid", [8, 33, 64, 1289])
+def test_stream_keys_decode_to_the_wrapped_base_cells(grid):
+    """``stream_base`` of the stream's keys gives ``cic_base``'s wrapped
+    base cells, in stream order, at the grids' edges and up to the
+    largest grid whose virtual keys fit int32."""
+    pos = torch.from_numpy(_positions(3000, grid, grid))
+    skeys, _, order = tdep._sorted_stream(pos, 1.0, grid, BOX)
+    i0, _ = tdep.cic_base(pos, grid, BOX)
+    got = tdep.stream_base(skeys, grid)
+    assert torch.equal(got, i0[order])
+    assert int(got.min()) >= 0 and int(got.max()) < grid
+    assert torch.equal(tdep.sorted_stream(pos, 1.0, grid, BOX)[0], skeys)
+
+
+def _positions_form(pos, mass, grid, deposit):
+    rho = tpm.select_depositor(deposit, grid)(pos, mass, grid, BOX)
+    return tpm.cic_interpolate_torch(tpm.pm_forces_grid(rho, grid, BOX),
+                                     pos, grid, BOX)
+
+
+def test_pm_forces_sorted_on_cpu_interpolates_the_stream():
+    """``deposit='sorted'`` on CPU tensors: the stream form, the positions
+    form's bits, every particle counted in ``interp_stream``, no launch."""
+    grid, n = 32, 5000
+    pos = torch.from_numpy(_positions(n, grid, 21))
+    mass = torch.from_numpy(np.random.default_rng(21).uniform(
+        0.5, 2.0, n).astype(np.float32))
+    metrics = {}
+    _cuda.reset_launch_counts()
+    got = tpm.pm_forces(pos, mass, grid, BOX, deposit="sorted",
+                        metrics=metrics)
+    assert torch.equal(_bits(got),
+                       _bits(_positions_form(pos, mass, grid, "sorted")))
+    assert metrics["interp_stream"] == metrics["deposited"] == n
+    assert set(_cuda.launch_counts().values()) == {0}
+
+
+@pytest.mark.parametrize("deposit,assignment", [
+    ("scatter", "auto"), ("sorted", "rows"), ("sorted", "cells"),
+    ("auto", "scalar")])
+def test_pm_forces_takes_the_positions_form_elsewhere(deposit, assignment,
+                                                      monkeypatch):
+    """The scatter deposit, the tables, and ``'auto'`` on CPU tensors
+    (the scatter deposit): the positions form, ``interp_stream`` 0."""
+    grid, n = 16, 3000
+    pos = torch.from_numpy(_positions(n, grid, 22))
+    mass = torch.ones(n)
+
+    def refuse(*a, **k):
+        raise AssertionError("the stream form ran")
+
+    monkeypatch.setattr(tpm, "cic_interpolate_stream", refuse)
+    metrics = {}
+    got = tpm.pm_forces(pos, mass, grid, BOX, deposit=deposit,
+                        assignment=assignment, metrics=metrics)
+    assert metrics["interp_stream"] == 0 and metrics["deposited"] == n
+    if assignment in ("auto", "scalar"):
+        assert torch.equal(_bits(got),
+                           _bits(_positions_form(pos, mass, grid, deposit)))
 
 
 # ------------------------------------------------------------ on the card
@@ -200,14 +310,18 @@ def test_kernel_on_empty_and_float64_positions(dev):
 
 
 def _plain_interp(monkeypatch):
+    """Both forms of the interpolation to their plain versions."""
     monkeypatch.setattr(tpm, "cic_interpolate", tpm.cic_interpolate_torch)
+    monkeypatch.setattr(tpm, "cic_interpolate_stream",
+                        tpm.cic_interpolate_stream_torch)
 
 
 @pytest.mark.cuda
 def test_force_paths_equal_with_the_plain_interpolation(dev, monkeypatch):
-    """``pm_forces``, P3M and the sharded PM's ``local`` (world of one):
-    the same bits with the kernel as with the plain chain, and the
-    kernel launched once a force evaluation."""
+    """``pm_forces`` (the stream form), P3M and the sharded PM's
+    ``local`` (world of one; the positions form): the same bits with the
+    kernels as with the plain chains, and the kernel launched once a
+    force evaluation."""
     from orbitanalysis_tpu_torch.models import pm_sharded as ps
     from orbitanalysis_tpu_torch.models.p3m import make_p3m_force_fn
     from orbitanalysis_tpu_torch.parallel import make_mesh
@@ -234,6 +348,114 @@ def test_force_paths_equal_with_the_plain_interpolation(dev, monkeypatch):
     assert torch.equal(_bits(acc), _bits(got[0]))
     for a, b in zip(got, want):
         assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid,n,clustered", [
+    (32, 0, False), (32, 1, False), (32, 100003, False), (32, 100003, True),
+    (256, 12582912, False), (256, 1 << 20, True)])
+def test_stream_kernel_equals_its_twin_and_the_positions_kernel(
+        dev, grid, n, clustered):
+    """The stream kernel on the stream of ``_sorted_stream``: bit-equal to
+    its plain version on the same CUDA tensors and on the CPU, to the
+    positions kernel and to ``cic_interpolate_torch``, twice the same
+    bits, one ``cic_interpolate`` launch counted a call; config 4's
+    12.6M particles on 256^3 and runs of equal keys among the cases."""
+    p, f = _stream_and_positions(n, grid, grid + n, clustered)
+    pc, fc = p.to(dev), f.to(dev)
+    stream = tdep._sorted_stream(pc, 1.0, grid, BOX)
+    _cuda.reset_launch_counts()
+    got = tpm.cic_interpolate_stream(fc, *stream, grid)
+    again = tpm.cic_interpolate_stream(fc, *stream, grid)
+    assert _cuda.launch_counts()["cic_interpolate"] == 2
+    twin = tpm.cic_interpolate_stream_torch(fc, *stream, grid)
+    positions = tpm.cic_interpolate(fc, pc, grid, BOX)
+    plain = tpm.cic_interpolate_torch(fc, pc, grid, BOX)
+    torch.cuda.synchronize()
+    assert got.shape == (n, 3)
+    for other in (again, twin, positions, plain):
+        assert torch.equal(_bits(got), _bits(other))
+    if n <= 100003:
+        cpu = tdep._sorted_stream(p, 1.0, grid, BOX)
+        assert torch.equal(_bits(got.cpu()), _bits(
+            tpm.cic_interpolate_stream_torch(f, *cpu, grid)))
+
+
+def _interp_kernels():
+    """The benchmark's words for the interpolation kernel in a trace
+    (``portbench/metrics/interp_roofline.integrate.py``)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "portbench", "metrics", "interp_roofline.integrate.py")
+    spec = importlib.util.spec_from_file_location("interp_roofline", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.INTERP_KERNELS
+
+
+@pytest.mark.cuda
+def test_profiled_pm_forces_runs_the_stream_kernel(dev):
+    """A profiled ``pm_forces`` call on CUDA tensors: one
+    ``cic_interpolate`` launch, a device kernel that the benchmark's
+    ``INTERP_KERNELS`` names (the stream form's), every particle counted
+    in ``interp_stream``, and the bits of the positions kernel and of
+    ``cic_interpolate_torch`` on the sorted deposit's field."""
+    from torch.profiler import ProfilerActivity, profile
+
+    grid, n = 32, 50000
+    pos = torch.from_numpy(_positions(n, grid, 23)).to(dev)
+    mass = torch.from_numpy(np.random.default_rng(23).uniform(
+        0.5, 2.0, n).astype(np.float32)).to(dev)
+    tpm.pm_forces(pos, mass, grid, BOX)
+    torch.cuda.synchronize()
+    metrics = {}
+    _cuda.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = tpm.pm_forces(pos, mass, grid, BOX, metrics=metrics)
+        torch.cuda.synchronize()
+    assert _cuda.launch_counts()["cic_interpolate"] == 1
+    assert metrics["interp_stream"] == metrics["deposited"] == n
+    names = {e.key for e in prof.key_averages()}
+    found = [k for k in names for words in _interp_kernels()
+             if all(w in k for w in words)]
+    assert found and all("cic_interpolate_kernel_stream" in k
+                         for k in found), sorted(names)
+    field = tpm.pm_forces_grid(tdep.cic_deposit_sorted(pos, mass, grid, BOX),
+                               grid, BOX)
+    assert torch.equal(_bits(got),
+                       _bits(tpm.cic_interpolate(field, pos, grid, BOX)))
+    assert torch.equal(_bits(got), _bits(tpm.cic_interpolate_torch(
+        field, pos, grid, BOX)))
+
+
+@pytest.mark.cuda
+def test_stream_wrapper_refuses_bad_inputs(dev):
+    grid, n = 8, 10
+    field = torch.zeros(3, grid, grid, grid, device=dev)
+    skeys, fracs, order = tdep._sorted_stream(
+        torch.zeros(n, 3, device=dev), 1.0, grid, BOX)
+    _cuda.reset_launch_counts()
+    bad = {
+        "float32": [(field.double(), skeys, fracs, order),
+                    (field, skeys, fracs.double(), order)],
+        "int32": [(field, skeys.long(), fracs, order)],
+        "int64": [(field, skeys, fracs, order.int())],
+        r"\[3, 8, 8, 8\]": [(torch.zeros(3, grid, grid, grid + 1,
+                                         device=dev), skeys, fracs, order)],
+        r"fracs \[4, 10\]": [(field, skeys, fracs[:3].contiguous(), order),
+                              (field, skeys, fracs, order[:9])],
+        "CUDA": [(field.cpu(), skeys, fracs, order),
+                 (field, skeys, fracs, order.cpu())],
+        "contiguous": [(field, skeys, fracs.T.contiguous().T, order)],
+    }
+    for match, cases in bad.items():
+        for args in cases:
+            with pytest.raises(ValueError, match=match):
+                _cuda.cic_interpolate_stream(*args, grid)
+    assert _cuda.launch_counts()["cic_interpolate"] == 0
 
 
 @pytest.mark.cuda
@@ -277,8 +499,9 @@ def test_slab_count_fits_a_third_of_the_l2(grid, slabs):
 @pytest.mark.cuda
 def test_integrator_same_bits_with_the_plain_interpolation(dev, monkeypatch):
     """A tracked PM run on the card (8 steps, detection every 2): the
-    same states, counts, angles and events with the kernel as with the
-    plain chain, and the kernel launched once a force evaluation."""
+    same states, counts, angles and events with the kernel (its stream
+    form) as with the plain chain, and the kernel launched once a force
+    evaluation."""
     from orbitanalysis_tpu_torch.models import nbody as tnb
 
     grid, rows, width = 32, 4, 4096
