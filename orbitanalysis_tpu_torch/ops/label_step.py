@@ -44,6 +44,13 @@ kernel, and runs plain torch wherever it ran XLA:
   one-hot and two-level matmuls were the TPU's way to gather.
 
 On CPU tensors every kernel's plain version runs instead.
+
+While a ``torch.profiler`` records, a step opens the ranges
+``oa.label.moments`` (K7, or the plain moments), ``oa.label.frames``
+(K6, or its plain gather), ``oa.label.detect`` (K8, K9 + K4, K10 + K5,
+or the plain chain and K5) and ``oa.label.finish``;
+:func:`scan_label_events` adds ``oa.label.step`` around each step and
+takes a ``metrics`` dict for its spans, counters and device time.
 """
 
 from __future__ import annotations
@@ -70,6 +77,7 @@ from orbitanalysis_tpu_torch.ops.label import (
     fused_label_detect,
 )
 from orbitanalysis_tpu_torch.utils.device import resolve_device
+from orbitanalysis_tpu_torch.utils.metrics import phase_timer
 from orbitanalysis_tpu_torch.utils.numerics import div_rn
 
 __all__ = [
@@ -267,9 +275,12 @@ def make_label_orbit_step(
         kernels = impl in ("split", "pallas2", "fused", "pallas")
 
         if bulk_vel is None:
-            moments = segment_moments if kernels else segment_moments_torch
-            mom = moments(lab_m, vel, mass, n_halos=h)
-            bulk = div_rn(mom[:, :3], torch.clamp(mom[:, 3:4], min=1e-30))
+            with phase_timer(None, "label.moments"):
+                moments = (segment_moments if kernels
+                           else segment_moments_torch)
+                mom = moments(lab_m, vel, mass, n_halos=h)
+                bulk = div_rn(mom[:, :3],
+                              torch.clamp(mom[:, 3:4], min=1e-30))
         else:
             bulk = torch.as_tensor(bulk_vel, dtype=torch.float32, device=dev)
         table = torch.cat([torch.as_tensor(centers, dtype=torch.float32,
@@ -279,31 +290,35 @@ def make_label_orbit_step(
                          rhat_packed=rhat_packed)
         carry_in = (carry.lab_sv, carry.rhat, carry.packed, hubble_drag)
         if impl == "fused":
-            sv_n, rh_n, pk_n, payload, count = fused_label_detect(
-                table, lab_m, pos, vel, *carry_in, **detect_kw)
-            return _finish(sv_n, rh_n, pk_n,
-                           compact_payload_blocked(payload, k_eff), count,
-                           bulk, K)
-        rows = (frame_rows if kernels else frame_rows_torch)(
-            table, lab_m).reshape(6, R, W)
+            with phase_timer(None, "label.detect"):
+                sv_n, rh_n, pk_n, payload, count = fused_label_detect(
+                    table, lab_m, pos, vel, *carry_in, **detect_kw)
+                evpay = compact_payload_blocked(payload, k_eff)
+            with phase_timer(None, "label.finish"):
+                return _finish(sv_n, rh_n, pk_n, evpay, count, bulk, K)
+        with phase_timer(None, "label.frames"):
+            rows = (frame_rows if kernels else frame_rows_torch)(
+                table, lab_m).reshape(6, R, W)
         planes = (rows, lab_m, pos, vel, *carry_in)
-        if impl == "split":
-            rpb = W // 128
-            k128 = min(((k_eff + 127) // 128) * 128, W)
-            blocked_ok = (W > 128 and (rpb * BLOCK_CAP) % 128 == 0
-                          and k128 <= rpb * BLOCK_CAP)
-            if blocked_ok:
-                sv_n, rh_n, pk_n, evpay, count = detect_label_compact(
-                    *planes, event_capacity=k_eff, **detect_kw)
+        with phase_timer(None, "label.detect"):
+            if impl == "split":
+                rpb = W // 128
+                k128 = min(((k_eff + 127) // 128) * 128, W)
+                blocked_ok = (W > 128 and (rpb * BLOCK_CAP) % 128 == 0
+                              and k128 <= rpb * BLOCK_CAP)
+                if blocked_ok:
+                    sv_n, rh_n, pk_n, evpay, count = detect_label_compact(
+                        *planes, event_capacity=k_eff, **detect_kw)
+                else:
+                    sv_n, rh_n, pk_n, payload, count = detect_label(
+                        *planes, **detect_kw)
+                    evpay = compact_payload(payload, k_eff)
             else:
-                sv_n, rh_n, pk_n, payload, count = detect_label(
+                sv_n, rh_n, pk_n, payload, count = detect_label_torch(
                     *planes, **detect_kw)
-                evpay = compact_payload(payload, k_eff)
-        else:
-            sv_n, rh_n, pk_n, payload, count = detect_label_torch(
-                *planes, **detect_kw)
-            evpay = compact_payload_blocked(payload, k_eff)
-        return _finish(sv_n, rh_n, pk_n, evpay, count, bulk, K)
+                evpay = compact_payload_blocked(payload, k_eff)
+        with phase_timer(None, "label.finish"):
+            return _finish(sv_n, rh_n, pk_n, evpay, count, bulk, K)
 
     return step
 
@@ -335,13 +350,34 @@ def scan_label_events(carry, pos_seq, vel_seq, label_seq, centers_seq,
                       event_capacity: int, mode: str = "pericentric",
                       box_size=None, mass=None, bulk_vel_seq=None,
                       hubble_drag=0.0, row_width: int = 1 << 15,
-                      frames: str = "auto", rhat_packed: bool = False):
+                      frames: str = "auto", rhat_packed: bool = False,
+                      metrics: Optional[dict] = None):
     """:func:`make_label_orbit_step` over an ``[S]``-stacked sequence
     (``pos_seq``/``vel_seq`` ``[S, 3, N]``, ``label_seq`` ``[S, N]``,
-    ``centers_seq`` ``[S, H, 3]``; tensors or arrays, moved to the
-    carry's device), as a Python loop.  Returns ``(carry, LabelEvents
-    stacked [S, ...])``.  ``hubble_drag`` is a scalar or one value per
-    step."""
+    ``centers_seq`` ``[S, H, 3]``; or ``[S, 3, R, W]`` and ``[S, R, W]``
+    row planes; tensors or arrays, moved to the carry's device), as a
+    Python loop.  Returns ``(carry, LabelEvents stacked [S, ...])``.
+    ``hubble_drag`` is a scalar or one value per step.
+
+    ``mass`` is one plane for every step (``[N]`` or ``[R, W]``) or one
+    plane a step (``[S, N]`` or ``[S, R, W]``, as a tracked sequence
+    carries them): a mass with more elements than a step's labels is
+    taken a plane a step, step ``s`` weighting its moments by
+    ``mass[s]``.
+
+    ``metrics`` (a dict, as :func:`~orbitanalysis_tpu_torch.utils.
+    metrics.phase_timer` takes) gathers the call's numbers, adding to
+    what it holds: ``step_s`` (the span ``label.step``: each step's host
+    enqueue), the counters ``label_steps``, ``label_updates`` (the
+    members, ``label >= 0``, of every step after the call's first, which
+    from a fresh carry only seeds it) and ``label_events`` (every step's
+    events, counted past the capacity too) and, on CUDA tensors,
+    ``label_device_s`` (each step's stretch of the device stream between
+    CUDA timing events).  The counters are summed on the device and read,
+    with the timing events, once at the end of the call.  Without it no
+    timing event is recorded, nothing is counted and nothing waits for
+    the device.
+    """
     step = make_label_orbit_step(
         event_capacity, mode=mode, box_size=box_size, row_width=row_width,
         frames=frames, rhat_packed=rhat_packed,
@@ -364,14 +400,45 @@ def scan_label_events(carry, pos_seq, vel_seq, label_seq, centers_seq,
         label_seq = label_seq.reshape(S, r_, w_)
         pos_seq = pos_seq.reshape(S, 3, r_, w_)
         vel_seq = vel_seq.reshape(S, 3, r_, w_)
-        if mass is not None:
-            mass = mass.reshape(r_, w_)
+    R, W = label_seq.shape[1:]
+    per_step = mass is not None and mass.numel() != R * W
+    if mass is not None:
+        mass = mass.reshape((S, R, W) if per_step else (R, W))
     drag = np.broadcast_to(np.asarray(hubble_drag, np.float32), (S,))
-    events = []
+    clock = metrics is not None and dev.type == "cuda"
+    stamps, events = [], []
     for s in range(S):
-        carry, ev = step(carry, (
-            pos_seq[s], vel_seq[s], label_seq[s], centers_seq[s],
-            None if bulk_vel_seq is None else bulk_vel_seq[s], mass,
-            float(drag[s])))
+        with phase_timer(metrics, "label.step"):
+            if clock:
+                stamps.append((torch.cuda.Event(enable_timing=True),
+                               torch.cuda.Event(enable_timing=True)))
+                stamps[-1][0].record()
+            carry, ev = step(carry, (
+                pos_seq[s], vel_seq[s], label_seq[s], centers_seq[s],
+                None if bulk_vel_seq is None else bulk_vel_seq[s],
+                mass[s] if per_step else mass, float(drag[s])))
+            if clock:
+                stamps[-1][1].record()
         events.append(ev)
-    return carry, LabelEvents(*(torch.stack(f) for f in zip(*events)))
+    out = LabelEvents(*(torch.stack(f) for f in zip(*events)))
+    if metrics is not None:
+        _count_scan(metrics, label_seq, out.count, stamps)
+    return carry, out
+
+
+def _count_scan(metrics, label_seq, count, stamps):
+    """Add a :func:`scan_label_events` call's counters and device
+    stretches into ``metrics``: the counters summed on the device, one
+    wait (on the last timing event, which completes every earlier one)
+    and one read."""
+    tally = torch.stack([(label_seq[1:] >= 0).sum(dtype=torch.int64),
+                         count.sum(dtype=torch.int64)])
+    if stamps:
+        stamps[-1][1].synchronize()
+    updates, n_events = tally.tolist()
+    for key, v in (("label_steps", label_seq.shape[0]),
+                   ("label_updates", updates), ("label_events", n_events)):
+        metrics[key] = metrics.get(key, 0) + v
+    if stamps:
+        metrics["label_device_s"] = metrics.get("label_device_s", 0.0) + sum(
+            a.elapsed_time(b) for a, b in stamps) * 1e-3

@@ -25,7 +25,18 @@ Ranges the port opens (each only while a profiler records):
   and, in it or before the loop, ``oa.sim.force`` and ``oa.sim.detect``:
   ``models/nbody.simulate_with_tracking``;
 - ``oa.pm.deposit``, ``oa.pm.solve``, ``oa.pm.interp``: the PM force
-  (``models/pm.pm_forces``), under ``oa.sim.force``.
+  (``models/pm.pm_forces``), under ``oa.sim.force``;
+- ``oa.label.step`` (a step's enqueue): each step of
+  ``ops/label_step.scan_label_events``; in it, or in any call of a
+  ``make_label_orbit_step`` step, ``oa.label.moments``,
+  ``oa.label.frames``, ``oa.label.detect`` and ``oa.label.finish``.
+
+Keys of ``scan_label_events(metrics=...)`` (into the dict it is
+handed): ``step_s`` (``label.step``), the counters ``label_steps``,
+``label_updates`` (members of every step after the call's first) and
+``label_events``, summed on the device and read once a call, and on
+CUDA tensors ``label_device_s``, the steps' stretches of the device
+stream between CUDA timing events.
 
 Counters of the PM force (``models/pm.pm_forces``, into the ``metrics``
 dict it is handed): ``deposited``, the particles deposited, and
