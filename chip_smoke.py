@@ -44,8 +44,10 @@ repository checkout; it imports nothing of JAX.  Phases:
    the whole workload (``frames='auto'``, K = 2048, octahedral r-hat,
    bulk moments on the card) must find the JAX benchmark's 1,741,643
    events, launching the frame-row, moments and detect-and-compact
-   kernels once per snapshot; with its bulk velocities fed back, the
-   K = 8192 route (detect kernel + payload compaction) and the
+   kernels once per snapshot; the same scan twice more, the second
+   capturing the scan's CUDA graph and the third replaying it, must give
+   the same events bit for bit and count the same launches; with its
+   bulk velocities fed back, the K = 8192 route (detect kernel + payload compaction) and the
    ``'twolevel'`` route (plain chain + payload compaction) must give the
    same events, and so must the ``'fused'`` route (moments, fused detect
    kernel, payload compaction) and the ``'pallas'`` route (moments, frame
@@ -1291,10 +1293,11 @@ def label_full_width(dev, work):
     seq = (work["pos"], work["vel"], work["label"], work["centers"])
     kw = dict(box_size=LABEL_BOX, row_width=LABEL_ROW, rhat_packed=True)
 
-    def scan(k, frames="auto", bulk=None):
+    def scan(k, frames="auto", bulk=None, metrics=None):
         carry = ls.init_label_carry(n, True, LABEL_ROW, device=dev)
         return ls.scan_label_events(carry, *seq, event_capacity=k,
-                                    frames=frames, bulk_vel_seq=bulk, **kw)
+                                    frames=frames, bulk_vel_seq=bulk,
+                                    metrics=metrics, **kw)
 
     # ---- the main path, counted
     _cuda.reset_launch_counts()
@@ -1304,6 +1307,8 @@ def label_full_width(dev, work):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     counts_auto = _cuda.launch_counts()
+    label_graph_check(scan, ev, counts_auto, s_n)
+    counts_graph = _cuda.launch_counts()
     _, ev9 = scan(8192, bulk=ev.bulk_vel)
     _, ev2 = scan(LABEL_K, frames="twolevel", bulk=ev.bulk_vel)
     torch.cuda.synchronize()
@@ -1341,11 +1346,11 @@ def label_full_width(dev, work):
               f"{what}: event positions differ from frames='auto'")
         log(f"  {what}: the same {int(other.count.sum())} events and "
             "positions")
-    check(launch_diff(c_fed, counts_auto) == {
+    check(launch_diff(c_fed, counts_graph) == {
         "frame_rows": s_n, "detect_label_rows": s_n,
         "compact_payload_rows": 2 * s_n},
           f"the runs with the bulk velocities fed back launched "
-          f"{launch_diff(c_fed, counts_auto)}, not K6 and K9 once and the "
+          f"{launch_diff(c_fed, counts_graph)}, not K6 and K9 once and the "
           "payload compaction twice a snapshot")
     for other, before, after, kernels, what in (
             (evf, c_fed, c_fused, ("segment_moments", "fused_label_rows",
@@ -1371,6 +1376,46 @@ def label_full_width(dev, work):
     for frames, what in LABEL_TIMED:
         time_label_step(dev, work, frames, what)
     return launches, keys
+
+
+def label_graph_check(scan, ev, counts_first, s_n):
+    """The same scan as the counted first one (``ev``, the launches
+    ``counts_first``) twice more: the second call captures the scan's
+    CUDA graph and replays it, the third replays it.  Each gives the
+    first call's events bit for bit and adds the first call's launches
+    (K7, K6 and K8 ``s_n`` times each)."""
+    import torch
+
+    from orbitanalysis_tpu_torch.ops import _cuda
+
+    for counter in ("label_graph_captures", "label_graph_replays"):
+        metrics = {}
+        before = _cuda.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, got = scan(LABEL_K, metrics=metrics)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = launch_diff(_cuda.launch_counts(), before)
+        graph = {k: v for k, v in metrics.items()
+                 if k.startswith("label_graph")}
+        log(f"  {counter[12:-1]} call: {graph}, launches {launches}, wall "
+            f"{wall_s * 1e3:.3f} ms (host span {metrics['step_s'] * 1e3:.3f} "
+            f"ms, device {metrics['label_device_s'] * 1e3:.3f} ms)")
+        check(graph == {counter: 1},
+              f"the scan's {counter[12:-1]} call recorded {graph}, not "
+              f"{{{counter!r}: 1}}")
+        check(launches == launch_diff(counts_first),
+              f"the scan's {counter[12:-1]} call launched {launches}, not "
+              f"the first call's {launch_diff(counts_first)}")
+        check(all(launches.get(k) == s_n for k in (
+            "segment_moments", "frame_rows", "detect_label_compact_rows")),
+              f"the scan's {counter[12:-1]} call launched {launches}, not "
+              f"K7, K6 and K8 {s_n} times each")
+        for name, a, b in zip(ev._fields, got, ev):
+            check(a.dtype == b.dtype and torch.equal(a, b),
+                  f"the scan's {counter[12:-1]} call: {name} differs from "
+                  "the first call's")
 
 
 def time_label_step(dev, work, frames, what):

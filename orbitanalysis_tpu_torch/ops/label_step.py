@@ -51,15 +51,31 @@ While a ``torch.profiler`` records, a step opens the ranges
 or the plain chain and K5) and ``oa.label.finish``;
 :func:`scan_label_events` adds ``oa.label.step`` around each step and
 takes a ``metrics`` dict for its spans, counters and device time.
+
+On CUDA tensors :func:`scan_label_events` replays a CUDA graph of the
+whole ``S``-step loop: no route's step reads anything back to the host,
+so the loop captures as it runs.  A scan's first call with a key
+(:func:`_graph_key`: the step builder, each sequence tensor's address,
+shape, strides and dtype, the carry's shapes and dtypes, and the
+arguments a capture bakes in, the per-step drags among them) runs
+eagerly; its second captures the loop on a side stream into a private
+memory pool and replays it; later calls replay.  A replay reads
+whatever the sequence tensors hold then, copies the caller's carry into
+the graph's carry planes and returns clones of the graph's outputs, so
+one call's outputs outlive the next.  Two keys are held, graphs or
+keys seen once, the least recently used dropped first.  CPU tensors
+always run the loop.
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from orbitanalysis_tpu_torch.ops import _cuda
 from orbitanalysis_tpu_torch.ops.compact import (
     compact_payload,
     compact_payload_blocked,
@@ -356,7 +372,8 @@ def scan_label_events(carry, pos_seq, vel_seq, label_seq, centers_seq,
     (``pos_seq``/``vel_seq`` ``[S, 3, N]``, ``label_seq`` ``[S, N]``,
     ``centers_seq`` ``[S, H, 3]``; or ``[S, 3, R, W]`` and ``[S, R, W]``
     row planes; tensors or arrays, moved to the carry's device), as a
-    Python loop.  Returns ``(carry, LabelEvents stacked [S, ...])``.
+    Python loop, or on CUDA tensors the replay of its CUDA graph (module
+    docstring).  Returns ``(carry, LabelEvents stacked [S, ...])``.
     ``hubble_drag`` is a scalar or one value per step.
 
     ``mass`` is one plane for every step (``[N]`` or ``[R, W]``) or one
@@ -368,17 +385,22 @@ def scan_label_events(carry, pos_seq, vel_seq, label_seq, centers_seq,
     ``metrics`` (a dict, as :func:`~orbitanalysis_tpu_torch.utils.
     metrics.phase_timer` takes) gathers the call's numbers, adding to
     what it holds: ``step_s`` (the span ``label.step``: each step's host
-    enqueue), the counters ``label_steps``, ``label_updates`` (the
-    members, ``label >= 0``, of every step after the call's first, which
-    from a fresh carry only seeds it) and ``label_events`` (every step's
-    events, counted past the capacity too) and, on CUDA tensors,
-    ``label_device_s`` (each step's stretch of the device stream between
-    CUDA timing events).  The counters are summed on the device and read,
-    with the timing events, once at the end of the call.  Without it no
-    timing event is recorded, nothing is counted and nothing waits for
-    the device.
+    enqueue, or a replay's whole enqueue, its copies and any capture
+    before it included), the counters ``label_steps``, ``label_updates``
+    (the members, ``label >= 0``, of every step after the call's first,
+    which from a fresh carry only seeds it) and ``label_events`` (every
+    step's events, counted past the capacity too) and, on CUDA tensors,
+    ``label_device_s``
+    (each step's stretch of the device stream between CUDA timing
+    events, or the replay's), ``label_graph_captures`` (1 where the call
+    captured its graph) and ``label_graph_replays`` (1 where it replayed
+    a graph an earlier call captured).  The counters are summed on the
+    device and read, with the timing events, once at the end of the
+    call.  Without it no timing event is recorded, nothing is counted
+    and nothing waits for the device.
     """
-    step = make_label_orbit_step(
+    build = make_label_orbit_step
+    step = build(
         event_capacity, mode=mode, box_size=box_size, row_width=row_width,
         frames=frames, rhat_packed=rhat_packed,
     )
@@ -405,25 +427,147 @@ def scan_label_events(carry, pos_seq, vel_seq, label_seq, centers_seq,
     if mass is not None:
         mass = mass.reshape((S, R, W) if per_step else (R, W))
     drag = np.broadcast_to(np.asarray(hubble_drag, np.float32), (S,))
-    clock = metrics is not None and dev.type == "cuda"
-    stamps, events = [], []
-    for s in range(S):
-        with phase_timer(metrics, "label.step"):
-            if clock:
-                stamps.append((torch.cuda.Event(enable_timing=True),
-                               torch.cuda.Event(enable_timing=True)))
-                stamps[-1][0].record()
-            carry, ev = step(carry, (
-                pos_seq[s], vel_seq[s], label_seq[s], centers_seq[s],
+
+    def inputs(s):
+        return (pos_seq[s], vel_seq[s], label_seq[s], centers_seq[s],
                 None if bulk_vel_seq is None else bulk_vel_seq[s],
-                mass[s] if per_step else mass, float(drag[s])))
-            if clock:
-                stamps[-1][1].record()
-        events.append(ev)
-    out = LabelEvents(*(torch.stack(f) for f in zip(*events)))
+                mass[s] if per_step else mass, float(drag[s]))
+
+    def run(c, metrics=None, stamps=None):
+        return _scan_steps(step, c, map(inputs, range(S)), metrics, stamps)
+
+    clock = metrics is not None and dev.type == "cuda"
+    stamps = [] if clock else None
+    key = _graph_key(
+        build, carry, (pos_seq, vel_seq, label_seq, centers_seq, mass,
+                       bulk_vel_seq),
+        int(event_capacity), mode,
+        None if box_size is None else float(box_size), int(row_width),
+        _resolve_frames(frames, centers_seq.shape[1]), bool(rhat_packed),
+        tuple(drag.tolist()))
+    if dev.type != "cuda" or _first_sighting(key):
+        carry, out = run(carry, metrics, stamps)
+    else:
+        with phase_timer(metrics, "label.step"):
+            graph = _GRAPHS[key]
+            counter = "label_graph_replays"
+            if graph is None:
+                graph = _GRAPHS[key] = _ScanGraph(run, carry)
+                counter = "label_graph_captures"
+            carry, out = graph.replay(carry, stamps)
+        if metrics is not None:
+            metrics[counter] = metrics.get(counter, 0) + 1
     if metrics is not None:
         _count_scan(metrics, label_seq, out.count, stamps)
     return carry, out
+
+
+def _scan_steps(step, carry, inputs, metrics=None, stamps=None):
+    """The scan's loop: ``step`` over ``inputs``, each step in the span
+    ``label.step`` (into ``metrics``) and, given ``stamps`` (a list), in
+    a pair of CUDA timing events appended to it.  Returns ``(carry,
+    LabelEvents stacked [S, ...])``."""
+    events = []
+    for x in inputs:
+        with phase_timer(metrics, "label.step"):
+            if stamps is not None:
+                stamps.append(_stamp())
+            carry, ev = step(carry, x)
+            if stamps is not None:
+                stamps[-1][1].record()
+        events.append(ev)
+    return carry, LabelEvents(*(torch.stack(f) for f in zip(*events)))
+
+
+def _stamp():
+    """A pair of CUDA timing events, the first recorded now."""
+    pair = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    pair[0].record()
+    return pair
+
+
+def _graph_key(build, carry, seqs, *baked) -> tuple:
+    """What a capture of a scan bakes in: the step builder ``build``, each
+    sequence tensor's address, shape, strides and dtype (``seqs``, None
+    where absent; the mass's shape says whether it is a plane a step),
+    the carry's shapes and dtypes, and the scan's arguments ``baked``
+    (capacity, mode, box, row width, route, r-hat form, the drag of each
+    step)."""
+    def meta(t):
+        return None if t is None else (t.data_ptr(), tuple(t.shape),
+                                       t.stride(), t.dtype)
+    return (build, tuple(map(meta, seqs)),
+            tuple((tuple(t.shape), t.dtype) for t in carry), *baked)
+
+
+class _ScanGraph:
+    """One scan captured as a CUDA graph: the carry planes it reads, the
+    carry and stacked events it leaves in its private memory pool, and
+    the kernel launches of one replay.  ``run(carry)`` is the scan's
+    loop; the capture launches nothing, so the launch counts it made are
+    taken back, whether it succeeds or not, and each replay adds them."""
+
+    def __init__(self, run, carry: LabelCarry):
+        self.device = carry.lab_sv.device
+        self.carry_in = LabelCarry(*(
+            torch.empty(t.shape, dtype=t.dtype, device=self.device)
+            for t in carry))
+        self.graph = torch.cuda.CUDAGraph()
+        before = _cuda.launch_counts()
+        try:
+            # a bare capture: torch.cuda.graph's context would also wait
+            # for the device and empty the allocator's cache (0.2-0.27 s
+            # a capture at the bench shape on an H100), which the graph's
+            # pool does not need
+            with torch.cuda.device(self.device), torch.cuda.stream(
+                    torch.cuda.Stream()):
+                self.graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    self.carry_out, self.events = run(self.carry_in)
+                finally:
+                    self.graph.capture_end()
+        finally:
+            after = _cuda.launch_counts()
+            for n in after:
+                _cuda.KERNELS[n].launches = before[n]
+        self.launches = {n: after[n] - before[n] for n in after
+                         if after[n] != before[n]}
+
+    def replay(self, carry: LabelCarry, stamps=None):
+        """The scan from ``carry`` on the current stream: ``(carry,
+        LabelEvents)``, clones of the graph's outputs; given ``stamps``,
+        a pair of CUDA timing events around the replay is appended."""
+        with torch.cuda.device(self.device):
+            for mine, theirs in zip(self.carry_in, carry):
+                mine.copy_(theirs)
+            if stamps is not None:
+                stamps.append(_stamp())
+            self.graph.replay()
+            if stamps is not None:
+                stamps[-1][1].record()
+            for n, c in self.launches.items():
+                _cuda.KERNELS[n].launches += c
+            return (LabelCarry(*(t.clone() for t in self.carry_out)),
+                    LabelEvents(*(t.clone() for t in self.events)))
+
+
+#: The process's CUDA scans by :func:`_graph_key`: None for a key seen
+#: once, its :class:`_ScanGraph` once captured.
+_GRAPHS: OrderedDict = OrderedDict()
+_GRAPHS_KEPT = 2
+
+
+def _first_sighting(key) -> bool:
+    """Whether ``key`` is new to :data:`_GRAPHS`.  Either way it becomes
+    the most recently used of the keys held, at most ``_GRAPHS_KEPT``:
+    the least recently used is dropped (a dropped graph frees its
+    pool)."""
+    new = key not in _GRAPHS
+    _GRAPHS[key] = _GRAPHS.pop(key, None)
+    while len(_GRAPHS) > _GRAPHS_KEPT:
+        _GRAPHS.popitem(last=False)
+    return new
 
 
 def _count_scan(metrics, label_seq, count, stamps):

@@ -26,7 +26,8 @@ Ranges the port opens (each only while a profiler records):
   ``models/nbody.simulate_with_tracking``;
 - ``oa.pm.deposit``, ``oa.pm.solve``, ``oa.pm.interp``: the PM force
   (``models/pm.pm_forces``), under ``oa.sim.force``;
-- ``oa.label.step`` (a step's enqueue): each step of
+- ``oa.label.step`` (a step's enqueue, or one around a replay of the
+  scan's CUDA graph): each step of
   ``ops/label_step.scan_label_events``; in it, or in any call of a
   ``make_label_orbit_step`` step, ``oa.label.moments``,
   ``oa.label.frames``, ``oa.label.detect`` and ``oa.label.finish``.
@@ -36,7 +37,12 @@ handed): ``step_s`` (``label.step``), the counters ``label_steps``,
 ``label_updates`` (members of every step after the call's first) and
 ``label_events``, summed on the device and read once a call, and on
 CUDA tensors ``label_device_s``, the steps' stretches of the device
-stream between CUDA timing events.
+stream between CUDA timing events (where the call replays the scan's
+CUDA graph, the replay's stretch, and ``step_s`` the replay's whole
+enqueue, with the graph's capture where the call made it),
+``label_graph_captures``, the calls that captured the scan's
+graph, and ``label_graph_replays``, the calls that replayed a graph an
+earlier call captured (over the calls: the graph's hit rate).
 
 Counters of the PM force (``models/pm.pm_forces``, into the ``metrics``
 dict it is handed): ``deposited``, the particles deposited, and

@@ -11,6 +11,8 @@ there without the repo's conftest, which imports jax:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+from collections import OrderedDict
+
 import numpy as np
 import pytest
 import torch
@@ -630,6 +632,162 @@ def test_label_routes_estimate_bulk_on_cuda(dev, frames):
     assert _cuda.launch_counts()["segment_moments"] == 6
     assert torch.equal(e.count, e_split.count) and int(e.count.sum()) > 0
     assert torch.equal(e.index, e_split.index)
+
+
+# the scan's CUDA graph: label.bench64's rows (32,768 wide, K 2048, a mass
+# plane a step, a drag a step), cut to 2 rows
+GRAPH_W, GRAPH_S = 32768, 8
+
+
+@pytest.fixture
+def graphs(monkeypatch):
+    """A fresh cache of captured scans for the test."""
+    fresh = OrderedDict()
+    monkeypatch.setattr(tls, "_GRAPHS", fresh)
+    return fresh
+
+
+def _graph_inputs(dev, seed=3):
+    from orbitanalysis_tpu_torch.models.synthetic import label_churn_workload
+
+    lab, pos, vel, cen, _ = label_churn_workload(2, GRAPH_W, GRAPH_S,
+                                                 seed=seed)
+    mass = np.random.default_rng(seed).uniform(
+        0.5, 2.0, lab.shape).astype(np.float32)
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (pos, vel, lab, cen, mass)]
+
+
+def _graph_scan(x, carry=None, metrics=None, frames="auto", **kw):
+    pos, vel, lab, cen, mass = x
+    n = lab.shape[1]
+    args = dict(event_capacity=2048, box_size=100.0, mass=mass,
+                hubble_drag=np.linspace(0.01, 0.02, GRAPH_S),
+                row_width=GRAPH_W)
+    args.update(kw)
+    if carry is None:
+        carry = tls.init_label_carry(n, args.get("rhat_packed", False),
+                                     args["row_width"], device=lab.device)
+    _cuda.reset_launch_counts()
+    out = tls.scan_label_events(carry, pos, vel, lab, cen, frames=frames,
+                                metrics=metrics, **args)
+    torch.cuda.synchronize()
+    return out, {k: c for k, c in _cuda.launch_counts().items() if c}
+
+
+def _bits(carry, events):
+    return [t.clone() for t in (*carry, *events)]
+
+
+def _equal_bits(a, b):
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+def test_label_scan_graph_calls_are_bit_equal(dev, graphs):
+    """Calls 1 (the loop), 2 (capture and replay) and 3, 4 (replays)
+    with one key: the same carries and events bit for bit, the same
+    launches of K7, K6 and K8 each call, and the counters: a capture on
+    call 2, a replay a call after it."""
+    x = _graph_inputs(dev)
+    runs, counts, metrics = [], [], []
+    for _ in range(4):
+        m = {}
+        out, launches = _graph_scan(x, metrics=m)
+        runs.append(_bits(*out))
+        counts.append(launches)
+        metrics.append(m)
+    assert int(runs[0][3].sum()) > 0          # events were found
+    for r in runs[1:]:
+        _equal_bits(r, runs[0])
+    assert counts == [{"segment_moments": GRAPH_S, "frame_rows": GRAPH_S,
+                       "detect_label_compact_rows": GRAPH_S}] * 4
+    assert [(m.get("label_graph_captures", 0),
+             m.get("label_graph_replays", 0)) for m in metrics] == [
+        (0, 0), (1, 0), (0, 1), (0, 1)]
+    for m in metrics:
+        assert m["label_steps"] == GRAPH_S and m["label_device_s"] > 0
+        assert m["label_events"] == int(runs[0][3].sum())
+    assert len(graphs) == 1 and None not in graphs.values()
+    both = {}
+    for _ in range(2):
+        _graph_scan(x, metrics=both)
+    assert both["label_graph_replays"] == 2
+    assert both["label_steps"] == 2 * GRAPH_S
+
+
+def test_label_scan_graph_reads_inputs_and_carry_at_replay(dev, graphs):
+    """A replay after the inputs changed in place, from a carry that is
+    not fresh, gives the loop's events on clones of the same inputs and
+    carry; the outputs of the call before it are left as they were."""
+    x = _graph_inputs(dev)
+    _graph_scan(x)
+    (carry2, ev2), _ = _graph_scan(x)
+    kept = _bits(carry2, ev2)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    pos, vel, lab, cen, mass = x
+    pos.add_(0.01 * torch.randn(pos.shape, device=dev, generator=gen))
+    vel.mul_(-1.0)
+    lab[3:, :100] = -1
+    mass.mul_(1.5)
+    metrics = {}
+    (carry3, ev3), _ = _graph_scan(x, carry=carry2, metrics=metrics)
+    assert metrics["label_graph_replays"] == 1
+    _equal_bits(_bits(carry2, ev2), kept)
+    plain = {}
+    want, _ = _graph_scan([t.clone() for t in x],
+                          carry=tls.LabelCarry(*(t.clone() for t in carry2)),
+                          metrics=plain)
+    assert "label_graph_replays" not in plain
+    assert "label_graph_captures" not in plain
+    _equal_bits(_bits(carry3, ev3), _bits(*want))
+    assert not torch.equal(ev3.count, ev2.count)
+
+
+def test_label_scan_graph_serves_no_patched_step(dev, graphs, monkeypatch):
+    """A step builder patched after its scan was captured (a step that
+    leaves the carry unchanged, as the benchmark's planted fault does)
+    runs: the patched builder is another key, never served the graph."""
+    x = _graph_inputs(dev)
+    for _ in range(2):
+        (_, want), _ = _graph_scan(x)
+    real = tls.make_label_orbit_step
+
+    def make(*a, **k):
+        step = real(*a, **k)
+        return lambda carry, inputs: (carry, step(carry, inputs)[1])
+
+    monkeypatch.setattr(tls, "make_label_orbit_step", make)
+    metrics = {}
+    (_, got), _ = _graph_scan(x, metrics=metrics)
+    assert "label_graph_replays" not in metrics
+    assert not torch.equal(got.count, want.count)
+
+
+@pytest.mark.parametrize("frames", [f for f in tls._FRAMES if f != "auto"])
+def test_every_label_route_replays_its_graph(dev, graphs, frames):
+    """Every route's step reads nothing back to the host, so each
+    captures: its replays give the loop's bits, with the moments
+    estimated on the card."""
+    from orbitanalysis_tpu_torch.models.synthetic import label_churn_workload
+
+    lab, pos, vel, cen, _ = label_churn_workload(4, 4096, 6, seed=1)
+    x = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+         for a in (pos, vel, lab, cen)] + [None]
+    kw = dict(event_capacity=128, row_width=4096, rhat_packed=True,
+              hubble_drag=0.01)
+    runs, metrics = [], []
+    for _ in range(3):
+        m = {}
+        out, _ = _graph_scan(x, metrics=m, frames=frames, **kw)
+        runs.append(_bits(*out))
+        metrics.append(m)
+    assert metrics[1]["label_graph_captures"] == 1
+    assert metrics[2]["label_graph_replays"] == 1
+    assert int(runs[0][3].sum()) > 0
+    _equal_bits(runs[1], runs[0])
+    _equal_bits(runs[2], runs[0])
 
 
 # ----------------------------------------------------------------------

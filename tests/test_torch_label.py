@@ -17,6 +17,7 @@ in another order.
 
 import os
 import sys
+from collections import OrderedDict
 
 import jax
 import jax.numpy as jnp
@@ -622,6 +623,144 @@ def test_wrappers_serve_only_cpu_and_cuda():
         tl.detect_label(torch.zeros((6, 1, 256), device="meta"),
                         lab.view(1, 256), *([None] * 6),
                         pericentric=True, box_size=None)
+
+
+# ----------------------------------------------------------------------
+# the scan's CUDA graph: which calls take it, and its key
+# ----------------------------------------------------------------------
+
+def _same(a, b):
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+def _scan_on(tensors, metrics=None, **kw):
+    pos, vel, lab, cen, mass = tensors
+    args = dict(event_capacity=128, box_size=100.0, row_width=W,
+                hubble_drag=np.linspace(0.01, 0.02, S), mass=mass)
+    args.update(kw)
+    carry = tls.init_label_carry(N, args.get("rhat_packed", False),
+                                 row_width=W, device="cpu")
+    return tls.scan_label_events(carry, pos, vel, lab, cen,
+                                 metrics=metrics, **args)
+
+
+def _tensors(seed=17):
+    pos, vel, lab, cen = _pool(seed)
+    mass = np.random.default_rng(seed).uniform(0.5, 2.0, (S, N))
+    return tuple(torch.from_numpy(np.ascontiguousarray(a))
+                 for a in (pos, vel, lab, cen, mass.astype(np.float32)))
+
+
+def test_scan_on_cpu_takes_no_graph(monkeypatch):
+    """On CPU tensors every call runs the step loop: no key is noted, no
+    ``label_graph_*`` counter is recorded, and three calls give the
+    bits of the step called by hand."""
+    graphs = OrderedDict()
+    monkeypatch.setattr(tls, "_GRAPHS", graphs)
+    x = _tensors()
+    pos, vel, lab, cen, mass = x
+    step = tls.make_label_orbit_step(128, box_size=100.0, row_width=W)
+    carry = tls.init_label_carry(N, row_width=W, device="cpu")
+    drag = np.linspace(0.01, 0.02, S).astype(np.float32)
+    events = []
+    for s in range(S):
+        carry, ev = step(carry, (pos[s], vel[s], lab[s], cen[s], None,
+                                 mass[s], float(drag[s])))
+        events.append(ev)
+    want = tls.LabelEvents(*(torch.stack(f) for f in zip(*events)))
+    for _ in range(3):
+        metrics = {}
+        got_carry, got = _scan_on(x, metrics)
+        _same(got, want)
+        _same(got_carry, carry)
+        assert not [k for k in metrics if k.startswith("label_graph")]
+        assert metrics["label_steps"] == S
+    assert not graphs
+
+
+@pytest.fixture
+def keys(monkeypatch):
+    """The keys :func:`_graph_key` gives the calls of the test."""
+    seen = []
+    real = tls._graph_key
+
+    def record(*a):
+        seen.append(real(*a))
+        return seen[-1]
+
+    monkeypatch.setattr(tls, "_graph_key", record)
+    return seen
+
+
+def _builder_patched(monkeypatch):
+    real = tls.make_label_orbit_step
+    monkeypatch.setattr(tls, "make_label_orbit_step",
+                        lambda *a, **k: real(*a, **k))
+
+
+@pytest.mark.parametrize("change", [
+    "drag", "route", "capacity", "mass_per_step", "builder", "box", "mode",
+    "packed", "inputs", "same", "auto"])
+def test_graph_key_follows_what_a_capture_bakes_in(keys, monkeypatch,
+                                                    change):
+    """Changing any argument a capture bakes in (each step's drag, the
+    route, K, a mass plane a step or one for all, the step builder, the
+    box, the mode, the r-hat form, the input tensors) gives another key;
+    the same arguments, or ``'auto'`` where it resolves to the route
+    given, give the same key, and the same events."""
+    x = _tensors()
+    base = dict(frames="split")
+    _, want = _scan_on(x, **base)
+    kw = dict(base)
+    if change == "drag":
+        kw["hubble_drag"] = np.linspace(0.01, 0.03, S)
+    elif change == "route":
+        kw["frames"] = "pallas2"
+    elif change == "capacity":
+        kw["event_capacity"] = 256
+    elif change == "mass_per_step":
+        kw["mass"] = x[4][0]
+    elif change == "builder":
+        _builder_patched(monkeypatch)
+    elif change == "box":
+        kw["box_size"] = 90.0
+    elif change == "mode":
+        kw["mode"] = "apocentric"
+    elif change == "packed":
+        kw["rhat_packed"] = True
+    elif change == "inputs":
+        x = tuple(t.clone() for t in x)
+    elif change == "auto":
+        kw["frames"] = "auto"
+    _, got = _scan_on(x, **kw)
+    hit = change in ("same", "auto")
+    assert len(keys) == 2
+    assert (keys[1] == keys[0]) == hit
+    if hit or change == "inputs":
+        _same(got, want)
+
+
+def test_graph_cache_keeps_two(monkeypatch):
+    """A key's first sighting is noted, its second finds it (the scan
+    then captures into its entry); three keys in turn drop the least
+    recently used, which starts again from a first sighting; a key seen
+    again becomes the most recently used; two keys are held, graphs or
+    keys seen once."""
+    graphs = OrderedDict()
+    monkeypatch.setattr(tls, "_GRAPHS", graphs)
+    first = tls._first_sighting
+    assert first("a") and not first("a")
+    graphs["a"] = "graph a"           # as the scan's capture stores it
+    assert not first("a") and graphs["a"] == "graph a"
+    assert first("b") and first("c")
+    assert list(graphs) == ["b", "c"]
+    assert first("a") and graphs["a"] is None
+    assert list(graphs) == ["c", "a"]
+    assert not first("c")
+    assert list(graphs) == ["a", "c"]
+    assert first("d")
+    assert list(graphs) == ["c", "d"]
 
 
 # ----------------------------------------------------------------------
