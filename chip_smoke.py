@@ -59,7 +59,10 @@ repository checkout; it imports nothing of JAX.  Phases:
    static cells: ``scan_events_sorted(fused=True, cur_presorted=True,
    soa_batch=True)`` over the 48-snapshot churn sequence must find
    exactly the 1,741,643 events, launching the join-and-detect kernel
-   once a step; on its first 12 snapshots the events equal the general
+   once a step; the same scan twice more, the second capturing the
+   scan's CUDA graph and the third replaying it, must give the same
+   events bit for bit and count the same launches; on its first 12
+   snapshots the events equal the general
    engine's on the card (given the sorted run's bulk velocities) and the
    unfused route's (merge kernel + two-group compaction); the static
    sequence launches the join-and-detect kernel on its first step and
@@ -1749,6 +1752,8 @@ def sorted_full_width(dev, seq):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     c_churn = _cuda.launch_counts()
+    sorted_graph_check(scan, churn, (cnt, ids, ang), c_churn, s_n)
+    c_graph = _cuda.launch_counts()
     _, (cnt_u, ids_u, ang_u) = scan(head(churn), merge_impl="pallas",
                                     compact_impl="pallas")
     torch.cuda.synchronize()
@@ -1791,7 +1796,7 @@ def sorted_full_width(dev, seq):
     check(int(cnt.max()) <= LABEL_K, "a row overflowed K = 2048")
     check(diff(c_churn) == {"fused_join_detect": s_n},
         "the churn scan did not launch K16 once a step (and nothing else)")
-    check(diff(c_unf, c_churn) == {"merge_rows": n_chk,
+    check(diff(c_unf, c_graph) == {"merge_rows": n_chk,
                                    "compact_rows_groups": n_chk},
           "the unfused route did not launch K15 and K19 once a step")
     check(diff(c_static, c_unf) == {"fused_join_detect": 1,
@@ -1895,6 +1900,47 @@ def sorted_full_width(dev, seq):
     time_scan(dev, static, n_chk, seq["n_static"],
               "sorted step, static (K18 after the first step)", step, init)
     return launches, row_event_keys(cnt, ids)
+
+
+def sorted_graph_check(scan, churn, first, counts_first, s_n):
+    """The full-width churn scan of phase 8 (``first``, its launches
+    ``counts_first``) twice more: the second call captures the scan's
+    CUDA graph and replays it, the third replays it.  Each gives the
+    first call's events bit for bit, adds the first call's launches (K16
+    ``s_n`` times) and takes no static step."""
+    import torch
+
+    from orbitanalysis_tpu_torch.ops import _cuda
+
+    for counter in ("sorted_graph_captures", "sorted_graph_replays"):
+        metrics = {}
+        before = _cuda.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, got = scan(churn, fused=True, metrics=metrics)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = launch_diff(_cuda.launch_counts(), before)
+        graph = {k: v for k, v in metrics.items()
+                 if k.startswith("sorted_graph")}
+        what = counter[13:-1]
+        log(f"  sorted scan, {what} call: {graph}, launches {launches}, "
+            f"wall {wall_s * 1e3:.3f} ms (host span "
+            f"{metrics['step_s'] * 1e3:.3f} ms, device "
+            f"{metrics['sorted_device_s'] * 1e3:.3f} ms)")
+        check(graph == {counter: 1},
+              f"the sorted scan's {what} call recorded {graph}, not "
+              f"{{{counter!r}: 1}}")
+        check(launches == launch_diff(counts_first)
+              == {"fused_join_detect": s_n},
+              f"the sorted scan's {what} call launched {launches}, not the "
+              f"first call's K16 {s_n} times")
+        check(metrics["sorted_static_steps"] == 0,
+              f"the sorted scan's {what} call took a static step")
+        for name, a, b in zip(("count", "ids", "angles"), got, first):
+            check(a.dtype == b.dtype and torch.equal(a, b),
+                  f"the sorted scan's {what} call: {name} differs from the "
+                  "first call's")
 
 
 def sorted_end_to_end(dev, ctx):

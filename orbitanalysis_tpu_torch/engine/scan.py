@@ -10,7 +10,8 @@ device once before the loop.
   (full ``[S, H, P]`` apsis masks, or compacted ``[S, H, K]`` lists);
 - :func:`scan_counts`: per-particle apsis counts kept in the carry,
   re-indexed each step through the step's cur->prev slot map;
-- :func:`scan_events_sorted`: the sorted-carry step;
+- :func:`scan_events_sorted`: the sorted-carry step, on CUDA tensors
+  one replayed CUDA graph of the whole scan;
 - :func:`scan_events_aligned`: the aligned step on stable-layout
   staging (:func:`~orbitanalysis_tpu_torch.engine.packing.
   stage_batch_aligned`), per step or batched over the whole sequence.
@@ -18,7 +19,7 @@ device once before the loop.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -29,6 +30,7 @@ from orbitanalysis_tpu_torch.ops.apsis import (
     make_orbit_step,
 )
 from orbitanalysis_tpu_torch.ops.join import gather_rows
+from orbitanalysis_tpu_torch.utils import graphs
 from orbitanalysis_tpu_torch.utils.metrics import phase_timer
 from orbitanalysis_tpu_torch.utils.padding import invalid_id_for
 
@@ -150,6 +152,7 @@ def scan_events_sorted(
     cur_presorted: bool = False,
     fused: bool = False,
     soa_batch: bool = False,
+    metrics: Optional[dict] = None,
 ):
     """The sorted-carry step over a stacked snapshot sequence.
 
@@ -162,20 +165,101 @@ def scan_events_sorted(
     ``soa_batch=True``.  The options are
     :func:`~orbitanalysis_tpu_torch.ops.sorted_step.make_sorted_orbit_step`'s.
 
+    On the fused presorted path the static-membership test of every step
+    is one reduction over ``[S]`` (:func:`~orbitanalysis_tpu_torch.ops.
+    sorted_step.static_flags`), read on the host once a call, before the
+    loop; each step is handed its flag, so no step reads the device.  On
+    CUDA tensors the scan is then one replayed CUDA graph
+    (:mod:`orbitanalysis_tpu_torch.utils.graphs`): a key's first call
+    runs the loop, its second captures it, later calls replay.  The key
+    holds the step builder, each staged tensor's address, shape, strides
+    and dtype, the carry's shapes and dtypes, the capacity, mode, box,
+    routes, ``soa_batch``, each step's drag and the flags.  Staged NumPy
+    arrays are new tensors every call, so their calls run the loop.
+
+    ``metrics`` (a dict) gathers the call's numbers, adding to what it
+    holds: ``step_s`` (the span ``sorted.step``: each step's enqueue, or
+    a replay's, its copies and any capture before it included), the
+    counters ``sorted_steps``, ``sorted_updates`` (the staged members of
+    every step after the call's first), ``sorted_events`` (counted past
+    the capacity too), ``sorted_static_steps`` (the steps that took the
+    static branch), ``sorted_graph_captures`` and
+    ``sorted_graph_replays``, and on CUDA tensors ``sorted_device_s``
+    (CUDA timing events around each step, or around the replay).  The
+    counters are summed on the device and read, with the timing events,
+    once at the end of the call.  Without it nothing is timed or counted.
+
     Returns ``(final_carry, (count [S, H], ids [S, H, K], angles
     [S, H, K]))``, the events in previous-snapshot load order.
     """
+    from orbitanalysis_tpu_torch.ops.geometry import box_f32
     from orbitanalysis_tpu_torch.ops.sorted_step import (
         make_sorted_orbit_step,
+        static_flags,
     )
 
-    step = make_sorted_orbit_step(
+    build = make_sorted_orbit_step
+    step = build(
         event_capacity, mode=mode, box_size=box_size, id_dtype=id_dtype,
         merge_impl=merge_impl, compact_impl=compact_impl,
         cur_presorted=cur_presorted, fused=fused, soa_batch=soa_batch,
     )
-    return _scan(step, carry, snaps, carry.ids.device,
-                 lambda ev: (ev.count, ev.ids, ev.angles))
+    dev = carry.ids.device
+    snaps = _with_drag_axis(snaps)
+    fields = _on_device(snaps, dev)
+    S = snaps.ids.shape[0]
+    drags = tuple(float(d) for d in snaps.hubble_drag)
+    static = (static_flags(carry.ids, fields["ids"])
+              if fused and cur_presorted else (None,) * S)
+
+    def batch(s):
+        return SnapshotBatch(
+            **{k: None if v is None else v[s] for k, v in fields.items()},
+            hubble_drag=drags[s])
+
+    def run(c, metrics=None, stamps=None):
+        outs = []
+        for s in range(S):
+            with phase_timer(metrics, "sorted.step"):
+                if stamps is not None:
+                    stamps.append(graphs.stamp())
+                c, ev = step(c, batch(s), static=static[s])
+                if stamps is not None:
+                    stamps[-1][1].record()
+            outs.append((ev.count, ev.ids, ev.angles))
+        return c, tuple(torch.stack(x) for x in zip(*outs))
+
+    stamps = [] if metrics is not None and dev.type == "cuda" else None
+    key = graphs.graph_key(
+        build, carry, tuple(fields.values()), int(event_capacity), mode,
+        None if box_size is None else box_f32(box_size),
+        np.dtype(id_dtype), merge_impl, compact_impl, bool(cur_presorted),
+        bool(fused), bool(soa_batch), drags, static)
+    carry, out = graphs.scan(key, run, carry, "sorted", metrics, stamps)
+    if metrics is not None:
+        _count_sorted(metrics, fields["ids"], invalid_id_for(id_dtype),
+                      out[0], static, stamps)
+    return carry, out
+
+
+def _count_sorted(metrics, ids, invalid, count, static, stamps):
+    """Add a :func:`scan_events_sorted` call's counters and device
+    stretches into ``metrics``: the counters summed on the device, one
+    wait (on the last timing event, which completes every earlier one)
+    and one read."""
+    tally = torch.stack([(ids[1:] != invalid).sum(dtype=torch.int64),
+                         count.sum(dtype=torch.int64)])
+    if stamps:
+        stamps[-1][1].synchronize()
+    updates, n_events = tally.tolist()
+    for key, v in (("sorted_steps", ids.shape[0]),
+                   ("sorted_updates", updates), ("sorted_events", n_events),
+                   ("sorted_static_steps", sum(map(bool, static)))):
+        metrics[key] = metrics.get(key, 0) + v
+    if stamps:
+        metrics["sorted_device_s"] = metrics.get(
+            "sorted_device_s", 0.0) + sum(
+                a.elapsed_time(b) for a, b in stamps) * 1e-3
 
 
 def scan_events_aligned(

@@ -53,29 +53,23 @@ or the plain chain and K5) and ``oa.label.finish``;
 takes a ``metrics`` dict for its spans, counters and device time.
 
 On CUDA tensors :func:`scan_label_events` replays a CUDA graph of the
-whole ``S``-step loop: no route's step reads anything back to the host,
-so the loop captures as it runs.  A scan's first call with a key
-(:func:`_graph_key`: the step builder, each sequence tensor's address,
-shape, strides and dtype, the carry's shapes and dtypes, and the
-arguments a capture bakes in, the per-step drags among them) runs
-eagerly; its second captures the loop on a side stream into a private
-memory pool and replays it; later calls replay.  A replay reads
-whatever the sequence tensors hold then, copies the caller's carry into
-the graph's carry planes and returns clones of the graph's outputs, so
-one call's outputs outlive the next.  Two keys are held, graphs or
-keys seen once, the least recently used dropped first.  CPU tensors
-always run the loop.
+whole ``S``-step loop (:mod:`orbitanalysis_tpu_torch.utils.graphs`, the
+port's one graph helper, which the sorted scan uses too): no route's
+step reads anything back to the host, so the loop captures as it runs.
+Its key holds the step builder, each sequence tensor's address, shape,
+strides and dtype, the carry's shapes and dtypes, and the arguments a
+capture bakes in, the per-step drags among them.  A key's first call
+runs the loop, its second captures and replays, later calls replay; CPU
+tensors always run the loop.
 """
 
 from __future__ import annotations
 
-from collections import OrderedDict
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from orbitanalysis_tpu_torch.ops import _cuda
 from orbitanalysis_tpu_torch.ops.compact import (
     compact_payload,
     compact_payload_blocked,
@@ -92,6 +86,7 @@ from orbitanalysis_tpu_torch.ops.label import (
     detect_label_torch,
     fused_label_detect,
 )
+from orbitanalysis_tpu_torch.utils import graphs
 from orbitanalysis_tpu_torch.utils.device import resolve_device
 from orbitanalysis_tpu_torch.utils.metrics import phase_timer
 from orbitanalysis_tpu_torch.utils.numerics import div_rn
@@ -438,25 +433,14 @@ def scan_label_events(carry, pos_seq, vel_seq, label_seq, centers_seq,
 
     clock = metrics is not None and dev.type == "cuda"
     stamps = [] if clock else None
-    key = _graph_key(
+    key = graphs.graph_key(
         build, carry, (pos_seq, vel_seq, label_seq, centers_seq, mass,
                        bulk_vel_seq),
         int(event_capacity), mode,
         None if box_size is None else float(box_size), int(row_width),
         _resolve_frames(frames, centers_seq.shape[1]), bool(rhat_packed),
         tuple(drag.tolist()))
-    if dev.type != "cuda" or _first_sighting(key):
-        carry, out = run(carry, metrics, stamps)
-    else:
-        with phase_timer(metrics, "label.step"):
-            graph = _GRAPHS[key]
-            counter = "label_graph_replays"
-            if graph is None:
-                graph = _GRAPHS[key] = _ScanGraph(run, carry)
-                counter = "label_graph_captures"
-            carry, out = graph.replay(carry, stamps)
-        if metrics is not None:
-            metrics[counter] = metrics.get(counter, 0) + 1
+    carry, out = graphs.scan(key, run, carry, "label", metrics, stamps)
     if metrics is not None:
         _count_scan(metrics, label_seq, out.count, stamps)
     return carry, out
@@ -471,103 +455,12 @@ def _scan_steps(step, carry, inputs, metrics=None, stamps=None):
     for x in inputs:
         with phase_timer(metrics, "label.step"):
             if stamps is not None:
-                stamps.append(_stamp())
+                stamps.append(graphs.stamp())
             carry, ev = step(carry, x)
             if stamps is not None:
                 stamps[-1][1].record()
         events.append(ev)
     return carry, LabelEvents(*(torch.stack(f) for f in zip(*events)))
-
-
-def _stamp():
-    """A pair of CUDA timing events, the first recorded now."""
-    pair = (torch.cuda.Event(enable_timing=True),
-            torch.cuda.Event(enable_timing=True))
-    pair[0].record()
-    return pair
-
-
-def _graph_key(build, carry, seqs, *baked) -> tuple:
-    """What a capture of a scan bakes in: the step builder ``build``, each
-    sequence tensor's address, shape, strides and dtype (``seqs``, None
-    where absent; the mass's shape says whether it is a plane a step),
-    the carry's shapes and dtypes, and the scan's arguments ``baked``
-    (capacity, mode, box, row width, route, r-hat form, the drag of each
-    step)."""
-    def meta(t):
-        return None if t is None else (t.data_ptr(), tuple(t.shape),
-                                       t.stride(), t.dtype)
-    return (build, tuple(map(meta, seqs)),
-            tuple((tuple(t.shape), t.dtype) for t in carry), *baked)
-
-
-class _ScanGraph:
-    """One scan captured as a CUDA graph: the carry planes it reads, the
-    carry and stacked events it leaves in its private memory pool, and
-    the kernel launches of one replay.  ``run(carry)`` is the scan's
-    loop; the capture launches nothing, so the launch counts it made are
-    taken back, whether it succeeds or not, and each replay adds them."""
-
-    def __init__(self, run, carry: LabelCarry):
-        self.device = carry.lab_sv.device
-        self.carry_in = LabelCarry(*(
-            torch.empty(t.shape, dtype=t.dtype, device=self.device)
-            for t in carry))
-        self.graph = torch.cuda.CUDAGraph()
-        before = _cuda.launch_counts()
-        try:
-            # a bare capture: torch.cuda.graph's context would also wait
-            # for the device and empty the allocator's cache (0.2-0.27 s
-            # a capture at the bench shape on an H100), which the graph's
-            # pool does not need
-            with torch.cuda.device(self.device), torch.cuda.stream(
-                    torch.cuda.Stream()):
-                self.graph.capture_begin(capture_error_mode="thread_local")
-                try:
-                    self.carry_out, self.events = run(self.carry_in)
-                finally:
-                    self.graph.capture_end()
-        finally:
-            after = _cuda.launch_counts()
-            for n in after:
-                _cuda.KERNELS[n].launches = before[n]
-        self.launches = {n: after[n] - before[n] for n in after
-                         if after[n] != before[n]}
-
-    def replay(self, carry: LabelCarry, stamps=None):
-        """The scan from ``carry`` on the current stream: ``(carry,
-        LabelEvents)``, clones of the graph's outputs; given ``stamps``,
-        a pair of CUDA timing events around the replay is appended."""
-        with torch.cuda.device(self.device):
-            for mine, theirs in zip(self.carry_in, carry):
-                mine.copy_(theirs)
-            if stamps is not None:
-                stamps.append(_stamp())
-            self.graph.replay()
-            if stamps is not None:
-                stamps[-1][1].record()
-            for n, c in self.launches.items():
-                _cuda.KERNELS[n].launches += c
-            return (LabelCarry(*(t.clone() for t in self.carry_out)),
-                    LabelEvents(*(t.clone() for t in self.events)))
-
-
-#: The process's CUDA scans by :func:`_graph_key`: None for a key seen
-#: once, its :class:`_ScanGraph` once captured.
-_GRAPHS: OrderedDict = OrderedDict()
-_GRAPHS_KEPT = 2
-
-
-def _first_sighting(key) -> bool:
-    """Whether ``key`` is new to :data:`_GRAPHS`.  Either way it becomes
-    the most recently used of the keys held, at most ``_GRAPHS_KEPT``:
-    the least recently used is dropped (a dropped graph frees its
-    pool)."""
-    new = key not in _GRAPHS
-    _GRAPHS[key] = _GRAPHS.pop(key, None)
-    while len(_GRAPHS) > _GRAPHS_KEPT:
-        _GRAPHS.popitem(last=False)
-    return new
 
 
 def _count_scan(metrics, label_seq, count, stamps):

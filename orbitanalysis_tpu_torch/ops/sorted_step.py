@@ -796,7 +796,8 @@ def _static_detect(prev_ops, cur_asc, pericentric, invalid, k_eff):
         flp = ((vrb_p & 2) > 0) & ((vrb_c & 1) > 0)
     aps = valid & flp
     acc = pang + dth
-    bit31 = torch.tensor(_BIT31, dtype=torch.int32, device=ck.device)
+    # filled on the device: a scan's CUDA graph captures no host copy
+    bit31 = torch.full((), _BIT31, dtype=torch.int32, device=ck.device)
     nil = torch.zeros((), dtype=torch.int32, device=ck.device)
     pck = torch.where(aps | ~valid, zero, acc).view(torch.int32) | \
         torch.where(valid, bit31, nil)
@@ -805,6 +806,30 @@ def _static_detect(prev_ops, cur_asc, pericentric, invalid, k_eff):
     cnt = aps.sum(dim=-1, dtype=torch.int32)
     ek, es, ep = compact_events(evp_in, ck, psv, k_eff)
     return pck, ek, es, (ep & 0x7FFFFFFF).view(torch.float32), cnt
+
+
+def static_flags(carry_ids: torch.Tensor, ids_seq: torch.Tensor) -> tuple:
+    """Each step's static-membership flag of the fused presorted path over
+    a staged sequence ``ids_seq`` ``[S, H, P]`` from a carry holding
+    ``carry_ids`` ``[H, P]``, as host bools: one reduction over ``[S]``
+    on the device and one read.  That path's next carry holds the staged
+    IDs of its step, whichever branch runs, so the step's own test
+    (``(prev_key | 1) == cur_key`` on every lane: the IDs' low 31 bits
+    equal) is ``carry_ids`` against ``ids_seq[0]`` at step 0 and
+    ``ids_seq[s - 1]`` against ``ids_seq[s]`` after it."""
+    def keys(x):
+        # the low 31 bits, shifted up as the step's keys hold them (an
+        # int32 shift wraps)
+        if x.dtype != torch.int32:
+            x = (x.to(torch.int64) & 0x7FFFFFFF).to(torch.int32)
+        return torch.bitwise_left_shift(x, 1)
+
+    if ids_seq.shape[0] == 0:
+        return ()
+    key = keys(ids_seq)
+    same = torch.cat([(keys(carry_ids) == key[0]).all().reshape(1),
+                      (key[1:] == key[:-1]).flatten(1).all(dim=1)])
+    return tuple(same.tolist())
 
 
 def make_sorted_orbit_step(
@@ -838,13 +863,20 @@ def make_sorted_orbit_step(
     staged IDs equal the carry's and then runs the static branch (plain
     detect chain and K18) instead.  The port reads that one flag on the
     host, where the JAX package branches with ``lax.cond`` on the
-    device: a synchronisation each step.  ``events_id_order=True``
+    device: a synchronisation each step, unless the caller hands the
+    step its flag, ``step(carry, snap, static=flag)``, as
+    :func:`~orbitanalysis_tpu_torch.engine.scan.scan_events_sorted` does
+    from :func:`static_flags`, read once a call (``static`` is ignored
+    off that path).  ``events_id_order=True``
     (fused only) returns the events in ID order with their previous load
     slots in ``CompactEvents.slots``.  On the fused path the event
     tensors are ``min(K, P)`` wide.  ``soa_batch=True``: ``pos``/``vel``
     arrive as ``[3, H, P]``.  The unfused paths detect with torch's
     ``acos`` (the JAX package's XLA ``arccos``), the fused ones with the
-    kernels' Cephes arccos.
+    kernels' Cephes arccos.  While a ``torch.profiler`` records, a step
+    opens ``oa.sorted.frame`` (the region frame and the keys) and, on the
+    fused path, ``oa.sorted.join`` (K16, or the static branch) and
+    ``oa.sorted.finish`` (the next carry and the events).
     """
     if mode not in ("pericentric", "apocentric"):
         raise ValueError(
@@ -888,57 +920,64 @@ def make_sorted_orbit_step(
     def flip(chans):
         return tuple(torch.flip(x, dims=(1,)) for x in chans)
 
-    def step(carry: SortedCarry, snap):
+    def step(carry: SortedCarry, snap, static=None):
         h, p = snap.ids.shape
         dev = snap.ids.device
-        valid_cur = snap.ids != invalid
-        frame = region_frame(
-            snap.pos, snap.vel, valid_cur, snap.center, mass=snap.mass,
-            bulk_vel=snap.bulk_vel, box_size=box_size,
-            hubble_drag=snap.hubble_drag, soa=soa_batch,
-        )
-        iota = torch.arange(p, dtype=torch.int32, device=dev).expand(h, p)
-        cur_vrb = _vr_bits(frame.vrad)
-        cur_slot = iota if snap.slot is None else snap.slot
-        # slot and the 3 v_r sign/match bits share one int32 channel
-        prev_sv = carry.slot | (carry.vrb.to(torch.int32) << 24)
-        cur_sv = cur_slot | (cur_vrb << 24)
-        rh = frame.rhat
+        with phase_timer(None, "sorted.frame"):
+            valid_cur = snap.ids != invalid
+            frame = region_frame(
+                snap.pos, snap.vel, valid_cur, snap.center, mass=snap.mass,
+                bulk_vel=snap.bulk_vel, box_size=box_size,
+                hubble_drag=snap.hubble_drag, soa=soa_batch,
+            )
+            iota = torch.arange(p, dtype=torch.int32,
+                                device=dev).expand(h, p)
+            cur_vrb = _vr_bits(frame.vrad)
+            cur_slot = iota if snap.slot is None else snap.slot
+            # slot and the 3 v_r sign/match bits share one int32 channel
+            prev_sv = carry.slot | (carry.vrb.to(torch.int32) << 24)
+            cur_sv = cur_slot | (cur_vrb << 24)
+            rh = frame.rhat
+            if merge_impl == "pallas":
+                cur_key = to_i32_bits((snap.ids.to(torch.int64) << 1) | 1)
+                prev_key = to_i32_bits(carry.ids.to(torch.int64) << 1)
 
         if merge_impl == "pallas":
-            cur_key = to_i32_bits((snap.ids.to(torch.int64) << 1) | 1)
-            prev_key = to_i32_bits(carry.ids.to(torch.int64) << 1)
             cur_asc = (cur_key, cur_sv, rh[0], rh[1], rh[2])
             if cur_presorted:
                 cur_ops = None if fused else flip(cur_asc)
             else:
                 cur_ops = sort_descending_u32(*cur_asc)
             if fused:
-                prev_ops6 = (prev_key, prev_sv, carry.rhat[0],
-                             carry.rhat[1], carry.rhat[2], carry.angles)
-                k_eff = min(K, p)  # events <= P
-                if cur_presorted and bool(
-                        torch.all((prev_key | 1) == cur_key)):
-                    # static membership: the host reads the flag the
-                    # JAX package's lax.cond branches on
-                    packed, evk, evsv, evang, count = _static_detect(
-                        prev_ops6, cur_asc, pericentric, invalid, k_eff)
-                    asc = cur_asc
-                else:
-                    if cur_presorted:
-                        cur_ops = flip(cur_asc)
-                    packed, evk, evsv, evang, count = fused_join_detect(
-                        prev_ops6, cur_ops, pericentric, invalid, k_eff)
-                    # the packed plane follows the staged (descending)
-                    # cur order
-                    packed = torch.flip(packed, dims=(1,))
-                    asc = cur_asc if cur_presorted else flip(cur_ops)
-                match_o, ang_o = _decode_packed_angles(packed)
-                new_carry = _carry_from_channels(*asc, ang_o, match_o,
-                                                 id_dt)
-                ev_ids, ev_angles, ev_slots = _finish_events(
-                    count, (evk >> 1) & 0x7FFFFFFF, evsv & 0x00FFFFFF,
-                    evang, K, invalid, id_dt, id_order=events_id_order)
+                with phase_timer(None, "sorted.join"):
+                    prev_ops6 = (prev_key, prev_sv, carry.rhat[0],
+                                 carry.rhat[1], carry.rhat[2], carry.angles)
+                    k_eff = min(K, p)  # events <= P
+                    if cur_presorted and static is None:
+                        # the host reads the flag the JAX package's
+                        # lax.cond branches on
+                        static = bool(torch.all((prev_key | 1) == cur_key))
+                    if cur_presorted and static:
+                        # static membership
+                        packed, evk, evsv, evang, count = _static_detect(
+                            prev_ops6, cur_asc, pericentric, invalid, k_eff)
+                        asc = cur_asc
+                    else:
+                        if cur_presorted:
+                            cur_ops = flip(cur_asc)
+                        packed, evk, evsv, evang, count = fused_join_detect(
+                            prev_ops6, cur_ops, pericentric, invalid, k_eff)
+                        # the packed plane follows the staged (descending)
+                        # cur order
+                        packed = torch.flip(packed, dims=(1,))
+                        asc = cur_asc if cur_presorted else flip(cur_ops)
+                with phase_timer(None, "sorted.finish"):
+                    match_o, ang_o = _decode_packed_angles(packed)
+                    new_carry = _carry_from_channels(*asc, ang_o, match_o,
+                                                     id_dt)
+                    ev_ids, ev_angles, ev_slots = _finish_events(
+                        count, (evk >> 1) & 0x7FFFFFFF, evsv & 0x00FFFFFF,
+                        evang, K, invalid, id_dt, id_order=events_id_order)
                 return new_carry, CompactEvents(
                     count=count, ids=ev_ids, angles=ev_angles,
                     bulk_vel=frame.bulk_vel, slots=ev_slots)

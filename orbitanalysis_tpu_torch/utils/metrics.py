@@ -16,7 +16,13 @@ Ranges the port opens (each only while a profiler records):
   ``oa.track.step`` (``oa.track.stage``, ``oa.track.issue``),
   ``oa.track.fetch``, ``oa.track.decode``, ``oa.track.save``:
   ``engine/tracker.track_orbits``;
-- ``oa.scan.step``: each step of ``engine/scan``'s per-step drivers;
+- ``oa.scan.step``: each step of ``engine/scan``'s per-step drivers
+  but the sorted scan;
+- ``oa.sorted.step`` (a step's enqueue, or one around a replay of the
+  scan's CUDA graph): each step of ``engine/scan.scan_events_sorted``;
+  in it, or in any call of a ``make_sorted_orbit_step`` step,
+  ``oa.sorted.frame`` and, on the fused path, ``oa.sorted.join`` and
+  ``oa.sorted.finish``;
 - ``oa.step.frame``, ``oa.step.detect``, ``oa.step.compact``,
   ``oa.step.finish``: the aligned step (``ops/sorted_step.
   make_aligned_native_step``), under ``oa.track.issue`` or
@@ -43,6 +49,16 @@ enqueue, with the graph's capture where the call made it),
 ``label_graph_captures``, the calls that captured the scan's
 graph, and ``label_graph_replays``, the calls that replayed a graph an
 earlier call captured (over the calls: the graph's hit rate).
+
+Keys of ``scan_events_sorted(metrics=...)``: ``step_s``
+(``sorted.step``), the counters ``sorted_steps``, ``sorted_updates``
+(the staged members of every step after the call's first),
+``sorted_events`` and ``sorted_static_steps`` (the steps that took the
+static branch), summed on the device and read once a call, on CUDA
+tensors ``sorted_device_s`` (each step's stretch of the device stream
+between CUDA timing events, or the replay's), and
+``sorted_graph_captures`` and ``sorted_graph_replays``, as the label
+scan's (both scans replay through ``utils/graphs``).
 
 Counters of the PM force (``models/pm.pm_forces``, into the ``metrics``
 dict it is handed): ``deposited``, the particles deposited, and

@@ -30,6 +30,7 @@ from orbitanalysis_tpu_torch.ops import sorted_step as tss
 from orbitanalysis_tpu_torch.ops import step as ts
 from orbitanalysis_tpu_torch.probes import detect_probe as tdp
 from orbitanalysis_tpu_torch.probes import dma_probe as tdm
+from orbitanalysis_tpu_torch.utils import graphs as tgraphs
 from orbitanalysis_tpu_torch.utils.metrics import Metrics
 
 pytestmark = pytest.mark.cuda
@@ -643,7 +644,7 @@ GRAPH_W, GRAPH_S = 32768, 8
 def graphs(monkeypatch):
     """A fresh cache of captured scans for the test."""
     fresh = OrderedDict()
-    monkeypatch.setattr(tls, "_GRAPHS", fresh)
+    monkeypatch.setattr(tgraphs, "GRAPHS", fresh)
     return fresh
 
 
@@ -1131,6 +1132,173 @@ def test_sorted_scan_on_cuda_matches_cpu(dev, kw, static):
         if kw["compact_impl"] == "pallas":
             want["compact_rows_groups"] = 5
     assert {n: c for n, c in counts.items() if c} == want
+
+
+# the sorted scan's CUDA graph: bench64's rows (32,768 wide, K 2048, 48
+# snapshots, a drag a step), cut to 2 halos
+SORTED_GRAPH_H, SORTED_GRAPH_S = 2, 48
+
+
+def _sorted_graph_inputs(dev, static=False, seed=3):
+    from orbitanalysis_tpu_torch.models.synthetic import (
+        churn_workload,
+        static_workload,
+    )
+    from orbitanalysis_tpu_torch.ops.apsis import SnapshotBatch
+
+    make = static_workload if static else churn_workload
+    ids, pos, vel, cen, _ = make(SORTED_GRAPH_H, GRAPH_W, SORTED_GRAPH_S,
+                                 seed=seed)
+    mass = np.random.default_rng(seed).uniform(
+        0.5, 2.0, ids.shape).astype(np.float32)
+    st = tss.presort_snapshot(SnapshotBatch(ids=ids, pos=pos, vel=vel,
+                                            center=cen, mass=mass), soa=True)
+    return st._replace(**{f: torch.from_numpy(np.ascontiguousarray(
+        getattr(st, f))).to(dev) for f in ("ids", "pos", "vel", "center",
+                                            "mass", "slot")},
+        hubble_drag=np.linspace(0.01, 0.02, SORTED_GRAPH_S))
+
+
+def _sorted_graph_scan(x, carry=None, metrics=None, **kw):
+    from orbitanalysis_tpu_torch.engine.scan import scan_events_sorted
+
+    args = dict(box_size=100.0, fused=True, cur_presorted=True,
+                soa_batch=True)
+    args.update(kw)
+    if carry is None:
+        carry = tss.init_sorted_carry(SORTED_GRAPH_H, GRAPH_W,
+                                      device=x.ids.device)
+    _cuda.reset_launch_counts()
+    out = scan_events_sorted(carry, x, 2048, metrics=metrics, **args)
+    torch.cuda.synchronize()
+    return out, {k: c for k, c in _cuda.launch_counts().items() if c}
+
+
+def test_static_flags_on_cuda_match_cpu(dev):
+    """The per-call static test on the card gives the CPU's flags on a
+    sequence that mixes churning steps, steps that repeat the last one's
+    IDs and a step whose IDs differ from the last in bit 31 alone (the
+    step's own test compares the low 31 bits)."""
+    x = _sorted_graph_inputs("cpu")
+    ids = x.ids[:8].clone()
+    ids[3] = ids[4] = ids[2]
+    ids[6] = ids[5]
+    ids[6, 0, 0] |= -(1 << 31)
+    carry = tss.init_sorted_carry(SORTED_GRAPH_H, GRAPH_W, device="cpu")
+    want = tss.static_flags(carry.ids, ids)
+    assert want == (False, False, False, True, True, False, True, False)
+    assert tss.static_flags(carry.ids.to(dev), ids.to(dev)) == want
+    assert tss.static_flags(ids[0].to(dev), ids.to(dev))[0] is True
+
+
+def test_sorted_scan_graph_calls_are_bit_equal(dev, graphs):
+    """Calls 1 (the loop), 2 (capture and replay) and 3, 4 (replays)
+    with one key: the same carries and events bit for bit, K16 once a
+    step each call, and the counters: a capture on call 2, a replay a
+    call after it, no static step."""
+    x = _sorted_graph_inputs(dev)
+    runs, counts, metrics = [], [], []
+    for _ in range(4):
+        m = {}
+        out, launches = _sorted_graph_scan(x, metrics=m)
+        runs.append(_bits(*out))
+        counts.append(launches)
+        metrics.append(m)
+    n_events = int(runs[0][5].sum())
+    assert n_events > 0
+    for r in runs[1:]:
+        _equal_bits(r, runs[0])
+    assert counts == [{"fused_join_detect": SORTED_GRAPH_S}] * 4
+    assert [(m.get("sorted_graph_captures", 0),
+             m.get("sorted_graph_replays", 0)) for m in metrics] == [
+        (0, 0), (1, 0), (0, 1), (0, 1)]
+    updates = int((x.ids[1:] != np.iinfo(np.int32).max).sum())
+    for m in metrics:
+        assert m["sorted_steps"] == SORTED_GRAPH_S
+        assert m["sorted_device_s"] > 0 and m["step_s"] > 0
+        assert m["sorted_events"] == n_events
+        assert m["sorted_updates"] == updates
+        assert m["sorted_static_steps"] == 0
+    assert len(graphs) == 1 and None not in graphs.values()
+
+
+def test_sorted_scan_graph_reads_inputs_and_carry_at_replay(dev, graphs):
+    """A replay after the staged planes changed in place, from a carry
+    that is not fresh, gives the loop's events on clones of the same
+    inputs and carry; the outputs of the call before it are left as they
+    were."""
+    x = _sorted_graph_inputs(dev)
+    _sorted_graph_scan(x)
+    (carry2, ev2), _ = _sorted_graph_scan(x)
+    kept = _bits(carry2, ev2)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x.pos.add_(0.01 * torch.randn(x.pos.shape, device=dev, generator=gen))
+    x.vel.mul_(-1.0)
+    x.mass.mul_(1.5)
+    metrics = {}
+    (carry3, ev3), _ = _sorted_graph_scan(x, carry=carry2, metrics=metrics)
+    assert metrics["sorted_graph_replays"] == 1
+    _equal_bits(_bits(carry2, ev2), kept)
+    plain = {}
+    clones = x._replace(**{f: getattr(x, f).clone() for f in (
+        "ids", "pos", "vel", "center", "mass", "slot")})
+    want, _ = _sorted_graph_scan(
+        clones, carry=tss.SortedCarry(*(t.clone() for t in carry2)),
+        metrics=plain)
+    assert "sorted_graph_replays" not in plain
+    assert "sorted_graph_captures" not in plain
+    _equal_bits(_bits(carry3, ev3), _bits(*want))
+    assert not torch.equal(ev3[0], ev2[0])
+
+
+def test_sorted_scan_replay_launches_k16_once_a_step(dev, graphs):
+    """Each replay adds K16's launches once a step, 48 a call, and
+    nothing else; the capture's own launches are taken back."""
+    x = _sorted_graph_inputs(dev)
+    _sorted_graph_scan(x)
+    _cuda.reset_launch_counts()
+    from orbitanalysis_tpu_torch.engine.scan import scan_events_sorted
+
+    totals = []
+    for _ in range(4):
+        scan_events_sorted(tss.init_sorted_carry(SORTED_GRAPH_H, GRAPH_W,
+                                                 device=dev),
+                           x, 2048, box_size=100.0, fused=True,
+                           cur_presorted=True, soa_batch=True)
+        totals.append({k: c for k, c in _cuda.launch_counts().items() if c})
+    torch.cuda.synchronize()
+    assert totals == [{"fused_join_detect": SORTED_GRAPH_S * (i + 1)}
+                      for i in range(4)]
+    assert len(graphs) == 1 and None not in graphs.values()
+
+
+@pytest.mark.parametrize("kw", [
+    dict(fused=True), dict(fused=False, merge_impl="pallas",
+                           compact_impl="pallas"),
+    dict(fused=False, merge_impl="lax_sort", compact_impl="lax_sort")])
+@pytest.mark.parametrize("static", [False, True])
+def test_every_sorted_route_replays_its_graph(dev, graphs, kw, static):
+    """The static branch (K18), the unfused routes (K15 + K19, and the
+    plain sorts) and K16 read nothing back to the host once the scan
+    hands each step its flag, so each captures: its replays give the
+    loop's bits, and a static sequence counts its static steps."""
+    x = _sorted_graph_inputs(dev, static=static)
+    x = x._replace(**{f: getattr(x, f)[:6].contiguous() for f in (
+        "ids", "pos", "vel", "center", "mass", "slot")},
+        hubble_drag=0.01)
+    runs, metrics = [], []
+    for _ in range(3):
+        m = {}
+        out, _ = _sorted_graph_scan(x, metrics=m, **kw)
+        runs.append(_bits(*out))
+        metrics.append(m)
+    assert metrics[1]["sorted_graph_captures"] == 1
+    assert metrics[2]["sorted_graph_replays"] == 1
+    assert int(runs[0][5].sum()) > 0
+    _equal_bits(runs[1], runs[0])
+    _equal_bits(runs[2], runs[0])
+    want = 5 if static and kw["fused"] else 0
+    assert [m["sorted_static_steps"] for m in metrics] == [want] * 3
 
 
 def test_sorted_tracker_on_cuda_matches_cpu(dev):

@@ -34,6 +34,7 @@ from orbitanalysis_tpu_torch.ops import compact as tc
 from orbitanalysis_tpu_torch.ops import frames as tf
 from orbitanalysis_tpu_torch.ops import label as tl
 from orbitanalysis_tpu_torch.ops import label_step as tls
+from orbitanalysis_tpu_torch.utils import graphs as tgraphs
 
 torch.set_num_threads(1)
 
@@ -657,7 +658,7 @@ def test_scan_on_cpu_takes_no_graph(monkeypatch):
     ``label_graph_*`` counter is recorded, and three calls give the
     bits of the step called by hand."""
     graphs = OrderedDict()
-    monkeypatch.setattr(tls, "_GRAPHS", graphs)
+    monkeypatch.setattr(tgraphs, "GRAPHS", graphs)
     x = _tensors()
     pos, vel, lab, cen, mass = x
     step = tls.make_label_orbit_step(128, box_size=100.0, row_width=W)
@@ -681,34 +682,109 @@ def test_scan_on_cpu_takes_no_graph(monkeypatch):
 
 @pytest.fixture
 def keys(monkeypatch):
-    """The keys :func:`_graph_key` gives the calls of the test."""
+    """The keys :func:`~orbitanalysis_tpu_torch.utils.graphs.graph_key`
+    gives the calls of the test."""
     seen = []
-    real = tls._graph_key
+    real = tgraphs.graph_key
 
     def record(*a):
         seen.append(real(*a))
         return seen[-1]
 
-    monkeypatch.setattr(tls, "_graph_key", record)
+    monkeypatch.setattr(tgraphs, "graph_key", record)
     return seen
 
 
-def _builder_patched(monkeypatch):
-    real = tls.make_label_orbit_step
-    monkeypatch.setattr(tls, "make_label_orbit_step",
-                        lambda *a, **k: real(*a, **k))
+def _builder_patched(monkeypatch, module=tls, name="make_label_orbit_step"):
+    real = getattr(module, name)
+    monkeypatch.setattr(module, name, lambda *a, **k: real(*a, **k))
+
+
+#: The sorted scan of the key test: 3 halos of 256 over 5 snapshots,
+#: staged ID-sorted with SoA planes, through the fused presorted path.
+SORTED_H, SORTED_P, SORTED_S = 3, 256, 5
+
+
+def _sorted_staged():
+    from orbitanalysis_tpu_torch.models.synthetic import churn_workload
+    from orbitanalysis_tpu_torch.ops.apsis import SnapshotBatch
+    from orbitanalysis_tpu_torch.ops.sorted_step import presort_snapshot
+
+    ids, pos, vel, cen, _ = churn_workload(SORTED_H, SORTED_P, SORTED_S,
+                                           seed=4)
+    st = presort_snapshot(SnapshotBatch(ids=ids, pos=pos, vel=vel,
+                                        center=cen), soa=True)
+    return st._replace(**{f: torch.from_numpy(np.ascontiguousarray(
+        getattr(st, f))) for f in ("ids", "pos", "vel", "center", "slot")},
+        hubble_drag=np.linspace(0.01, 0.02, SORTED_S))
+
+
+def _sorted_scan_on(staged, carry=None, **kw):
+    from orbitanalysis_tpu_torch.engine.scan import scan_events_sorted
+    from orbitanalysis_tpu_torch.ops.sorted_step import init_sorted_carry
+
+    args = dict(event_capacity=128, box_size=100.0, fused=True,
+                cur_presorted=True, soa_batch=True)
+    args.update(kw)
+    if carry is None:
+        carry = init_sorted_carry(SORTED_H, SORTED_P, device="cpu")
+    return scan_events_sorted(carry, staged, **args)
+
+
+def _sorted_key_change(change, monkeypatch):
+    """The first and the second sorted scan of the key test: ``(events,
+    events)``, the second with ``change`` made."""
+    from orbitanalysis_tpu_torch.ops import sorted_step as tss
+
+    x = _sorted_staged()
+    _, want = _sorted_scan_on(x)
+    kw, carry = {}, None
+    if change == "drag":
+        x = x._replace(hubble_drag=np.linspace(0.01, 0.03, SORTED_S))
+    elif change == "route":
+        kw = dict(fused=False, merge_impl="pallas", compact_impl="pallas")
+    elif change == "capacity":
+        kw["event_capacity"] = 64
+    elif change == "builder":
+        _builder_patched(monkeypatch, tss, "make_sorted_orbit_step")
+    elif change == "box":
+        kw["box_size"] = 90.0
+    elif change == "mode":
+        kw["mode"] = "apocentric"
+    elif change == "inputs":
+        x = x._replace(ids=x.ids.clone())
+    elif change == "flags":
+        # a carry holding the first step's IDs: step 0 takes the static
+        # branch, and nothing else differs
+        carry = tss.init_sorted_carry(SORTED_H, SORTED_P, device="cpu")
+        carry = carry._replace(ids=x.ids[0].clone())
+    _, got = _sorted_scan_on(x, carry, **kw)
+    return want, got
 
 
 @pytest.mark.parametrize("change", [
     "drag", "route", "capacity", "mass_per_step", "builder", "box", "mode",
-    "packed", "inputs", "same", "auto"])
+    "packed", "inputs", "same", "auto", "sorted-drag", "sorted-route",
+    "sorted-capacity", "sorted-builder", "sorted-box", "sorted-mode",
+    "sorted-inputs", "sorted-flags", "sorted-same"])
 def test_graph_key_follows_what_a_capture_bakes_in(keys, monkeypatch,
                                                     change):
     """Changing any argument a capture bakes in (each step's drag, the
     route, K, a mass plane a step or one for all, the step builder, the
     box, the mode, the r-hat form, the input tensors) gives another key;
     the same arguments, or ``'auto'`` where it resolves to the route
-    given, give the same key, and the same events."""
+    given, give the same key, and the same events.  The sorted scan's key
+    (``sorted-*``) follows its drags, routes, K, builder, box, mode,
+    staged tensors and per-call static flags the same way."""
+    if change.startswith("sorted-"):
+        change = change[len("sorted-"):]
+        want, got = _sorted_key_change(change, monkeypatch)
+        hit = change == "same"
+        assert len(keys) == 2
+        assert (keys[1] == keys[0]) == hit
+        if hit or change == "inputs":
+            _same(got, want)
+        return
     x = _tensors()
     base = dict(frames="split")
     _, want = _scan_on(x, **base)
@@ -748,8 +824,8 @@ def test_graph_cache_keeps_two(monkeypatch):
     again becomes the most recently used; two keys are held, graphs or
     keys seen once."""
     graphs = OrderedDict()
-    monkeypatch.setattr(tls, "_GRAPHS", graphs)
-    first = tls._first_sighting
+    monkeypatch.setattr(tgraphs, "GRAPHS", graphs)
+    first = tgraphs.first_sighting
     assert first("a") and not first("a")
     graphs["a"] = "graph a"           # as the scan's capture stores it
     assert not first("a") and graphs["a"] == "graph a"
